@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels (plain C interface + ctypes).
+
+Each ``csrc/<name>.cu`` compiles with its own ``nvcc`` into
+``build/repro_torch/<name>-<hash>.so`` at the checkout's root, where the
+hash covers every file under ``csrc/`` and the compiler flags, so an edit
+rebuilds and an unchanged tree reuses the library.  `build_all` starts
+every compile at once and waits for all of them.  Nothing here runs at
+import: the first launch of a kernel builds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+L = ctypes.c_longlong
+F = ctypes.c_float
+
+# C signature of every entry point: (library, symbol) -> argtypes.
+SIGNATURES = {
+    ("layer_norm", "rt_layer_norm"): [P, P, P, P, I, I, F, P, P],
+    ("gemm_f32", "rt_gemm_f32"): [P, L, P, L, I, L, P, L, I, I, I, P, P, L,
+                                  I, P],
+    ("gemm_i8", "rt_gemm_i8"): [P, L, P, L, I, L, P, L, I, I, I, I, P, P, P,
+                                P, L, I, P, P],
+    ("attention", "rt_attention"): [P, P, P, L, L, L, P, L, L, L, I, I, I,
+                                    I, F, P, P],
+}
+LIBRARIES = tuple(sorted({lib for lib, _ in SIGNATURES}))
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest()}.so"
+
+
+def build_all(names: Iterable[str] = LIBRARIES) -> Dict[str, str]:
+    """Compile every missing library in parallel (one nvcc each).  Returns
+    each compiler's output (registers, shared memory, spills from ptxas)
+    keyed by library; raises with the log if any compile fails."""
+    missing = [n for n in names if not _target(n).exists()]
+    if not missing:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in missing:
+        out = _target(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
+                           "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (built first when missing), with the
+    argument types of its entry points declared."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        for (lib_name, sym), argtypes in SIGNATURES.items():
+            if lib_name == name:
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+def call(name: str, sym: str, *args) -> None:
+    """Launch ``sym`` from library ``name`` and raise if CUDA reported an
+    error for the launch."""
+    err = getattr(library(name), sym)(*args)
+    if err != 0:
+        raise RuntimeError(f"{sym} failed to launch: CUDA error {err}")

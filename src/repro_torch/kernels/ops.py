@@ -1,0 +1,87 @@
+"""Device dispatch for the port's kernels (counterpart of
+`repro/kernels/ops.py`).
+
+There is no backend switch: the tensor decides.  A CUDA tensor launches
+the port's Hopper kernel (or raises — nothing falls back), a CPU tensor
+takes the plain PyTorch version in `ref`.  `LAUNCHES` holds one plain
+integer per kernel, bumped only where the kernel is launched, so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from . import int8_matmul as _int8_matmul
+from . import ref
+from . import vita_layer as _vita_layer
+from . import vita_msa as _vita_msa
+
+LAUNCHES: Dict[str, int] = {"vita_layer": 0, "vita_layer_int8": 0,
+                            "vita_msa_int8": 0, "int8_matmul": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_card(name: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (and counts one launch of ``name``), False
+    for a CPU tensor; any other device raises."""
+    if t.is_cuda:
+        LAUNCHES[name] += 1
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return False
+
+
+def int8_matmul(x_q, w_q, x_scale=None, w_scale=None, out_dtype=None):
+    """(M, K) int8 . (K, N) int8 -> int32, or float32 rescaled by
+    x_scale * w_scale[n]."""
+    if _on_card("int8_matmul", x_q):
+        return _int8_matmul.int8_matmul(x_q, w_q, x_scale, w_scale, out_dtype)
+    return ref.int8_matmul_ref(x_q, w_q, x_scale, w_scale, out_dtype)
+
+
+def vita_msa_int8(z_q, wq_q, wk_q, wv_q, x_scale, wq_scale, wk_scale,
+                  wv_scale, bias=None, mask=None, qkv_bias=None):
+    """int8 per-head MSA: (B, N, D) int8 -> (B, H, N, Dh) float32."""
+    if _on_card("vita_msa_int8", z_q):
+        return _vita_msa.vita_msa_int8(z_q, wq_q, wk_q, wv_q, x_scale,
+                                       wq_scale, wk_scale, wv_scale, bias,
+                                       mask, qkv_bias)
+    if bias is not None or mask is not None or qkv_bias is not None:
+        raise NotImplementedError(
+            "windowed mode and qkv_bias are not ported yet")
+    return ref.vita_msa_int8_ref(z_q, wq_q, wk_q, wv_q, x_scale, wq_scale,
+                                 wk_scale, wv_scale)
+
+
+def vita_layer_fused(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
+                     w_up, b_up, w_down, b_down, bias=None, mask=None):
+    """One fused float encoder layer: (B, N, D) -> (B, N, D)."""
+    if _on_card("vita_layer", x):
+        return _vita_layer.vita_layer(x, wq, wk, wv, w_msa, ln1_w, ln1_b,
+                                      ln2_w, ln2_b, w_up, b_up, w_down,
+                                      b_down, bias, mask)
+    return ref.vita_layer_ref(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w,
+                              ln2_b, w_up, b_up, w_down, b_down, bias, mask)
+
+
+def vita_layer_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
+                    act_scales, wq_scale, wk_scale, wv_scale, wmsa_scale,
+                    wup_scale, wdown_scale, ln1_w, ln1_b, ln2_w, ln2_b,
+                    b_up, b_down, bias=None, mask=None):
+    """Fused int8 encoder layer with the requant chain at the frozen
+    ``act_scales`` = [qkv_in, w_msa, w_up, w_down]."""
+    args = (x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q, act_scales,
+            wq_scale, wk_scale, wv_scale, wmsa_scale, wup_scale, wdown_scale,
+            ln1_w, ln1_b, ln2_w, ln2_b, b_up, b_down, bias, mask)
+    if _on_card("vita_layer_int8", x):
+        return _vita_layer.vita_layer_int8(*args)
+    return ref.vita_layer_int8_ref(*args)
+

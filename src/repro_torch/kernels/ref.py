@@ -1,0 +1,167 @@
+"""Plain PyTorch versions of the port's kernels (counterpart of
+`repro/kernels/ref.py`).
+
+Each function repeats the arithmetic of the JAX oracle of the same name.
+They are the CPU path of `ops`, and `chip_smoke.py` runs them on the card
+as the yardstick the CUDA kernels are held against.  Nothing on the main
+path calls them when a card is present.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+INT8_MAX = 127.0
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu` (tanh approximation), written out in its own order."""
+    inner = _SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x))
+    cdf = 0.5 * (1.0 + torch.tanh(inner))
+    return x * cdf
+
+
+def layer_norm_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """fp32 LayerNorm, population variance (returns fp32)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y * w.float() + b.float()
+
+
+def quant(v: torch.Tensor, scale) -> torch.Tensor:
+    """Symmetric int8: clip(round_half_even(v / scale), +-127)."""
+    return torch.clamp(torch.round(v / scale), -INT8_MAX, INT8_MAX
+                       ).to(torch.int8)
+
+
+def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
+                    x_scale: Optional[torch.Tensor] = None,
+                    w_scale: Optional[torch.Tensor] = None,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """int8 x int8 -> int32, optionally rescaled to float.
+
+    PyTorch has no integer matmul on CUDA, so the product is taken in
+    float64 and cast back: every |acc| <= K * 127**2 is far below 2**53,
+    so the result is exact on either device."""
+    acc = torch.matmul(x_q.double(), w_q.double()).to(torch.int32)
+    if x_scale is None and w_scale is None:
+        return acc if out_dtype is None else acc.to(out_dtype)
+    s = torch.ones((), dtype=torch.float32, device=acc.device)
+    if x_scale is not None:
+        s = s * x_scale.float()
+    if w_scale is not None:
+        s = s * w_scale.float()
+    return (acc.float() * s).to(out_dtype or torch.float32)
+
+
+def softmax_av(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               scale: float) -> torch.Tensor:
+    """QK^T * scale -> max-subtracted softmax (divide by the row sum) -> .V
+    over the last two axes (engine 2 of `repro/kernels/vita_msa.py`)."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    s = s - s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s)
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.matmul(p, v)
+
+
+def vita_msa_int8_ref(z_q, wq_q, wk_q, wv_q, x_scale, wq_scale, wk_scale,
+                      wv_scale) -> torch.Tensor:
+    """int8 per-head MSA: z_q (B, N, D) int8, w*_q (H, D, Dh) int8,
+    x_scale scalar, w*_scale (H, Dh) -> (B, H, N, Dh) float32."""
+    h, d, dh = wq_q.shape
+    xs = torch.as_tensor(x_scale, dtype=torch.float32,
+                         device=z_q.device).reshape(())
+
+    def proj(w_q, w_s):
+        acc = int8_matmul_ref(z_q.unsqueeze(1), w_q.unsqueeze(0))  # (B,H,N,Dh)
+        return acc.float() * (xs * w_s.float()[None, :, None, :])
+
+    q = proj(wq_q, wq_scale)
+    k = proj(wk_q, wk_scale)
+    v = proj(wv_q, wv_scale)
+    return softmax_av(q, k, v, scale=dh ** -0.5)
+
+
+def _merge_qkv(wq, wk, wv) -> torch.Tensor:
+    """(H, D, Dh) x3 -> one merged (D, 3*H*Dh) projection."""
+    h, d, dh = wq.shape
+    return torch.cat([w.permute(1, 0, 2).reshape(d, h * dh)
+                      for w in (wq, wk, wv)], dim=1)
+
+
+def _split_qkv(qkv: torch.Tensor, h: int, dh: int):
+    """(B, N, 3*H*Dh) -> three (B, H, N, Dh)."""
+    b, n, _ = qkv.shape
+    parts = qkv.reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+    return parts[0], parts[1], parts[2]
+
+
+def _attend_heads(q, k, v, dh: int) -> torch.Tensor:
+    """(B, H, N, Dh) q/k/v -> (B, N, H*Dh) merged attention output."""
+    sa = softmax_av(q, k, v, scale=dh ** -0.5)
+    b, h, n, _ = sa.shape
+    return sa.permute(0, 2, 1, 3).reshape(b, n, h * dh)
+
+
+def no_windows(bias, mask) -> None:
+    if bias is not None or mask is not None:
+        raise NotImplementedError(
+            "windowed (Swin) mode is not ported yet")
+
+
+def vita_layer_ref(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
+                   w_up, b_up, w_down, b_down, bias=None, mask=None):
+    """Fused encoder layer: x (B, N, D) -> (B, N, D).
+
+    LN1 -> merged-QKV -> per-head softmax.V -> concat projection ->
+    residual -> LN2 -> GELU MLP -> residual."""
+    no_windows(bias, mask)
+    h, d, dh = wq.shape
+    z = layer_norm_ref(x, ln1_w, ln1_b)
+    qkv = torch.matmul(z, _merge_qkv(wq, wk, wv).float())
+    q, k, v = _split_qkv(qkv, h, dh)
+    merged = _attend_heads(q, k, v, dh)
+    h1 = x.float() + torch.matmul(merged, w_msa.float())
+    z2 = layer_norm_ref(h1, ln2_w, ln2_b)
+    hid = gelu(torch.matmul(z2, w_up.float()) + b_up.float())
+    y = h1 + (torch.matmul(hid, w_down.float()) + b_down.float())
+    return y.to(x.dtype)
+
+
+def vita_layer_int8_ref(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
+                        act_scales, wq_scale, wk_scale, wv_scale,
+                        wmsa_scale, wup_scale, wdown_scale, ln1_w, ln1_b,
+                        ln2_w, ln2_b, b_up, b_down, bias=None, mask=None):
+    """int8 fused encoder layer: every matmul input requantized at the
+    frozen ``act_scales`` = [qkv_in, w_msa, w_up, w_down]; x float32 ->
+    float32."""
+    no_windows(bias, mask)
+    b, n, d = x.shape
+    h, _, dh = wq_q.shape
+    m = wup_q.shape[1]
+    s = act_scales.float().reshape(4)
+
+    def requant_mm(v, sc, w_q, w_s, size):
+        acc = int8_matmul_ref(quant(v, sc), w_q)
+        return acc.float() * (sc * w_s.float().reshape(size))
+
+    zq = quant(layer_norm_ref(x, ln1_w, ln1_b), s[0])
+    scale_vec = torch.cat([ws.float().reshape(h * dh)
+                           for ws in (wq_scale, wk_scale, wv_scale)])
+    qkv = int8_matmul_ref(zq, _merge_qkv(wq_q, wk_q, wv_q)).float() \
+        * (s[0] * scale_vec)
+    q, k, v = _split_qkv(qkv, h, dh)
+    merged = _attend_heads(q, k, v, dh)
+    h1 = x.float() + requant_mm(merged, s[1], wmsa_q, wmsa_scale, d)
+    z2 = layer_norm_ref(h1, ln2_w, ln2_b)
+    hid = gelu(requant_mm(z2, s[2], wup_q, wup_scale, m) + b_up.float())
+    down = requant_mm(hid, s[3], wdown_q, wdown_scale, d)
+    return h1 + down + b_down.float()

@@ -1,0 +1,163 @@
+"""The fused ViTA encoder layer on Hopper, float and int8.
+
+Counterpart of `repro/kernels/vita_layer.py::vita_layer` and
+`::vita_layer_int8`.  The TPU kernel runs the whole layer on a sequential
+(B, H) grid with x, z and the concat accumulator resident in VMEM.  That
+does not carry over: Hopper blocks run in parallel and carry nothing
+between them, and at DeiT-T widths x, z and the accumulator are 147 KiB
+each per image (w_up alone 576 KiB in fp32) against 227 KB of shared
+memory a block.  So the layer is a chain of small kernels whose
+intermediates (Q/K/V, SA, h1, the MLP hidden) go through device memory —
+at these sizes they stay in the 50 MB L2.  This drops the TPU kernel's
+"nothing leaves the grid" property; fusing it back is later work.
+
+  float: LN1 (csrc/layer_norm.cu) -> Q, K, V GEMMs reading the (H, D, Dh)
+         stacks in place (csrc/gemm_f32.cu) -> attention (csrc/attention.cu)
+         -> concat GEMM + residual -> LN2 -> up GEMM + bias + GELU ->
+         down GEMM + bias + residual.                          (9 launches)
+  int8:  the same chain with csrc/gemm_i8.cu: LN1 quantises to int8 at
+         act_scales[0]; the QKV epilogue applies act_scales[0] * w_scale;
+         attention writes SA quantised at act_scales[1]; the up epilogue
+         adds the bias, applies GELU and quantises at act_scales[3].
+
+Windowed (Swin) mode is not ported yet.  These functions take CUDA tensors
+only; the plain versions are `ref.vita_layer_ref` / `vita_layer_int8_ref`,
+chosen by `ops`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import build
+from .int8_matmul import _stream, b_layout, check, launch_gemm_i8, ptr
+from .ref import no_windows
+from .vita_msa import launch_attention
+
+
+def launch_layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      out: torch.Tensor, *, eps: float = 1e-5,
+                      q_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row LayerNorm of x (R, D) into ``out`` (float32, or int8 quantised
+    at ``q_scale``) on the current stream."""
+    rows, d = x.shape
+    check(x, "x", torch.float32)
+    check(w, "ln weight", torch.float32, (d,))
+    check(b, "ln bias", torch.float32, (d,))
+    check(out, "out", torch.int8 if q_scale is not None else torch.float32,
+          (rows, d))
+    if q_scale is not None:
+        check(q_scale, "q_scale", torch.float32, (1,))
+    build.call("layer_norm", "rt_layer_norm", ptr(x), ptr(w), ptr(b),
+               ptr(out), rows, d, eps, ptr(q_scale), _stream())
+    return out
+
+
+def launch_gemm_f32(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
+                    bias: Optional[torch.Tensor] = None,
+                    res: Optional[torch.Tensor] = None,
+                    gelu: bool = False) -> torch.Tensor:
+    """out (M, N) = [res +] act(a (M, K) . w [+ bias]) in fp32 on the
+    current stream; ``w`` is (K, N) or a per-head (H, K, Dh) stack."""
+    k, n, ldb, grp, grp_stride = b_layout(w)
+    m = a.shape[0]
+    check(a, "a", torch.float32, (m, k))
+    check(w, "w", torch.float32)
+    check(out, "out", torch.float32, (m, n))
+    if bias is not None:
+        check(bias, "bias", torch.float32, (n,))
+    if res is not None:
+        check(res, "res", torch.float32, (m, n))
+    build.call("gemm_f32", "rt_gemm_f32", ptr(a), k, ptr(w), ldb, grp,
+               grp_stride, ptr(out), n, m, n, k, ptr(bias), ptr(res), n,
+               int(gelu), _stream())
+    return out
+
+
+def _attend(q, k, v, out, b, n, h, dh, out_scale=None):
+    """Merged (B*N, H*Dh) q/k/v -> merged (B*N, H*Dh) attention output."""
+    strides = (n * h * dh, h * dh, dh)
+    return launch_attention(q, k, v, out, b=b, h=h, n=n, dh=dh,
+                            in_strides=strides, out_strides=strides,
+                            out_scale=out_scale)
+
+
+def vita_layer(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
+               w_down, b_down, bias=None, mask=None) -> torch.Tensor:
+    """One float encoder layer on the card: x (B, N, D) -> (B, N, D).
+
+    wq/wk/wv (H, D, Dh); w_msa (D, D) with head-major rows; w_up (D, M);
+    w_down (M, D); LN vectors and b_down (D,); b_up (M,)."""
+    no_windows(bias, mask)
+    b, n, d = x.shape
+    h, _, dh = wq.shape
+    m = w_up.shape[1]
+    check(x, "x", torch.float32)
+    check(w_msa, "w_msa", torch.float32, (h * dh, d))
+    check(w_up, "w_up", torch.float32, (d, m))
+    check(w_down, "w_down", torch.float32, (m, d))
+    rows = b * n
+    x2 = x.reshape(rows, d)
+
+    def empty(cols):
+        return torch.empty((rows, cols), device=x.device, dtype=torch.float32)
+
+    z = launch_layer_norm(x2, ln1_w, ln1_b, empty(d))
+    qkv = []
+    for w in (wq, wk, wv):
+        check(w, "wq/wk/wv", torch.float32, (h, d, dh))
+        qkv.append(launch_gemm_f32(z, w, empty(h * dh)))
+    sa = _attend(*qkv, empty(h * dh), b, n, h, dh)
+    h1 = launch_gemm_f32(sa, w_msa, empty(d), res=x2)
+    z2 = launch_layer_norm(h1, ln2_w, ln2_b, empty(d))
+    hid = launch_gemm_f32(z2, w_up, empty(m), bias=b_up, gelu=True)
+    y = launch_gemm_f32(hid, w_down, empty(d), bias=b_down, res=h1)
+    return y.reshape(b, n, d)
+
+
+def vita_layer_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q, act_scales,
+                    wq_scale, wk_scale, wv_scale, wmsa_scale, wup_scale,
+                    wdown_scale, ln1_w, ln1_b, ln2_w, ln2_b, b_up, b_down,
+                    bias=None, mask=None) -> torch.Tensor:
+    """One int8 encoder layer on the card: x (B, N, D) float32 -> float32.
+
+    w*_q int8; ``act_scales`` (4,) = frozen [qkv_in, w_msa, w_up, w_down]
+    activation scales; w*_scale per-(head, channel) (H, Dh) for QKV and
+    per-output-channel (D,)/(M,)/(D,) for the plain matmuls."""
+    no_windows(bias, mask)
+    b, n, d = x.shape
+    h, _, dh = wq_q.shape
+    m = wup_q.shape[1]
+    check(x, "x", torch.float32)
+    check(act_scales, "act_scales", torch.float32, (4,))
+    check(wmsa_q, "wmsa_q", torch.int8, (h * dh, d))
+    check(wup_q, "wup_q", torch.int8, (d, m))
+    check(wdown_q, "wdown_q", torch.int8, (m, d))
+    s = [act_scales[i:i + 1] for i in range(4)]
+    rows = b * n
+    x2 = x.reshape(rows, d)
+
+    def empty(cols, dtype=torch.float32):
+        return torch.empty((rows, cols), device=x.device, dtype=dtype)
+
+    zq = launch_layer_norm(x2, ln1_w, ln1_b, empty(d, torch.int8),
+                           q_scale=s[0])
+    qkv = []
+    for w, ws in ((wq_q, wq_scale), (wk_q, wk_scale), (wv_q, wv_scale)):
+        check(w, "wq/wk/wv", torch.int8, (h, d, dh))
+        qkv.append(launch_gemm_i8(zq, w, empty(h * dh), x_scale=s[0],
+                                  w_scale=ws.reshape(h * dh)))
+    saq = _attend(*qkv, empty(h * dh, torch.int8), b, n, h, dh,
+                  out_scale=s[1])
+    h1 = launch_gemm_i8(saq, wmsa_q, empty(d), x_scale=s[1],
+                        w_scale=wmsa_scale.reshape(d), res=x2)
+    z2q = launch_layer_norm(h1, ln2_w, ln2_b, empty(d, torch.int8),
+                            q_scale=s[2])
+    hidq = launch_gemm_i8(z2q, wup_q, empty(m, torch.int8), x_scale=s[2],
+                          w_scale=wup_scale.reshape(m), bias=b_up, gelu=True,
+                          out_scale=s[3])
+    y = launch_gemm_i8(hidq, wdown_q, empty(d), x_scale=s[3],
+                       w_scale=wdown_scale.reshape(d), bias=b_down, res=h1)
+    return y.reshape(b, n, d)

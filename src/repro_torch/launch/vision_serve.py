@@ -1,0 +1,379 @@
+"""VisionServer — micro-batching driver (counterpart of
+`repro/launch/vision_serve.py`).
+
+Requests queue up; the server drains them in micro-batches, pads each
+micro-batch up to the nearest batch bucket and runs the whole bucket
+through one batched forward: the fused schedule, ``embed``, one ``layer``
+per encoder block, ``head``.
+
+  * ``float`` — the fp32 path through the float layer kernel;
+  * ``int8``  — the PTQ deployment mode of Sec. III-A: per-channel int8
+    weights and calibrated activation scales through the int8 layer
+    kernel and the int8 matmul.
+
+`dispatch` launches the forward on the current CUDA stream and records an
+event after it without waiting; `complete` waits on that event.  On the
+CPU the forward completes inside `dispatch`.  The server runs on the card
+unless ``ServeConfig(device="cpu")`` asks otherwise.
+
+Usage (on a machine with a card):
+  PYTHONPATH=src python -m repro_torch.launch.serve --vision --model deit_t \
+      --full --mode both
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.quant import Calibrator, quantize_vision_params
+from repro_torch.models import vision_registry, vit
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; raises when the card is asked for and
+    there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (--device cpu) "
+            "to run the plain PyTorch path on the CPU")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """How a model is served: mode, batch buckets, the build fields
+    `make_server` reads (``full``, ``seed``, ``calib_images``) and the
+    device (None = the card)."""
+
+    mode: str = "float"
+    buckets: Tuple[int, ...] = (1, 2, 4, 8)
+    full: bool = False
+    seed: int = 0
+    calib_images: int = 8
+    device: Optional[str] = None
+
+    def __post_init__(self):
+        if self.mode not in ("float", "int8"):
+            raise ValueError(
+                f"mode must be 'float' or 'int8', got {self.mode!r}")
+        buckets = tuple(int(b) for b in self.buckets)
+        if not buckets or min(buckets) <= 0:
+            raise ValueError(
+                f"batch buckets must be positive, got {self.buckets!r}")
+        object.__setattr__(self, "buckets", tuple(sorted(set(buckets))))
+
+
+class VisionRequest:
+    """One queued request, stamped at submit, dispatch and completion."""
+
+    def __init__(self, rid: int, image: np.ndarray):
+        self.rid = rid
+        self.image = image
+        self.t_submit = time.perf_counter()
+        self.t_start: Optional[float] = None
+        self.t_done: Optional[float] = None
+        self.pred: Optional[int] = None
+        self.logits: Optional[np.ndarray] = None
+
+    @property
+    def latency_s(self) -> float:
+        if self.t_done is None:
+            raise RuntimeError(f"request {self.rid} not served yet")
+        return self.t_done - self.t_submit
+
+    @property
+    def queue_delay_s(self) -> float:
+        if self.t_start is None:
+            raise RuntimeError(f"request {self.rid} not dispatched yet")
+        return self.t_start - self.t_submit
+
+    @property
+    def service_s(self) -> float:
+        return self.latency_s - self.queue_delay_s
+
+
+class InFlight:
+    """A dispatched micro-batch: its logits tensor and, on the card, the
+    CUDA event recorded after its forward."""
+
+    __slots__ = ("requests", "bucket", "out", "event")
+
+    def __init__(self, requests: List[VisionRequest], bucket: int,
+                 out: torch.Tensor, event):
+        self.requests = requests
+        self.bucket = bucket
+        self.out = out
+        self.event = event
+
+
+class VisionServer:
+    """Queue + pad-to-bucket micro-batching over a registered ViT config."""
+
+    def __init__(self, cfg: vit.ViTConfig, params, *,
+                 serve_cfg: Optional[ServeConfig] = None, qparams=None,
+                 calibrator: Optional[Calibrator] = None,
+                 model_name: Optional[str] = None):
+        sc = serve_cfg if serve_cfg is not None else ServeConfig()
+        self.serve_cfg = sc
+        self.device = resolve_device(sc.device)
+        self.mode = sc.mode
+        if self.mode == "int8":
+            if qparams is None:
+                raise ValueError("int8 mode needs quantized params")
+            if calibrator is None or calibrator.frozen is None:
+                raise ValueError("int8 mode needs a frozen "
+                                 "activation-scale calibrator")
+            qparams = vit.to_device(qparams, self.device)
+            calibrator = calibrator.to(self.device)
+        else:
+            params = vit.to_device(params, self.device)
+        self.cfg = cfg
+        self.params = params
+        self.qparams = qparams
+        self.calibrator = calibrator
+        self.model_name = model_name or cfg.name
+        self.buckets = sc.buckets
+        self.queue: List[VisionRequest] = []
+        self.done: List[VisionRequest] = []
+        self.n_batches = 0
+        self.n_padded = 0
+        self._rid = 0
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) images on the server's device -> (B, classes)."""
+        patches = vit.extract_patches(images, self.cfg.patch)
+        if self.mode == "int8":
+            return vit.forward(self.qparams, patches, self.cfg,
+                               observer=self.calibrator)
+        return vit.forward(self.params, patches, self.cfg)
+
+    # -- request plane ----------------------------------------------------
+
+    def submit(self, image: np.ndarray) -> VisionRequest:
+        req = VisionRequest(self._rid, np.asarray(image, np.float32))
+        self._rid += 1
+        self.queue.append(req)
+        return req
+
+    def submit_many(self, images: np.ndarray) -> List[VisionRequest]:
+        return [self.submit(im) for im in images]
+
+    # -- execution plane --------------------------------------------------
+
+    def _bucket_for(self, k: int) -> int:
+        for b in self.buckets:
+            if b >= k:
+                return b
+        return self.buckets[-1]
+
+    def dispatch(self, requests: Optional[List[VisionRequest]] = None,
+                 bucket: Optional[int] = None) -> Optional[InFlight]:
+        """Assemble one micro-batch (default: up to ``buckets[-1]`` from the
+        queue), pad it to its bucket and launch the forward without
+        waiting for it."""
+        if requests is None:
+            if not self.queue:
+                return None
+            take = min(len(self.queue), self.buckets[-1])
+            requests, self.queue = self.queue[:take], self.queue[take:]
+        elif not requests:
+            return None
+        bucket = self._bucket_for(len(requests)) if bucket is None \
+            else int(bucket)
+        if len(requests) > bucket:
+            raise ValueError(
+                f"{len(requests)} requests cannot ride a {bucket}-bucket")
+        images = np.stack([r.image for r in requests])
+        if bucket > len(requests):
+            pad = np.zeros((bucket - len(requests),) + images.shape[1:],
+                           images.dtype)
+            images = np.concatenate([images, pad])
+            self.n_padded += bucket - len(requests)
+        with torch.inference_mode():
+            out = self.forward(torch.from_numpy(images).to(self.device))
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        t = time.perf_counter()
+        for req in requests:
+            req.t_start = t
+        self.n_batches += 1
+        return InFlight(requests, bucket, out, event)
+
+    def complete(self, inflight: Optional[InFlight]) -> int:
+        """Wait for an in-flight micro-batch and stamp its requests done;
+        returns the number of requests served."""
+        if inflight is None:
+            return 0
+        if inflight.event is not None:
+            inflight.event.synchronize()
+        logits = inflight.out.cpu().numpy()
+        t = time.perf_counter()
+        for i, req in enumerate(inflight.requests):
+            req.t_done = t
+            req.logits = logits[i]
+            req.pred = int(np.argmax(logits[i]))
+        self.done.extend(inflight.requests)
+        return len(inflight.requests)
+
+    def step(self) -> int:
+        return self.complete(self.dispatch())
+
+    def run(self) -> Dict[str, float]:
+        """Drain the whole queue and return this run's serving statistics."""
+        batches0, padded0, done0 = self.n_batches, self.n_padded, \
+            len(self.done)
+        t0 = time.perf_counter()
+        served = 0
+        while self.queue:
+            served += self.step()
+        dt = time.perf_counter() - t0
+        reqs = self.done[done0:]
+        lat_ms = np.array([r.latency_s for r in reqs]) * 1e3
+        service_ms = np.array([r.service_s for r in reqs]) * 1e3
+
+        def pct(a, q):
+            return float(np.percentile(a, q)) if served else 0.0
+
+        return {
+            "mode": self.mode,
+            "device": str(self.device),
+            "requests": served,
+            "batches": self.n_batches - batches0,
+            "padded": self.n_padded - padded0,
+            "wall_s": dt,
+            "throughput_img_s": served / dt if dt > 0 else 0.0,
+            "latency_p50_ms": pct(lat_ms, 50),
+            "service_p50_ms": pct(service_ms, 50),
+        }
+
+
+# ---------------------------------------------------------------------------
+# Calibration helper + construction path + CLI
+# ---------------------------------------------------------------------------
+
+
+def calibrate(qparams, cfg: vit.ViTConfig, images: np.ndarray, *,
+              device, n_batches: int = 4) -> Calibrator:
+    """Run calibration forwards on ``device`` and freeze the activation
+    scales there."""
+    cal = Calibrator()
+    with torch.inference_mode():
+        for chunk in np.array_split(images, n_batches):
+            if len(chunk) == 0:
+                continue
+            x = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
+            vit.forward(qparams, vit.extract_patches(x, cfg.patch), cfg,
+                        observer=cal)
+    cal.freeze(device)
+    return cal
+
+
+def make_server(cfg_name: str, serve_cfg: Optional[ServeConfig] = None, *,
+                params=None, qparams=None,
+                calibrator: Optional[Calibrator] = None,
+                calib_bank: Optional[np.ndarray] = None) -> VisionServer:
+    """Build a ready `VisionServer` for a registered model name on
+    ``serve_cfg.device`` (None = the card): init params at
+    ``serve_cfg.seed`` unless given, and for int8 quantize and calibrate
+    (on ``calib_bank`` or ``calib_images`` synthetic images drawn exactly
+    as the JAX server draws them) unless a frozen calibrator is given."""
+    sc = serve_cfg if serve_cfg is not None else ServeConfig()
+    device = resolve_device(sc.device)
+    cfg = vision_registry.build_cfg(cfg_name, full=sc.full)
+    if params is None:
+        params = vit.init_params(cfg, sc.seed, device)
+    if sc.mode == "int8":
+        if qparams is None:
+            qparams = quantize_vision_params(vit.to_device(params, device))
+        if calibrator is None:
+            bank = calib_bank
+            if bank is None:
+                rng = np.random.default_rng(sc.seed)
+                bank = rng.standard_normal(
+                    (sc.calib_images, cfg.image, cfg.image, 3)
+                ).astype(np.float32)
+            calibrator = calibrate(vit.to_device(qparams, device), cfg, bank,
+                                   device=device)
+    return VisionServer(cfg, params, serve_cfg=sc, qparams=qparams,
+                        calibrator=calibrator, model_name=cfg_name)
+
+
+def serve_model(name: str, *, requests: int, buckets, modes, full: bool,
+                seed: int = 0, calib_images: int = 8,
+                device=None) -> List[Dict[str, float]]:
+    """Init params once, (for int8) quantize and calibrate on the first
+    ``calib_images`` request images, and drain ``requests`` random images
+    through a server per mode.  One stats row per mode."""
+    dev = resolve_device(device)
+    cfg = vision_registry.build_cfg(name, full=full)
+    params = vit.init_params(cfg, seed, dev)
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal(
+        (requests, cfg.image, cfg.image, 3)).astype(np.float32)
+    qparams = cal = None
+    if "int8" in modes:
+        qparams = quantize_vision_params(params)
+        cal = calibrate(qparams, cfg, images[:calib_images], device=dev)
+    rows = []
+    for mode in modes:
+        sc = ServeConfig(mode=mode, buckets=tuple(buckets), full=full,
+                         seed=seed, calib_images=calib_images,
+                         device=str(dev))
+        server = VisionServer(cfg, params, serve_cfg=sc, qparams=qparams,
+                              calibrator=cal, model_name=name)
+        server.submit_many(images)
+        stats = server.run()
+        stats.update({"model": name, "config": cfg.name})
+        rows.append(stats)
+        print(f"[vision-serve] {cfg.name} mode={mode} on {stats['device']}: "
+              f"{stats['requests']} reqs in {stats['wall_s']:.3f}s -> "
+              f"{stats['throughput_img_s']:.1f} img/s, "
+              f"p50 {stats['latency_p50_ms']:.2f}ms "
+              f"({stats['batches']} batches, {stats['padded']} padded)")
+    return rows
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="vision_serve",
+        description="Serve a registered vision model through the port's "
+                    "batched ViTA pipeline.")
+    ap.add_argument("--model", default="vit_edge")
+    ap.add_argument("--list-models", action="store_true")
+    ap.add_argument("--full", action="store_true",
+                    help="the paper-scale geometry instead of the reduced one")
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--buckets", default="1,2,4,8")
+    ap.add_argument("--mode", choices=("float", "int8", "both"),
+                    default="both")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card, cuda)")
+    args = ap.parse_args(argv)
+    if args.list_models:
+        for name in vision_registry.list_models():
+            entry = vision_registry.get(name)
+            print(f"{name:10s} [{entry.family}] {entry.description}")
+        return []
+    if args.model not in vision_registry.list_models():
+        raise SystemExit(f"[vision-serve] unknown model {args.model!r}; "
+                         f"registered: "
+                         f"{', '.join(vision_registry.list_models())}")
+    modes = ("float", "int8") if args.mode == "both" else (args.mode,)
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    return serve_model(args.model, requests=args.requests, buckets=buckets,
+                       modes=modes, full=args.full, seed=args.seed,
+                       device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,146 @@
+"""Columnar vision transformers (ViT / DeiT), counterpart of
+`repro/models/vit.py`.
+
+The module owns the model description (config, params, spec); execution
+belongs to the control program: `schedule(cfg)` compiles the config into a
+fused `core.schedule.Schedule` and `forward` replays it.  Images are NHWC
+at the public functions, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import schedule as sched_lib
+from repro_torch.core.perfmodel import StageSpec, VisionModelSpec
+from repro_torch.models.config import normalize_head_mask
+from repro_torch.models.layers import dense_init
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    name: str
+    image: int = 256
+    patch: int = 16
+    dim: int = 768
+    heads: int = 12
+    layers: int = 12
+    mlp_ratio: float = 4.0
+    n_classes: int = 1000
+    # Per-layer head-pruning mask (layers x heads 0/1 tuples; None = dense).
+    head_mask: Optional[Tuple[Tuple[int, ...], ...]] = None
+
+    def __post_init__(self):
+        object.__setattr__(
+            self, "head_mask",
+            normalize_head_mask(self.head_mask, layers=self.layers,
+                                heads=self.heads))
+
+    @property
+    def tokens(self) -> int:
+        return (self.image // self.patch) ** 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.heads
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.dim * self.mlp_ratio)
+
+    @property
+    def patch_dim(self) -> int:
+        return self.patch * self.patch * 3
+
+
+def vit_b16(image: int = 256) -> ViTConfig:
+    return ViTConfig(name=f"vit_b16_{image}", image=image)
+
+
+def deit_t() -> ViTConfig:
+    return ViTConfig(name="deit_t_224", image=224, dim=192, heads=3)
+
+
+def init_params(cfg: ViTConfig, seed: int = 0,
+                device="cpu") -> Params:
+    """Random float32 params from ``seed`` (a `torch.Generator` on the CPU,
+    so every device gets the same weights), placed on ``device``.  Same
+    layout and distributions as the JAX init; the numbers differ (tests
+    carry JAX's weights across with `convert.params_from_numpy`)."""
+    if cfg.head_mask is not None:
+        raise NotImplementedError("head-pruned variants are not ported yet")
+    gen = torch.Generator().manual_seed(int(seed))
+    d, dh, m = cfg.dim, cfg.head_dim, cfg.mlp_hidden
+
+    def heads():
+        return torch.stack([dense_init(gen, d, dh) for _ in range(cfg.heads)])
+
+    params: Params = {
+        "patch_embed": dense_init(gen, cfg.patch_dim, d),
+        "pos_embed": torch.randn((cfg.tokens, d), generator=gen) * 0.02,
+    }
+    layers = []
+    for _ in range(cfg.layers):
+        layers.append({
+            "ln1_w": torch.ones(d), "ln1_b": torch.zeros(d),
+            "wq": heads(), "wk": heads(), "wv": heads(),   # (H, D, Dh)
+            "w_msa": dense_init(gen, d, d),
+            "ln2_w": torch.ones(d), "ln2_b": torch.zeros(d),
+            "w_up": dense_init(gen, d, m), "b_up": torch.zeros(m),
+            "w_down": dense_init(gen, m, d), "b_down": torch.zeros(d),
+        })
+    params["layers"] = layers
+    params["ln_f_w"] = torch.ones(d)
+    params["ln_f_b"] = torch.zeros(d)
+    params["head"] = dense_init(gen, d, cfg.n_classes)
+    return to_device(params, device)
+
+
+def to_device(tree: Any, device) -> Any:
+    """Move a param tree (dicts, lists, tensors, `QTensor`s) to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def to_spec(cfg: ViTConfig) -> VisionModelSpec:
+    """The stage description the schedule compiler consumes."""
+    stage = StageSpec(layers=cfg.layers, dim=cfg.dim, heads=cfg.heads,
+                      mlp_ratio=cfg.mlp_ratio, tokens=cfg.tokens,
+                      head_mask=cfg.head_mask)
+    return VisionModelSpec(name=cfg.name, image=(cfg.image, cfg.image, 3),
+                           patch=cfg.patch, stages=(stage,),
+                           embed_dim=cfg.dim)
+
+
+@functools.lru_cache(maxsize=None)
+def schedule(cfg: ViTConfig) -> sched_lib.Schedule:
+    """The fused phase schedule `forward` replays: embed, one ``layer``
+    per encoder block, head."""
+    return sched_lib.fuse_schedule(
+        sched_lib.compile_schedule(to_spec(cfg), n_classes=cfg.n_classes))
+
+
+def forward(params: Params, patches: torch.Tensor, cfg: ViTConfig,
+            observer=None) -> torch.Tensor:
+    """patches (B, N, P*P*3) -> logits (B, n_classes).  `QTensor` params
+    plus a `Calibrator` observer run the int8 PTQ path."""
+    return sched_lib.run_schedule(schedule(cfg), params, patches,
+                                  observer=observer)
+
+
+def extract_patches(images: torch.Tensor, patch: int) -> torch.Tensor:
+    """(B, H, W, 3) -> (B, N, P*P*3) patch pixel vectors."""
+    b, h, w, c = images.shape
+    gh, gw = h // patch, w // patch
+    x = images.reshape(b, gh, patch, gw, patch, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, gh * gw, patch * patch * c)

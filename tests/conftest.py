@@ -21,6 +21,8 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips where there is none)")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,120 @@
+"""The port's CUDA kernels against their plain versions on the card, at
+small ragged shapes (N = 17 tokens, Dh = 24, M, N, K not multiples of any
+tile).  Marked ``cuda``: each test skips where there is no card, and the
+whole file runs on a machine with one by
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: int8 products are exact; float results differ by fp32
+reassociation (1e-4 of the output scale); an int8 layer may flip a
+requant code by one LSB at a rounding boundary (2% of the output scale).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.quant import quantize_vision_params
+from repro_torch.kernels import int8_matmul as k_int8_matmul
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import vita_layer as k_vita_layer
+from repro_torch.kernels import vita_msa as k_vita_msa
+from repro_torch.launch import vision_serve
+from repro_torch.models import vision_registry, vit
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _layer(card, b=2):
+    cfg = vision_registry.build_cfg("vit_edge")
+    bp = vit.init_params(cfg, seed=1, device=card)["layers"][0]
+    x = torch.randn((b, 17, cfg.dim), device=card)
+    return cfg, bp, x
+
+
+def test_int8_matmul_exact(card):
+    g = torch.Generator(device=card).manual_seed(0)
+    for m, k, n in ((37, 53, 29), (8, 192, 1000), (130, 96, 70)):
+        a = torch.randint(-127, 128, (m, k), device=card, generator=g,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), device=card, generator=g,
+                          dtype=torch.int8)
+        assert torch.equal(k_int8_matmul.int8_matmul(a, w),
+                           ref.int8_matmul_ref(a, w))
+        xs, ws = torch.tensor(0.03, device=card), torch.rand(n, device=card)
+        assert torch.equal(k_int8_matmul.int8_matmul(a, w, xs, ws),
+                           ref.int8_matmul_ref(a, w, xs, ws))
+
+
+def test_vita_layer_float(card):
+    _, bp, x = _layer(card)
+    args = (x, bp["wq"], bp["wk"], bp["wv"], bp["w_msa"], bp["ln1_w"],
+            bp["ln1_b"], bp["ln2_w"], bp["ln2_b"], bp["w_up"], bp["b_up"],
+            bp["w_down"], bp["b_down"])
+    want = ref.vita_layer_ref(*args)
+    torch.testing.assert_close(k_vita_layer.vita_layer(*args), want,
+                               rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+def test_vita_layer_int8_and_msa_int8(card):
+    cfg, bp, x = _layer(card)
+    q = quantize_vision_params(bp)
+    h, dh = cfg.heads, cfg.head_dim
+    acts = torch.tensor([4.0, 2.0, 4.0, 3.0], device=card) / 127.0
+    args = (x, q["wq"].values, q["wk"].values, q["wv"].values,
+            q["w_msa"].values, q["w_up"].values, q["w_down"].values, acts,
+            *[q[k].scale.reshape(h, dh) for k in ("wq", "wk", "wv")],
+            *[q[k].scale.reshape(-1) for k in ("w_msa", "w_up", "w_down")],
+            bp["ln1_w"], bp["ln1_b"], bp["ln2_w"], bp["ln2_b"], bp["b_up"],
+            bp["b_down"])
+    want = ref.vita_layer_int8_ref(*args)
+    got = k_vita_layer.vita_layer_int8(*args)
+    assert float((got - want).abs().max()) <= 0.02 * float(want.abs().max())
+    zq = torch.clamp(torch.round(x / 0.03), -127, 127).to(torch.int8)
+    m_args = (zq, *args[1:4], torch.tensor(0.03, device=card), *args[8:11])
+    want = ref.vita_msa_int8_ref(*m_args)
+    torch.testing.assert_close(k_vita_msa.vita_msa_int8(*m_args), want,
+                               rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+def test_ops_counts_launches_and_raises_on_bad_input(card):
+    ops.reset_launches()
+    a = torch.zeros((4, 8), dtype=torch.int8, device=card)
+    ops.int8_matmul(a, torch.zeros((8, 4), dtype=torch.int8, device=card))
+    assert ops.LAUNCHES["int8_matmul"] == 1
+    with pytest.raises(TypeError):
+        k_int8_matmul.int8_matmul(a.float(), torch.zeros((8, 4), device=card))
+    with pytest.raises(ValueError):
+        k_int8_matmul.int8_matmul(a.t(), torch.zeros(
+            (4, 4), dtype=torch.int8, device=card))
+
+
+@pytest.mark.parametrize("mode", ["float", "int8"])
+def test_server_on_the_card_matches_the_cpu(card, mode):
+    sc = vision_serve.ServeConfig(mode=mode, buckets=(1, 4), calib_images=4)
+    server = vision_serve.make_server("vit_edge", sc)
+    images = np.random.default_rng(0).standard_normal(
+        (5, 32, 32, 3)).astype(np.float32)
+    twin = vision_serve.make_server(
+        "vit_edge", vision_serve.ServeConfig(mode=mode, buckets=(1, 4),
+                                             device="cpu"),
+        params=vit.to_device(server.params, "cpu"),
+        qparams=None if server.qparams is None
+        else vit.to_device(server.qparams, "cpu"),
+        calibrator=server.calibrator)
+    got = server.submit_many(images)
+    want = twin.submit_many(images)
+    server.run()
+    twin.run()
+    g = np.stack([r.logits for r in got])
+    w = np.stack([r.logits for r in want])
+    tol = (1e-3 if mode == "float" else 2e-2) * np.abs(w).max()
+    assert np.abs(g - w).max() <= tol
