@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout, on a machine with a card and the CUDA
 toolkit:  python3 chip_smoke.py
@@ -6,16 +6,23 @@ toolkit:  python3 chip_smoke.py
 Phases (any failure exits non-zero; nothing is caught):
   1. build every kernel from src/repro_torch/csrc (one nvcc per source, in
      parallel);
-  2. hold each kernel against its plain PyTorch version on the card, at
-     DeiT-T full width with batch 8, and the two layer kernels also at
-     ViT-B/16 layer widths with batch 2;
-  3. serve DeiT-T (224 px, 12 layers, random weights from a seed) in float
-     through make_server on the card, check the logits against the same
-     server on the CPU and the launch counts of the kernels;
-  4. the same in int8 PTQ, calibrated on the card; the CPU twin reuses the
-     frozen calibrator;
-  5. time each kernel, its plain version and a library yardstick, and the
-     served throughput per mode.
+  2. hold each kernel against its plain PyTorch version on the card: the
+     float and int8 layers at DeiT-T full width (batch 8) and ViT-B/16
+     widths (batch 2), and windowed at Swin-T stage 1 (bucket 8, shifted
+     mask); the int8 MSA at DeiT-T, and windowed with qkv_bias at Swin-T
+     stage 1; the int8 matmul at the embed and head shapes; the float MSA
+     and the fused MLP at DeiT-T, Swin-T stages 1 and 4 and ViT-B/16
+     widths, with qkv_bias and without the MLP biases once each;
+  3. serve DeiT-T (224 px, 12 layers) and Swin-T (224 px, depths
+     2/2/6/2), random weights from a seed, through make_server on the
+     card: DeiT-T fused float and int8, DeiT-T unfused (--no-fuse) float
+     and int8, Swin-T fused float and int8, Swin-T unfused float.  Each
+     path's launch counts are set to 0 just before it and read just
+     after, and must equal what its schedule launches; its logits are
+     checked against the same server on the CPU;
+  4. time each kernel, its plain version and a library yardstick, the
+     served throughput of every path, and the device's busy share of a
+     drain for DeiT-T and Swin-T in both modes.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a card, or without
@@ -41,8 +48,29 @@ FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores
 INT8_OP_PER_S = 1979e12          # int8 tensor-core peak
 
 B_MAIN = 8                       # the largest serving bucket
-N_REQUESTS = 19                  # 8 + 8 + 3: a ragged tail padded to 4
 BUCKETS = (1, 2, 4, 8)
+N_CAL = 4                        # calibration batches (8 images, 4 x 2)
+
+# Served paths: (model, mode, fused, requests).  19 = 8 + 8 + 3 and
+# 11 = 8 + 3: a ragged tail padded to a bucket of 4.
+PATHS = (("deit_t", "float", True, 19), ("deit_t", "int8", True, 19),
+         ("deit_t", "float", False, 11), ("deit_t", "int8", False, 11),
+         ("swin_t", "float", True, 11), ("swin_t", "int8", True, 11),
+         ("swin_t", "float", False, 11))
+
+KERNELS = (  # name, TPU kernel it replaces, port wrapper
+    ("vita_layer", "src/repro/kernels/vita_layer.py:174",
+     "src/repro_torch/kernels/vita_layer.py"),
+    ("vita_layer_int8", "src/repro/kernels/vita_layer.py:430",
+     "src/repro_torch/kernels/vita_layer.py"),
+    ("vita_msa_int8", "src/repro/kernels/vita_msa.py:241",
+     "src/repro_torch/kernels/vita_msa.py"),
+    ("int8_matmul", "src/repro/kernels/int8_matmul.py:98",
+     "src/repro_torch/kernels/int8_matmul.py"),
+    ("vita_msa_batched", "src/repro/kernels/vita_msa.py:138",
+     "src/repro_torch/kernels/vita_msa.py"),
+    ("fused_mlp", "src/repro/kernels/fused_mlp.py:121",
+     "src/repro_torch/kernels/fused_mlp.py"))
 
 
 def fail(msg: str) -> None:
@@ -117,43 +145,72 @@ def argmax_check(got: np.ndarray, want: np.ndarray, err: float):
 
 
 def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def check_close(name: str, got, want) -> float:
+    """Float kernel against its plain version: max|err| <= 1e-4 x
+    max(1, output scale) (fp32 reassociation only)."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"[check] {name}: max|err| {err:.3e} (scale {scale:.3f}, bound "
+          f"1e-4 x max(1, scale))")
+    check(bool(torch.isfinite(got).all()) and err <= 1e-4 * max(1.0, scale),
+          f"{name} disagrees with its plain version")
+    return err
+
+
+def check_int8_layer(name: str, got, want) -> float:
+    """int8 layer against its plain version: an LSB flip at a requant
+    boundary moves a value by about one activation scale times a weight,
+    so max|err| <= 0.02 x scale, and a token whose argmax differs must be
+    a near-tie."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    n_differ, ties = argmax_check(got.cpu().numpy(), want.cpu().numpy(), err)
+    print(f"[check] {name}: max|err| {err:.3e} (scale {scale:.3f}, bound "
+          f"0.02 x scale); per-token argmax differs on {n_differ} of "
+          f"{got.shape[0] * got.shape[1]} tokens, each a near-tie: {ties}")
+    check(err <= 0.02 * scale and ties, f"{name} disagrees")
+    return err
 
 
 # ---------------------------------------------------------------------------
-# Kernel inputs at the main path's shapes
+# Kernel inputs at the main paths' shapes
 # ---------------------------------------------------------------------------
 
 
-def layer_inputs(cfg, b: int, seed: int):
-    """Layer-0 float weights of ``cfg`` from its init, an input of unit
-    scale, their int8 quantization, and act scales from max-abs
-    statistics of the plain float layer on that input."""
-    from repro_torch.core.quant import INT8_MAX, quantize_vision_params
-    from repro_torch.kernels import ref
-    from repro_torch.models import vit
-
-    one = vit.ViTConfig(name=cfg.name, image=cfg.image, patch=cfg.patch,
-                        dim=cfg.dim, heads=cfg.heads, layers=1,
-                        n_classes=cfg.n_classes)
-    bp = vit.init_params(one, seed, "cuda")["layers"][0]
-    g = torch.Generator(device="cuda").manual_seed(seed)
+def perturbed(bp: dict, g: torch.Generator) -> dict:
+    """A copy of block ``bp`` with non-zero LN and MLP biases."""
+    bp = dict(bp)
     for k in ("ln1_b", "ln2_b", "b_up", "b_down"):
         bp[k] = bp[k] + 0.1 * torch.randn(bp[k].shape, generator=g,
                                           device="cuda")
-    x = torch.randn((b, cfg.tokens, cfg.dim), generator=g, device="cuda")
+    return bp
+
+
+def layer_args(bp: dict, x, bias=None, mask=None):
+    """Float and int8 layer-kernel arguments for block ``bp`` on ``x``
+    (B', N, D), act scales from max-abs statistics of the plain float
+    layer on that input (windowed when ``bias``/``mask`` are given)."""
+    from repro_torch.core.quant import INT8_MAX, quantize_vision_params
+    from repro_torch.kernels import ref
+
+    h, _, dh = bp["wq"].shape
     f_args = (x, bp["wq"], bp["wk"], bp["wv"], bp["w_msa"], bp["ln1_w"],
               bp["ln1_b"], bp["ln2_w"], bp["ln2_b"], bp["w_up"], bp["b_up"],
               bp["w_down"], bp["b_down"])
-    h, dh = cfg.heads, cfg.head_dim
     z = ref.layer_norm_ref(x, bp["ln1_w"], bp["ln1_b"])
     qkv = torch.matmul(z, ref._merge_qkv(bp["wq"], bp["wk"], bp["wv"]))
-    sa = ref._attend_heads(*ref._split_qkv(qkv, h, dh), dh)
+    sa = ref._attend_heads(*ref._split_qkv(qkv, h, dh), dh, bias, mask)
     h1 = x + sa @ bp["w_msa"]
     z2 = ref.layer_norm_ref(h1, bp["ln2_w"], bp["ln2_b"])
     hid = ref.gelu(z2 @ bp["w_up"] + bp["b_up"])
     acts = torch.stack([t.abs().amax() for t in (z, sa, z2, hid)]) / INT8_MAX
-    q = quantize_vision_params(bp)
+    q = quantize_vision_params(
+        {k: bp[k] for k in ("wq", "wk", "wv", "w_msa", "w_up", "w_down")})
     i_args = (x, q["wq"].values, q["wk"].values, q["wv"].values,
               q["w_msa"].values, q["w_up"].values, q["w_down"].values,
               acts.float().contiguous(),
@@ -164,6 +221,37 @@ def layer_inputs(cfg, b: int, seed: int):
     return f_args, i_args
 
 
+def vit_block(cfg, seed: int, g):
+    """Layer 0 of a one-layer ``cfg`` and an input of unit scale."""
+    import dataclasses
+    from repro_torch.models import vit
+
+    one = dataclasses.replace(cfg, layers=1)
+    bp = perturbed(vit.init_params(one, seed, "cuda")["layers"][0], g)
+    return bp, torch.randn((B_MAIN if cfg.dim < 768 else 2, cfg.tokens,
+                            cfg.dim), generator=g, device="cuda")
+
+
+def swin_block(params, cfg, s_i: int, b_i: int, g):
+    """Block ``b_i`` of Swin stage ``s_i`` (-1: the last) at bucket 8: a
+    tag, the block, its window-folded unit-scale input (B * nW, 49, D),
+    and its relative-position bias and shifted-window mask, as the
+    executor forms them."""
+    from repro_torch.core import schedule as sched
+
+    s_i %= len(cfg.depths)
+    side, dim = cfg.stage_side(s_i), cfg.stage_dim(s_i)
+    n_w = (side // cfg.window) ** 2
+    shift = cfg.window // 2 if b_i % 2 and n_w > 1 else 0
+    ph = sched.Phase(kind="layer", path=(), site="", grid=(side, side),
+                     window=cfg.window, shift=shift)
+    bp = perturbed(params["stages"][s_i]["blocks"][b_i], g)
+    x = torch.randn((B_MAIN, side * side, dim), generator=g, device="cuda")
+    bias, mask = sched._window_terms(ph, bp, torch.device("cuda"))
+    return (f"swin_t s{s_i}.b{b_i} windowed", bp, sched._fold(ph, x), bias,
+            mask)
+
+
 def layer_flops(b, n, d, h, dh, m):
     """(projection/MLP matmul ops, attention ops) of one layer call."""
     proj = 2 * b * n * d * (3 * h * dh) + 2 * b * n * (h * dh) * d \
@@ -172,7 +260,16 @@ def layer_flops(b, n, d, h, dh, m):
     return proj, attn
 
 
-def composed_layer(args, h: int, dh: int):
+def sdpa_mask(bias, mask, b: int):
+    """bias (H, n, n) + mask (nW, n, n) as one (B', H, n, n) additive
+    attention mask for F.scaled_dot_product_attention."""
+    if bias is None:
+        return None
+    n_w = mask.shape[0]
+    return (bias[None] + mask[:, None]).repeat(b // n_w, 1, 1, 1)
+
+
+def composed_layer(args, h: int, dh: int, bias=None, mask=None):
     """The float layer as a composition of library calls (cuBLAS matmuls,
     F.layer_norm, F.scaled_dot_product_attention, F.gelu) — a yardstick
     the port never calls."""
@@ -182,11 +279,12 @@ def composed_layer(args, h: int, dh: int):
      b_down) = args
     wqkv = ref._merge_qkv(wq, wk, wv)
     b, n, d = x.shape
+    am = sdpa_mask(bias, mask, b)
 
     def run():
         z = F.layer_norm(x, (d,), l1w, l1b, 1e-5)
         q, k, v = ref._split_qkv(z @ wqkv, h, dh)
-        sa = F.scaled_dot_product_attention(q, k, v)
+        sa = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
         h1 = x + sa.permute(0, 2, 1, 3).reshape(b, n, h * dh) @ w_msa
         z2 = F.layer_norm(h1, (d,), l2w, l2b, 1e-5)
         return h1 + F.gelu(z2 @ w_up + b_up, approximate="tanh") @ w_down \
@@ -194,72 +292,134 @@ def composed_layer(args, h: int, dh: int):
     return run
 
 
-def kernel_phase(deit, vitb):
-    """Each kernel against its plain version; returns the kernel records
-    (without launch counts) for the timing line."""
+def composed_msa(z, wq, wk, wv, bias=None, mask=None):
+    """The float per-head MSA as torch.matmul projections and
+    F.scaled_dot_product_attention — a yardstick the port never calls."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    h, _, dh = wq.shape
+    wqkv = ref._merge_qkv(wq, wk, wv)
+    am = sdpa_mask(bias, mask, z.shape[0])
+
+    def run():
+        q, k, v = ref._split_qkv(z @ wqkv, h, dh)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+    return run
+
+
+def composed_mlp(x, w1, b1, w2, b2):
+    """addmm + tanh-GELU + addmm — a yardstick the port never calls."""
+    import torch.nn.functional as F
+    x2 = x.reshape(-1, x.shape[-1])
+
+    def run():
+        return torch.addmm(b2, F.gelu(torch.addmm(b1, x2, w1),
+                                      approximate="tanh"), w2)
+    return run
+
+
+def msa_bound(z, wq, bias=None, mask=None, qkv_bias=None, int8=False):
+    """Bound of a per-head MSA call: the projections (int8 or fp32) and the
+    fp32 attention, against z, the three weight stacks, the window terms
+    and the (B, H, N, Dh) float output."""
+    b, n, d = z.shape
+    h, _, dh = wq.shape
+    proj = 2 * b * n * d * 3 * h * dh
+    attn = 2 * 2 * b * h * n * n * dh
+    moved = nbytes(z, bias, mask, qkv_bias) + 3 * nbytes(wq) \
+        + b * h * n * dh * 4
+    if int8:
+        return bound(ops_i8=proj, flops_f32=attn, nbytes=moved)
+    return bound(flops_f32=proj + attn, nbytes=moved)
+
+
+def mlp_bound(x, w1, b1, w2, b2):
+    rows = x.numel() // x.shape[-1]
+    d, m = w1.shape
+    d_out = w2.shape[1]
+    return bound(flops_f32=2 * rows * m * (d + d_out),
+                 nbytes=nbytes(x, w1, b1, w2, b2) + rows * d_out * 4)
+
+
+def layer_bound(f_args, i_args, bias=None, mask=None):
+    x = f_args[0]
+    b, n, d = x.shape
+    h, _, dh = f_args[1].shape
+    m = f_args[9].shape[1]
+    proj, attn = layer_flops(b, n, d, h, dh, m)
+    win = nbytes(bias, mask)
+    return (bound(flops_f32=proj + attn,
+                  nbytes=nbytes(*f_args) + nbytes(x) + win),
+            bound(ops_i8=proj, flops_f32=attn,
+                  nbytes=nbytes(*i_args) + nbytes(x) + win))
+
+
+def kernel_phase(deit, vitb, swin_cfg):
+    """Each kernel against its plain version.  Returns per kernel its main
+    record (the main path's shape) and extra timed shapes."""
+    from repro_torch.kernels import fused_mlp as fm
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import ref, vita_layer as vl, vita_msa as vm
+    from repro_torch.models import swin
 
-    records = {}
-    h, dh, n, d, m = deit.heads, deit.head_dim, deit.tokens, deit.dim, \
-        deit.mlp_hidden
+    g = torch.Generator(device="cuda").manual_seed(1)
+    records = {k[0]: {"extra": []} for k in KERNELS}
 
-    # Float and int8 layers at DeiT-T (batch 8) and ViT-B/16 (batch 2).
-    for cfg, b, tag in ((deit, B_MAIN, "deit_t"), (vitb, 2, "vit_b16")):
-        f_args, i_args = layer_inputs(cfg, b, seed=1)
-        got, want = vl.vita_layer(*f_args), ref.vita_layer_ref(*f_args)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        print(f"[check] vita_layer {tag} B={b}: max|err| {err:.3e} "
-              f"(logit scale {scale:.3f}, bound 1e-4 x max(1, scale))")
-        check(err <= 1e-4 * max(1.0, scale), f"vita_layer {tag} disagrees")
-        got = vl.vita_layer_int8(*i_args)
-        want = ref.vita_layer_int8_ref(*i_args)
-        torch.cuda.synchronize()
-        err_i = float((got - want).abs().max())
-        scale_i = float(want.abs().max())
-        n_differ, ties = argmax_check(got.cpu().numpy(), want.cpu().numpy(),
-                                      err_i)
-        print(f"[check] vita_layer_int8 {tag} B={b}: max|err| {err_i:.3e} "
-              f"(scale {scale_i:.3f}, bound 0.02 x scale; an LSB flip at a "
-              f"requant boundary moves a value by ~one activation scale "
-              f"times a weight); per-token argmax differs on {n_differ} of "
-              f"{b * cfg.tokens} tokens, each a near-tie: {ties}")
-        check(err_i <= 0.02 * scale_i and ties,
-              f"vita_layer_int8 {tag} disagrees")
-        if tag == "deit_t":
-            records["vita_layer"] = dict(
-                args=f_args, err=err,
-                fn=lambda a=f_args: vl.vita_layer(*a),
-                plain=lambda a=f_args: ref.vita_layer_ref(*a),
-                library=composed_layer(f_args, h, dh))
-            records["vita_layer_int8"] = dict(
-                args=i_args, err=err_i,
-                fn=lambda a=i_args: vl.vita_layer_int8(*a),
-                plain=lambda a=i_args: ref.vita_layer_int8_ref(*a),
-                library=None)
-            deit_q = i_args
+    def rec(kname, tag, err, fn, plain, library, bnd):
+        r = dict(tag=tag, err=err, fn=fn, plain=plain, library=library,
+                 bound=bnd)
+        if "fn" in records[kname]:
+            records[kname]["extra"].append(r)
+        else:
+            records[kname].update(r)
 
-    # int8 MSA (the calibration pass's kernel) at DeiT-T, batch 8.
-    x = deit_q[0]
-    zq = torch.clamp(torch.round(x / 0.02), -127, 127).to(torch.int8)
-    xs = torch.tensor(0.02, device="cuda")
-    m_args = (zq, *deit_q[1:4], xs, *deit_q[8:11])
-    got, want = vm.vita_msa_int8(*m_args), ref.vita_msa_int8_ref(*m_args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    print(f"[check] vita_msa_int8 deit_t B={B_MAIN}: max|err| {err:.3e} "
-          f"(scale {scale:.3f}, bound 1e-4 x max(1, scale); identical int8 "
-          f"inputs, fp32 softmax)")
-    check(err <= 1e-4 * max(1.0, scale), "vita_msa_int8 disagrees")
-    records["vita_msa_int8"] = dict(
-        args=m_args, err=err, fn=lambda: vm.vita_msa_int8(*m_args),
-        plain=lambda: ref.vita_msa_int8_ref(*m_args), library=None)
+    # Float and int8 layers at DeiT-T (batch 8) and ViT-B/16 (batch 2),
+    # then windowed at Swin-T stage 1 (block 1: shifted), bucket 8.
+    sw_params = swin.init_params(swin_cfg, seed=1, device="cuda")
+    layer_cases = []
+    for cfg, tag in ((deit, "deit_t"), (vitb, "vit_b16")):
+        bp, x = vit_block(cfg, 1, g)
+        layer_cases.append((tag, bp, x, None, None))
+    layer_cases.append(swin_block(sw_params, swin_cfg, 0, 1, g))
+    for tag, bp, x, bias, mask in layer_cases:
+        f_args, i_args = layer_args(bp, x, bias, mask)
+        b = x.shape[0]
+        err = check_close(f"vita_layer {tag} B={b}",
+                          vl.vita_layer(*f_args, bias, mask),
+                          ref.vita_layer_ref(*f_args, bias, mask))
+        err_i = check_int8_layer(f"vita_layer_int8 {tag} B={b}",
+                                 vl.vita_layer_int8(*i_args, bias, mask),
+                                 ref.vita_layer_int8_ref(*i_args, bias, mask))
+        if tag == "vit_b16":
+            continue
+        fb, ib = layer_bound(f_args, i_args, bias, mask)
+        h, dh = bp["wq"].shape[0], bp["wq"].shape[2]
+        rec("vita_layer", tag, err,
+            lambda a=f_args, bi=bias, ma=mask: vl.vita_layer(*a, bi, ma),
+            lambda a=f_args, bi=bias, ma=mask: ref.vita_layer_ref(*a, bi, ma),
+            composed_layer(f_args, h, dh, bias, mask), fb)
+        rec("vita_layer_int8", tag, err_i,
+            lambda a=i_args, bi=bias, ma=mask: vl.vita_layer_int8(*a, bi, ma),
+            lambda a=i_args, bi=bias, ma=mask: ref.vita_layer_int8_ref(
+                *a, bi, ma), None, ib)
+        # int8 MSA (the calibration pass's kernel) on the same block;
+        # windowed with a qkv_bias at Swin-T.
+        zq = torch.clamp(torch.round(x / 0.02), -127, 127).to(torch.int8)
+        xs = torch.tensor(0.02, device="cuda")
+        qb = None if bias is None else 0.1 * torch.randn(
+            (3, h, dh), generator=g, device="cuda")
+        m_args = (zq, *i_args[1:4], xs, *i_args[8:11], bias, mask, qb)
+        err = check_close(f"vita_msa_int8 {tag} B={b}"
+                          + (" qkv_bias" if qb is not None else ""),
+                          vm.vita_msa_int8(*m_args),
+                          ref.vita_msa_int8_ref(*m_args))
+        rec("vita_msa_int8", tag, err,
+            lambda a=m_args: vm.vita_msa_int8(*a),
+            lambda a=m_args: ref.vita_msa_int8_ref(*a), None,
+            msa_bound(zq, i_args[1], bias, mask, qb, int8=True))
 
     # int8 matmul at the embed and head shapes, exact int32.
-    g = torch.Generator(device="cuda").manual_seed(2)
+    n, d = deit.tokens, deit.dim
     for (mm, kk, nn), tag in (((B_MAIN * n, deit.patch_dim, d), "embed"),
                               ((B_MAIN, d, deit.n_classes), "head")):
         a = torch.randint(-127, 128, (mm, kk), device="cuda", generator=g,
@@ -267,6 +427,7 @@ def kernel_phase(deit, vitb):
         w = torch.randint(-127, 128, (kk, nn), device="cuda", generator=g,
                           dtype=torch.int8)
         ws = torch.rand(nn, device="cuda", generator=g) * 1e-2
+        xs = torch.tensor(0.02, device="cuda")
         exact = torch.equal(im.int8_matmul(a, w), ref.int8_matmul_ref(a, w))
         got = im.int8_matmul(a, w, xs, ws)
         want = ref.int8_matmul_ref(a, w, xs, ws)
@@ -276,30 +437,55 @@ def kernel_phase(deit, vitb):
               f"equal {exact}; rescaled max|err| {err:.3e} (bound 0)")
         check(exact and err == 0.0, f"int8_matmul {tag} disagrees")
         if tag == "embed":
-            records["int8_matmul"] = dict(
-                args=(a, w, xs, ws), err=err,
-                fn=lambda a=a, w=w: im.int8_matmul(a, w, xs, ws),
-                plain=lambda a=a, w=w: ref.int8_matmul_ref(a, w, xs, ws),
-                library=lambda a=a, w=w: torch._int_mm(a, w))
-    torch.cuda.synchronize()
+            rec("int8_matmul", tag, err,
+                lambda a=a, w=w, xs=xs, ws=ws: im.int8_matmul(a, w, xs, ws),
+                lambda a=a, w=w, xs=xs, ws=ws: ref.int8_matmul_ref(
+                    a, w, xs, ws),
+                lambda a=a, w=w: torch._int_mm(a, w),
+                bound(ops_i8=2 * mm * kk * nn,
+                      nbytes=nbytes(a, w, xs, ws) + mm * nn * 4))
 
-    # Bounds from this run's shapes.
-    b = B_MAIN
-    proj, attn = layer_flops(b, n, d, h, dh, m)
-    f = records["vita_layer"]["args"]
-    records["vita_layer"]["bound"] = bound(
-        flops_f32=proj + attn, nbytes=nbytes(*f) + nbytes(f[0]))
-    i = records["vita_layer_int8"]["args"]
-    records["vita_layer_int8"]["bound"] = bound(
-        ops_i8=proj, flops_f32=attn, nbytes=nbytes(*i) + nbytes(i[0]))
-    ma = records["vita_msa_int8"]["args"]
-    records["vita_msa_int8"]["bound"] = bound(
-        ops_i8=2 * b * n * d * 3 * h * dh, flops_f32=attn,
-        nbytes=nbytes(*ma) + b * h * n * dh * 4)
-    a, w, xs_, ws = records["int8_matmul"]["args"]
-    records["int8_matmul"]["bound"] = bound(
-        ops_i8=2 * a.shape[0] * a.shape[1] * w.shape[1],
-        nbytes=nbytes(a, w, xs_, ws) + a.shape[0] * w.shape[1] * 4)
+    # Float MSA and fused MLP: DeiT-T batch 8 (the unfused main path),
+    # Swin-T stage 1 (shifted) and stage 4 at bucket 8, ViT-B/16 batch 2.
+    cases = []
+    for cfg, tag in ((deit, "deit_t"), (vitb, "vit_b16")):
+        bp, x = vit_block(cfg, 2, g)
+        cases.append((tag, bp, x, None, None))
+    cases[1:1] = [swin_block(sw_params, swin_cfg, 0, 1, g),
+                  swin_block(sw_params, swin_cfg, -1, 0, g)]
+    for tag, bp, x, bias, mask in cases:
+        z = ref.layer_norm_ref(x, bp["ln1_w"], bp["ln1_b"])
+        w = (bp["wq"], bp["wk"], bp["wv"])
+        err = check_close(
+            f"vita_msa_batched {tag} {tuple(z.shape)} H={w[0].shape[0]}",
+            vm.vita_msa_batched(z, *w, bias, mask),
+            ref.vita_msa_batched_ref(z, *w, bias, mask))
+        rec("vita_msa_batched", tag, err,
+            lambda z=z, w=w, bi=bias, ma=mask: vm.vita_msa_batched(
+                z, *w, bi, ma),
+            lambda z=z, w=w, bi=bias, ma=mask: ref.vita_msa_batched_ref(
+                z, *w, bi, ma),
+            composed_msa(z, *w, bias, mask),
+            msa_bound(z, w[0], bias, mask))
+        mlp = (bp["w_up"], bp["b_up"], bp["w_down"], bp["b_down"])
+        err = check_close(
+            f"fused_mlp {tag} {tuple(z.shape)} M={mlp[0].shape[1]}",
+            fm.fused_mlp(z, mlp[0], mlp[2], mlp[1], mlp[3]),
+            ref.fused_mlp_ref(z, *mlp))
+        rec("fused_mlp", tag, err,
+            lambda z=z, p=mlp: fm.fused_mlp(z, p[0], p[2], p[1], p[3]),
+            lambda z=z, p=mlp: ref.fused_mlp_ref(z, *p),
+            composed_mlp(z, *mlp), mlp_bound(z, *mlp))
+        if tag == "deit_t":
+            h, _, dh = w[0].shape
+            qb = 0.1 * torch.randn((3, h, dh), generator=g, device="cuda")
+            check_close(f"vita_msa_batched {tag} qkv_bias",
+                        vm.vita_msa_batched(z, *w, qkv_bias=qb),
+                        ref.vita_msa_batched_ref(z, *w, qkv_bias=qb))
+            check_close(f"fused_mlp {tag} without b1/b2",
+                        fm.fused_mlp(z, mlp[0], mlp[2]),
+                        ref.fused_mlp_ref(z, mlp[0], None, mlp[2], None))
+    torch.cuda.synchronize()
     return records
 
 
@@ -308,45 +494,97 @@ def kernel_phase(deit, vitb):
 # ---------------------------------------------------------------------------
 
 
-def serve_phase(mode: str, params, images, qparams=None, calibrator=None):
-    """Serve ``images`` on the card (counts reset just before, read just
-    after) and on the CPU twin; returns logits, counts and servers."""
+def expected_launches(cfg, mode: str, mb: int, n_cal: int) -> dict:
+    """Kernel launches of ``mb`` micro-batches (plus ``n_cal``
+    calibration batches) of ``cfg`` on one served path: one layer (or
+    msa + mlp) per block, embed, head and Swin's patch merges as int8
+    matmuls in int8."""
+    fused = cfg.fused
+    depths = getattr(cfg, "depths", None)
+    blocks = sum(depths) if depths else cfg.layers
+    merges = len(depths) - 1 if depths else 0
+    out = {k[0]: 0 for k in KERNELS}
+    if mode == "float":
+        if fused:
+            out["vita_layer"] = blocks * mb
+        else:
+            out["vita_msa_batched"] = out["fused_mlp"] = blocks * mb
+        return out
+    unfused_mm = 2 + 3 * blocks + merges      # + w_msa, w_up, w_down
+    out["vita_msa_int8"] = blocks * n_cal
+    out["int8_matmul"] = unfused_mm * n_cal
+    if fused:
+        out["vita_layer_int8"] = blocks * mb
+        out["int8_matmul"] += (2 + merges) * mb
+    else:
+        out["vita_msa_int8"] += blocks * mb
+        out["int8_matmul"] += unfused_mm * mb
+    return out
+
+
+def serve_path(model: str, mode: str, fused: bool, params, images,
+               qparams=None, calibrator=None) -> dict:
+    """Serve ``images`` on the card (launch counts reset just before,
+    read just after) and on the CPU twin, and check both."""
     from repro_torch.kernels import ops
     from repro_torch.launch.vision_serve import ServeConfig, make_server
     from repro_torch.models import vit
 
-    sc = ServeConfig(mode=mode, buckets=BUCKETS, full=True, seed=0)
+    name = f"{model} {mode} {'fused' if fused else 'unfused'}"
+    sc = ServeConfig(mode=mode, buckets=BUCKETS, full=True, fused=fused)
     ops.reset_launches()
-    server = make_server("deit_t", sc, params=params, qparams=qparams,
+    calibrates = mode == "int8" and calibrator is None
+    server = make_server(model, sc, params=params, qparams=qparams,
                          calibrator=calibrator)
     reqs = server.submit_many(images)
     stats = server.run()
     torch.cuda.synchronize()
     counts = dict(ops.LAUNCHES)
     gpu = np.stack([r.logits for r in reqs])
-    cpu_server = make_server(
-        "deit_t", ServeConfig(mode=mode, buckets=BUCKETS, full=True,
-                              device="cpu"),
+    mb = stats["batches"]
+    want = expected_launches(server.cfg, mode, mb, N_CAL if calibrates else 0)
+    print(f"[serve] {name}: {len(images)} requests in {mb} micro-batches"
+          f"{' + calibration' if calibrates else ''}; launches {counts}")
+    check(counts == want, f"{name}: launch counts {counts}, expected {want}")
+    twin = make_server(
+        model, ServeConfig(mode=mode, buckets=BUCKETS, full=True,
+                           fused=fused, device="cpu"),
         params=vit.to_device(params, "cpu"),
-        qparams=None if qparams is None else vit.to_device(server.qparams,
+        qparams=None if mode == "float" else vit.to_device(server.qparams,
                                                            "cpu"),
         calibrator=server.calibrator)
-    cpu_reqs = cpu_server.submit_many(images)
-    cpu_server.run()
-    cpu = np.stack([r.logits for r in cpu_reqs])
-    check(gpu.shape == (len(images), 1000) and np.isfinite(gpu).all(),
-          f"{mode}: logits not finite of shape ({len(images)}, 1000)")
-    return gpu, cpu, counts, stats, server
+    twin_reqs = twin.submit_many(images)
+    twin.run()
+    cpu = np.stack([r.logits for r in twin_reqs])
+    shape = (len(images), server.cfg.n_classes)
+    check(gpu.shape == shape and np.isfinite(gpu).all(),
+          f"{name}: logits not finite of shape {shape}")
+    scale = float(np.abs(cpu).max())
+    err = float(np.abs(gpu - cpu).max())
+    if mode == "float":
+        print(f"[serve] {name}: |cuda - cpu| max {err:.3e} (logit scale "
+              f"{scale:.3f}, bound 1e-3 x scale)")
+        check(err <= 1e-3 * scale, f"{name}: logits disagree with the CPU")
+    else:
+        n_differ, ties = argmax_check(gpu, cpu, err)
+        print(f"[serve] {name}: |cuda - cpu| max {err:.3e} (scale "
+              f"{scale:.3f}, bound 0.02 x scale); argmax differs on "
+              f"{n_differ}/{len(images)} requests, each a near-tie of the "
+              f"CPU logits: {ties}")
+        check(err <= 0.02 * scale and ties,
+              f"{name}: logits disagree with the CPU twin")
+    return dict(logits=gpu, counts=counts, server=server)
 
 
-def profile_drain(mode: str, server, image_shape, where: str) -> None:
+def profile_drain(name: str, server, where: str) -> None:
     """Device busy share of a 32-request drain at bucket 8 under
     torch.profiler (which adds host time of its own), and the kernels
     that take the device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    server.submit_many(np.zeros((32,) + image_shape, np.float32))
+    side = server.cfg.image
+    server.submit_many(np.zeros((32, side, side, 3), np.float32))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -361,11 +599,11 @@ def profile_drain(mode: str, server, image_shape, where: str) -> None:
             and e.self_device_time_total > 0]
     busy_us = sum(r[1] for r in rows)
     if busy_us == 0:
-        print(f"[profile] {mode}: the profiler saw no device time; busy "
+        print(f"[profile] {name}: the profiler saw no device time; busy "
               f"share not measured")
         return
     top = sorted(rows, key=lambda r: -r[1])[:6]
-    print(f"[profile] served deit_t {mode} on {where}, 32 requests under "
+    print(f"[profile] served {name} on {where}, 32 requests under "
           f"torch.profiler: device busy {busy_us / 1e3:.3f} ms of "
           f"{wall_us / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.1f}% "
           f"busy); top: " + "; ".join(
@@ -382,9 +620,9 @@ def main() -> None:
               file=sys.stderr)
         raise SystemExit(2)
     sys.path.insert(0, src)
-    from repro_torch.core.quant import ptq_tolerance, quantize_vision_params
+    from repro_torch.core.quant import ptq_tolerance
     from repro_torch.kernels import build
-    from repro_torch.models import vision_registry, vit
+    from repro_torch.models import vision_registry
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -398,107 +636,108 @@ def main() -> None:
           f"on {name} ({card})")
 
     # 1. Build.
+    t0 = time.perf_counter()
     logs = build.build_all()
     for lib, log in sorted(logs.items()):
         info = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"[build] {lib}: " + " | ".join(info))
     print(f"[build] {len(build.LIBRARIES)} libraries ready in "
-          f"{build.BUILD_DIR}")
+          f"{build.BUILD_DIR} ({time.perf_counter() - t0:.1f} s)")
 
     # 2. Each kernel against its plain version.
-    deit = vision_registry.build_cfg("deit_t", full=True)
-    vitb = vision_registry.build_cfg("vit_edge", full=True)
-    records = kernel_phase(deit, vitb)
+    cfgs = {m: vision_registry.build_cfg(m, full=True)
+            for m in ("deit_t", "swin_t", "vit_edge")}
+    records = kernel_phase(cfgs["deit_t"], cfgs["vit_edge"], cfgs["swin_t"])
 
-    # 3. Serve float on the card against the CPU twin.
-    params = vit.init_params(deit, seed=0, device="cuda")
-    images = np.random.default_rng(0).standard_normal(
-        (N_REQUESTS, deit.image, deit.image, 3)).astype(np.float32)
-    mb = -(-N_REQUESTS // BUCKETS[-1])
-    f_gpu, f_cpu, f_counts, _, f_server = serve_phase("float", params, images)
-    scale = float(np.abs(f_cpu).max())
-    err = float(np.abs(f_gpu - f_cpu).max())
-    print(f"[serve] float: {N_REQUESTS} requests in {mb} micro-batches, "
-          f"launches {f_counts}; |cuda - cpu| max {err:.3e} (logit scale "
-          f"{scale:.3f}, bound 1e-3 x scale)")
-    check(err <= 1e-3 * scale, "float logits disagree with the CPU twin")
-    check(f_counts == {"vita_layer": 12 * mb, "vita_layer_int8": 0,
-                       "vita_msa_int8": 0, "int8_matmul": 0},
-          f"float launch counts {f_counts}")
+    # 3. Serve every path on the card against its CPU twin.
+    images = {m: np.random.default_rng(0).standard_normal(
+        (max(p[3] for p in PATHS), cfgs[m].image, cfgs[m].image, 3)
+    ).astype(np.float32) for m in ("deit_t", "swin_t")}
+    params = {m: vision_registry.init_params(cfgs[m], seed=0, device="cuda")
+              for m in ("deit_t", "swin_t")}
+    served, quant = {}, {}
+    for model, mode, fused, n_req in PATHS:
+        q = quant.get(model, (None, None))
+        out = serve_path(model, mode, fused, params[model],
+                         images[model][:n_req],
+                         qparams=q[0], calibrator=q[1])
+        if mode == "int8":
+            quant[model] = (out["server"].qparams, out["server"].calibrator)
+        served[(model, mode, fused)] = out
+    for model in ("deit_t", "swin_t"):
+        f_log = served[(model, "float", True)]["logits"]
+        i_log = served[(model, "int8", True)]["logits"]
+        n = min(len(f_log), len(i_log))
+        tol = ptq_tolerance(float(np.abs(f_log[:n]).max()))
+        perr = float(np.abs(i_log[:n] - f_log[:n]).max())
+        print(f"[serve] {model} int8 vs float on the card: max|err| "
+              f"{perr:.4f} (ptq_tolerance {tol:.4f})")
+        check(perr <= tol, f"{model}: int8 logits outside the PTQ tolerance")
+    launches = {k[0]: sum(o["counts"][k[0]] for o in served.values())
+                for k in KERNELS}
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was never launched on a served path: {launches}")
 
-    # 4. Serve int8: calibrate on the card (4 batches of 2 synthetic
-    # images), the CPU twin reuses the frozen calibrator.
-    qparams = quantize_vision_params(params)
-    i_gpu, i_cpu, i_counts, _, i_server = serve_phase(
-        "int8", params, images, qparams=qparams)
-    n_cal = 4
-    want = {"vita_layer": 0, "vita_layer_int8": 12 * mb,
-            "vita_msa_int8": 12 * n_cal,
-            "int8_matmul": n_cal * (2 + 3 * 12) + 2 * mb}
-    print(f"[serve] int8: launches {i_counts} (expected {want})")
-    check(i_counts == want, f"int8 launch counts {i_counts}")
-    iscale = float(np.abs(i_cpu).max())
-    ierr = float(np.abs(i_gpu - i_cpu).max())
-    n_differ, ties = argmax_check(i_gpu, i_cpu, ierr)
-    print(f"[serve] int8: |cuda - cpu| max {ierr:.3e} (scale {iscale:.3f}, "
-          f"bound 0.02 x scale); argmax differs on {n_differ}/{N_REQUESTS} "
-          f"requests, each a near-tie of the CPU logits: {ties}")
-    check(ierr <= 0.02 * iscale and ties,
-          "int8 logits disagree with the CPU twin")
-    tol = ptq_tolerance(float(np.abs(f_gpu).max()))
-    perr = float(np.abs(i_gpu - f_gpu).max())
-    print(f"[serve] int8 vs float on the card: max|err| {perr:.4f} "
-          f"(ptq_tolerance {tol:.4f})")
-    check(perr <= tol, "int8 logits outside the PTQ tolerance")
-    launches = {k: f_counts[k] + i_counts[k] for k in f_counts}
-
-    # 5. Times.
+    # 4. Times.
     out = []
-    for kname, replaces, source in (
-            ("vita_layer", "src/repro/kernels/vita_layer.py:174",
-             "src/repro_torch/kernels/vita_layer.py"),
-            ("vita_layer_int8", "src/repro/kernels/vita_layer.py:430",
-             "src/repro_torch/kernels/vita_layer.py"),
-            ("vita_msa_int8", "src/repro/kernels/vita_msa.py:241",
-             "src/repro_torch/kernels/vita_msa.py"),
-            ("int8_matmul", "src/repro/kernels/int8_matmul.py:98",
-             "src/repro_torch/kernels/int8_matmul.py")):
+    for kname, replaces, source in KERNELS:
         r = records[kname]
-        ms = device_ms(r["fn"])
-        plain_ms = device_ms(r["plain"])
+        ms, plain_ms = device_ms(r["fn"]), device_ms(r["plain"])
         lib_ms = device_ms(r["library"]) if r["library"] else None
         call_ms = time_ms(r["fn"])
         bound_ms, bound_by = r["bound"]
-        out.append({"name": kname, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[kname],
-                    "max_abs_err": r["err"], "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": lib_ms, "call_ms": call_ms})
-        print(f"[time] {kname} on {name} ({card}): device {ms:.4f} ms "
-              f"(per call with the host in the loop {call_ms:.4f} ms), "
-              f"plain {plain_ms:.4f} ms, library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+        entry = {"name": kname, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[kname],
+                 "max_abs_err": r["err"], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": lib_ms, "call_ms": call_ms, "shape": r["tag"],
+                 "other_shapes": []}
+        print(f"[time] {kname} {r['tag']} on {name} ({card}): device "
+              f"{ms:.4f} ms (per call with the host in the loop "
+              f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        for x in r["extra"]:
+            xms, xplain = device_ms(x["fn"]), device_ms(x["plain"])
+            xlib = device_ms(x["library"]) if x["library"] else None
+            entry["other_shapes"].append({
+                "shape": x["tag"], "max_abs_err": x["err"], "ms": xms,
+                "plain_ms": xplain, "library_ms": xlib,
+                "bound_ms": x["bound"][0], "bound_by": x["bound"][1]})
+            print(f"[time] {kname} {x['tag']} on {name} ({card}): device "
+                  f"{xms:.4f} ms, plain {xplain:.4f} ms, library "
+                  f"{'n/a' if xlib is None else f'{xlib:.4f} ms'}, bound "
+                  f"{x['bound'][0]:.4f} ms ({x['bound'][1]})")
+        out.append(entry)
     print("[time] device, plain and library times are device time summed "
           "by torch.profiler over 20 calls; the per-call time is CUDA "
           "events around 50 back-to-back calls")
-    print("[time] library yardsticks: vita_layer = composition of cuBLAS "
-          "matmuls + F.layer_norm + F.scaled_dot_product_attention + "
-          "F.gelu (never called by the port); int8_matmul = torch._int_mm "
-          "(int32 out, no rescale); none for the int8 layer and int8 MSA")
-    for mode, server in (("float", f_server), ("int8", i_server)):
-        server.submit_many(np.zeros((16,) + images.shape[1:], np.float32))
+    print("[time] library yardsticks (never called by the port): "
+          "vita_layer = cuBLAS matmuls + F.layer_norm + "
+          "F.scaled_dot_product_attention + F.gelu; vita_msa_batched = "
+          "torch.matmul projections + F.scaled_dot_product_attention; "
+          "fused_mlp = addmm + tanh-GELU + addmm; int8_matmul = "
+          "torch._int_mm (int32 out, no rescale); none for the int8 layer "
+          "and int8 MSA")
+    for (model, mode, fused), o in served.items():
+        server = o["server"]
+        shape = (server.cfg.image, server.cfg.image, 3)
+        server.submit_many(np.zeros((16,) + shape, np.float32))
         server.run()                                    # warm
-        server.submit_many(np.zeros((64,) + images.shape[1:], np.float32))
+        server.submit_many(np.zeros((64,) + shape, np.float32))
         stats = server.run()
-        print(f"[time] served deit_t {mode} on {name} ({card}): bucket "
-              f"{BUCKETS[-1]}, {stats['requests']} requests: "
+        print(f"[time] served {model} {mode} "
+              f"{'fused' if fused else 'unfused'} on {name} ({card}): "
+              f"bucket {BUCKETS[-1]}, {stats['requests']} requests: "
               f"{stats['throughput_img_s']:.1f} img/s, p50 latency "
               f"{stats['latency_p50_ms']:.3f} ms (drain: queue included), "
               f"p50 service {stats['service_p50_ms']:.3f} ms")
-    for mode, server in (("float", f_server), ("int8", i_server)):
-        profile_drain(mode, server, images.shape[1:], f"{name} ({card})")
+    for model in ("deit_t", "swin_t"):
+        for mode in ("float", "int8"):
+            profile_drain(f"{model} {mode}",
+                          served[(model, mode, True)]["server"],
+                          f"{name} ({card})")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -48,14 +48,16 @@ def quantize_per_channel(w: torch.Tensor) -> QTensor:
 
 _PER_HEAD_KEYS = frozenset({"wq", "wk", "wv"})
 _PER_CHANNEL_KEYS = frozenset({"patch_embed", "head", "w_msa", "w_up",
-                               "w_down"})
+                               "w_down", "merge_w"})
 
 
 def quantize_vision_params(params: Any) -> Any:
-    """int8 PTQ of a ViT param tree: per-head ``wq/wk/wv`` stacks reduce
-    over the contraction dim D only (scale (H, 1, Dh)); ``patch_embed``,
-    ``head``, ``w_msa``, ``w_up`` and ``w_down`` are per output channel
-    (scale (1, N)); norms, biases and the positional embedding stay float."""
+    """int8 PTQ of a ViT or Swin param tree: per-head ``wq/wk/wv`` stacks
+    reduce over the contraction dim D only (scale (H, 1, Dh));
+    ``patch_embed``, ``head``, ``w_msa``, ``w_up``, ``w_down`` and Swin's
+    ``merge_w`` are per output channel (scale (1, N)); norms, biases, the
+    relative-position bias tables and the positional embedding stay
+    float."""
 
     def _q(node):
         if isinstance(node, dict):

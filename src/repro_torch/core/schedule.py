@@ -3,23 +3,36 @@
 `compile_schedule` turns a `VisionModelSpec` into the phase list the
 executor replays; `fuse_schedule` collapses each msa + mlp pair of one
 encoder block into a fused ``layer`` phase; `run_schedule` replays a
-schedule over the port's kernels.  This slice covers the columnar (ViT /
-DeiT) layout: ``embed``, one fused ``layer`` per block, ``head``.  Float
-layers run the fused float kernel; int8 layers run the fused int8 kernel
-at the frozen calibration scales, and fall back to the unfused int8 MSA
-and MLP while the calibrator is still recording, so it sees every
-intermediate activation.
+schedule over the port's kernels.  Two layouts:
 
-Windowed (Swin) and TNT phases, layer groups, the unfused float executor
-and sharding come with later slices.
+  * columnar (ViT / DeiT): ``embed`` (+ positional embedding), msa/mlp per
+    block at ``layers[i]`` / site ``l{i}``, ``head``;
+  * hierarchical (Swin): ``embed`` (+ LayerNorm), windowed msa/mlp per
+    block at ``stages[s].blocks[b]`` / site ``s{s}.b{b}``, shifted by half
+    a window on odd blocks where a stage has more than one window, a
+    ``merge`` phase after every stage but the last, ``head``.
+
+Windowed attention runs the same kernels as global attention, with the
+windows folded into the batch axis and the relative-position bias plus
+the shifted-window mask passed along.  Float msa/mlp phases run the
+per-head MSA and fused MLP kernels; fused float layers the float layer
+kernel.  int8 layers run the fused int8 kernel at the frozen calibration
+scales and fall back to the unfused int8 MSA and MLP while the calibrator
+is still recording, so it sees every intermediate activation.
+`FusionPolicy` decides per served batch whether the fused schedule runs.
+
+TNT phases, layer groups and sharding come with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
 import math
-from typing import Any, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.perfmodel import VisionModelSpec
@@ -27,18 +40,23 @@ from repro_torch.core.quant import INT8_MAX, QTensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gelu, layer_norm_ref
 
+NEG_INF = -1e30
+
 
 @dataclasses.dataclass(frozen=True)
 class Phase:
     """One control-program step.  ``path`` addresses the param subtree the
     phase reads; ``site`` prefixes its activation-calibration entries."""
 
-    kind: str                      # embed | msa | mlp | layer | head
+    kind: str                      # embed | msa | mlp | layer | merge | head
     path: Tuple[Any, ...]
     site: str
     grid: Tuple[int, int]          # (h, w) token grid at phase input
     heads: int = 0                 # surviving heads of this layer
+    window: int = 0                # 0 -> global MSA
+    shift: int = 0                 # shifted-window offset (odd Swin blocks)
     pos_embed: bool = False        # embed: add the positional embedding
+    norm: bool = False             # embed: LayerNorm after the projection
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,28 +74,55 @@ class Schedule:
         return out
 
 
-def compile_schedule(spec: VisionModelSpec, *, n_classes: int) -> Schedule:
-    """Compile a columnar model spec (one global-MSA stage, no inner
-    blocks) into embed, msa/mlp per block, head."""
-    if (len(spec.stages) != 1 or spec.stages[0].n_windows != 1
-            or spec.stages[0].patch_merging or spec.stages[0].inner_tokens):
-        raise NotImplementedError(
-            "only the columnar (ViT/DeiT) layout is ported yet")
+def compile_schedule(spec: VisionModelSpec, *, n_classes: int,
+                     hierarchical: Optional[bool] = None) -> Schedule:
+    """Compile a model spec into the phase list the executor replays.
+
+    ``hierarchical`` selects the Swin layout (windowed MSA, ``stages/
+    blocks`` paths, patch merging); by default it is inferred from the spec
+    (several stages, windowed stages or patch merging)."""
+    if any(s.inner_tokens for s in spec.stages):
+        raise NotImplementedError("TNT inner blocks are not ported yet")
+    if hierarchical is None:
+        hierarchical = (len(spec.stages) > 1
+                        or any(s.n_windows > 1 for s in spec.stages)
+                        or any(s.patch_merging for s in spec.stages))
     img_h, img_w, _ = spec.image
     if img_h != img_w:
         raise ValueError("the control program assumes square images")
     side = img_h // spec.patch
-    st = spec.stages[0]
-    if int(math.isqrt(st.tokens)) != side:
-        raise ValueError(f"stage token grid {st.tokens} != {side}x{side}")
     phases = [Phase(kind="embed", path=(), site="patch_embed",
-                    grid=(side, side), pos_embed=True)]
-    for li in range(st.layers):
-        path, site = ("layers", li), f"l{li}"
-        phases.append(Phase(kind="msa", path=path, site=site,
-                            grid=(side, side), heads=st.layer_heads(li)))
-        phases.append(Phase(kind="mlp", path=path, site=site,
-                            grid=(side, side)))
+                    grid=(side, side), pos_embed=not hierarchical,
+                    norm=hierarchical)]
+    flat_layer = 0
+    for s_i, st in enumerate(spec.stages):
+        if int(math.isqrt(st.tokens * st.n_windows)) != side:
+            raise ValueError(f"stage {s_i}: token grid "
+                             f"{st.tokens * st.n_windows} != {side}x{side}")
+        window = int(math.isqrt(st.tokens)) if hierarchical else 0
+        if window and side % window:
+            raise ValueError(f"stage {s_i}: side {side} not divisible by "
+                             f"window {window}")
+        for b_i in range(st.layers):
+            if hierarchical:
+                path, site = ("stages", s_i, "blocks", b_i), f"s{s_i}.b{b_i}"
+            else:
+                path, site = ("layers", flat_layer), f"l{flat_layer}"
+                flat_layer += 1
+            # Swin alternates plain and shifted windows; with a single
+            # window the shift is a no-op and is elided.
+            shift = (window // 2 if window and b_i % 2 == 1
+                     and st.n_windows > 1 else 0)
+            phases.append(Phase(kind="msa", path=path, site=site,
+                                grid=(side, side),
+                                heads=st.layer_heads(b_i), window=window,
+                                shift=shift))
+            phases.append(Phase(kind="mlp", path=path, site=site,
+                                grid=(side, side)))
+        if st.patch_merging:
+            phases.append(Phase(kind="merge", path=("stages", s_i),
+                                site=f"s{s_i}.merge", grid=(side, side)))
+            side //= 2
     phases.append(Phase(kind="head", path=(), site="head", grid=(side, side)))
     return Schedule(name=spec.name, image=img_h, patch=spec.patch,
                     n_classes=n_classes, phases=tuple(phases))
@@ -88,8 +133,9 @@ FUSABLE_PAIRS = {("msa", "mlp"): "layer"}
 
 def fuse_schedule(sched: Schedule, *, group_size: int = 1) -> Schedule:
     """Collapse adjacent msa -> mlp phases of one block (same path, site
-    and grid) into fused ``layer`` phases.  Layer groups
-    (``group_size > 1``) are not ported yet."""
+    and grid) into fused ``layer`` phases, which keep the msa half's
+    window, shift and heads.  Layer groups (``group_size > 1``) are not
+    ported yet."""
     if group_size != 1:
         raise NotImplementedError("layer groups are not ported yet")
     fused = []
@@ -107,6 +153,103 @@ def fuse_schedule(sched: Schedule, *, group_size: int = 1) -> Schedule:
             fused.append(p)
             i += 1
     return dataclasses.replace(sched, phases=tuple(fused))
+
+
+# ---------------------------------------------------------------------------
+# Window geometry (shared by the executor and the Swin reference path)
+# ---------------------------------------------------------------------------
+
+
+def window_partition(x: torch.Tensor, win: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B * nW, win*win, C), contiguous; window id =
+    index % nW."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // win, win, w // win, win, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, win * win, c)
+
+
+def window_reverse(xw: torch.Tensor, win: int, h: int, w: int
+                   ) -> torch.Tensor:
+    """Inverse of `window_partition`."""
+    b = xw.shape[0] // ((h // win) * (w // win))
+    x = xw.reshape(b, h // win, w // win, win, win, -1)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, -1)
+
+
+@functools.lru_cache(maxsize=None)
+def rel_pos_index(win: int) -> np.ndarray:
+    """(n, n) gather indices into the (2*win-1)^2 relative-bias table."""
+    coords = np.stack(np.meshgrid(np.arange(win), np.arange(win),
+                                  indexing="ij")).reshape(2, -1)
+    rel = coords[:, :, None] - coords[:, None, :]          # (2, n, n)
+    rel = rel.transpose(1, 2, 0) + (win - 1)
+    return (rel[..., 0] * (2 * win - 1) + rel[..., 1]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def shifted_window_mask(grid_h: int, grid_w: int, win: int,
+                        shift: int) -> np.ndarray:
+    """(nW, n, n) additive mask (0 / NEG_INF) for shifted-window attention.
+
+    After a (-shift, -shift) roll, tokens from opposite image edges share a
+    window; the standard Swin region labelling keeps attention within the
+    9 contiguous source regions.  shift == 0 yields an all-zero mask (the
+    kernels' windowed mode always takes a mask)."""
+    n_w = (grid_h // win) * (grid_w // win)
+    n = win * win
+    if shift == 0:
+        return np.zeros((n_w, n, n), np.float32)
+    ids = np.zeros((grid_h, grid_w), np.int32)
+    cnt = 0
+    for hs in (slice(0, -win), slice(-win, -shift), slice(-shift, None)):
+        for ws in (slice(0, -win), slice(-win, -shift), slice(-shift, None)):
+            ids[hs, ws] = cnt
+            cnt += 1
+    idw = ids.reshape(grid_h // win, win, grid_w // win, win)
+    idw = idw.transpose(0, 2, 1, 3).reshape(n_w, n)
+    same = idw[:, :, None] == idw[:, None, :]
+    return np.where(same, 0.0, NEG_INF).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _mask_on(grid_h: int, grid_w: int, win: int, shift: int,
+             device: torch.device) -> torch.Tensor:
+    """`shifted_window_mask` as a tensor on ``device``, made once."""
+    return torch.from_numpy(shifted_window_mask(grid_h, grid_w, win,
+                                                shift)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _rel_index_on(win: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(rel_pos_index(win).astype(np.int64)).to(device)
+
+
+def _window_terms(ph: Phase, bp: Any, device: torch.device):
+    """The (H, n, n) relative-position bias gathered from the block's
+    table and the (nW, n, n) shifted-window mask of a windowed phase."""
+    gh, gw = ph.grid
+    idx = _rel_index_on(ph.window, device)
+    bias = bp["rel_bias"][idx].permute(2, 0, 1).contiguous()
+    return bias, _mask_on(gh, gw, ph.window, ph.shift, device)
+
+
+def _fold(ph: Phase, x: torch.Tensor) -> torch.Tensor:
+    """(B, T, C) -> (B * nW, n, C): roll by -shift, then partition."""
+    b, _, c = x.shape
+    gh, gw = ph.grid
+    xs = x.reshape(b, gh, gw, c)
+    if ph.shift:
+        xs = torch.roll(xs, (-ph.shift, -ph.shift), dims=(1, 2))
+    return window_partition(xs, ph.window)
+
+
+def _unfold(ph: Phase, yw: torch.Tensor, b: int) -> torch.Tensor:
+    """Inverse of `_fold`: (B * nW, n, C) -> (B, T, C)."""
+    gh, gw = ph.grid
+    y = window_reverse(yw, ph.window, gh, gw)
+    if ph.shift:
+        y = torch.roll(y, (ph.shift, ph.shift), dims=(1, 2))
+    return y.reshape(b, gh * gw, y.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -144,36 +287,59 @@ def _head_scale(wq: QTensor) -> torch.Tensor:
     return wq.scale.reshape(h, dh)
 
 
-def _per_head_msa(bp: Any, z: torch.Tensor, obs, site: str) -> torch.Tensor:
-    """int8 per-head MSA over (B, N, C) -> (B, N, H*Dh), heads merged."""
+def _per_head_msa(bp: Any, z: torch.Tensor, obs, site: str,
+                  quantized: bool, bias, mask) -> torch.Tensor:
+    """Per-head MSA over (B', N, C) -> (B', N, H*Dh), heads merged; B' is
+    images, or images * windows in windowed mode."""
     b, n, _ = z.shape
-    scale = obs.observe(f"{site}.qkv_in", z)
-    sa = ops.vita_msa_int8(
-        _quant(z, scale), bp["wq"].values, bp["wk"].values, bp["wv"].values,
-        scale, _head_scale(bp["wq"]), _head_scale(bp["wk"]),
-        _head_scale(bp["wv"]))
+    if quantized:
+        scale = obs.observe(f"{site}.qkv_in", z)
+        sa = ops.vita_msa_int8(
+            _quant(z, scale), bp["wq"].values, bp["wk"].values,
+            bp["wv"].values, scale, _head_scale(bp["wq"]),
+            _head_scale(bp["wk"]), _head_scale(bp["wv"]), bias, mask)
+    else:
+        sa = ops.vita_msa_batched(z, bp["wq"], bp["wk"], bp["wv"], bias,
+                                  mask)
     h, dh = sa.shape[1], sa.shape[3]
     return sa.permute(0, 2, 1, 3).reshape(b, n, h * dh).to(z.dtype)
 
 
-def _msa_phase(ph: Phase, bp: Any, x: torch.Tensor, obs) -> torch.Tensor:
-    """Unfused int8 MSA phase: LN -> per-head MSA -> concat -> residual."""
+def _msa_phase(ph: Phase, bp: Any, x: torch.Tensor, obs,
+               quantized: bool) -> torch.Tensor:
+    """Unfused MSA phase: LN -> per-head MSA (windowed: folded into the
+    batch axis) -> concat projection -> residual."""
     z = layer_norm_ref(x, bp["ln1_w"], bp["ln1_b"])
-    sa = _per_head_msa(bp, z, obs, ph.site)
+    if ph.window:
+        bias, mask = _window_terms(ph, bp, x.device)
+        sa = _per_head_msa(bp, _fold(ph, z), obs, ph.site, quantized, bias,
+                           mask)
+        sa = _unfold(ph, sa, x.shape[0])
+    else:
+        sa = _per_head_msa(bp, z, obs, ph.site, quantized, None, None)
     return x + _matmul(sa, bp["w_msa"], obs, f"{ph.site}.w_msa")
 
 
-def _mlp_phase(ph: Phase, bp: Any, x: torch.Tensor, obs) -> torch.Tensor:
-    """Unfused int8 MLP phase: LN -> up -> GELU -> down -> residual."""
+def _mlp_phase(ph: Phase, bp: Any, x: torch.Tensor, obs,
+               quantized: bool) -> torch.Tensor:
+    """Unfused MLP phase: LN -> up -> GELU -> down -> residual; float
+    through the fused MLP kernel, int8 through two int8 matmuls."""
     h = layer_norm_ref(x, bp["ln2_w"], bp["ln2_b"])
-    hid = gelu(_matmul(h, bp["w_up"], obs, f"{ph.site}.w_up") + bp["b_up"])
-    y = _matmul(hid, bp["w_down"], obs, f"{ph.site}.w_down") + bp["b_down"]
+    if quantized:
+        hid = gelu(_matmul(h, bp["w_up"], obs, f"{ph.site}.w_up")
+                   + bp["b_up"])
+        y = _matmul(hid, bp["w_down"], obs, f"{ph.site}.w_down") \
+            + bp["b_down"]
+    else:
+        y = ops.mlp(h, bp["w_up"], bp["w_down"], bp["b_up"], bp["b_down"],
+                    activation="gelu")
     return x + y
 
 
 def _fused_layer_call(ph: Phase, bp: Any, x: torch.Tensor, obs,
-                      quantized: bool) -> torch.Tensor:
-    """One fused encoder layer over (B, N, C)."""
+                      quantized: bool, bias, mask) -> torch.Tensor:
+    """One fused encoder layer over (B', N, C); B' is images, or images *
+    windows in windowed mode (the fold happens in `_layer_phase`)."""
     if quantized:
         # The four frozen per-site scales the calibration pass recorded
         # feed the kernel's requant chain.
@@ -188,42 +354,66 @@ def _fused_layer_call(ph: Phase, bp: Any, x: torch.Tensor, obs,
             act_scales, _head_scale(bp["wq"]), _head_scale(bp["wk"]),
             _head_scale(bp["wv"]), bp["w_msa"].scale, bp["w_up"].scale,
             bp["w_down"].scale, bp["ln1_w"], bp["ln1_b"], bp["ln2_w"],
-            bp["ln2_b"], bp["b_up"], bp["b_down"]).to(x.dtype)
+            bp["ln2_b"], bp["b_up"], bp["b_down"], bias, mask).to(x.dtype)
     return ops.vita_layer_fused(
         x, bp["wq"], bp["wk"], bp["wv"], bp["w_msa"], bp["ln1_w"],
         bp["ln1_b"], bp["ln2_w"], bp["ln2_b"], bp["w_up"], bp["b_up"],
-        bp["w_down"], bp["b_down"])
+        bp["w_down"], bp["b_down"], bias, mask)
 
 
 def _layer_phase(ph: Phase, bp: Any, x: torch.Tensor, obs,
                  quantized: bool) -> torch.Tensor:
     """Fused encoder layer.  int8 calibration (observer not yet frozen)
     falls back to the unfused executors so the observer sees every
-    intermediate activation at the sites the fused kernel later reads."""
+    intermediate activation at the sites the fused kernel later reads.
+    Windowed: every step but attention is per token, so the whole layer
+    runs on the window fold."""
     if quantized and (obs is None or obs.frozen is None):
-        x = _msa_phase(ph, bp, x, obs)
-        return _mlp_phase(ph, bp, x, obs)
-    return _fused_layer_call(ph, bp, x, obs, quantized)
+        x = _msa_phase(ph, bp, x, obs, quantized)
+        return _mlp_phase(ph, bp, x, obs, quantized)
+    if not ph.window:
+        return _fused_layer_call(ph, bp, x, obs, quantized, None, None)
+    bias, mask = _window_terms(ph, bp, x.device)
+    yw = _fused_layer_call(ph, bp, _fold(ph, x), obs, quantized, bias, mask)
+    return _unfold(ph, yw, x.shape[0])
+
+
+def _merge_phase(ph: Phase, sp: Any, x: torch.Tensor, obs) -> torch.Tensor:
+    """Swin patch merging: 2x2 neighbourhood concat -> LN -> linear."""
+    b, _, c = x.shape
+    gh, gw = ph.grid
+    xs = x.reshape(b, gh // 2, 2, gw // 2, 2, c)
+    xs = xs.permute(0, 1, 3, 2, 4, 5).reshape(b, gh // 2, gw // 2, 4 * c)
+    xs = layer_norm_ref(xs, sp["merge_ln_w"], sp["merge_ln_b"])
+    xs = _matmul(xs, sp["merge_w"], obs, ph.site)
+    return xs.reshape(b, (gh // 2) * (gw // 2), xs.shape[-1])
 
 
 def _apply_phase(sched: Schedule, ph: Phase, params: Any, x: torch.Tensor,
                  obs, quantized: bool) -> torch.Tensor:
-    """Execute one phase of the control program."""
+    """Execute one phase of the control program.  LayerNorms, folds and
+    the float embed / merge / head products outside the kernels are plain
+    PyTorch, as they were plain jnp in the reference."""
     if ph.kind == "embed":
         x = _matmul(x, params["patch_embed"], obs, ph.site)
+        if ph.norm:
+            x = layer_norm_ref(x, params["pe_ln_w"], params["pe_ln_b"])
         if ph.pos_embed:
             x = x + params["pos_embed"][None]
+    elif ph.kind == "msa":
+        x = _msa_phase(ph, _subtree(params, ph.path), x, obs, quantized)
+    elif ph.kind == "mlp":
+        x = _mlp_phase(ph, _subtree(params, ph.path), x, obs, quantized)
     elif ph.kind == "layer":
         x = _layer_phase(ph, _subtree(params, ph.path), x, obs, quantized)
+    elif ph.kind == "merge":
+        x = _merge_phase(ph, _subtree(params, ph.path), x, obs)
     elif ph.kind == "head":
-        # LayerNorm outside the layers is plain PyTorch, as it was plain
-        # jnp in the reference.
         x = layer_norm_ref(x, params["ln_f_w"], params["ln_f_b"])
         x = _matmul(x.mean(dim=1), params["head"], obs, ph.site)
     else:
         raise NotImplementedError(
-            f"phase kind {ph.kind!r} is not ported yet (the port replays "
-            f"fused schedules)")
+            f"phase kind {ph.kind!r} is not ported yet")
     return x
 
 
@@ -239,3 +429,121 @@ def run_schedule(sched: Schedule, params: Any, patches: torch.Tensor,
     for ph in sched.phases:
         x = _apply_phase(sched, ph, params, x, observer, quantized)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Fusion policy (measurement-driven fuse / don't-fuse)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FusionPolicy:
+    """Decides, per served (model, mode, batch), whether the fused
+    ``layer``-phase schedule or the per-phase one runs.
+
+      * ``always`` — the fused schedule (grouped at ``default_group`` when
+        a group size is configured);
+      * ``never``  — the ``--no-fuse`` twin: per-phase execution;
+      * ``auto``   — consult measured A/B data (``measurements`` maps
+        ``(model, mode, batch) -> fusion_speedup`` of the per-layer fused
+        chain; ``group_measurements`` maps the same key to
+        ``(fusion_speedup, group_size)`` of the layer-group chain — both
+        seeded from a bench record via `from_bench`): the policy picks
+        whichever of {unfused, per-layer fused, grouped} measured fastest,
+        fusing iff the winner's speedup is >= ``threshold``.  An
+        exact-batch miss falls back to the nearest measured batch of the
+        same (model, mode); a total miss falls back to ``default_fused``
+        at ``default_group``.
+    """
+
+    mode: str = "always"
+    measurements: Dict[Tuple[str, str, int], float] = \
+        dataclasses.field(default_factory=dict)
+    group_measurements: Dict[Tuple[str, str, int], Tuple[float, int]] = \
+        dataclasses.field(default_factory=dict)
+    threshold: float = 1.0
+    default_fused: bool = True
+    default_group: int = 1
+
+    MODES = ("always", "never", "auto")
+
+    def __post_init__(self):
+        if self.mode not in self.MODES:
+            raise ValueError(f"fusion policy mode must be one of "
+                             f"{self.MODES}, got {self.mode!r}")
+
+    @classmethod
+    def from_bench(cls, record: Any, mode: str = "auto",
+                   **kw) -> "FusionPolicy":
+        """Seed ``auto`` measurements from a bench record (a loaded JSON
+        dict, or a path to one).  Reads ``fusion_speedup`` off fused rows;
+        rows without a numeric one are skipped."""
+        if isinstance(record, (str, bytes)):
+            with open(record) as f:
+                record = json.load(f)
+        meas: Dict[Tuple[str, str, int], float] = {}
+        grp: Dict[Tuple[str, str, int], Tuple[float, int]] = {}
+        for r in record.get("runs", []):
+            fs = r.get("fusion_speedup")
+            if not (r.get("fused") and isinstance(fs, (int, float))):
+                continue
+            key = (r["model"], r["mode"], int(r["batch"]))
+            gs = int(r.get("group_size", 1))
+            if gs > 1:
+                grp[key] = (float(fs), gs)
+            else:
+                meas[key] = float(fs)
+        return cls(mode=mode, measurements=meas, group_measurements=grp,
+                   **kw)
+
+    @staticmethod
+    def _nearest(table, model: str, mode: str, batch: int):
+        """Exact-key lookup, falling back to the nearest measured batch
+        of the same (model, mode); None on a total miss."""
+        key = (model, mode, int(batch))
+        if key in table:
+            return table[key]
+        near = [(abs(b - batch), b) for (m, md, b) in table
+                if m == model and md == mode]
+        if near:
+            return table[(model, mode, min(near)[1])]
+        return None
+
+    def decide(self, model: str, mode: str, batch: int) -> bool:
+        """Fused (per-layer or grouped) vs unfused for one configuration."""
+        if self.mode == "always":
+            return True
+        if self.mode == "never":
+            return False
+        s1 = self._nearest(self.measurements, model, mode, batch)
+        sg = self._nearest(self.group_measurements, model, mode, batch)
+        cands = [s for s in (s1, sg[0] if sg else None) if s is not None]
+        if not cands:
+            return self.default_fused
+        return max(cands) >= self.threshold
+
+    def decide_group(self, model: str, mode: str, batch: int) -> int:
+        """Group size of the fused variant `decide` picked (1 = the
+        per-layer chain).  Only meaningful when `decide` returns True."""
+        if self.mode == "never":
+            return 1
+        if self.mode == "always":
+            return self.default_group
+        sg = self._nearest(self.group_measurements, model, mode, batch)
+        if sg is None:
+            return self.default_group if \
+                self._nearest(self.measurements, model, mode, batch) \
+                is None else 1
+        s1 = self._nearest(self.measurements, model, mode, batch)
+        spd, gs = sg
+        if spd >= self.threshold and (s1 is None or spd >= s1):
+            return gs
+        return 1
+
+    def decisions(self, model: str, mode: str,
+                  batches: Sequence[int]) -> Dict[int, bool]:
+        return {int(b): self.decide(model, mode, b) for b in batches}
+
+    def group_decisions(self, model: str, mode: str,
+                        batches: Sequence[int]) -> Dict[int, int]:
+        return {int(b): self.decide_group(model, mode, b) for b in batches}

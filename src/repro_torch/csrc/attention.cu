@@ -1,4 +1,5 @@
-// Exact per-head softmax attention for ViT sequence lengths.
+// Exact per-head softmax attention for ViT sequence lengths, global or
+// windowed (Swin).
 //
 // Replaces: the engine-2 core (repro/kernels/vita_msa.py::softmax_av) as
 // used inside repro/kernels/vita_layer.py::vita_layer / vita_layer_int8 and
@@ -6,19 +7,22 @@
 // per sequential grid step with the whole head's Q/K/V/S in VMEM.  Here
 // each block takes one (image, head, 32-query tile) in parallel and holds
 // that head's K and V (N x Dh fp32 each: 98 KiB at N=196, Dh=64; 128 KiB at
-// N=256) in dynamic shared memory; the scores of one query row live in a
-// per-warp row buffer, so the softmax is exact over all N keys with no
-// online rescaling.
+// N=256) in dynamic shared memory; the row itself is `attend_row`
+// (attention.cuh), shared with vita_msa.cu.
 // Bound: operations at DeiT-T/ViT-B widths (4*N*N*Dh flops per head against
 // 4*N*Dh*4 bytes in and out), on CUDA cores.  K/V are re-read once per
 // query tile (ceil(N/32) times per head), from L2.
-// Numerics as the reference: s = (q.k) * scale, scale = Dh**-0.5 applied
-// after the dot; p = exp(s - max) / sum; out = sum_j p_j v_j.
+//
+// Windowed mode (Swin): the caller folds windows into the batch axis, so
+// "image" b is window b % nW of an image, and passes the relative-position
+// bias (H, N, N) and the region mask (nW, N, N); row n of head h in batch
+// row b adds bias[h][n][:] + mask[b % nW][n][:] to its scores after the
+// scale, as the TPU kernel adds its `extra` term.  Both null: global mode.
 //
 // q/k/v share one stride set: element e of token n, head h, image b is at
 // base[b*sb + n*sn + h*sh + e].  out uses (ob, on, oh) the same way and is
 // float, or int8 quantised at *out_scale when out_scale is not null.
-#include "common.cuh"
+#include "attention.cuh"
 
 namespace repro_torch {
 
@@ -29,7 +33,9 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, long long sb, long long sn,
                  long long sh, void* __restrict__ out, long long ob,
                  long long on, long long oh, int N, int Dh, float scale,
-                 const float* __restrict__ out_scale) {
+                 const float* __restrict__ out_scale,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ mask, int nW) {
   extern __shared__ float smem[];
   const int ks = Dh + 1;                  // padded K row: lanes read distinct banks
   float* Ks = smem;                       // [N][Dh+1]
@@ -46,7 +52,8 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     Vs[n * Dh + e] = v[g];
   }
   __syncthreads();
-  const float qs = out_scale ? *out_scale : 1.0f;
+  const float* bias_h = bias ? bias + (size_t)h * N * N : nullptr;
+  const float* mask_w = mask ? mask + (size_t)(b % nW) * N * N : nullptr;
   const int q0 = blockIdx.x * QTILE;
   for (int r = warp; r < QTILE; r += WARPS) {
     const int n = q0 + r;
@@ -54,35 +61,11 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const long long g = base + (long long)n * sn;
     for (int e = lane; e < Dh; e += 32) qrow[e] = q[g + e];
     __syncwarp();
-    float mx = __int_as_float(0xff800000);  // -inf
-    for (int j = lane; j < N; j += 32) {
-      const float* kr = Ks + j * ks;
-      float s = 0.f;
-      for (int e = 0; e < Dh; ++e) s = fmaf(qrow[e], kr[e], s);
-      s = s * scale;
-      prow[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      float p = expf(prow[j] - mx);
-      prow[j] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < N; j += 32) prow[j] = prow[j] / sum;
-    __syncwarp();
-    const long long o = (long long)b * ob + (long long)n * on + (long long)h * oh;
-    for (int e = lane; e < Dh; e += 32) {
-      float a = 0.f;
-      for (int j = 0; j < N; ++j) a = fmaf(prow[j], Vs[j * Dh + e], a);
-      if (out_scale)
-        static_cast<int8_t*>(out)[o + e] = quant_i8(a, qs);
-      else
-        static_cast<float*>(out)[o + e] = a;
-    }
-    __syncwarp();
+    attend_row(qrow, Ks, ks, Vs, N, Dh, scale,
+               bias_h ? bias_h + (size_t)n * N : nullptr,
+               mask_w ? mask_w + (size_t)n * N : nullptr, prow, out,
+               (long long)b * ob + (long long)n * on + (long long)h * oh,
+               out_scale);
   }
 }
 
@@ -92,7 +75,8 @@ extern "C" int rt_attention(const float* q, const float* k, const float* v,
                             long long sb, long long sn, long long sh, void* out,
                             long long ob, long long on, long long oh, int B,
                             int H, int N, int Dh, float scale,
-                            const float* out_scale, void* stream) {
+                            const float* out_scale, const float* bias,
+                            const float* mask, int nW, void* stream) {
   using namespace repro_torch;
   size_t smem = sizeof(float) * ((size_t)N * (2 * Dh + 1) + (size_t)WARPS * (Dh + N));
   cudaError_t err = cudaFuncSetAttribute(
@@ -100,6 +84,7 @@ extern "C" int rt_attention(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + QTILE - 1) / QTILE, H, B);
   attention_kernel<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
-      q, k, v, sb, sn, sh, out, ob, on, oh, N, Dh, scale, out_scale);
+      q, k, v, sb, sn, sh, out, ob, on, oh, N, Dh, scale, out_scale, bias,
+      mask, nW);
   return (int)cudaGetLastError();
 }

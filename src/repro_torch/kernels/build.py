@@ -36,7 +36,10 @@ SIGNATURES = {
     ("gemm_i8", "rt_gemm_i8"): [P, L, P, L, I, L, P, L, I, I, I, I, P, P, P,
                                 P, L, I, P, P],
     ("attention", "rt_attention"): [P, P, P, L, L, L, P, L, L, L, I, I, I,
-                                    I, F, P, P],
+                                    I, F, P, P, P, I, P],
+    ("vita_msa", "rt_vita_msa"): [P, P, P, P, P, P, P, I, P, I, I, I, I, I,
+                                  F, P],
+    ("fused_mlp", "rt_fused_mlp"): [P, P, P, P, P, P, I, I, I, I, P],
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in SIGNATURES}))
 

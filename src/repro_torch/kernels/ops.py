@@ -14,13 +14,15 @@ from typing import Dict
 
 import torch
 
+from . import fused_mlp as _fused_mlp
 from . import int8_matmul as _int8_matmul
 from . import ref
 from . import vita_layer as _vita_layer
 from . import vita_msa as _vita_msa
 
 LAUNCHES: Dict[str, int] = {"vita_layer": 0, "vita_layer_int8": 0,
-                            "vita_msa_int8": 0, "int8_matmul": 0}
+                            "vita_msa_int8": 0, "int8_matmul": 0,
+                            "vita_msa_batched": 0, "fused_mlp": 0}
 
 
 def reset_launches() -> None:
@@ -50,15 +52,36 @@ def int8_matmul(x_q, w_q, x_scale=None, w_scale=None, out_dtype=None):
 def vita_msa_int8(z_q, wq_q, wk_q, wv_q, x_scale, wq_scale, wk_scale,
                   wv_scale, bias=None, mask=None, qkv_bias=None):
     """int8 per-head MSA: (B, N, D) int8 -> (B, H, N, Dh) float32."""
+    args = (z_q, wq_q, wk_q, wv_q, x_scale, wq_scale, wk_scale, wv_scale,
+            bias, mask, qkv_bias)
     if _on_card("vita_msa_int8", z_q):
-        return _vita_msa.vita_msa_int8(z_q, wq_q, wk_q, wv_q, x_scale,
-                                       wq_scale, wk_scale, wv_scale, bias,
-                                       mask, qkv_bias)
-    if bias is not None or mask is not None or qkv_bias is not None:
-        raise NotImplementedError(
-            "windowed mode and qkv_bias are not ported yet")
-    return ref.vita_msa_int8_ref(z_q, wq_q, wk_q, wv_q, x_scale, wq_scale,
-                                 wk_scale, wv_scale)
+        return _vita_msa.vita_msa_int8(*args)
+    return ref.vita_msa_int8_ref(*args)
+
+
+def vita_msa_batched(z, wq, wk, wv, bias=None, mask=None, qkv_bias=None):
+    """Float per-head MSA: (B, N, D) -> (B, H, N, Dh).  ``bias`` (H, N, N)
+    and ``mask`` (nW, N, N) select the windowed (Swin) mode; ``qkv_bias``
+    (3, H, Dh) is the optional per-head projection bias."""
+    if _on_card("vita_msa_batched", z):
+        return _vita_msa.vita_msa_batched(z, wq, wk, wv, bias, mask,
+                                          qkv_bias)
+    return ref.vita_msa_batched_ref(z, wq, wk, wv, bias, mask, qkv_bias)
+
+
+def vita_msa(z, wq, wk, wv):
+    """One image: (N, D) -> (H, N, Dh)."""
+    return vita_msa_batched(z[None], wq, wk, wv)[0]
+
+
+def mlp(x, w1, w2, b1=None, b2=None, w_gate=None, *, activation="gelu"):
+    """The fused MLP act(x W1 + b1) W2 + b2 with the hidden activation
+    never materialised on the card."""
+    if _on_card("fused_mlp", x):
+        return _fused_mlp.fused_mlp(x, w1, w2, b1, b2, w_gate,
+                                    activation=activation)
+    return ref.fused_mlp_ref(x, w1, b1, w2, b2, activation=activation,
+                             w_gate=w_gate)
 
 
 def vita_layer_fused(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,

@@ -61,21 +61,106 @@ def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
     return (acc.float() * s).to(out_dtype or torch.float32)
 
 
+def _window_extra(s: torch.Tensor, bias: Optional[torch.Tensor],
+                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Add the relative-position bias (H, n, n) and the per-window mask
+    (nW, n, n) to scores (B', H, n, n); batch row i is window i % nW."""
+    if bias is not None:
+        s = s + bias.float()[None]
+    if mask is not None:
+        n_w = mask.shape[0]
+        s = s + mask.float().repeat(s.shape[0] // n_w, 1, 1)[:, None]
+    return s
+
+
 def softmax_av(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               scale: float) -> torch.Tensor:
-    """QK^T * scale -> max-subtracted softmax (divide by the row sum) -> .V
-    over the last two axes (engine 2 of `repro/kernels/vita_msa.py`)."""
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+               scale: float, bias: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """QK^T * scale [+ bias[h] + mask[i % nW]] -> max-subtracted softmax
+    (divide by the row sum) -> .V over the last two axes (engine 2 of
+    `repro/kernels/vita_msa.py`, windowed mode included)."""
+    if (bias is None) != (mask is None):
+        raise ValueError("windowed mode needs both bias and mask")
+    s = _window_extra(torch.matmul(q, k.transpose(-1, -2)) * scale, bias,
+                      mask)
     s = s - s.amax(dim=-1, keepdim=True)
     p = torch.exp(s)
     p = p / p.sum(dim=-1, keepdim=True)
     return torch.matmul(p, v)
 
 
+def _qkv_with_bias(q, k, v, qkv_bias: Optional[torch.Tensor]):
+    """Add the optional (3, H, Dh) per-head Q/K/V projection bias to
+    (B, H, N, Dh) projections (after the requant on the int8 path)."""
+    if qkv_bias is None:
+        return q, k, v
+    qb = qkv_bias.float()[:, None, :, None, :]           # (3, 1, H, 1, Dh)
+    return q + qb[0], k + qb[1], v + qb[2]
+
+
+def fp32_only(name: str, *ts) -> None:
+    """Raise for inputs of a mode not ported yet (bf16, ...)."""
+    for t in ts:
+        if t is not None and t.dtype != torch.float32:
+            raise NotImplementedError(
+                f"{name}: only float32 inputs are ported yet, got {t.dtype}")
+
+
+def gelu_mlp_only(activation: str, w_gate) -> None:
+    """Raise for the MLP variants not ported yet (the LM side's)."""
+    if activation != "gelu" or w_gate is not None:
+        raise NotImplementedError(
+            f"fused_mlp: only the ungated gelu MLP is ported yet "
+            f"(activation={activation!r}, gated={w_gate is not None})")
+
+
+def fused_mlp_ref(x: torch.Tensor, w1: torch.Tensor,
+                  b1: Optional[torch.Tensor], w2: torch.Tensor,
+                  b2: Optional[torch.Tensor], *, activation: str = "gelu",
+                  w_gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out = gelu(x @ w1 + b1) @ w2 + b2 over (..., D) -> (..., D_out).
+    Only the ungated GELU MLP of the vision path is ported; the other
+    activations and the gated variant raise."""
+    gelu_mlp_only(activation, w_gate)
+    fp32_only("fused_mlp", x, w1, b1, w2, b2)
+    h = torch.matmul(x, w1)
+    if b1 is not None:
+        h = h + b1
+    out = torch.matmul(gelu(h), w2)
+    if b2 is not None:
+        out = out + b2
+    return out
+
+
+def vita_msa_batched_ref(z: torch.Tensor, wq: torch.Tensor,
+                         wk: torch.Tensor, wv: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         mask: Optional[torch.Tensor] = None,
+                         qkv_bias: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Float per-head MSA: z (B, N, D), w* (H, D, Dh) -> (B, H, N, Dh).
+    Windowed mode: windows folded into the batch axis, ``bias`` (H, N, N)
+    and ``mask`` (nW, N, N); ``qkv_bias`` (3, H, Dh) optional."""
+    fp32_only("vita_msa_batched", z, wq, wk, wv)
+    dh = wq.shape[2]
+    q, k, v = (torch.einsum("bnd,hde->bhne", z, w) for w in (wq, wk, wv))
+    q, k, v = _qkv_with_bias(q, k, v, qkv_bias)
+    return softmax_av(q, k, v, scale=dh ** -0.5, bias=bias, mask=mask)
+
+
+def vita_msa_ref(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                 wv: torch.Tensor) -> torch.Tensor:
+    """Single image: z (N, D) -> (H, N, Dh)."""
+    return vita_msa_batched_ref(z[None], wq, wk, wv)[0]
+
+
 def vita_msa_int8_ref(z_q, wq_q, wk_q, wv_q, x_scale, wq_scale, wk_scale,
-                      wv_scale) -> torch.Tensor:
+                      wv_scale, bias=None, mask=None,
+                      qkv_bias=None) -> torch.Tensor:
     """int8 per-head MSA: z_q (B, N, D) int8, w*_q (H, D, Dh) int8,
-    x_scale scalar, w*_scale (H, Dh) -> (B, H, N, Dh) float32."""
+    x_scale scalar, w*_scale (H, Dh) -> (B, H, N, Dh) float32.  The
+    optional float ``qkv_bias`` (3, H, Dh) joins after the requant;
+    ``bias``/``mask`` select the windowed mode as in `softmax_av`."""
     h, d, dh = wq_q.shape
     xs = torch.as_tensor(x_scale, dtype=torch.float32,
                          device=z_q.device).reshape(())
@@ -84,10 +169,9 @@ def vita_msa_int8_ref(z_q, wq_q, wk_q, wv_q, x_scale, wq_scale, wk_scale,
         acc = int8_matmul_ref(z_q.unsqueeze(1), w_q.unsqueeze(0))  # (B,H,N,Dh)
         return acc.float() * (xs * w_s.float()[None, :, None, :])
 
-    q = proj(wq_q, wq_scale)
-    k = proj(wk_q, wk_scale)
-    v = proj(wv_q, wv_scale)
-    return softmax_av(q, k, v, scale=dh ** -0.5)
+    q, k, v = _qkv_with_bias(proj(wq_q, wq_scale), proj(wk_q, wk_scale),
+                             proj(wv_q, wv_scale), qkv_bias)
+    return softmax_av(q, k, v, scale=dh ** -0.5, bias=bias, mask=mask)
 
 
 def _merge_qkv(wq, wk, wv) -> torch.Tensor:
@@ -104,31 +188,24 @@ def _split_qkv(qkv: torch.Tensor, h: int, dh: int):
     return parts[0], parts[1], parts[2]
 
 
-def _attend_heads(q, k, v, dh: int) -> torch.Tensor:
+def _attend_heads(q, k, v, dh: int, bias=None, mask=None) -> torch.Tensor:
     """(B, H, N, Dh) q/k/v -> (B, N, H*Dh) merged attention output."""
-    sa = softmax_av(q, k, v, scale=dh ** -0.5)
+    sa = softmax_av(q, k, v, scale=dh ** -0.5, bias=bias, mask=mask)
     b, h, n, _ = sa.shape
     return sa.permute(0, 2, 1, 3).reshape(b, n, h * dh)
-
-
-def no_windows(bias, mask) -> None:
-    if bias is not None or mask is not None:
-        raise NotImplementedError(
-            "windowed (Swin) mode is not ported yet")
 
 
 def vita_layer_ref(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
                    w_up, b_up, w_down, b_down, bias=None, mask=None):
     """Fused encoder layer: x (B, N, D) -> (B, N, D).
 
-    LN1 -> merged-QKV -> per-head softmax.V -> concat projection ->
-    residual -> LN2 -> GELU MLP -> residual."""
-    no_windows(bias, mask)
+    LN1 -> merged-QKV -> per-head softmax.V [+ window bias/mask] ->
+    concat projection -> residual -> LN2 -> GELU MLP -> residual."""
     h, d, dh = wq.shape
     z = layer_norm_ref(x, ln1_w, ln1_b)
     qkv = torch.matmul(z, _merge_qkv(wq, wk, wv).float())
     q, k, v = _split_qkv(qkv, h, dh)
-    merged = _attend_heads(q, k, v, dh)
+    merged = _attend_heads(q, k, v, dh, bias, mask)
     h1 = x.float() + torch.matmul(merged, w_msa.float())
     z2 = layer_norm_ref(h1, ln2_w, ln2_b)
     hid = gelu(torch.matmul(z2, w_up.float()) + b_up.float())
@@ -143,7 +220,6 @@ def vita_layer_int8_ref(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
     """int8 fused encoder layer: every matmul input requantized at the
     frozen ``act_scales`` = [qkv_in, w_msa, w_up, w_down]; x float32 ->
     float32."""
-    no_windows(bias, mask)
     b, n, d = x.shape
     h, _, dh = wq_q.shape
     m = wup_q.shape[1]
@@ -159,7 +235,7 @@ def vita_layer_int8_ref(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
     qkv = int8_matmul_ref(zq, _merge_qkv(wq_q, wk_q, wv_q)).float() \
         * (s[0] * scale_vec)
     q, k, v = _split_qkv(qkv, h, dh)
-    merged = _attend_heads(q, k, v, dh)
+    merged = _attend_heads(q, k, v, dh, bias, mask)
     h1 = x.float() + requant_mm(merged, s[1], wmsa_q, wmsa_scale, d)
     z2 = layer_norm_ref(h1, ln2_w, ln2_b)
     hid = gelu(requant_mm(z2, s[2], wup_q, wup_scale, m) + b_up.float())

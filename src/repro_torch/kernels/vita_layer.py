@@ -20,9 +20,11 @@ at these sizes they stay in the 50 MB L2.  This drops the TPU kernel's
          attention writes SA quantised at act_scales[1]; the up epilogue
          adds the bias, applies GELU and quantises at act_scales[3].
 
-Windowed (Swin) mode is not ported yet.  These functions take CUDA tensors
-only; the plain versions are `ref.vita_layer_ref` / `vita_layer_int8_ref`,
-chosen by `ops`.
+Windowed (Swin) mode: the caller folds windows into the batch axis and
+passes ``bias`` (H, n, n) and ``mask`` (nW, n, n); every step of the chain
+but attention is per token, so only the attention launch takes them.
+These functions take CUDA tensors only; the plain versions are
+`ref.vita_layer_ref` / `vita_layer_int8_ref`, chosen by `ops`.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ import torch
 
 from . import build
 from .int8_matmul import _stream, b_layout, check, launch_gemm_i8, ptr
-from .ref import no_windows
 from .vita_msa import launch_attention
 
 
@@ -76,12 +77,12 @@ def launch_gemm_f32(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
     return out
 
 
-def _attend(q, k, v, out, b, n, h, dh, out_scale=None):
+def _attend(q, k, v, out, b, n, h, dh, bias, mask, out_scale=None):
     """Merged (B*N, H*Dh) q/k/v -> merged (B*N, H*Dh) attention output."""
     strides = (n * h * dh, h * dh, dh)
     return launch_attention(q, k, v, out, b=b, h=h, n=n, dh=dh,
                             in_strides=strides, out_strides=strides,
-                            out_scale=out_scale)
+                            out_scale=out_scale, bias=bias, mask=mask)
 
 
 def vita_layer(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
@@ -90,7 +91,6 @@ def vita_layer(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
 
     wq/wk/wv (H, D, Dh); w_msa (D, D) with head-major rows; w_up (D, M);
     w_down (M, D); LN vectors and b_down (D,); b_up (M,)."""
-    no_windows(bias, mask)
     b, n, d = x.shape
     h, _, dh = wq.shape
     m = w_up.shape[1]
@@ -109,7 +109,7 @@ def vita_layer(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
     for w in (wq, wk, wv):
         check(w, "wq/wk/wv", torch.float32, (h, d, dh))
         qkv.append(launch_gemm_f32(z, w, empty(h * dh)))
-    sa = _attend(*qkv, empty(h * dh), b, n, h, dh)
+    sa = _attend(*qkv, empty(h * dh), b, n, h, dh, bias, mask)
     h1 = launch_gemm_f32(sa, w_msa, empty(d), res=x2)
     z2 = launch_layer_norm(h1, ln2_w, ln2_b, empty(d))
     hid = launch_gemm_f32(z2, w_up, empty(m), bias=b_up, gelu=True)
@@ -126,7 +126,6 @@ def vita_layer_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q, act_scales,
     w*_q int8; ``act_scales`` (4,) = frozen [qkv_in, w_msa, w_up, w_down]
     activation scales; w*_scale per-(head, channel) (H, Dh) for QKV and
     per-output-channel (D,)/(M,)/(D,) for the plain matmuls."""
-    no_windows(bias, mask)
     b, n, d = x.shape
     h, _, dh = wq_q.shape
     m = wup_q.shape[1]
@@ -149,7 +148,7 @@ def vita_layer_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q, act_scales,
         check(w, "wq/wk/wv", torch.int8, (h, d, dh))
         qkv.append(launch_gemm_i8(zq, w, empty(h * dh), x_scale=s[0],
                                   w_scale=ws.reshape(h * dh)))
-    saq = _attend(*qkv, empty(h * dh, torch.int8), b, n, h, dh,
+    saq = _attend(*qkv, empty(h * dh, torch.int8), b, n, h, dh, bias, mask,
                   out_scale=s[1])
     h1 = launch_gemm_i8(saq, wmsa_q, empty(d), x_scale=s[1],
                         w_scale=wmsa_scale.reshape(d), res=x2)

@@ -1,10 +1,11 @@
 """Serving CLI (counterpart of `repro/launch/serve.py`).
 
-``--vision`` routes to the vision micro-batcher, `vision_serve.main`; the
-LM server is not ported yet.
+``--vision`` routes to the vision micro-batcher, `vision_serve.main`, with
+every other flag (``--model``, ``--no-fuse``, ``--fusion-policy``, ...)
+passed through; the LM server is not ported yet.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --vision --model deit_t \
-      --full --mode both
+  PYTHONPATH=src python -m repro_torch.launch.serve --vision --model swin_t \
+      --full --mode both --no-fuse
 """
 
 from __future__ import annotations

@@ -3,22 +3,27 @@
 
 Requests queue up; the server drains them in micro-batches, pads each
 micro-batch up to the nearest batch bucket and runs the whole bucket
-through one batched forward: the fused schedule, ``embed``, one ``layer``
-per encoder block, ``head``.
+through one batched forward of the registered model (ViT/DeiT or Swin):
+its compiled schedule, fused (one ``layer`` phase per encoder block, the
+default) or unfused (``msa`` + ``mlp`` phases, ``--no-fuse``).  A
+`FusionPolicy` may decide fusion per bucket instead.
 
-  * ``float`` — the fp32 path through the float layer kernel;
+  * ``float`` — the fp32 path through the float layer kernel (fused) or
+    the per-head MSA and fused MLP kernels (unfused);
   * ``int8``  — the PTQ deployment mode of Sec. III-A: per-channel int8
     weights and calibrated activation scales through the int8 layer
-    kernel and the int8 matmul.
+    kernel (fused) or the int8 MSA kernel (unfused) and the int8 matmul.
 
 `dispatch` launches the forward on the current CUDA stream and records an
 event after it without waiting; `complete` waits on that event.  On the
 CPU the forward completes inside `dispatch`.  The server runs on the card
 unless ``ServeConfig(device="cpu")`` asks otherwise.
 
-Usage (on a machine with a card):
+Usage (on a machine with a card; ``--device cpu`` runs the plain path):
   PYTHONPATH=src python -m repro_torch.launch.serve --vision --model deit_t \
       --full --mode both
+  PYTHONPATH=src python -m repro_torch.launch.serve --vision --model swin_t \
+      --full --mode both --no-fuse
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.quant import Calibrator, quantize_vision_params
+from repro_torch.core.quant import Calibrator
+from repro_torch.core.schedule import FusionPolicy
 from repro_torch.models import vision_registry, vit
 
 
@@ -48,13 +54,17 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """How a model is served: mode, batch buckets, the build fields
-    `make_server` reads (``full``, ``seed``, ``calib_images``) and the
-    device (None = the card)."""
+    """How a model is served: mode, batch buckets, an optional per-bucket
+    `FusionPolicy`, the build fields `make_server` reads (``full``,
+    ``fused``, ``seed``, ``calib_images``) and the device (None = the
+    card).  ``fused`` None keeps the registry config's own flag (fused)."""
 
     mode: str = "float"
     buckets: Tuple[int, ...] = (1, 2, 4, 8)
+    fusion_policy: Optional[FusionPolicy] = dataclasses.field(
+        default=None, compare=False)
     full: bool = False
+    fused: Optional[bool] = None
     seed: int = 0
     calib_images: int = 8
     device: Optional[str] = None
@@ -114,9 +124,10 @@ class InFlight:
 
 
 class VisionServer:
-    """Queue + pad-to-bucket micro-batching over a registered ViT config."""
+    """Queue + pad-to-bucket micro-batching over a registered vision
+    config (ViT/DeiT or Swin)."""
 
-    def __init__(self, cfg: vit.ViTConfig, params, *,
+    def __init__(self, cfg, params, *,
                  serve_cfg: Optional[ServeConfig] = None, qparams=None,
                  calibrator: Optional[Calibrator] = None,
                  model_name: Optional[str] = None):
@@ -140,6 +151,18 @@ class VisionServer:
         self.calibrator = calibrator
         self.model_name = model_name or cfg.name
         self.buckets = sc.buckets
+        # Fused or per-phase schedule per bucket: the config's own flag, or
+        # the policy's decision from measured (model, mode, batch) data.
+        # Layer groups are not ported, so a fused bucket runs the
+        # per-layer chain.
+        self.fusion_policy = sc.fusion_policy
+        if sc.fusion_policy is None:
+            fused = {b: bool(cfg.fused) for b in self.buckets}
+        else:
+            fused = sc.fusion_policy.decisions(self.model_name, self.mode,
+                                               self.buckets)
+        self._bucket_cfg = {b: dataclasses.replace(cfg, fused=f)
+                            for b, f in fused.items()}
         self.queue: List[VisionRequest] = []
         self.done: List[VisionRequest] = []
         self.n_batches = 0
@@ -147,12 +170,14 @@ class VisionServer:
         self._rid = 0
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) images on the server's device -> (B, classes)."""
-        patches = vit.extract_patches(images, self.cfg.patch)
+        """(B, H, W, 3) images on the server's device -> (B, classes),
+        through the schedule the bucket of size B is served with."""
+        cfg = self._bucket_cfg.get(images.shape[0], self.cfg)
+        patches = vit.extract_patches(images, cfg.patch)
+        fwd = vision_registry.forward_fn(cfg)
         if self.mode == "int8":
-            return vit.forward(self.qparams, patches, self.cfg,
-                               observer=self.calibrator)
-        return vit.forward(self.params, patches, self.cfg)
+            return fwd(self.qparams, patches, cfg, observer=self.calibrator)
+        return fwd(self.params, patches, cfg)
 
     # -- request plane ----------------------------------------------------
 
@@ -253,6 +278,10 @@ class VisionServer:
             "throughput_img_s": served / dt if dt > 0 else 0.0,
             "latency_p50_ms": pct(lat_ms, 50),
             "service_p50_ms": pct(service_ms, 50),
+            "fusion_policy": (self.fusion_policy.mode
+                              if self.fusion_policy else None),
+            "fused_buckets": {str(b): bool(c.fused)
+                              for b, c in sorted(self._bucket_cfg.items())},
         }
 
 
@@ -261,18 +290,20 @@ class VisionServer:
 # ---------------------------------------------------------------------------
 
 
-def calibrate(qparams, cfg: vit.ViTConfig, images: np.ndarray, *,
+def calibrate(qparams, cfg, images: np.ndarray, *,
               device, n_batches: int = 4) -> Calibrator:
     """Run calibration forwards on ``device`` and freeze the activation
-    scales there."""
+    scales there.  The forward is the config family's, so Swin calibrates
+    through the windowed int8 path it serves with."""
+    fwd = vision_registry.forward_fn(cfg)
     cal = Calibrator()
     with torch.inference_mode():
         for chunk in np.array_split(images, n_batches):
             if len(chunk) == 0:
                 continue
             x = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
-            vit.forward(qparams, vit.extract_patches(x, cfg.patch), cfg,
-                        observer=cal)
+            fwd(qparams, vit.extract_patches(x, cfg.patch), cfg,
+                observer=cal)
     cal.freeze(device)
     return cal
 
@@ -282,18 +313,19 @@ def make_server(cfg_name: str, serve_cfg: Optional[ServeConfig] = None, *,
                 calibrator: Optional[Calibrator] = None,
                 calib_bank: Optional[np.ndarray] = None) -> VisionServer:
     """Build a ready `VisionServer` for a registered model name on
-    ``serve_cfg.device`` (None = the card): init params at
-    ``serve_cfg.seed`` unless given, and for int8 quantize and calibrate
-    (on ``calib_bank`` or ``calib_images`` synthetic images drawn exactly
-    as the JAX server draws them) unless a frozen calibrator is given."""
+    ``serve_cfg.device`` (None = the card): resolve the config through
+    ``full`` and ``fused``, init params at ``serve_cfg.seed`` unless given,
+    and for int8 quantize and calibrate (on ``calib_bank`` or
+    ``calib_images`` synthetic images drawn exactly as the JAX server draws
+    them) unless a frozen calibrator is given."""
     sc = serve_cfg if serve_cfg is not None else ServeConfig()
     device = resolve_device(sc.device)
-    cfg = vision_registry.build_cfg(cfg_name, full=sc.full)
+    cfg = vision_registry.build_cfg(cfg_name, full=sc.full, fused=sc.fused)
     if params is None:
-        params = vit.init_params(cfg, sc.seed, device)
+        params = vision_registry.init_params(cfg, sc.seed, device)
     if sc.mode == "int8":
         if qparams is None:
-            qparams = quantize_vision_params(vit.to_device(params, device))
+            qparams = vision_registry.quantize(vit.to_device(params, device))
         if calibrator is None:
             bank = calib_bank
             if bank is None:
@@ -308,25 +340,29 @@ def make_server(cfg_name: str, serve_cfg: Optional[ServeConfig] = None, *,
 
 
 def serve_model(name: str, *, requests: int, buckets, modes, full: bool,
-                seed: int = 0, calib_images: int = 8,
-                device=None) -> List[Dict[str, float]]:
+                seed: int = 0, calib_images: int = 8, device=None,
+                fused: Optional[bool] = None,
+                fusion_policy: Optional[FusionPolicy] = None
+                ) -> List[Dict[str, float]]:
     """Init params once, (for int8) quantize and calibrate on the first
     ``calib_images`` request images, and drain ``requests`` random images
-    through a server per mode.  One stats row per mode."""
+    through a server per mode.  ``fused`` overrides the config's fusion,
+    ``fusion_policy`` decides it per bucket.  One stats row per mode."""
     dev = resolve_device(device)
-    cfg = vision_registry.build_cfg(name, full=full)
-    params = vit.init_params(cfg, seed, dev)
+    cfg = vision_registry.build_cfg(name, full=full, fused=fused)
+    params = vision_registry.init_params(cfg, seed, dev)
     rng = np.random.default_rng(seed)
     images = rng.standard_normal(
         (requests, cfg.image, cfg.image, 3)).astype(np.float32)
     qparams = cal = None
     if "int8" in modes:
-        qparams = quantize_vision_params(params)
+        qparams = vision_registry.quantize(params)
         cal = calibrate(qparams, cfg, images[:calib_images], device=dev)
     rows = []
     for mode in modes:
-        sc = ServeConfig(mode=mode, buckets=tuple(buckets), full=full,
-                         seed=seed, calib_images=calib_images,
+        sc = ServeConfig(mode=mode, buckets=tuple(buckets),
+                         fusion_policy=fusion_policy, full=full,
+                         fused=fused, seed=seed, calib_images=calib_images,
                          device=str(dev))
         server = VisionServer(cfg, params, serve_cfg=sc, qparams=qparams,
                               calibrator=cal, model_name=name)
@@ -338,7 +374,8 @@ def serve_model(name: str, *, requests: int, buckets, modes, full: bool,
               f"{stats['requests']} reqs in {stats['wall_s']:.3f}s -> "
               f"{stats['throughput_img_s']:.1f} img/s, "
               f"p50 {stats['latency_p50_ms']:.2f}ms "
-              f"({stats['batches']} batches, {stats['padded']} padded)")
+              f"({stats['batches']} batches, {stats['padded']} padded; "
+              f"fused buckets {stats['fused_buckets']})")
     return rows
 
 
@@ -358,6 +395,19 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card, cuda)")
+    ap.add_argument("--no-fuse", action="store_true",
+                    help="serve the per-phase schedule (msa + mlp phases) "
+                         "instead of the fused layers; shorthand for "
+                         "--fusion-policy never")
+    ap.add_argument("--fusion-policy", choices=FusionPolicy.MODES,
+                    default=None,
+                    help="fuse or not per (model, mode, batch): 'always', "
+                         "'never', or 'auto' (measured A/B data from "
+                         "--fusion-data)")
+    ap.add_argument("--fusion-data", default=None,
+                    help="bench JSON measured on the card that seeds the "
+                         "'auto' policy (no default: a record measured "
+                         "elsewhere must not steer the card)")
     args = ap.parse_args(argv)
     if args.list_models:
         for name in vision_registry.list_models():
@@ -368,11 +418,28 @@ def main(argv=None):
         raise SystemExit(f"[vision-serve] unknown model {args.model!r}; "
                          f"registered: "
                          f"{', '.join(vision_registry.list_models())}")
+    if args.no_fuse and args.fusion_policy:
+        raise SystemExit("[vision-serve] --no-fuse and --fusion-policy "
+                         "conflict; --no-fuse is shorthand for "
+                         "--fusion-policy never")
+    if args.fusion_data and args.fusion_policy != "auto":
+        raise SystemExit("[vision-serve] --fusion-data seeds only "
+                         "--fusion-policy auto")
+    policy = None
+    if args.fusion_policy == "auto" and args.fusion_data:
+        policy = FusionPolicy.from_bench(args.fusion_data)
+    elif args.fusion_policy:
+        if args.fusion_policy == "auto":
+            print("[vision-serve] --fusion-policy auto without "
+                  "--fusion-data: no measurements, every bucket fuses")
+        policy = FusionPolicy(mode=args.fusion_policy)
     modes = ("float", "int8") if args.mode == "both" else (args.mode,)
     buckets = tuple(int(b) for b in args.buckets.split(","))
     return serve_model(args.model, requests=args.requests, buckets=buckets,
                        modes=modes, full=args.full, seed=args.seed,
-                       device=args.device)
+                       device=args.device,
+                       fused=False if args.no_fuse else None,
+                       fusion_policy=policy)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 
 The module owns the model description (config, params, spec); execution
 belongs to the control program: `schedule(cfg)` compiles the config into a
-fused `core.schedule.Schedule` and `forward` replays it.  Images are NHWC
-at the public functions, as in the JAX package.
+`core.schedule.Schedule` (fused unless ``cfg.fused`` is False) and
+`forward` replays it.  Images are NHWC at the public functions, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from repro_torch.core import schedule as sched_lib
 from repro_torch.core.perfmodel import StageSpec, VisionModelSpec
 from repro_torch.models.config import normalize_head_mask
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, to_device
 
 Params = Dict[str, Any]
 
@@ -33,6 +34,7 @@ class ViTConfig:
     layers: int = 12
     mlp_ratio: float = 4.0
     n_classes: int = 1000
+    fused: bool = True             # fuse msa+mlp pairs into layer phases
     # Per-layer head-pruning mask (layers x heads 0/1 tuples; None = dense).
     head_mask: Optional[Tuple[Tuple[int, ...], ...]] = None
 
@@ -102,15 +104,6 @@ def init_params(cfg: ViTConfig, seed: int = 0,
     return to_device(params, device)
 
 
-def to_device(tree: Any, device) -> Any:
-    """Move a param tree (dicts, lists, tensors, `QTensor`s) to ``device``."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
-    return tree.to(device)
-
-
 def to_spec(cfg: ViTConfig) -> VisionModelSpec:
     """The stage description the schedule compiler consumes."""
     stage = StageSpec(layers=cfg.layers, dim=cfg.dim, heads=cfg.heads,
@@ -123,10 +116,12 @@ def to_spec(cfg: ViTConfig) -> VisionModelSpec:
 
 @functools.lru_cache(maxsize=None)
 def schedule(cfg: ViTConfig) -> sched_lib.Schedule:
-    """The fused phase schedule `forward` replays: embed, one ``layer``
-    per encoder block, head."""
-    return sched_lib.fuse_schedule(
-        sched_lib.compile_schedule(to_spec(cfg), n_classes=cfg.n_classes))
+    """The phase schedule `forward` replays: embed, one fused ``layer``
+    per encoder block (or its msa and mlp phases when ``cfg.fused`` is
+    False), head."""
+    s = sched_lib.compile_schedule(to_spec(cfg), n_classes=cfg.n_classes,
+                                   hierarchical=False)
+    return sched_lib.fuse_schedule(s) if cfg.fused else s
 
 
 def forward(params: Params, patches: torch.Tensor, cfg: ViTConfig,

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small ragged shapes (N = 17 tokens, Dh = 24, M, N, K not multiples of any
-tile).  Marked ``cuda``: each test skips where there is no card, and the
+tile; a 4x4 window over an 8x8 grid with a shifted mask; an MLP output
+wider than one block's 256 columns).  Marked ``cuda``: each test skips where there is no card, and the
 whole file runs on a machine with one by
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -14,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import schedule as sched
 from repro_torch.core.quant import quantize_vision_params
+from repro_torch.kernels import fused_mlp as k_fused_mlp
 from repro_torch.kernels import int8_matmul as k_int8_matmul
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import vita_layer as k_vita_layer
@@ -85,6 +88,78 @@ def test_vita_layer_int8_and_msa_int8(card):
                                rtol=0, atol=1e-4 * float(want.abs().max()))
 
 
+def _windows(card, h, d, b=2):
+    """A window-folded input (b * 4, 16, d) with its (H, 16, 16) bias and
+    shifted (4, 16, 16) mask."""
+    ph = sched.Phase(kind="msa", path=(), site="", grid=(8, 8), window=4,
+                     shift=2)
+    bp = {"rel_bias": 0.5 * torch.randn((49, h), device=card)}
+    x = torch.randn((b, 64, d), device=card)
+    bias, mask = sched._window_terms(ph, bp, card)
+    return sched._fold(ph, x), bias, mask
+
+
+def test_vita_msa_batched_all_modes(card):
+    _, bp, x = _layer(card)
+    w = (bp["wq"], bp["wk"], bp["wv"])
+    h, _, dh = w[0].shape
+    qb = 0.2 * torch.randn((3, h, dh), device=card)
+    xw, bias, mask = _windows(card, h, x.shape[-1])
+    for z, bi, ma, q in ((x, None, None, None), (x, None, None, qb),
+                         (xw, bias, mask, None), (xw, bias, mask, qb)):
+        want = ref.vita_msa_batched_ref(z, *w, bi, ma, q)
+        got = k_vita_msa.vita_msa_batched(z, *w, bi, ma, q)
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+    torch.testing.assert_close(k_vita_msa.vita_msa(x[0], *w),
+                               ref.vita_msa_ref(x[0], *w), rtol=0, atol=1e-5)
+
+
+def test_fused_mlp_ragged_and_wide(card):
+    for rows, d, m, d_out in ((37, 96, 384, 96), (2 * 17, 40, 72, 300)):
+        x = torch.randn((rows, d), device=card)
+        w1 = torch.randn((d, m), device=card) * d ** -0.5
+        w2 = torch.randn((m, d_out), device=card) * m ** -0.5
+        b1, b2 = torch.randn(m, device=card), torch.randn(d_out, device=card)
+        for bb in ((b1, b2), (None, None)):
+            want = ref.fused_mlp_ref(x, w1, bb[0], w2, bb[1])
+            got = k_fused_mlp.fused_mlp(x, w1, w2, *bb)
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-4 * float(want.abs().max()))
+    with pytest.raises(NotImplementedError):
+        k_fused_mlp.fused_mlp(x, w1, w2, activation="silu")
+
+
+def test_windowed_layers_and_int8_msa(card):
+    cfg, bp, x = _layer(card)
+    h, dh = cfg.heads, cfg.head_dim
+    xw, bias, mask = _windows(card, h, cfg.dim)
+    f_args = (xw, bp["wq"], bp["wk"], bp["wv"], bp["w_msa"], bp["ln1_w"],
+              bp["ln1_b"], bp["ln2_w"], bp["ln2_b"], bp["w_up"], bp["b_up"],
+              bp["w_down"], bp["b_down"], bias, mask)
+    want = ref.vita_layer_ref(*f_args)
+    torch.testing.assert_close(k_vita_layer.vita_layer(*f_args), want,
+                               rtol=0, atol=1e-4 * float(want.abs().max()))
+    q = quantize_vision_params(bp)
+    acts = torch.tensor([4.0, 2.0, 4.0, 3.0], device=card) / 127.0
+    i_args = (xw, q["wq"].values, q["wk"].values, q["wv"].values,
+              q["w_msa"].values, q["w_up"].values, q["w_down"].values, acts,
+              *[q[k].scale.reshape(h, dh) for k in ("wq", "wk", "wv")],
+              *[q[k].scale.reshape(-1) for k in ("w_msa", "w_up", "w_down")],
+              bp["ln1_w"], bp["ln1_b"], bp["ln2_w"], bp["ln2_b"], bp["b_up"],
+              bp["b_down"], bias, mask)
+    want = ref.vita_layer_int8_ref(*i_args)
+    got = k_vita_layer.vita_layer_int8(*i_args)
+    assert float((got - want).abs().max()) <= 0.02 * float(want.abs().max())
+    zq = torch.clamp(torch.round(xw / 0.03), -127, 127).to(torch.int8)
+    qb = 0.2 * torch.randn((3, h, dh), device=card)
+    m_args = (zq, *i_args[1:4], torch.tensor(0.03, device=card),
+              *i_args[8:11], bias, mask, qb)
+    want = ref.vita_msa_int8_ref(*m_args)
+    torch.testing.assert_close(k_vita_msa.vita_msa_int8(*m_args), want,
+                               rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
 def test_ops_counts_launches_and_raises_on_bad_input(card):
     ops.reset_launches()
     a = torch.zeros((4, 8), dtype=torch.int8, device=card)
@@ -97,15 +172,20 @@ def test_ops_counts_launches_and_raises_on_bad_input(card):
             (4, 4), dtype=torch.int8, device=card))
 
 
-@pytest.mark.parametrize("mode", ["float", "int8"])
-def test_server_on_the_card_matches_the_cpu(card, mode):
-    sc = vision_serve.ServeConfig(mode=mode, buckets=(1, 4), calib_images=4)
-    server = vision_serve.make_server("vit_edge", sc)
+@pytest.mark.parametrize("name,mode,fused", [
+    ("vit_edge", "float", True), ("vit_edge", "int8", True),
+    ("vit_edge", "float", False), ("swin_t", "float", True),
+    ("swin_t", "int8", True), ("swin_t", "float", False)])
+def test_server_on_the_card_matches_the_cpu(card, name, mode, fused):
+    sc = vision_serve.ServeConfig(mode=mode, buckets=(1, 4), calib_images=4,
+                                  fused=fused)
+    server = vision_serve.make_server(name, sc)
+    side = server.cfg.image
     images = np.random.default_rng(0).standard_normal(
-        (5, 32, 32, 3)).astype(np.float32)
+        (5, side, side, 3)).astype(np.float32)
     twin = vision_serve.make_server(
-        "vit_edge", vision_serve.ServeConfig(mode=mode, buckets=(1, 4),
-                                             device="cpu"),
+        name, vision_serve.ServeConfig(mode=mode, buckets=(1, 4),
+                                       fused=fused, device="cpu"),
         params=vit.to_device(server.params, "cpu"),
         qparams=None if server.qparams is None
         else vit.to_device(server.qparams, "cpu"),

@@ -20,8 +20,10 @@ from repro.kernels.vita_layer import vita_layer as j_vita_layer
 from repro.kernels.vita_layer import vita_layer_int8 as j_vita_layer_int8
 from repro.kernels.vita_msa import vita_msa_int8 as j_vita_msa_int8
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import fused_mlp as t_fused_mlp
 from repro_torch.kernels import int8_matmul as t_int8_matmul
 from repro_torch.kernels import vita_layer as t_vita_layer
+from repro_torch.kernels import vita_msa as t_vita_msa
 
 # Non-power-of-two token count and vit_edge's head width (Dh = 24).
 B, N, D, H, M = 2, 17, 96, 4, 384
@@ -191,9 +193,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     p = _layer_params(rng)
     with pytest.raises(ValueError, match="CUDA"):
         t_vita_layer.vita_layer(xf, *(_t(p[k]) for k in _ORDER))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CUDA"):
+        t_vita_msa.vita_msa_batched(xf, _t(p["wq"]), _t(p["wk"]),
+                                    _t(p["wv"]))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_fused_mlp.fused_mlp(xf, _t(p["w_up"]), _t(p["w_down"]))
+    # the windowed mode runs on the CPU too, and wants both of its terms
+    ops.vita_layer_fused(xf, *(_t(p[k]) for k in _ORDER),
+                         bias=torch.zeros(H, 5, 5), mask=torch.zeros(1, 5, 5))
+    with pytest.raises(ValueError, match="both bias and mask"):
         ops.vita_layer_fused(xf, *(_t(p[k]) for k in _ORDER),
-                             bias=torch.zeros(H, 5, 5),
                              mask=torch.zeros(1, 5, 5))
 
 
