@@ -12,17 +12,24 @@ Phases (any failure exits non-zero; nothing is caught):
      mask); the int8 MSA at DeiT-T, and windowed with qkv_bias at Swin-T
      stage 1; the int8 matmul at the embed and head shapes; the float MSA
      and the fused MLP at DeiT-T, Swin-T stages 1 and 4 and ViT-B/16
-     widths, with qkv_bias and without the MLP biases once each;
+     widths, with qkv_bias and without the MLP biases once each; the
+     float and int8 layer groups at DeiT-T (12 layers, batch 8), Swin-T
+     stage 4 (2 layers, bucket 8, windowed) and a pruned width (DeiT-T,
+     2 layers of 2 heads), also against L calls of the per-layer kernel;
   3. serve DeiT-T (224 px, 12 layers) and Swin-T (224 px, depths
-     2/2/6/2), random weights from a seed, through make_server on the
-     card: DeiT-T fused float and int8, DeiT-T unfused (--no-fuse) float
-     and int8, Swin-T fused float and int8, Swin-T unfused float.  Each
-     path's launch counts are set to 0 just before it and read just
-     after, and must equal what its schedule launches; its logits are
-     checked against the same server on the CPU;
+     2/2/6/2), and their head-pruned variants, random weights from a
+     seed, through make_server on the card: DeiT-T fused float and int8,
+     DeiT-T unfused (--no-fuse) float and int8, Swin-T fused float and
+     int8, Swin-T unfused float, DeiT-T grouped by 4 and Swin-T grouped by
+     2 (--fuse-group-size) in float and int8, DeiT-T-p fused float and
+     int8, Swin-T-p fused float.  Each path's launch counts are set to 0
+     just before it and read just after, and must equal what its schedule
+     launches; its logits are checked against the same server on the CPU;
   4. time each kernel, its plain version and a library yardstick, the
-     served throughput of every path, and the device's busy share of a
-     drain for DeiT-T and Swin-T in both modes.
+     served throughput of every path (grouped beside per-layer), and the
+     device's busy share of a drain for DeiT-T and Swin-T in both modes
+     and grouped DeiT-T, whose kernels must be one layer-group launch per
+     group per micro-batch and no per-layer GEMM.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a card, or without
@@ -51,12 +58,19 @@ B_MAIN = 8                       # the largest serving bucket
 BUCKETS = (1, 2, 4, 8)
 N_CAL = 4                        # calibration batches (8 images, 4 x 2)
 
-# Served paths: (model, mode, fused, requests).  19 = 8 + 8 + 3 and
-# 11 = 8 + 3: a ragged tail padded to a bucket of 4.
-PATHS = (("deit_t", "float", True, 19), ("deit_t", "int8", True, 19),
-         ("deit_t", "float", False, 11), ("deit_t", "int8", False, 11),
-         ("swin_t", "float", True, 11), ("swin_t", "int8", True, 11),
-         ("swin_t", "float", False, 11))
+# Served paths: (model, mode, fused, group size, requests).  19 = 8 + 8 +
+# 3 and 11 = 8 + 3: a ragged tail padded to a bucket of 4.  DeiT-T grouped
+# by 4 is 3 layer groups; Swin-T grouped by 2 is 1 group (stage 4) and 10
+# layers; DeiT-T-p keeps 3, 2 or 1 heads per layer.
+PATHS = (("deit_t", "float", True, 1, 19), ("deit_t", "int8", True, 1, 19),
+         ("deit_t", "float", False, 1, 11), ("deit_t", "int8", False, 1, 11),
+         ("swin_t", "float", True, 1, 11), ("swin_t", "int8", True, 1, 11),
+         ("swin_t", "float", False, 1, 11),
+         ("deit_t", "float", True, 4, 19), ("deit_t", "int8", True, 4, 19),
+         ("swin_t", "float", True, 2, 11), ("swin_t", "int8", True, 2, 11),
+         ("deit_t_p", "float", True, 1, 11), ("deit_t_p", "int8", True, 1, 11),
+         ("swin_t_p", "float", True, 1, 11))
+MODELS = ("deit_t", "swin_t", "deit_t_p", "swin_t_p")
 
 KERNELS = (  # name, TPU kernel it replaces, port wrapper
     ("vita_layer", "src/repro/kernels/vita_layer.py:174",
@@ -70,7 +84,11 @@ KERNELS = (  # name, TPU kernel it replaces, port wrapper
     ("vita_msa_batched", "src/repro/kernels/vita_msa.py:138",
      "src/repro_torch/kernels/vita_msa.py"),
     ("fused_mlp", "src/repro/kernels/fused_mlp.py:121",
-     "src/repro_torch/kernels/fused_mlp.py"))
+     "src/repro_torch/kernels/fused_mlp.py"),
+    ("vita_layer_group", "src/repro/kernels/vita_layer.py:300",
+     "src/repro_torch/kernels/vita_layer_group.py"),
+    ("vita_layer_group_int8", "src/repro/kernels/vita_layer.py:572",
+     "src/repro_torch/kernels/vita_layer_group.py"))
 
 
 def fail(msg: str) -> None:
@@ -281,14 +299,29 @@ def composed_layer(args, h: int, dh: int, bias=None, mask=None):
     b, n, d = x.shape
     am = sdpa_mask(bias, mask, b)
 
-    def run():
-        z = F.layer_norm(x, (d,), l1w, l1b, 1e-5)
+    def run(xi=x):
+        z = F.layer_norm(xi, (d,), l1w, l1b, 1e-5)
         q, k, v = ref._split_qkv(z @ wqkv, h, dh)
         sa = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
-        h1 = x + sa.permute(0, 2, 1, 3).reshape(b, n, h * dh) @ w_msa
+        h1 = xi + sa.permute(0, 2, 1, 3).reshape(b, n, h * dh) @ w_msa
         z2 = F.layer_norm(h1, (d,), l2w, l2b, 1e-5)
         return h1 + F.gelu(z2 @ w_up + b_up, approximate="tanh") @ w_down \
             + b_down
+    return run
+
+
+def composed_group(f_args, bias=None, mask=None):
+    """The float layer group as L `composed_layer` yardsticks in a row."""
+    n_l, h, _, dh = f_args[1].shape
+    runs = [composed_layer((f_args[0],) + tuple(a[l] for a in f_args[1:]),
+                           h, dh, None if bias is None else bias[l], mask)
+            for l in range(n_l)]
+
+    def run():
+        y = f_args[0]
+        for r in runs:
+            y = r(y)
+        return y
     return run
 
 
@@ -354,12 +387,89 @@ def layer_bound(f_args, i_args, bias=None, mask=None):
                   nbytes=nbytes(*i_args) + nbytes(x) + win))
 
 
+def group_args(blocks, x, biases=None, mask=None):
+    """Stacked float and int8 layer-group arguments for ``blocks`` on x,
+    each member's act scales from max-abs statistics of the plain float
+    layers on that member's input (`layer_args`), and the stacked
+    (L, H, n, n) bias in windowed mode."""
+    from repro_torch.kernels import ref
+
+    per, y = [], x
+    for l, bp in enumerate(blocks):
+        b_l = None if biases is None else biases[l]
+        f, i = layer_args(bp, y, b_l, mask)
+        per.append((f, i))
+        y = ref.vita_layer_ref(*f, b_l, mask)
+    f_args = (x,) + tuple(torch.stack([p[0][k] for p in per]).contiguous()
+                          for k in range(1, len(per[0][0])))
+    i_args = (x,) + tuple(torch.stack([p[1][k] for p in per]).contiguous()
+                          for k in range(1, len(per[0][1])))
+    return f_args, i_args, None if biases is None else torch.stack(biases)
+
+
+def group_bound(f_args, i_args, bias=None, mask=None):
+    """L x the per-layer bound: every member's operations against the
+    stacked operands read once, x read and the output written once."""
+    x = f_args[0]
+    b, n, d = x.shape
+    n_l, h, _, dh = f_args[1].shape
+    proj, attn = layer_flops(b, n, d, h, dh, f_args[9].shape[2])
+    win = nbytes(bias, mask)
+    return (bound(flops_f32=n_l * (proj + attn),
+                  nbytes=nbytes(*f_args) + nbytes(x) + win),
+            bound(ops_i8=n_l * proj, flops_f32=n_l * attn,
+                  nbytes=nbytes(*i_args) + nbytes(x) + win))
+
+
+def check_chain(name: str, got, chain, exact: bool) -> float:
+    """A layer group against L calls of the per-layer kernel, which runs
+    the same tiles: int8 exactly, float within 1e-6 x scale."""
+    torch.cuda.synchronize()
+    err = float((got - chain).abs().max())
+    scale = float(chain.abs().max())
+    print(f"[check] {name} vs the per-layer chain: max|err| {err:.3e} "
+          f"(scale {scale:.3f}, bound {'0' if exact else '1e-6 x scale'})")
+    check(err == 0.0 if exact else err <= 1e-6 * scale,
+          f"{name} disagrees with the per-layer chain")
+    return err
+
+
+def group_cases(deit, swin_cfg, sw_params, g):
+    """(tag, blocks, x, biases, mask) of the three group shapes: DeiT-T
+    full width (12 layers, batch 8), Swin-T stage 4 (2 layers, bucket 8,
+    one 7x7 window per image, shift 0), and a pruned width (DeiT-T, 2
+    layers keeping heads 0 and 1: H*Dh = 128 < D = 192)."""
+    from repro_torch.core import schedule as sched
+    from repro_torch.core.quant import prune_block_heads
+    from repro_torch.models import vit
+
+    deit_blocks = [perturbed(bp, g) for bp in
+                   vit.init_params(deit, 3, "cuda")["layers"]]
+    x = torch.randn((B_MAIN, deit.tokens, deit.dim), generator=g,
+                    device="cuda")
+    cases = [(f"deit_t L{len(deit_blocks)}", deit_blocks, x, None, None)]
+    last = len(swin_cfg.depths) - 1
+    side, dim = swin_cfg.stage_side(last), swin_cfg.stage_dim(last)
+    ph = sched.Phase(kind="layer", path=(), site="", grid=(side, side),
+                     window=swin_cfg.window)
+    blocks = [perturbed(bp, g) for bp in sw_params["stages"][last]["blocks"]]
+    terms = [sched._window_terms(ph, bp, torch.device("cuda"))
+             for bp in blocks]
+    xs = torch.randn((B_MAIN, side * side, dim), generator=g, device="cuda")
+    cases.append((f"swin_t stage {last + 1} L{len(blocks)} windowed", blocks,
+                  sched._fold(ph, xs), [t[0] for t in terms], terms[0][1]))
+    pruned = [prune_block_heads(bp, (1, 1, 0)) for bp in deit_blocks[:2]]
+    cases.append(("deit_t pruned L2 H2", pruned, x, None, None))
+    return cases
+
+
 def kernel_phase(deit, vitb, swin_cfg):
     """Each kernel against its plain version.  Returns per kernel its main
     record (the main path's shape) and extra timed shapes."""
     from repro_torch.kernels import fused_mlp as fm
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import ref, vita_layer as vl, vita_msa as vm
+    from repro_torch.kernels import vita_layer_group as vg
     from repro_torch.models import swin
 
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -485,6 +595,45 @@ def kernel_phase(deit, vitb, swin_cfg):
             check_close(f"fused_mlp {tag} without b1/b2",
                         fm.fused_mlp(z, mlp[0], mlp[2]),
                         ref.fused_mlp_ref(z, mlp[0], None, mlp[2], None))
+
+    # Layer groups: against the plain versions and the per-layer chain.
+    for tag, blocks, x, biases, mask in group_cases(deit, swin_cfg,
+                                                    sw_params, g):
+        f_args, i_args, bias = group_args(blocks, x, biases, mask)
+        n_l = len(blocks)
+        err = check_close(f"vita_layer_group {tag}",
+                          vg.vita_layer_group(*f_args, bias, mask),
+                          ref.vita_layer_group_ref(*f_args, bias, mask))
+        chain = x
+        for l in range(n_l):
+            chain = vl.vita_layer(chain, *[a[l] for a in f_args[1:]],
+                                  None if bias is None else bias[l], mask)
+        check_chain(f"vita_layer_group {tag}",
+                    vg.vita_layer_group(*f_args, bias, mask), chain, False)
+        err_i = check_int8_layer(
+            f"vita_layer_group_int8 {tag}",
+            vg.vita_layer_group_int8(*i_args, bias, mask),
+            ref.vita_layer_group_int8_ref(*i_args, bias, mask))
+        chain = x
+        for l in range(n_l):
+            chain = vl.vita_layer_int8(chain, *[a[l] for a in i_args[1:]],
+                                       None if bias is None else bias[l],
+                                       mask)
+        check_chain(f"vita_layer_group_int8 {tag}",
+                    vg.vita_layer_group_int8(*i_args, bias, mask), chain,
+                    True)
+        fb, ib = group_bound(f_args, i_args, bias, mask)
+        rec("vita_layer_group", tag, err,
+            lambda a=f_args, bi=bias, ma=mask: vg.vita_layer_group(*a, bi,
+                                                                   ma),
+            lambda a=f_args, bi=bias, ma=mask: ref.vita_layer_group_ref(
+                *a, bi, ma),
+            composed_group(f_args, bias, mask), fb)
+        rec("vita_layer_group_int8", tag, err_i,
+            lambda a=i_args, bi=bias, ma=mask: vg.vita_layer_group_int8(
+                *a, bi, ma),
+            lambda a=i_args, bi=bias, ma=mask: ref.vita_layer_group_int8_ref(
+                *a, bi, ma), None, ib)
     torch.cuda.synchronize()
     return records
 
@@ -494,44 +643,49 @@ def kernel_phase(deit, vitb, swin_cfg):
 # ---------------------------------------------------------------------------
 
 
-def expected_launches(cfg, mode: str, mb: int, n_cal: int) -> dict:
-    """Kernel launches of ``mb`` micro-batches (plus ``n_cal``
-    calibration batches) of ``cfg`` on one served path: one layer (or
-    msa + mlp) per block, embed, head and Swin's patch merges as int8
-    matmuls in int8."""
-    fused = cfg.fused
-    depths = getattr(cfg, "depths", None)
-    blocks = sum(depths) if depths else cfg.layers
-    merges = len(depths) - 1 if depths else 0
+def expected_launches(sched, mode: str, mb: int, n_cal: int) -> dict:
+    """Kernel launches of ``mb`` micro-batches (plus ``n_cal`` calibration
+    batches) of schedule ``sched`` on one served path: one launch per
+    ``layer`` or ``layer_group`` phase (msa + mlp unfused), embed, head and
+    Swin's patch merges as int8 matmuls in int8.  Calibration runs every
+    block unfused (a group member by member)."""
+    c = sched.counts()
+    groups = sum(len(p.members) for p in sched.phases
+                 if p.kind == "layer_group")
+    blocks = c.get("layer", 0) + c.get("msa", 0) + groups
+    merges = c.get("merge", 0)
     out = {k[0]: 0 for k in KERNELS}
     if mode == "float":
-        if fused:
-            out["vita_layer"] = blocks * mb
-        else:
-            out["vita_msa_batched"] = out["fused_mlp"] = blocks * mb
+        out["vita_layer"] = c.get("layer", 0) * mb
+        out["vita_layer_group"] = c.get("layer_group", 0) * mb
+        out["vita_msa_batched"] = out["fused_mlp"] = c.get("msa", 0) * mb
         return out
     unfused_mm = 2 + 3 * blocks + merges      # + w_msa, w_up, w_down
-    out["vita_msa_int8"] = blocks * n_cal
-    out["int8_matmul"] = unfused_mm * n_cal
-    if fused:
-        out["vita_layer_int8"] = blocks * mb
-        out["int8_matmul"] += (2 + merges) * mb
-    else:
-        out["vita_msa_int8"] += blocks * mb
-        out["int8_matmul"] += unfused_mm * mb
+    out["vita_msa_int8"] = blocks * n_cal + c.get("msa", 0) * mb
+    out["int8_matmul"] = unfused_mm * n_cal \
+        + (2 + merges + 3 * c.get("msa", 0)) * mb
+    out["vita_layer_int8"] = c.get("layer", 0) * mb
+    out["vita_layer_group_int8"] = c.get("layer_group", 0) * mb
     return out
 
 
-def serve_path(model: str, mode: str, fused: bool, params, images,
-               qparams=None, calibrator=None) -> dict:
+def path_name(model: str, mode: str, fused: bool, group: int) -> str:
+    kind = ("unfused" if not fused else "fused" if group == 1
+            else f"grouped by {group}")
+    return f"{model} {mode} {kind}"
+
+
+def serve_path(model: str, mode: str, fused: bool, group: int, params,
+               images, qparams=None, calibrator=None) -> dict:
     """Serve ``images`` on the card (launch counts reset just before,
     read just after) and on the CPU twin, and check both."""
     from repro_torch.kernels import ops
     from repro_torch.launch.vision_serve import ServeConfig, make_server
-    from repro_torch.models import vit
+    from repro_torch.models import vision_registry, vit
 
-    name = f"{model} {mode} {'fused' if fused else 'unfused'}"
-    sc = ServeConfig(mode=mode, buckets=BUCKETS, full=True, fused=fused)
+    name = path_name(model, mode, fused, group)
+    sc = ServeConfig(mode=mode, buckets=BUCKETS, full=True, fused=fused,
+                     fuse_group=group)
     ops.reset_launches()
     calibrates = mode == "int8" and calibrator is None
     server = make_server(model, sc, params=params, qparams=qparams,
@@ -542,13 +696,14 @@ def serve_path(model: str, mode: str, fused: bool, params, images,
     counts = dict(ops.LAUNCHES)
     gpu = np.stack([r.logits for r in reqs])
     mb = stats["batches"]
-    want = expected_launches(server.cfg, mode, mb, N_CAL if calibrates else 0)
+    want = expected_launches(vision_registry.make_schedule(server.cfg), mode,
+                             mb, N_CAL if calibrates else 0)
     print(f"[serve] {name}: {len(images)} requests in {mb} micro-batches"
           f"{' + calibration' if calibrates else ''}; launches {counts}")
     check(counts == want, f"{name}: launch counts {counts}, expected {want}")
     twin = make_server(
         model, ServeConfig(mode=mode, buckets=BUCKETS, full=True,
-                           fused=fused, device="cpu"),
+                           fused=fused, fuse_group=group, device="cpu"),
         params=vit.to_device(params, "cpu"),
         qparams=None if mode == "float" else vit.to_device(server.qparams,
                                                            "cpu"),
@@ -576,10 +731,11 @@ def serve_path(model: str, mode: str, fused: bool, params, images,
     return dict(logits=gpu, counts=counts, server=server)
 
 
-def profile_drain(name: str, server, where: str) -> None:
+def profile_drain(name: str, server, where: str) -> list:
     """Device busy share of a 32-request drain at bucket 8 under
     torch.profiler (which adds host time of its own), and the kernels
-    that take the device time."""
+    that take the device time.  Returns (kernel, device us, count) rows
+    (none when the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -601,13 +757,49 @@ def profile_drain(name: str, server, where: str) -> None:
     if busy_us == 0:
         print(f"[profile] {name}: the profiler saw no device time; busy "
               f"share not measured")
-        return
+        return rows
     top = sorted(rows, key=lambda r: -r[1])[:6]
     print(f"[profile] served {name} on {where}, 32 requests under "
           f"torch.profiler: device busy {busy_us / 1e3:.3f} ms of "
           f"{wall_us / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.1f}% "
           f"busy); top: " + "; ".join(
               f"{k[:40]} {t / 1e3:.3f} ms x{c}" for k, t, c in top))
+    # Host side of the same drain: self time of the torch ops and CUDA
+    # runtime calls the profiler records; the rest of the wall is Python
+    # and numpy outside them.
+    host = [(e.key, e.self_cpu_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+    host_us = sum(r[1] for r in host)
+    print(f"[profile] {name} host: torch ops and CUDA runtime calls "
+          f"{host_us / 1e3:.3f} ms self time of {wall_us / 1e3:.3f} ms wall; "
+          f"top: " + "; ".join(
+              f"{k[:32]} {t / 1e3:.3f} ms x{c}"
+              for k, t, c in sorted(host, key=lambda r: -r[1])[:6]))
+    return rows
+
+
+def check_grouped_drain(mode: str, server, where: str) -> None:
+    """The grouped DeiT-T drain's device kernels: one layer-group launch
+    per group per micro-batch (32 requests = 4 micro-batches of 8) and no
+    per-layer GEMM (int8: the only GEMMs are the embed and head int8
+    matmuls)."""
+    from repro_torch.models import vision_registry
+
+    rows = profile_drain(f"deit_t {mode} grouped by 4", server, where)
+    groups = vision_registry.make_schedule(server.cfg).counts()["layer_group"]
+    kernel = "vita_layer_group_int8_kernel" if mode == "int8" \
+        else "vita_layer_group_kernel"
+    n_group = sum(c for k, _, c in rows if kernel in k)
+    n_f32 = sum(c for k, _, c in rows if "gemm_f32_kernel" in k)
+    n_i8 = sum(c for k, _, c in rows if "gemm_i8_kernel" in k)
+    print(f"[profile] deit_t {mode} grouped by 4: {kernel} x{n_group} "
+          f"(expected {groups} groups x 4 micro-batches), gemm_f32_kernel "
+          f"x{n_f32}, gemm_i8_kernel x{n_i8}")
+    check(n_group == groups * 4 and n_f32 == 0
+          and n_i8 == (8 if mode == "int8" else 0),
+          f"grouped deit_t {mode}: the drain did not run one layer-group "
+          f"kernel per group per micro-batch and no per-layer GEMM")
 
 
 def main() -> None:
@@ -647,32 +839,38 @@ def main() -> None:
 
     # 2. Each kernel against its plain version.
     cfgs = {m: vision_registry.build_cfg(m, full=True)
-            for m in ("deit_t", "swin_t", "vit_edge")}
+            for m in MODELS + ("vit_edge",)}
     records = kernel_phase(cfgs["deit_t"], cfgs["vit_edge"], cfgs["swin_t"])
 
     # 3. Serve every path on the card against its CPU twin.
     images = {m: np.random.default_rng(0).standard_normal(
-        (max(p[3] for p in PATHS), cfgs[m].image, cfgs[m].image, 3)
-    ).astype(np.float32) for m in ("deit_t", "swin_t")}
+        (max(p[4] for p in PATHS), cfgs[m].image, cfgs[m].image, 3)
+    ).astype(np.float32) for m in MODELS}
     params = {m: vision_registry.init_params(cfgs[m], seed=0, device="cuda")
-              for m in ("deit_t", "swin_t")}
+              for m in MODELS}
     served, quant = {}, {}
-    for model, mode, fused, n_req in PATHS:
-        q = quant.get(model, (None, None))
-        out = serve_path(model, mode, fused, params[model],
+    for model, mode, fused, group, n_req in PATHS:
+        # The unfused int8 path reuses the fused path's frozen scales; a
+        # grouped int8 path calibrates through its own group phases.
+        q = quant.get((model, group), (None, None))
+        out = serve_path(model, mode, fused, group, params[model],
                          images[model][:n_req],
                          qparams=q[0], calibrator=q[1])
         if mode == "int8":
-            quant[model] = (out["server"].qparams, out["server"].calibrator)
-        served[(model, mode, fused)] = out
-    for model in ("deit_t", "swin_t"):
-        f_log = served[(model, "float", True)]["logits"]
-        i_log = served[(model, "int8", True)]["logits"]
+            quant[(model, group)] = (out["server"].qparams,
+                                     out["server"].calibrator)
+        served[(model, mode, fused, group)] = out
+    for model, mode, fused, group, _ in PATHS:
+        if mode != "int8" or not fused \
+                or (model, "float", True, group) not in served:
+            continue
+        f_log = served[(model, "float", True, group)]["logits"]
+        i_log = served[(model, "int8", True, group)]["logits"]
         n = min(len(f_log), len(i_log))
         tol = ptq_tolerance(float(np.abs(f_log[:n]).max()))
         perr = float(np.abs(i_log[:n] - f_log[:n]).max())
-        print(f"[serve] {model} int8 vs float on the card: max|err| "
-              f"{perr:.4f} (ptq_tolerance {tol:.4f})")
+        print(f"[serve] {path_name(model, 'int8', True, group)} vs float on "
+              f"the card: max|err| {perr:.4f} (ptq_tolerance {tol:.4f})")
         check(perr <= tol, f"{model}: int8 logits outside the PTQ tolerance")
     launches = {k[0]: sum(o["counts"][k[0]] for o in served.values())
                 for k in KERNELS}
@@ -715,29 +913,40 @@ def main() -> None:
           "events around 50 back-to-back calls")
     print("[time] library yardsticks (never called by the port): "
           "vita_layer = cuBLAS matmuls + F.layer_norm + "
-          "F.scaled_dot_product_attention + F.gelu; vita_msa_batched = "
+          "F.scaled_dot_product_attention + F.gelu (vita_layer_group: L "
+          "of them in a row); vita_msa_batched = "
           "torch.matmul projections + F.scaled_dot_product_attention; "
           "fused_mlp = addmm + tanh-GELU + addmm; int8_matmul = "
-          "torch._int_mm (int32 out, no rescale); none for the int8 layer "
-          "and int8 MSA")
-    for (model, mode, fused), o in served.items():
+          "torch._int_mm (int32 out, no rescale); none for the int8 layer, "
+          "the int8 layer group and the int8 MSA")
+    img_s = {}
+    for key, o in served.items():
         server = o["server"]
         shape = (server.cfg.image, server.cfg.image, 3)
         server.submit_many(np.zeros((16,) + shape, np.float32))
         server.run()                                    # warm
         server.submit_many(np.zeros((64,) + shape, np.float32))
         stats = server.run()
-        print(f"[time] served {model} {mode} "
-              f"{'fused' if fused else 'unfused'} on {name} ({card}): "
+        img_s[key] = stats["throughput_img_s"]
+        print(f"[time] served {path_name(*key)} on {name} ({card}): "
               f"bucket {BUCKETS[-1]}, {stats['requests']} requests: "
               f"{stats['throughput_img_s']:.1f} img/s, p50 latency "
               f"{stats['latency_p50_ms']:.3f} ms (drain: queue included), "
               f"p50 service {stats['service_p50_ms']:.3f} ms")
+    for (model, mode, fused, group), v in img_s.items():
+        if group > 1:
+            print(f"[time] served {model} {mode}: grouped by {group} "
+                  f"{v:.1f} img/s beside per-layer "
+                  f"{img_s[(model, mode, True, 1)]:.1f} img/s (one run; "
+                  f"the host's share varies between machines)")
     for model in ("deit_t", "swin_t"):
         for mode in ("float", "int8"):
             profile_drain(f"{model} {mode}",
-                          served[(model, mode, True)]["server"],
+                          served[(model, mode, True, 1)]["server"],
                           f"{name} ({card})")
+    for mode in ("float", "int8"):
+        check_grouped_drain(mode, served[("deit_t", mode, True, 4)]["server"],
+                            f"{name} ({card})")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,12 +5,18 @@ QKV stacks, per-output-channel for plain matmul weights, per-tensor for
 activations, with max-abs calibration.  The arithmetic follows the JAX
 module step for step, so the same float weights give the same int8 codes
 and scales.
+
+Head pruning is applied to the params, not the executor: the per-head
+stacks are sliced to the surviving heads and the concat projection's rows
+with them (the H/K rescale folded into the float rows, or into an int8
+weight's per-channel scale), so the kernels size their head axis off
+``wq.shape`` and never see a dead head.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -79,6 +85,14 @@ def quantize_vision_params(params: Any) -> Any:
     return _q(params)
 
 
+def stack_qtensors(qts: Sequence[QTensor]) -> QTensor:
+    """Stack per-layer `QTensor`s into one leading-axis (L, ...) QTensor
+    (values and scales stacked separately), the layer-group kernel's
+    operand form: each member keeps its own per-channel scales."""
+    return QTensor(torch.stack([q.values for q in qts]),
+                   torch.stack([q.scale for q in qts]))
+
+
 class Calibrator:
     """Per-site activation amax, recorded during calibration forwards.
 
@@ -89,6 +103,7 @@ class Calibrator:
     def __init__(self):
         self.amax: Dict[str, float] = {}
         self.frozen: Optional[Dict[str, torch.Tensor]] = None
+        self._stacks: Dict[Tuple[str, ...], torch.Tensor] = {}
 
     def observe(self, name: str, x: torch.Tensor) -> torch.Tensor:
         if self.frozen is not None:
@@ -102,7 +117,18 @@ class Calibrator:
         self.frozen = {k: torch.tensor(max(v, 1e-8) / INT8_MAX,
                                        dtype=torch.float32, device=device)
                        for k, v in self.amax.items()}
+        self._stacks = {}
         return self.frozen
+
+    def stacked(self, names: Tuple[str, ...]) -> torch.Tensor:
+        """The frozen scales of ``names`` as one (len(names),) tensor,
+        made once per frozen calibrator and reused (the layer-group
+        kernel's act_scales)."""
+        out = self._stacks.get(names)
+        if out is None:
+            out = torch.stack([self.frozen[n] for n in names]).reshape(-1)
+            self._stacks[names] = out
+        return out
 
     def to(self, device) -> "Calibrator":
         """A frozen copy whose scales live on ``device``."""
@@ -123,3 +149,96 @@ PTQ_ABS_TOL = 0.05
 def ptq_tolerance(float_logit_scale: float) -> float:
     """Tolerance on int8 logit error, given max|float logits|."""
     return PTQ_REL_TOL * float(float_logit_scale) + PTQ_ABS_TOL
+
+
+# ---------------------------------------------------------------------------
+# Head pruning
+# ---------------------------------------------------------------------------
+
+
+def _keep_indices(mask_row) -> Tuple[int, ...]:
+    return tuple(i for i, v in enumerate(mask_row) if v)
+
+
+def _take(t: torch.Tensor, keep, dim: int) -> torch.Tensor:
+    idx = torch.tensor(list(keep), dtype=torch.long, device=t.device)
+    return torch.index_select(t, dim, idx)
+
+
+def slice_head_stack(leaf, keep):
+    """A per-head (H, ...) stack (tensor or `QTensor`, whose (H, 1, Dh)
+    scale follows its values) cut to the surviving heads ``keep``."""
+    if isinstance(leaf, QTensor):
+        return QTensor(_take(leaf.values, keep, 0), _take(leaf.scale, keep, 0))
+    return _take(leaf, keep, 0)
+
+
+def slice_concat_rows(w_msa, keep, n_heads: int):
+    """The (H*Dh, C) concat projection cut to the surviving heads' row
+    blocks, with the H/K rescale folded in: float rows are multiplied by
+    H/K; an int8 weight keeps its codes and multiplies its per-channel
+    scale by H/K."""
+    keep = list(keep)
+    k = len(keep)
+    rescale = n_heads / float(k)
+    if isinstance(w_msa, QTensor):
+        hd, c = w_msa.values.shape
+        vals = _take(w_msa.values.reshape(n_heads, hd // n_heads, c), keep, 0)
+        return QTensor(vals.reshape(-1, c), w_msa.scale * rescale)
+    hd, c = w_msa.shape
+    rows = _take(w_msa.reshape(n_heads, hd // n_heads, c), keep, 0)
+    return rows.reshape(-1, c) * rescale
+
+
+def prune_block_heads(bp: Dict[str, Any], mask_row) -> Dict[str, Any]:
+    """One block's params pruned to a head-mask row: ``wq/wk/wv`` stacks,
+    Swin's ``rel_bias`` head columns and the ``w_msa`` concat rows (H/K
+    rescale folded in).  An all-keep row returns the block unchanged."""
+    keep = _keep_indices(mask_row)
+    n_heads = len(tuple(mask_row))
+    if len(keep) == n_heads:
+        return bp
+    out = dict(bp)
+    for name in ("wq", "wk", "wv"):
+        out[name] = slice_head_stack(bp[name], keep)
+    if "rel_bias" in bp:
+        out["rel_bias"] = _take(bp["rel_bias"], keep, 1)
+    out["w_msa"] = slice_concat_rows(bp["w_msa"], keep, n_heads)
+    return out
+
+
+def expand_block_heads(bp: Dict[str, Any], mask_row) -> Dict[str, Any]:
+    """Inverse of `prune_block_heads`, the dense oracle of a pruned block:
+    zero heads (unit scales in int8) and zero concat rows at the dead
+    positions, so the H-head schedule computes what the pruned one does
+    (up to the order of a float sum)."""
+    keep = _keep_indices(mask_row)
+    n_heads = len(tuple(mask_row))
+    if len(keep) == n_heads:
+        return bp
+    idx = list(keep)
+
+    def pad(t: torch.Tensor, dim: int, fill: float) -> torch.Tensor:
+        shape = list(t.shape)
+        shape[dim] = n_heads
+        full = torch.full(shape, fill, dtype=t.dtype, device=t.device)
+        full.index_copy_(dim, torch.tensor(idx, device=t.device), t)
+        return full
+
+    def pad_stack(leaf):
+        if isinstance(leaf, QTensor):
+            return QTensor(pad(leaf.values, 0, 0), pad(leaf.scale, 0, 1.0))
+        return pad(leaf, 0, 0.0)
+
+    out = dict(bp)
+    for name in ("wq", "wk", "wv"):
+        out[name] = pad_stack(bp[name])
+    if "rel_bias" in bp:
+        out["rel_bias"] = pad(bp["rel_bias"], 1, 0.0)
+    w = bp["w_msa"]
+    vals = w.values if isinstance(w, QTensor) else w
+    kd, c = vals.shape
+    rows = pad(vals.reshape(len(keep), kd // len(keep), c), 0, 0
+               ).reshape(-1, c)
+    out["w_msa"] = QTensor(rows, w.scale) if isinstance(w, QTensor) else rows
+    return out

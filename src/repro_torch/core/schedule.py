@@ -2,8 +2,9 @@
 
 `compile_schedule` turns a `VisionModelSpec` into the phase list the
 executor replays; `fuse_schedule` collapses each msa + mlp pair of one
-encoder block into a fused ``layer`` phase; `run_schedule` replays a
-schedule over the port's kernels.  Two layouts:
+encoder block into a fused ``layer`` phase and, with ``group_size > 1``,
+runs of compatible fused layers into ``layer_group`` phases;
+`run_schedule` replays a schedule over the port's kernels.  Two layouts:
 
   * columnar (ViT / DeiT): ``embed`` (+ positional embedding), msa/mlp per
     block at ``layers[i]`` / site ``l{i}``, ``head``;
@@ -18,10 +19,24 @@ the shifted-window mask passed along.  Float msa/mlp phases run the
 per-head MSA and fused MLP kernels; fused float layers the float layer
 kernel.  int8 layers run the fused int8 kernel at the frozen calibration
 scales and fall back to the unfused int8 MSA and MLP while the calibrator
-is still recording, so it sees every intermediate activation.
-`FusionPolicy` decides per served batch whether the fused schedule runs.
+is still recording, so it sees every intermediate activation.  A
+``layer_group`` phase runs its L members as one layer-group kernel launch
+(float or int8; int8 calibration falls back to each member's layer
+phase), with the window fold done once for the whole group.
+`FusionPolicy` decides per served batch whether the fused schedule runs,
+and at which group size.
 
-TNT phases, layer groups and sharding come with later slices.
+Where the stacking is held: the group kernel reads (L, ...) operands.
+The reference stacks the member subtrees inside its jitted forward; here
+that would be a copy of every group weight per micro-batch, so
+`_group_operands` stacks them once per (param tree, group) and keeps them
+in `_STACKED`, keyed weakly by the lead member's ``wq`` tensor (a new or
+freed param tree drops its entries; param trees are not mutated in
+place).  The (L, 4) int8 activation scales come from the frozen
+calibrator's own cache, `Calibrator.stacked`.
+
+TNT phases (and so ``inner_layer_group``) and sharding come with later
+slices.
 """
 
 from __future__ import annotations
@@ -34,9 +49,10 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.perfmodel import VisionModelSpec
-from repro_torch.core.quant import INT8_MAX, QTensor
+from repro_torch.core.quant import INT8_MAX, QTensor, stack_qtensors
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gelu, layer_norm_ref
 
@@ -48,15 +64,20 @@ class Phase:
     """One control-program step.  ``path`` addresses the param subtree the
     phase reads; ``site`` prefixes its activation-calibration entries."""
 
-    kind: str                      # embed | msa | mlp | layer | merge | head
+    kind: str                      # embed | msa | mlp | layer
+                                   # | layer_group | merge | head
     path: Tuple[Any, ...]
     site: str
     grid: Tuple[int, int]          # (h, w) token grid at phase input
-    heads: int = 0                 # surviving heads of this layer
+    heads: int = 0                 # surviving heads of this layer; the
+                                   # grouping pass compares it, so ragged
+                                   # pruning splits groups
     window: int = 0                # 0 -> global MSA
     shift: int = 0                 # shifted-window offset (odd Swin blocks)
     pos_embed: bool = False        # embed: add the positional embedding
     norm: bool = False             # embed: LayerNorm after the projection
+    members: Tuple["Phase", ...] = ()  # layer_group: the grouped layer
+                                   # phases in execution order (else empty)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,14 +151,60 @@ def compile_schedule(spec: VisionModelSpec, *, n_classes: int,
 
 FUSABLE_PAIRS = {("msa", "mlp"): "layer"}
 
+# Fused kinds the grouping pass may collapse into layer-group phases
+# (TNT's inner_layer -> inner_layer_group comes with TNT).
+GROUPABLE_KINDS = {"layer": "layer_group"}
+
+
+def _groupable(p: Phase, q: Phase) -> bool:
+    """True iff adjacent fused layer ``q`` may join ``p``'s group: same
+    kind, identical geometry (the group kernel does one window fold and
+    takes one stacked operand layout, so surviving heads must match too)
+    and the same stage (paths differing only in the trailing block
+    index)."""
+    return (q.kind == p.kind
+            and q.grid == p.grid and q.window == p.window
+            and q.shift == p.shift and q.heads == p.heads
+            and len(q.path) == len(p.path)
+            and q.path[:-1] == p.path[:-1])
+
+
+def _group_layers(phases, group_size: int):
+    """Collapse maximal runs of compatible fused layers into group phases
+    of at most ``group_size`` members (greedy chunks; a leftover chunk of
+    one stays a plain layer, so every layer is covered exactly once and
+    regrouping is a no-op)."""
+    out = []
+    i = 0
+    while i < len(phases):
+        p = phases[i]
+        gkind = GROUPABLE_KINDS.get(p.kind)
+        if gkind is None:
+            out.append(p)
+            i += 1
+            continue
+        run = [p]
+        while (i + len(run) < len(phases) and len(run) < group_size
+               and _groupable(p, phases[i + len(run)])):
+            run.append(phases[i + len(run)])
+        if len(run) == 1:
+            out.append(p)
+        else:
+            out.append(dataclasses.replace(
+                p, kind=gkind, members=tuple(run),
+                site=f"{run[0].site}..{run[-1].site}"))
+        i += len(run)
+    return out
+
 
 def fuse_schedule(sched: Schedule, *, group_size: int = 1) -> Schedule:
     """Collapse adjacent msa -> mlp phases of one block (same path, site
     and grid) into fused ``layer`` phases, which keep the msa half's
-    window, shift and heads.  Layer groups (``group_size > 1``) are not
-    ported yet."""
-    if group_size != 1:
-        raise NotImplementedError("layer groups are not ported yet")
+    window, shift and heads.  With ``group_size > 1`` a second sweep
+    collapses runs of compatible fused layers (same stage and geometry,
+    `_groupable`) into ``layer_group`` phases of at most ``group_size``
+    members.  ``group_size <= 1`` gives the per-layer fused schedule; the
+    pass is idempotent at any size."""
     fused = []
     i = 0
     phases = sched.phases
@@ -152,6 +219,8 @@ def fuse_schedule(sched: Schedule, *, group_size: int = 1) -> Schedule:
         else:
             fused.append(p)
             i += 1
+    if group_size > 1:
+        fused = _group_layers(fused, group_size)
     return dataclasses.replace(sched, phases=tuple(fused))
 
 
@@ -378,6 +447,91 @@ def _layer_phase(ph: Phase, bp: Any, x: torch.Tensor, obs,
     return _unfold(ph, yw, x.shape[0])
 
 
+_STACKED: WeakIdKeyDictionary = WeakIdKeyDictionary()
+
+
+def _stack_block_params(bps) -> Dict[str, Any]:
+    """Per-layer block subtrees stacked into leading-axis (L, ...)
+    operands; `QTensor` leaves stack values and scales separately
+    (`quant.stack_qtensors`), so each member keeps its own scales."""
+    out: Dict[str, Any] = {}
+    for k in bps[0]:
+        vals = [bp[k] for bp in bps]
+        out[k] = (stack_qtensors(vals) if isinstance(vals[0], QTensor)
+                  else torch.stack(vals))
+    return out
+
+
+def _group_operands(ph: Phase, params: Any) -> Dict[str, Any]:
+    """The group's stacked operands, and in windowed mode its (L, H, n, n)
+    relative-position bias as ``"bias"``, made on first use and then read
+    from `_STACKED` (see the module docstring)."""
+    lead = _subtree(params, ph.members[0].path)["wq"]
+    key = lead.values if isinstance(lead, QTensor) else lead
+    per_tree = _STACKED.setdefault(key, {})
+    paths = tuple(m.path for m in ph.members)
+    sp = per_tree.get(paths)
+    if sp is None:
+        sp = _stack_block_params([_subtree(params, p) for p in paths])
+        if ph.window:
+            idx = _rel_index_on(ph.window, sp["rel_bias"].device)
+            sp["bias"] = sp["rel_bias"][:, idx].permute(0, 3, 1, 2
+                                                         ).contiguous()
+        per_tree[paths] = sp
+    return sp
+
+
+def _group_head_scale(wq: QTensor) -> torch.Tensor:
+    """Stacked per-(layer, head, out-channel) scale (L, H, 1, Dh) -> the
+    (L, H, Dh) group-kernel form."""
+    n_l, h, _, dh = wq.values.shape
+    return wq.scale.reshape(n_l, h, dh)
+
+
+def _grouped_layer_call(ph: Phase, sp: Dict[str, Any], x: torch.Tensor,
+                        obs, quantized: bool, bias, mask) -> torch.Tensor:
+    """One layer-group kernel call over (B', N, C); B' is images, or
+    images * windows in windowed mode (the fold happens in the caller)."""
+    if quantized:
+        # (L, 4): each member's four frozen calibration scales.
+        act_scales = obs.stacked(tuple(
+            f"{m.site}.{s}" for m in ph.members
+            for s in ("qkv_in", "w_msa", "w_up", "w_down"))).reshape(-1, 4)
+        return ops.vita_layer_group_int8(
+            x, sp["wq"].values, sp["wk"].values, sp["wv"].values,
+            sp["w_msa"].values, sp["w_up"].values, sp["w_down"].values,
+            act_scales, _group_head_scale(sp["wq"]),
+            _group_head_scale(sp["wk"]), _group_head_scale(sp["wv"]),
+            sp["w_msa"].scale, sp["w_up"].scale, sp["w_down"].scale,
+            sp["ln1_w"], sp["ln1_b"], sp["ln2_w"], sp["ln2_b"], sp["b_up"],
+            sp["b_down"], bias, mask).to(x.dtype)
+    return ops.vita_layer_group(
+        x, sp["wq"], sp["wk"], sp["wv"], sp["w_msa"], sp["ln1_w"],
+        sp["ln1_b"], sp["ln2_w"], sp["ln2_b"], sp["w_up"], sp["b_up"],
+        sp["w_down"], sp["b_down"], bias, mask)
+
+
+def _layer_group_phase(ph: Phase, params: Any, x: torch.Tensor, obs,
+                       quantized: bool) -> torch.Tensor:
+    """L encoder blocks as one layer-group kernel call.  int8 calibration
+    (observer not yet frozen) falls back to each member's `_layer_phase`,
+    which itself runs unfused, so the observer sees every member's sites.
+    Members share window and shift, so the window fold happens once for
+    the whole group."""
+    if quantized and (obs is None or obs.frozen is None):
+        for m in ph.members:
+            x = _layer_phase(m, _subtree(params, m.path), x, obs, quantized)
+        return x
+    sp = _group_operands(ph, params)
+    if not ph.window:
+        return _grouped_layer_call(ph, sp, x, obs, quantized, None, None)
+    gh, gw = ph.grid
+    mask = _mask_on(gh, gw, ph.window, ph.shift, x.device)
+    yw = _grouped_layer_call(ph, sp, _fold(ph, x), obs, quantized,
+                             sp["bias"], mask)
+    return _unfold(ph, yw, x.shape[0])
+
+
 def _merge_phase(ph: Phase, sp: Any, x: torch.Tensor, obs) -> torch.Tensor:
     """Swin patch merging: 2x2 neighbourhood concat -> LN -> linear."""
     b, _, c = x.shape
@@ -406,6 +560,9 @@ def _apply_phase(sched: Schedule, ph: Phase, params: Any, x: torch.Tensor,
         x = _mlp_phase(ph, _subtree(params, ph.path), x, obs, quantized)
     elif ph.kind == "layer":
         x = _layer_phase(ph, _subtree(params, ph.path), x, obs, quantized)
+    elif ph.kind == "layer_group":
+        # Members carry their own paths: the phase takes the whole tree.
+        x = _layer_group_phase(ph, params, x, obs, quantized)
     elif ph.kind == "merge":
         x = _merge_phase(ph, _subtree(params, ph.path), x, obs)
     elif ph.kind == "head":

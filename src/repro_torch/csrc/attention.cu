@@ -7,8 +7,9 @@
 // per sequential grid step with the whole head's Q/K/V/S in VMEM.  Here
 // each block takes one (image, head, 32-query tile) in parallel and holds
 // that head's K and V (N x Dh fp32 each: 98 KiB at N=196, Dh=64; 128 KiB at
-// N=256) in dynamic shared memory; the row itself is `attend_row`
-// (attention.cuh), shared with vita_msa.cu.
+// N=256) in dynamic shared memory.  The work item is `attention_tile`
+// (attention.cuh), shared with the layer-group kernel; its rows are
+// `attend_row`, shared with vita_msa.cu.
 // Bound: operations at DeiT-T/ViT-B widths (4*N*N*Dh flops per head against
 // 4*N*Dh*4 bytes in and out), on CUDA cores.  K/V are re-read once per
 // query tile (ceil(N/32) times per head), from L2.
@@ -26,9 +27,7 @@
 
 namespace repro_torch {
 
-constexpr int WARPS = 8, QTILE = 32;
-
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(ATT_WARPS * 32)
 attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, long long sb, long long sn,
                  long long sh, void* __restrict__ out, long long ob,
@@ -37,36 +36,8 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ bias,
                  const float* __restrict__ mask, int nW) {
   extern __shared__ float smem[];
-  const int ks = Dh + 1;                  // padded K row: lanes read distinct banks
-  float* Ks = smem;                       // [N][Dh+1]
-  float* Vs = Ks + (size_t)N * ks;        // [N][Dh]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* qrow = Vs + (size_t)N * Dh + warp * (Dh + N);   // [Dh]
-  float* prow = qrow + Dh;                               // [N]
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long base = (long long)b * sb + (long long)h * sh;
-  for (int i = threadIdx.x; i < N * Dh; i += blockDim.x) {
-    int n = i / Dh, e = i % Dh;
-    long long g = base + (long long)n * sn + e;
-    Ks[n * ks + e] = k[g];
-    Vs[n * Dh + e] = v[g];
-  }
-  __syncthreads();
-  const float* bias_h = bias ? bias + (size_t)h * N * N : nullptr;
-  const float* mask_w = mask ? mask + (size_t)(b % nW) * N * N : nullptr;
-  const int q0 = blockIdx.x * QTILE;
-  for (int r = warp; r < QTILE; r += WARPS) {
-    const int n = q0 + r;
-    if (n >= N) break;
-    const long long g = base + (long long)n * sn;
-    for (int e = lane; e < Dh; e += 32) qrow[e] = q[g + e];
-    __syncwarp();
-    attend_row(qrow, Ks, ks, Vs, N, Dh, scale,
-               bias_h ? bias_h + (size_t)n * N : nullptr,
-               mask_w ? mask_w + (size_t)n * N : nullptr, prow, out,
-               (long long)b * ob + (long long)n * on + (long long)h * oh,
-               out_scale);
-  }
+  attention_tile(smem, q, k, v, sb, sn, sh, out, ob, on, oh, N, Dh, scale,
+                 out_scale, bias, mask, nW, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
 }  // namespace repro_torch
@@ -78,12 +49,12 @@ extern "C" int rt_attention(const float* q, const float* k, const float* v,
                             const float* out_scale, const float* bias,
                             const float* mask, int nW, void* stream) {
   using namespace repro_torch;
-  size_t smem = sizeof(float) * ((size_t)N * (2 * Dh + 1) + (size_t)WARPS * (Dh + N));
+  size_t smem = sizeof(float) * attention_smem_floats(N, Dh);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + QTILE - 1) / QTILE, H, B);
-  attention_kernel<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
+  dim3 grid((N + ATT_QTILE - 1) / ATT_QTILE, H, B);
+  attention_kernel<<<grid, ATT_WARPS * 32, smem, (cudaStream_t)stream>>>(
       q, k, v, sb, sn, sh, out, ob, on, oh, N, Dh, scale, out_scale, bias,
       mask, nW);
   return (int)cudaGetLastError();

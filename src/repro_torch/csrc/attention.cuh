@@ -1,6 +1,7 @@
 // One query row of exact softmax attention, computed by one warp: the
 // engine-2 core (repro/kernels/vita_msa.py::softmax_av) shared by
-// attention.cu and vita_msa.cu.
+// attention.cu and vita_msa.cu; and `attention_tile`, one (image, head,
+// 32-query tile) work item, shared by attention.cu and vita_layer_group.cu.
 //
 // K and V of the (image, head) sit in shared memory (K rows padded to
 // ks = Dh + 1 floats so the lanes read distinct banks); the warp's scores
@@ -55,6 +56,59 @@ __device__ __forceinline__ void attend_row(
       static_cast<float*>(out)[o + e] = a;
   }
   __syncwarp();
+}
+
+constexpr int ATT_WARPS = 8, ATT_QTILE = 32;
+
+// Dynamic shared memory of one `attention_tile` block, in floats:
+// K [N][Dh+1], V [N][Dh], and per warp a query row [Dh] and a score row [N].
+__host__ __device__ inline size_t attention_smem_floats(int N, int Dh) {
+  return (size_t)N * (2 * Dh + 1) + (size_t)ATT_WARPS * (Dh + N);
+}
+
+// Work item (image b, head h, query tile qt) for a block of ATT_WARPS warps.
+// The block loads the head's K and V into shared memory, then each warp
+// attends its rows of the tile.  q/k/v share one stride set: element e of
+// token n, head h, image b is at base[b*sb + n*sn + h*sh + e]; out uses
+// (ob, on, oh) the same way and is float, or int8 quantised at *out_scale.
+// bias (H, N, N) and mask (nW, N, N) select the windowed mode (both null:
+// global).  Ends with a block barrier, so a persistent block may take its
+// next item at once.  No pointer carries __restrict__ (see gemm_f32.cuh).
+__device__ __forceinline__ void attention_tile(
+    float* smem, const float* q, const float* k, const float* v, long long sb,
+    long long sn, long long sh, void* out, long long ob, long long on,
+    long long oh, int N, int Dh, float scale, const float* out_scale,
+    const float* bias, const float* mask, int nW, int qt, int h, int b) {
+  const int ks = Dh + 1;                  // padded K row: lanes read distinct banks
+  float* Ks = smem;                       // [N][Dh+1]
+  float* Vs = Ks + (size_t)N * ks;        // [N][Dh]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* qrow = Vs + (size_t)N * Dh + warp * (Dh + N);   // [Dh]
+  float* prow = qrow + Dh;                               // [N]
+  const long long base = (long long)b * sb + (long long)h * sh;
+  for (int i = threadIdx.x; i < N * Dh; i += blockDim.x) {
+    int n = i / Dh, e = i % Dh;
+    long long g = base + (long long)n * sn + e;
+    Ks[n * ks + e] = k[g];
+    Vs[n * Dh + e] = v[g];
+  }
+  __syncthreads();
+  const float* bias_h = bias ? bias + (size_t)h * N * N : nullptr;
+  const float* mask_w = mask ? mask + (size_t)(b % nW) * N * N : nullptr;
+  const int q0 = qt * ATT_QTILE;
+  for (int r = warp; r < ATT_QTILE; r += ATT_WARPS) {
+    const int n = q0 + r;
+    if (n >= N) break;
+    const long long g = base + (long long)n * sn;
+    for (int e = lane; e < Dh; e += 32) qrow[e] = q[g + e];
+    __syncwarp();
+    attend_row(qrow, Ks, ks, Vs, N, Dh, scale,
+               bias_h ? bias_h + (size_t)n * N : nullptr,
+               mask_w ? mask_w + (size_t)n * N : nullptr, prow, out,
+               (long long)b * ob + (long long)n * on + (long long)h * oh,
+               out_scale);
+  }
+  __syncthreads();
 }
 
 }  // namespace repro_torch

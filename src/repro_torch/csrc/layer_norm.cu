@@ -6,9 +6,9 @@
 // normalised rows go to device memory (L2-resident at these sizes) and the
 // GEMMs read them back: "nothing leaves the grid" is dropped here.
 // Bound: bytes (one read of x, one write of z; ~10 flops per element).
-// Design: one warp per row, two passes over the row held in global memory
-// (population variance, eps as given), rows spread over 8 warps a block.
-#include "common.cuh"
+// Design: one warp per row (`layer_norm_row`, layer_norm.cuh, shared with
+// the layer-group kernel), rows spread over 8 warps a block.
+#include "layer_norm.cuh"
 
 namespace repro_torch {
 
@@ -19,28 +19,8 @@ __global__ void layer_norm_kernel(const float* __restrict__ x,
                                   float eps, const float* __restrict__ q_scale) {
   const int warps = blockDim.x / 32;
   const int row = blockIdx.x * warps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const float* xr = x + (size_t)row * d;
-  float s = 0.f;
-  for (int i = lane; i < d; i += 32) s += xr[i];
-  const float mu = warp_sum(s) / (float)d;
-  float v = 0.f;
-  for (int i = lane; i < d; i += 32) {
-    float t = xr[i] - mu;
-    v += t * t;
-  }
-  const float var = warp_sum(v) / (float)d;
-  const float inv = 1.0f / sqrtf(var + eps);
-  if (q_scale == nullptr) {
-    float* o = static_cast<float*>(out) + (size_t)row * d;
-    for (int i = lane; i < d; i += 32) o[i] = (xr[i] - mu) * inv * w[i] + b[i];
-  } else {
-    const float qs = *q_scale;
-    int8_t* o = static_cast<int8_t*>(out) + (size_t)row * d;
-    for (int i = lane; i < d; i += 32)
-      o[i] = quant_i8((xr[i] - mu) * inv * w[i] + b[i], qs);
-  }
+  layer_norm_row(x, w, b, out, row, d, eps, q_scale);
 }
 
 }  // namespace repro_torch

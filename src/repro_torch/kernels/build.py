@@ -40,6 +40,10 @@ SIGNATURES = {
     ("vita_msa", "rt_vita_msa"): [P, P, P, P, P, P, P, I, P, I, I, I, I, I,
                                   F, P],
     ("fused_mlp", "rt_fused_mlp"): [P, P, P, P, P, P, I, I, I, I, P],
+    ("vita_layer_group", "rt_vita_layer_group"): [P] * 24 + [I] * 8
+    + [F, F, P],
+    ("vita_layer_group", "rt_vita_layer_group_int8"): [P] * 31 + [I] * 8
+    + [F, F, P],
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in SIGNATURES}))
 

@@ -18,11 +18,14 @@ from . import fused_mlp as _fused_mlp
 from . import int8_matmul as _int8_matmul
 from . import ref
 from . import vita_layer as _vita_layer
+from . import vita_layer_group as _vita_layer_group
 from . import vita_msa as _vita_msa
 
 LAUNCHES: Dict[str, int] = {"vita_layer": 0, "vita_layer_int8": 0,
                             "vita_msa_int8": 0, "int8_matmul": 0,
-                            "vita_msa_batched": 0, "fused_mlp": 0}
+                            "vita_msa_batched": 0, "fused_mlp": 0,
+                            "vita_layer_group": 0,
+                            "vita_layer_group_int8": 0}
 
 
 def reset_launches() -> None:
@@ -108,3 +111,27 @@ def vita_layer_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
         return _vita_layer.vita_layer_int8(*args)
     return ref.vita_layer_int8_ref(*args)
 
+
+def vita_layer_group(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
+                     w_up, b_up, w_down, b_down, bias=None, mask=None):
+    """L fused float encoder layers with stacked (L, ...) operands in one
+    kernel launch: (B, N, D) -> (B, N, D)."""
+    args = (x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
+            w_down, b_down, bias, mask)
+    if _on_card("vita_layer_group", x):
+        return _vita_layer_group.vita_layer_group(*args)
+    return ref.vita_layer_group_ref(*args)
+
+
+def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
+                          act_scales, wq_scale, wk_scale, wv_scale,
+                          wmsa_scale, wup_scale, wdown_scale, ln1_w, ln1_b,
+                          ln2_w, ln2_b, b_up, b_down, bias=None, mask=None):
+    """L fused int8 encoder layers in one launch, each member at its own
+    frozen ``act_scales`` row of (L, 4)."""
+    args = (x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q, act_scales,
+            wq_scale, wk_scale, wv_scale, wmsa_scale, wup_scale, wdown_scale,
+            ln1_w, ln1_b, ln2_w, ln2_b, b_up, b_down, bias, mask)
+    if _on_card("vita_layer_group_int8", x):
+        return _vita_layer_group.vita_layer_group_int8(*args)
+    return ref.vita_layer_group_int8_ref(*args)

@@ -241,3 +241,37 @@ def vita_layer_int8_ref(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
     hid = gelu(requant_mm(z2, s[2], wup_q, wup_scale, m) + b_up.float())
     down = requant_mm(hid, s[3], wdown_q, wdown_scale, d)
     return h1 + down + b_down.float()
+
+
+def vita_layer_group_ref(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
+                         w_up, b_up, w_down, b_down, bias=None, mask=None):
+    """Layer group: L stacked encoder layers through `vita_layer_ref`, one
+    after the other.  Every weight operand carries the layer as its
+    leading axis; ``bias`` is (L, H, n, n) and ``mask`` (nW, n, n) is
+    shared by the members."""
+    y = x
+    for l in range(wq.shape[0]):
+        y = vita_layer_ref(y, wq[l], wk[l], wv[l], w_msa[l], ln1_w[l],
+                           ln1_b[l], ln2_w[l], ln2_b[l], w_up[l], b_up[l],
+                           w_down[l], b_down[l],
+                           None if bias is None else bias[l], mask)
+    return y
+
+
+def vita_layer_group_int8_ref(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
+                              act_scales, wq_scale, wk_scale, wv_scale,
+                              wmsa_scale, wup_scale, wdown_scale, ln1_w,
+                              ln1_b, ln2_w, ln2_b, b_up, b_down, bias=None,
+                              mask=None):
+    """int8 layer group: `vita_layer_int8_ref` per member, each at its own
+    frozen scales (``act_scales`` (L, 4), weight scales stacked on the
+    layer axis)."""
+    y = x.float()
+    for l in range(wq_q.shape[0]):
+        y = vita_layer_int8_ref(
+            y, wq_q[l], wk_q[l], wv_q[l], wmsa_q[l], wup_q[l], wdown_q[l],
+            act_scales[l], wq_scale[l], wk_scale[l], wv_scale[l],
+            wmsa_scale[l], wup_scale[l], wdown_scale[l], ln1_w[l], ln1_b[l],
+            ln2_w[l], ln2_b[l], b_up[l], b_down[l],
+            None if bias is None else bias[l], mask)
+    return y

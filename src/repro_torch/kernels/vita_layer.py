@@ -9,7 +9,8 @@ each per image (w_up alone 576 KiB in fp32) against 227 KB of shared
 memory a block.  So the layer is a chain of small kernels whose
 intermediates (Q/K/V, SA, h1, the MLP hidden) go through device memory —
 at these sizes they stay in the 50 MB L2.  This drops the TPU kernel's
-"nothing leaves the grid" property; fusing it back is later work.
+"nothing leaves the grid" property.  A layer group runs the same chain's
+tiles for all its layers in one launch (`vita_layer_group.py`).
 
   float: LN1 (csrc/layer_norm.cu) -> Q, K, V GEMMs reading the (H, D, Dh)
          stacks in place (csrc/gemm_f32.cu) -> attention (csrc/attention.cu)

@@ -1,0 +1,159 @@
+"""Layer groups on Hopper: L fused encoder layers in one launch, float and
+int8.
+
+Counterpart of `repro/kernels/vita_layer.py::vita_layer_group` and
+`::vita_layer_group_int8`.  The TPU kernel runs a sequential (B, L, H) grid
+with the activation resident in VMEM across all L layers.  Here each group
+call is ONE cooperative launch of ``csrc/vita_layer_group.cu``: a
+persistent grid walks seven stages per layer (LN1, Q/K/V, attention,
+concat + residual, LN2, up + GELU, down + residual) with a grid-wide
+barrier between stages, reusing the per-layer chain's own tile code, so a
+group equals L calls of `vita_layer.vita_layer` / `vita_layer_int8`.  The
+source note says what bounds it and how its design differs from the TPU's.
+
+Operands carry the layer as their leading axis: wq/wk/wv (L, H, D, Dh);
+w_msa (L, H*Dh, D); w_up (L, D, M); w_down (L, M, D); LN vectors and
+b_down (L, D); b_up (L, M).  Windowed (Swin) groups take ``bias``
+(L, H, n, n) and one shared ``mask`` (nW, n, n): members share window and
+shift.  The wrapper allocates the workspace (z, q, k, v, sa, h1, hid and
+the barrier counter) as one buffer.  These functions take CUDA tensors
+only; the plain versions are `ref.vita_layer_group_ref` /
+`vita_layer_group_int8_ref`, chosen by `ops`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import build
+from .int8_matmul import _stream, check, ptr
+from .vita_msa import SMEM_LIMIT
+
+_ALIGN = 256
+LN_EPS = 1e-5
+
+
+def group_smem_bytes(n: int, dh: int) -> int:
+    """Dynamic shared memory of one group-kernel block: the attention
+    stage's K [N][Dh+1], V [N][Dh] and 8 query and score rows (the GEMM
+    tiles need less)."""
+    return 4 * (n * (2 * dh + 1) + 8 * (dh + n))
+
+
+def _workspace(device, rows: int, d: int, hd: int, m: int, int8: bool):
+    """One buffer carved into the barrier counter and z, q, k, v, sa, h1,
+    hid (z, sa and hid int8 in the int8 kernel)."""
+    act, asz = (torch.int8, 1) if int8 else (torch.float32, 4)
+    parts = [((1,), torch.int32, 4), ((rows, d), act, asz),
+             ((rows, hd), torch.float32, 4), ((rows, hd), torch.float32, 4),
+             ((rows, hd), torch.float32, 4), ((rows, hd), act, asz),
+             ((rows, d), torch.float32, 4), ((rows, m), act, asz)]
+    nbytes = [size * shape[0] * (shape[1] if len(shape) > 1 else 1)
+              for shape, _, size in parts]
+    padded = [-(-nb // _ALIGN) * _ALIGN for nb in nbytes]
+    buf = torch.empty(sum(padded), device=device, dtype=torch.uint8)
+    views, off = [], 0
+    for (shape, dtype, _), nb, pad in zip(parts, nbytes, padded):
+        views.append(buf[off:off + nb].view(dtype).view(shape))
+        off += pad
+    return views
+
+
+def _check_common(x, wq, w_msa, w_up, w_down, vecs_d, b_up, bias, mask,
+                  wdtype):
+    """Shapes (b, n, d, L, h, dh, m, nW) of a group call, after checking
+    every operand; raises on what the kernel does not take."""
+    check(x, "x", torch.float32)
+    b, n, d = x.shape
+    n_l, h, _, dh = wq.shape
+    m = w_up.shape[2]
+    check(w_msa, "w_msa", wdtype, (n_l, h * dh, d))
+    check(w_up, "w_up", wdtype, (n_l, d, m))
+    check(w_down, "w_down", wdtype, (n_l, m, d))
+    for t, nm in vecs_d:
+        check(t, nm, torch.float32, (n_l, d))
+    check(b_up, "b_up", torch.float32, (n_l, m))
+    if (bias is None) != (mask is None):
+        raise ValueError("windowed mode needs both bias and mask (pass a "
+                         "zero mask for unshifted blocks)")
+    n_w = 1
+    if bias is not None:
+        check(bias, "bias", torch.float32, (n_l, h, n, n))
+        check(mask, "mask", torch.float32)
+        n_w = mask.shape[0]
+        if tuple(mask.shape) != (n_w, n, n) or n_w == 0 or b % n_w:
+            raise ValueError(f"mask has shape {tuple(mask.shape)}; expected "
+                             f"(nW, {n}, {n}) with nW dividing the batch {b}")
+    if group_smem_bytes(n, dh) > SMEM_LIMIT:
+        raise ValueError(f"layer group: N={n}, Dh={dh} needs more shared "
+                         f"memory than one block has")
+    return b, n, d, n_l, h, dh, m, n_w
+
+
+def vita_layer_group(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
+                     w_up, b_up, w_down, b_down,
+                     bias: Optional[torch.Tensor] = None,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """L float encoder layers on the card in one launch: x (B, N, D)
+    float32 -> (B, N, D) float32."""
+    b, n, d, n_l, h, dh, m, n_w = _check_common(
+        x, wq, w_msa, w_up, w_down,
+        ((ln1_w, "ln1_w"), (ln1_b, "ln1_b"), (ln2_w, "ln2_w"),
+         (ln2_b, "ln2_b"), (b_down, "b_down")), b_up, bias, mask,
+        torch.float32)
+    for w, nm in ((wq, "wq"), (wk, "wk"), (wv, "wv")):
+        check(w, nm, torch.float32, (n_l, h, d, dh))
+    out = torch.empty_like(x)
+    ws = _workspace(x.device, b * n, d, h * dh, m, int8=False)
+    build.call("vita_layer_group", "rt_vita_layer_group", ptr(x), ptr(wq),
+               ptr(wk), ptr(wv), ptr(w_msa), ptr(ln1_w), ptr(ln1_b),
+               ptr(ln2_w), ptr(ln2_b), ptr(w_up), ptr(b_up), ptr(w_down),
+               ptr(b_down), ptr(bias), ptr(mask), ptr(out),
+               *(ptr(t) for t in ws[1:]), ptr(ws[0]), b, n, d, h, dh, m, n_l,
+               n_w, dh ** -0.5, LN_EPS, _stream())
+    return out
+
+
+def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
+                          act_scales, wq_scale, wk_scale, wv_scale,
+                          wmsa_scale, wup_scale, wdown_scale, ln1_w, ln1_b,
+                          ln2_w, ln2_b, b_up, b_down,
+                          bias: Optional[torch.Tensor] = None,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """L int8 encoder layers on the card in one launch: x (B, N, D)
+    float32 -> float32.  ``act_scales`` (L, 4) holds each member's frozen
+    [qkv_in, w_msa, w_up, w_down] scales; weight scales are (L, H, Dh) for
+    Q/K/V and per output channel (L, D) / (L, M) / (L, D)."""
+    b, n, d, n_l, h, dh, m, n_w = _check_common(
+        x, wq_q, wmsa_q, wup_q, wdown_q,
+        ((ln1_w, "ln1_w"), (ln1_b, "ln1_b"), (ln2_w, "ln2_w"),
+         (ln2_b, "ln2_b"), (b_down, "b_down")), b_up, bias, mask,
+        torch.int8)
+    check(act_scales, "act_scales", torch.float32, (n_l, 4))
+    for w, nm in ((wq_q, "wq_q"), (wk_q, "wk_q"), (wv_q, "wv_q")):
+        check(w, nm, torch.int8, (n_l, h, d, dh))
+    scales = []
+    for s, nm, numel in ((wq_scale, "wq_scale", h * dh),
+                         (wk_scale, "wk_scale", h * dh),
+                         (wv_scale, "wv_scale", h * dh),
+                         (wmsa_scale, "wmsa_scale", d),
+                         (wup_scale, "wup_scale", m),
+                         (wdown_scale, "wdown_scale", d)):
+        check(s, nm, torch.float32)
+        if s.numel() != n_l * numel:
+            raise ValueError(f"{nm} has {s.numel()} values, expected "
+                             f"{n_l} x {numel}")
+        scales.append(s)
+    out = torch.empty_like(x)
+    ws = _workspace(x.device, b * n, d, h * dh, m, int8=True)
+    build.call("vita_layer_group", "rt_vita_layer_group_int8", ptr(x),
+               ptr(wq_q), ptr(wk_q), ptr(wv_q), ptr(wmsa_q), ptr(wup_q),
+               ptr(wdown_q), ptr(act_scales), *(ptr(s) for s in scales),
+               ptr(ln1_w), ptr(ln1_b), ptr(ln2_w), ptr(ln2_b), ptr(b_up),
+               ptr(b_down), ptr(bias), ptr(mask), ptr(out),
+               *(ptr(t) for t in ws[1:]), ptr(ws[0]), b, n, d, h, dh, m, n_l,
+               n_w, dh ** -0.5, LN_EPS, _stream())
+    return out

@@ -1,8 +1,8 @@
 """Serving CLI (counterpart of `repro/launch/serve.py`).
 
 ``--vision`` routes to the vision micro-batcher, `vision_serve.main`, with
-every other flag (``--model``, ``--no-fuse``, ``--fusion-policy``, ...)
-passed through; the LM server is not ported yet.
+every other flag (``--model``, ``--no-fuse``, ``--fuse-group-size``,
+``--fusion-policy``, ...) passed through; the LM server is not ported yet.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --vision --model swin_t \
       --full --mode both --no-fuse

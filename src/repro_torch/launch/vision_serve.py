@@ -5,8 +5,11 @@ Requests queue up; the server drains them in micro-batches, pads each
 micro-batch up to the nearest batch bucket and runs the whole bucket
 through one batched forward of the registered model (ViT/DeiT or Swin):
 its compiled schedule, fused (one ``layer`` phase per encoder block, the
-default) or unfused (``msa`` + ``mlp`` phases, ``--no-fuse``).  A
-`FusionPolicy` may decide fusion per bucket instead.
+default) or unfused (``msa`` + ``mlp`` phases, ``--no-fuse``).
+``--fuse-group-size N`` (``ServeConfig.fuse_group``) also collapses runs
+of up to N fused layers into ``layer_group`` phases, one kernel launch
+each.  A `FusionPolicy` may decide fusion and group size per bucket
+instead.
 
   * ``float`` — the fp32 path through the float layer kernel (fused) or
     the per-head MSA and fused MLP kernels (unfused);
@@ -24,6 +27,8 @@ Usage (on a machine with a card; ``--device cpu`` runs the plain path):
       --full --mode both
   PYTHONPATH=src python -m repro_torch.launch.serve --vision --model swin_t \
       --full --mode both --no-fuse
+  PYTHONPATH=src python -m repro_torch.launch.serve --vision --model deit_t \
+      --full --mode both --fuse-group-size 4
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,8 +61,10 @@ def resolve_device(device=None) -> torch.device:
 class ServeConfig:
     """How a model is served: mode, batch buckets, an optional per-bucket
     `FusionPolicy`, the build fields `make_server` reads (``full``,
-    ``fused``, ``seed``, ``calib_images``) and the device (None = the
-    card).  ``fused`` None keeps the registry config's own flag (fused)."""
+    ``fused``, ``fuse_group``, ``head_mask``, ``seed``, ``calib_images``)
+    and the device (None = the card).  ``fused``, ``fuse_group`` and
+    ``head_mask`` None keep the registry config's own fields (fused,
+    ungrouped, the entry's mask)."""
 
     mode: str = "float"
     buckets: Tuple[int, ...] = (1, 2, 4, 8)
@@ -65,6 +72,8 @@ class ServeConfig:
         default=None, compare=False)
     full: bool = False
     fused: Optional[bool] = None
+    fuse_group: Optional[int] = None
+    head_mask: Optional[Any] = None
     seed: int = 0
     calib_images: int = 8
     device: Optional[str] = None
@@ -78,6 +87,9 @@ class ServeConfig:
             raise ValueError(
                 f"batch buckets must be positive, got {self.buckets!r}")
         object.__setattr__(self, "buckets", tuple(sorted(set(buckets))))
+        if self.fuse_group is not None and int(self.fuse_group) < 1:
+            raise ValueError(
+                f"fuse_group must be >= 1, got {self.fuse_group!r}")
 
 
 class VisionRequest:
@@ -151,18 +163,22 @@ class VisionServer:
         self.calibrator = calibrator
         self.model_name = model_name or cfg.name
         self.buckets = sc.buckets
-        # Fused or per-phase schedule per bucket: the config's own flag, or
-        # the policy's decision from measured (model, mode, batch) data.
-        # Layer groups are not ported, so a fused bucket runs the
-        # per-layer chain.
+        # Fused or per-phase schedule, and the group size, per bucket: the
+        # config's own fields, or the policy's decisions from measured
+        # (model, mode, batch) data.  An unfused bucket has group size 1.
         self.fusion_policy = sc.fusion_policy
         if sc.fusion_policy is None:
             fused = {b: bool(cfg.fused) for b in self.buckets}
+            group = {b: int(cfg.fuse_group) for b in self.buckets}
         else:
             fused = sc.fusion_policy.decisions(self.model_name, self.mode,
                                                self.buckets)
-        self._bucket_cfg = {b: dataclasses.replace(cfg, fused=f)
-                            for b, f in fused.items()}
+            group = sc.fusion_policy.group_decisions(
+                self.model_name, self.mode, self.buckets)
+        self._bucket_cfg = {
+            b: dataclasses.replace(cfg, fused=f,
+                                   fuse_group=group[b] if f else 1)
+            for b, f in fused.items()}
         self.queue: List[VisionRequest] = []
         self.done: List[VisionRequest] = []
         self.n_batches = 0
@@ -282,6 +298,8 @@ class VisionServer:
                               if self.fusion_policy else None),
             "fused_buckets": {str(b): bool(c.fused)
                               for b, c in sorted(self._bucket_cfg.items())},
+            "group_buckets": {str(b): int(c.fuse_group)
+                              for b, c in sorted(self._bucket_cfg.items())},
         }
 
 
@@ -314,13 +332,15 @@ def make_server(cfg_name: str, serve_cfg: Optional[ServeConfig] = None, *,
                 calib_bank: Optional[np.ndarray] = None) -> VisionServer:
     """Build a ready `VisionServer` for a registered model name on
     ``serve_cfg.device`` (None = the card): resolve the config through
-    ``full`` and ``fused``, init params at ``serve_cfg.seed`` unless given,
-    and for int8 quantize and calibrate (on ``calib_bank`` or
-    ``calib_images`` synthetic images drawn exactly as the JAX server draws
-    them) unless a frozen calibrator is given."""
+    ``full``, ``fused``, ``fuse_group`` and ``head_mask``, init params at
+    ``serve_cfg.seed`` unless given, and for int8 quantize and calibrate
+    (on ``calib_bank`` or ``calib_images`` synthetic images drawn exactly
+    as the JAX server draws them) unless a frozen calibrator is given."""
     sc = serve_cfg if serve_cfg is not None else ServeConfig()
     device = resolve_device(sc.device)
-    cfg = vision_registry.build_cfg(cfg_name, full=sc.full, fused=sc.fused)
+    cfg = vision_registry.build_cfg(cfg_name, full=sc.full, fused=sc.fused,
+                                    fuse_group=sc.fuse_group,
+                                    head_mask=sc.head_mask)
     if params is None:
         params = vision_registry.init_params(cfg, sc.seed, device)
     if sc.mode == "int8":
@@ -341,15 +361,17 @@ def make_server(cfg_name: str, serve_cfg: Optional[ServeConfig] = None, *,
 
 def serve_model(name: str, *, requests: int, buckets, modes, full: bool,
                 seed: int = 0, calib_images: int = 8, device=None,
-                fused: Optional[bool] = None,
+                fused: Optional[bool] = None, fuse_group: int = 1,
                 fusion_policy: Optional[FusionPolicy] = None
                 ) -> List[Dict[str, float]]:
     """Init params once, (for int8) quantize and calibrate on the first
     ``calib_images`` request images, and drain ``requests`` random images
-    through a server per mode.  ``fused`` overrides the config's fusion,
-    ``fusion_policy`` decides it per bucket.  One stats row per mode."""
+    through a server per mode.  ``fused`` overrides the config's fusion
+    and ``fuse_group`` its group size; ``fusion_policy`` decides both per
+    bucket.  One stats row per mode."""
     dev = resolve_device(device)
-    cfg = vision_registry.build_cfg(name, full=full, fused=fused)
+    cfg = vision_registry.build_cfg(name, full=full, fused=fused,
+                                    fuse_group=fuse_group)
     params = vision_registry.init_params(cfg, seed, dev)
     rng = np.random.default_rng(seed)
     images = rng.standard_normal(
@@ -362,8 +384,8 @@ def serve_model(name: str, *, requests: int, buckets, modes, full: bool,
     for mode in modes:
         sc = ServeConfig(mode=mode, buckets=tuple(buckets),
                          fusion_policy=fusion_policy, full=full,
-                         fused=fused, seed=seed, calib_images=calib_images,
-                         device=str(dev))
+                         fused=fused, fuse_group=fuse_group, seed=seed,
+                         calib_images=calib_images, device=str(dev))
         server = VisionServer(cfg, params, serve_cfg=sc, qparams=qparams,
                               calibrator=cal, model_name=name)
         server.submit_many(images)
@@ -375,7 +397,8 @@ def serve_model(name: str, *, requests: int, buckets, modes, full: bool,
               f"{stats['throughput_img_s']:.1f} img/s, "
               f"p50 {stats['latency_p50_ms']:.2f}ms "
               f"({stats['batches']} batches, {stats['padded']} padded; "
-              f"fused buckets {stats['fused_buckets']})")
+              f"fused buckets {stats['fused_buckets']}, group sizes "
+              f"{stats['group_buckets']})")
     return rows
 
 
@@ -408,6 +431,11 @@ def main(argv=None):
                     help="bench JSON measured on the card that seeds the "
                          "'auto' policy (no default: a record measured "
                          "elsewhere must not steer the card)")
+    ap.add_argument("--fuse-group-size", type=int, default=1,
+                    help="layer-group size: collapse runs of up to this "
+                         "many fused layers into one layer_group kernel "
+                         "launch (1 = the per-layer chain; groups form only "
+                         "where members share stage, geometry and heads)")
     args = ap.parse_args(argv)
     if args.list_models:
         for name in vision_registry.list_models():
@@ -425,20 +453,25 @@ def main(argv=None):
     if args.fusion_data and args.fusion_policy != "auto":
         raise SystemExit("[vision-serve] --fusion-data seeds only "
                          "--fusion-policy auto")
+    if args.fuse_group_size < 1:
+        raise SystemExit("[vision-serve] --fuse-group-size must be >= 1")
     policy = None
     if args.fusion_policy == "auto" and args.fusion_data:
-        policy = FusionPolicy.from_bench(args.fusion_data)
+        policy = FusionPolicy.from_bench(
+            args.fusion_data, default_group=args.fuse_group_size)
     elif args.fusion_policy:
         if args.fusion_policy == "auto":
             print("[vision-serve] --fusion-policy auto without "
                   "--fusion-data: no measurements, every bucket fuses")
-        policy = FusionPolicy(mode=args.fusion_policy)
+        policy = FusionPolicy(mode=args.fusion_policy,
+                              default_group=args.fuse_group_size)
     modes = ("float", "int8") if args.mode == "both" else (args.mode,)
     buckets = tuple(int(b) for b in args.buckets.split(","))
     return serve_model(args.model, requests=args.requests, buckets=buckets,
                        modes=modes, full=args.full, seed=args.seed,
                        device=args.device,
                        fused=False if args.no_fuse else None,
+                       fuse_group=args.fuse_group_size,
                        fusion_policy=policy)
 
 

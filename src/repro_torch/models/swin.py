@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core import schedule as sched_lib
 from repro_torch.core.perfmodel import StageSpec, VisionModelSpec
+from repro_torch.core.quant import prune_block_heads
 from repro_torch.kernels.ref import gelu, layer_norm_ref
 from repro_torch.models.config import normalize_head_mask
 from repro_torch.models.layers import dense_init, to_device
@@ -43,6 +44,8 @@ class SwinConfig:
     mlp_ratio: float = 4.0
     n_classes: int = 1000
     fused: bool = True             # fuse msa+mlp pairs into layer phases
+    fuse_group: int = 1            # >1: group runs of fused layers into
+                                   # layer_group phases
     # Per-stage head-pruning masks ``head_mask[stage][layer][head]``
     # (None = dense).
     head_mask: Optional[Tuple[Tuple[Tuple[int, ...], ...], ...]] = None
@@ -91,9 +94,9 @@ def init_params(cfg: SwinConfig, seed: int = 0, device="cpu") -> Params:
     """Random float32 params from ``seed`` (a `torch.Generator` on the CPU,
     so every device gets the same weights), placed on ``device``.  Same
     layout and distributions as the JAX init; the numbers differ (tests
-    carry JAX's weights across with `convert.params_from_numpy`)."""
-    if cfg.head_mask is not None:
-        raise NotImplementedError("head-pruned variants are not ported yet")
+    carry JAX's weights across with `convert.params_from_numpy`).  A
+    ``head_mask`` prunes each stage's blocks after the dense draw, as in
+    `models.vit.init_params`."""
     gen = torch.Generator().manual_seed(int(seed))
 
     def per_head(dim, n_heads):
@@ -123,6 +126,10 @@ def init_params(cfg: SwinConfig, seed: int = 0, device="cpu") -> Params:
                 "w_down": dense_init(gen, hid, dim),
                 "b_down": torch.zeros(dim),
             })
+        mask = cfg.stage_mask(s_i)
+        if mask:
+            blocks = [prune_block_heads(bp, row)
+                      for bp, row in zip(blocks, mask)]
         stage: Params = {"blocks": blocks}
         if s_i < len(cfg.depths) - 1:
             stage["merge_ln_w"] = torch.ones(4 * dim)
@@ -156,10 +163,11 @@ def to_spec(cfg: SwinConfig) -> VisionModelSpec:
 @functools.lru_cache(maxsize=None)
 def schedule(cfg: SwinConfig) -> sched_lib.Schedule:
     """The hierarchical phase schedule `forward` replays, fused unless
-    ``cfg.fused`` is False."""
+    ``cfg.fused`` is False, grouped at ``cfg.fuse_group``."""
     s = sched_lib.compile_schedule(to_spec(cfg), n_classes=cfg.n_classes,
                                    hierarchical=True)
-    return sched_lib.fuse_schedule(s) if cfg.fused else s
+    return sched_lib.fuse_schedule(s, group_size=cfg.fuse_group) \
+        if cfg.fused else s
 
 
 def forward(params: Params, patches: torch.Tensor, cfg: SwinConfig,

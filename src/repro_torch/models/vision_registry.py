@@ -1,12 +1,13 @@
 """Registry of the vision models the port serves (counterpart of
-`repro/models/vision_registry.py`): the ViT family (`vit_edge`, `deit_t`)
-and Swin-T (`swin_t`).
+`repro/models/vision_registry.py`): the ViT family (`vit_edge`, `deit_t`),
+Swin-T (`swin_t`) and their head-pruned variants (`vit_edge_p`,
+`deit_t_p`, `swin_t_p`).
 
 Each entry has a ``reduced`` geometry (what the CPU tests run) and the
 paper's ``full`` one (what runs on the card).  The family-generic helpers
 (`forward_fn`, `init_params`, `make_schedule`, `quantize`) dispatch on the
-config type, so the server stays model-agnostic.  TNT and the head-pruned
-variants come with later slices.
+config type, so the server stays model-agnostic.  TNT (and `tnt_s_p`)
+come with a later slice.
 """
 
 from __future__ import annotations
@@ -56,6 +57,78 @@ _REGISTRY: Dict[str, VisionModel] = {
 }
 
 
+# ---------------------------------------------------------------------------
+# Head-pruned variants (ragged per-layer masks)
+# ---------------------------------------------------------------------------
+
+# Reduced-geometry masks: deliberately ragged (uneven surviving-head counts
+# across layers) so the pruned variants exercise the schedule's group
+# splitting, not just smaller uniform grids.
+_PRUNED_MASKS: Dict[str, Any] = {
+    # counts per layer: 3, 3, 2, 4 (of 4)
+    "vit_edge": ((1, 1, 1, 0), (0, 1, 1, 1), (1, 0, 0, 1), (1, 1, 1, 1)),
+    # counts per layer: 2, 2, 1, 3 (of 3)
+    "deit_t": ((1, 1, 0), (0, 1, 1), (0, 1, 0), (1, 1, 1)),
+    # stage 0 counts 2, 3 (of 3); stage 1 counts 4, 3 (of 6)
+    "swin_t": (((1, 0, 1), (1, 1, 1)),
+               ((1, 1, 0, 1, 1, 0), (0, 1, 1, 0, 1, 0))),
+}
+
+
+def uniform_head_mask(cfg: Any, k: int) -> Any:
+    """A mask keeping the first ``min(k, heads)`` heads of every layer
+    (per stage for Swin)."""
+    def row(h: int) -> Tuple[int, ...]:
+        keep = max(1, min(int(k), h))
+        return (1,) * keep + (0,) * (h - keep)
+    if isinstance(cfg, swin.SwinConfig):
+        return tuple(tuple(row(h) for _ in range(d))
+                     for d, h in zip(cfg.depths, cfg.heads))
+    return tuple(row(cfg.heads) for _ in range(cfg.layers))
+
+
+def ragged_head_mask(cfg: Any) -> Any:
+    """Deterministic ragged mask for any registered config: layer ``li``
+    drops ``li % min(heads, 3)`` heads at rotating positions (at least one
+    head always survives).  The full-geometry pruned variants use it."""
+    def row(h: int, li: int) -> Tuple[int, ...]:
+        drop = li % min(h, 3)
+        dead = {(li + j) % h for j in range(drop)}
+        return tuple(0 if i in dead else 1 for i in range(h))
+    if isinstance(cfg, swin.SwinConfig):
+        li, stages = 0, []
+        for d, h in zip(cfg.depths, cfg.heads):
+            stages.append(tuple(row(h, li + j) for j in range(d)))
+            li += d
+        return tuple(stages)
+    return tuple(row(cfg.heads, li) for li in range(cfg.layers))
+
+
+def _pruned_entry(base: str) -> VisionModel:
+    entry = _REGISTRY[base]
+
+    def reduced(_e=entry, _b=base):
+        cfg = _e.reduced()
+        return dataclasses.replace(cfg, name=cfg.name + "p",
+                                   head_mask=_PRUNED_MASKS[_b])
+
+    def full(_e=entry):
+        cfg = _e.full()
+        return dataclasses.replace(cfg, name=cfg.name + "p",
+                                   head_mask=ragged_head_mask(cfg))
+
+    return VisionModel(
+        name=base + "_p", family=entry.family,
+        description=f"head-pruned {base}: ragged per-layer mask; surviving "
+                    "heads equal the dense model's (sliced at init)",
+        reduced=reduced, full=full)
+
+
+for _base in ("vit_edge", "deit_t", "swin_t"):
+    _REGISTRY[_base + "_p"] = _pruned_entry(_base)
+del _base
+
+
 def list_models() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
@@ -68,13 +141,20 @@ def get(name: str) -> VisionModel:
 
 
 def build_cfg(name: str, *, full: bool = False,
-              fused: Optional[bool] = None) -> Any:
-    """The registered config, reduced or full; ``fused`` overrides the
-    config's own fusion flag when given."""
+              fused: Optional[bool] = None,
+              fuse_group: Optional[int] = None,
+              head_mask: Optional[Any] = None) -> Any:
+    """The registered config, reduced or full; ``fused``, ``fuse_group``
+    and ``head_mask`` (family-shaped: per stage for Swin) override the
+    config's own fields when given."""
     entry = get(name)
     cfg = (entry.full if full else entry.reduced)()
     if fused is not None:
         cfg = dataclasses.replace(cfg, fused=fused)
+    if fuse_group is not None:
+        cfg = dataclasses.replace(cfg, fuse_group=int(fuse_group))
+    if head_mask is not None:
+        cfg = dataclasses.replace(cfg, head_mask=head_mask)
     return cfg
 
 

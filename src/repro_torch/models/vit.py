@@ -3,9 +3,10 @@
 
 The module owns the model description (config, params, spec); execution
 belongs to the control program: `schedule(cfg)` compiles the config into a
-`core.schedule.Schedule` (fused unless ``cfg.fused`` is False) and
-`forward` replays it.  Images are NHWC at the public functions, as in the
-JAX package.
+`core.schedule.Schedule` (fused unless ``cfg.fused`` is False, grouped
+into ``layer_group`` phases when ``cfg.fuse_group`` > 1) and `forward`
+replays it.  A ``head_mask`` prunes heads at init (`init_params`).
+Images are NHWC at the public functions, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.core import schedule as sched_lib
 from repro_torch.core.perfmodel import StageSpec, VisionModelSpec
+from repro_torch.core.quant import prune_block_heads
 from repro_torch.models.config import normalize_head_mask
 from repro_torch.models.layers import dense_init, to_device
 
@@ -35,7 +37,11 @@ class ViTConfig:
     mlp_ratio: float = 4.0
     n_classes: int = 1000
     fused: bool = True             # fuse msa+mlp pairs into layer phases
+    fuse_group: int = 1            # >1: group runs of fused layers into
+                                   # layer_group phases
     # Per-layer head-pruning mask (layers x heads 0/1 tuples; None = dense).
+    # ``heads``/``head_dim`` stay architectural: the mask slices the
+    # per-head stacks at init and the schedule's head counts follow.
     head_mask: Optional[Tuple[Tuple[int, ...], ...]] = None
 
     def __post_init__(self):
@@ -74,9 +80,10 @@ def init_params(cfg: ViTConfig, seed: int = 0,
     """Random float32 params from ``seed`` (a `torch.Generator` on the CPU,
     so every device gets the same weights), placed on ``device``.  Same
     layout and distributions as the JAX init; the numbers differ (tests
-    carry JAX's weights across with `convert.params_from_numpy`)."""
-    if cfg.head_mask is not None:
-        raise NotImplementedError("head-pruned variants are not ported yet")
+    carry JAX's weights across with `convert.params_from_numpy`).  A
+    ``head_mask`` draws the dense weights first (the same stream as the
+    unmasked config) and then prunes each layer, so surviving heads equal
+    the dense model's."""
     gen = torch.Generator().manual_seed(int(seed))
     d, dh, m = cfg.dim, cfg.head_dim, cfg.mlp_hidden
 
@@ -97,6 +104,9 @@ def init_params(cfg: ViTConfig, seed: int = 0,
             "w_up": dense_init(gen, d, m), "b_up": torch.zeros(m),
             "w_down": dense_init(gen, m, d), "b_down": torch.zeros(d),
         })
+    if cfg.head_mask:
+        layers = [prune_block_heads(lp, row)
+                  for lp, row in zip(layers, cfg.head_mask)]
     params["layers"] = layers
     params["ln_f_w"] = torch.ones(d)
     params["ln_f_b"] = torch.zeros(d)
@@ -118,10 +128,12 @@ def to_spec(cfg: ViTConfig) -> VisionModelSpec:
 def schedule(cfg: ViTConfig) -> sched_lib.Schedule:
     """The phase schedule `forward` replays: embed, one fused ``layer``
     per encoder block (or its msa and mlp phases when ``cfg.fused`` is
-    False), head."""
+    False; runs of up to ``cfg.fuse_group`` layers as ``layer_group``
+    phases), head."""
     s = sched_lib.compile_schedule(to_spec(cfg), n_classes=cfg.n_classes,
                                    hierarchical=False)
-    return sched_lib.fuse_schedule(s) if cfg.fused else s
+    return sched_lib.fuse_schedule(s, group_size=cfg.fuse_group) \
+        if cfg.fused else s
 
 
 def forward(params: Params, patches: torch.Tensor, cfg: ViTConfig,

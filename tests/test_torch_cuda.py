@@ -9,18 +9,23 @@ whole file runs on a machine with one by
 Tolerances: int8 products are exact; float results differ by fp32
 reassociation (1e-4 of the output scale); an int8 layer may flip a
 requant code by one LSB at a rounding boundary (2% of the output scale).
+A layer group runs the per-layer chain's own tiles, so it equals L calls
+of the chain exactly (int8) or within 1e-6 of the output scale (float).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import schedule as sched
-from repro_torch.core.quant import quantize_vision_params
+from repro_torch.core.quant import prune_block_heads, quantize_vision_params
 from repro_torch.kernels import fused_mlp as k_fused_mlp
 from repro_torch.kernels import int8_matmul as k_int8_matmul
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import vita_layer as k_vita_layer
+from repro_torch.kernels import vita_layer_group as k_vita_layer_group
 from repro_torch.kernels import vita_msa as k_vita_msa
 from repro_torch.launch import vision_serve
 from repro_torch.models import vision_registry, vit
@@ -194,6 +199,97 @@ def test_server_on_the_card_matches_the_cpu(card, name, mode, fused):
     want = twin.submit_many(images)
     server.run()
     twin.run()
+    g = np.stack([r.logits for r in got])
+    w = np.stack([r.logits for r in want])
+    tol = (1e-3 if mode == "float" else 2e-2) * np.abs(w).max()
+    assert np.abs(g - w).max() <= tol
+
+
+_ORDER = ("wq", "wk", "wv", "w_msa", "ln1_w", "ln1_b", "ln2_w", "ln2_b",
+          "w_up", "b_up", "w_down", "b_down")
+
+
+@pytest.mark.parametrize("kind", ["global", "windowed", "pruned",
+                                  "one_head"])
+def test_layer_group_kernels_match_plain_and_chain(card, kind):
+    """Kernels 7 and 8 at three layers: against their plain versions and
+    against three calls of the per-layer chain.  ``pruned`` keeps 2 of 4
+    heads (H*Dh = 48 < D = 96), ``one_head`` 1 of 4, ``windowed`` folds
+    four shifted 4x4 windows."""
+    cfg = vision_registry.build_cfg("vit_edge")
+    params = vit.init_params(dataclasses.replace(cfg, layers=3), seed=2,
+                             device=card)
+    keep = {"pruned": [0, 2], "one_head": [1]}.get(
+        kind, list(range(cfg.heads)))
+    blocks = [prune_block_heads(bp, [int(i in keep) for i in
+                                     range(cfg.heads)])
+              for bp in params["layers"]]
+    h, dh = len(keep), cfg.head_dim
+    x = torch.randn((2, 17, cfg.dim), device=card)
+    bias = mask = None
+    if kind == "windowed":
+        x, _, mask = _windows(card, h, cfg.dim)
+        bias = 0.5 * torch.randn((3, h, 16, 16), device=card)
+    sp = {k: torch.stack([bp[k] for bp in blocks]) for k in _ORDER}
+    f_args = [x] + [sp[k] for k in _ORDER]
+    got = k_vita_layer_group.vita_layer_group(*f_args, bias, mask)
+    want = ref.vita_layer_group_ref(*f_args, bias, mask)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+    y = x
+    for l, bp in enumerate(blocks):
+        y = k_vita_layer.vita_layer(y, *[bp[k] for k in _ORDER],
+                                    None if bias is None else bias[l], mask)
+    assert float((got - y).abs().max()) <= 1e-6 * scale
+    qs = [quantize_vision_params(bp) for bp in blocks]
+    acts = torch.tensor([[4.0, 2.0, 4.0, 3.0]] * 3, device=card) / 127.0
+    i_args = [x] + [torch.stack([q[k].values for q in qs]) for k in
+                    ("wq", "wk", "wv", "w_msa", "w_up", "w_down")] + [acts] \
+        + [torch.stack([q[k].scale.reshape(h, dh) for q in qs])
+           for k in ("wq", "wk", "wv")] \
+        + [torch.stack([q[k].scale.reshape(-1) for q in qs])
+           for k in ("w_msa", "w_up", "w_down")] \
+        + [sp[k] for k in ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "b_up",
+                           "b_down")]
+    got = k_vita_layer_group.vita_layer_group_int8(*i_args, bias, mask)
+    want = ref.vita_layer_group_int8_ref(*i_args, bias, mask)
+    assert float((got - want).abs().max()) <= 0.02 * float(want.abs().max())
+    y = x
+    for l in range(3):
+        y = k_vita_layer.vita_layer_int8(
+            y, *[a[l] for a in i_args[1:]],
+            None if bias is None else bias[l], mask)
+    assert torch.equal(got, y)
+
+
+@pytest.mark.parametrize("name,mode,group", [
+    ("vit_edge", "float", 4), ("vit_edge", "int8", 4), ("swin_t", "float", 4),
+    ("swin_t", "int8", 4), ("deit_t_p", "float", 4), ("deit_t_p", "int8", 4),
+    ("swin_t_p", "float", 1)])
+def test_grouped_and_pruned_servers_on_the_card_match_the_cpu(card, name,
+                                                              mode, group):
+    sc = vision_serve.ServeConfig(mode=mode, buckets=(1, 4), calib_images=4,
+                                  fuse_group=group)
+    server = vision_serve.make_server(name, sc)
+    twin = vision_serve.make_server(
+        name, dataclasses.replace(sc, device="cpu"),
+        params=vit.to_device(server.params, "cpu"),
+        qparams=None if server.qparams is None
+        else vit.to_device(server.qparams, "cpu"),
+        calibrator=server.calibrator)
+    side = server.cfg.image
+    images = np.random.default_rng(0).standard_normal(
+        (5, side, side, 3)).astype(np.float32)
+    got = server.submit_many(images)
+    want = twin.submit_many(images)
+    ops.reset_launches()
+    stats = server.run()
+    twin.run()
+    kernel = "vita_layer_group" + ("_int8" if mode == "int8" else "")
+    grouped = "layer_group" in vision_registry.make_schedule(
+        server.cfg).counts()
+    assert (ops.LAUNCHES[kernel] > 0) == grouped
+    assert stats["group_buckets"] == {"1": group, "4": group}
     g = np.stack([r.logits for r in got])
     w = np.stack([r.logits for r in want])
     tol = (1e-3 if mode == "float" else 2e-2) * np.abs(w).max()

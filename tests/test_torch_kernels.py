@@ -23,6 +23,7 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import fused_mlp as t_fused_mlp
 from repro_torch.kernels import int8_matmul as t_int8_matmul
 from repro_torch.kernels import vita_layer as t_vita_layer
+from repro_torch.kernels import vita_layer_group as t_vita_layer_group
 from repro_torch.kernels import vita_msa as t_vita_msa
 
 # Non-power-of-two token count and vit_edge's head width (Dh = 24).
@@ -198,6 +199,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                     _t(p["wv"]))
     with pytest.raises(ValueError, match="CUDA"):
         t_fused_mlp.fused_mlp(xf, _t(p["w_up"]), _t(p["w_down"]))
+    stacked = [_t(p[k])[None] for k in _ORDER]
+    with pytest.raises(ValueError, match="CUDA"):
+        t_vita_layer_group.vita_layer_group(xf, *stacked)
+    q_ops = [_t(a)[None] for a in _int8_layer_operands(p)]
+    with pytest.raises(ValueError, match="CUDA"):
+        t_vita_layer_group.vita_layer_group_int8(xf, *q_ops)
+    # the plain group is the per-layer chain, one member at a time
+    torch.testing.assert_close(
+        ops.vita_layer_group(xf, *stacked),
+        ops.vita_layer_fused(xf, *(_t(p[k]) for k in _ORDER)), rtol=0, atol=0)
+    torch.testing.assert_close(
+        ops.vita_layer_group_int8(xf, *q_ops),
+        ops.vita_layer_int8(xf, *(_t(a) for a in _int8_layer_operands(p))),
+        rtol=0, atol=0)
     # the windowed mode runs on the CPU too, and wants both of its terms
     ops.vita_layer_fused(xf, *(_t(p[k]) for k in _ORDER),
                          bias=torch.zeros(H, 5, 5), mask=torch.zeros(1, 5, 5))
@@ -227,3 +242,6 @@ def test_ctypes_signatures_match_sources():
         assert m, f"{sym} not defined in {lib}.cu"
         assert len(m.group(1).split(",")) == len(argtypes), sym
     assert set(build.LIBRARIES) == {p.stem for p in build.CSRC.glob("*.cu")}
+    assert {("vita_layer_group", "rt_vita_layer_group"),
+            ("vita_layer_group", "rt_vita_layer_group_int8")} <= \
+        set(build.SIGNATURES)

@@ -122,8 +122,12 @@ def test_schedule_matches_jax(name, full):
         _phase_rows(j_reg.make_schedule(j_cfg), fields)
     assert fused_t.counts() == {"embed": 1, "layer": t_cfg.layers, "head": 1}
     assert t_sched.fuse_schedule(fused_t) == fused_t      # idempotent
-    with pytest.raises(NotImplementedError):
-        t_sched.fuse_schedule(unfused_t, group_size=2)
+    grouped_t = t_sched.fuse_schedule(unfused_t, group_size=2)
+    grouped_j = j_sched.fuse_schedule(unfused_j, group_size=2)
+    assert _phase_rows(grouped_t, fields) == _phase_rows(grouped_j, fields)
+    assert [tuple(m.site for m in p.members) for p in grouped_t.phases] == \
+        [tuple(m.site for m in p.members) for p in grouped_j.phases]
+    assert grouped_t.counts()["layer_group"] == t_cfg.layers // 2
 
 
 def test_extract_patches_matches_jax():

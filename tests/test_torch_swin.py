@@ -85,11 +85,13 @@ def test_swin_init_params_has_the_jax_layout():
     b = t_swin.init_params(t_reg.build_cfg("swin_t"), seed=3)
     assert torch.equal(a["stages"][1]["blocks"][0]["rel_bias"],
                        b["stages"][1]["blocks"][0]["rel_bias"])
-    with pytest.raises(NotImplementedError):
-        t_swin.init_params(dataclasses.replace(
-            t_reg.build_cfg("swin_t"),
-            head_mask=(((1, 0, 1), (1, 1, 1)),
-                       ((1, 1, 0, 1, 1, 0), (0, 1, 1, 0, 1, 0)))))
+    mask = (((1, 0, 1), (1, 1, 1)), ((1, 1, 0, 1, 1, 0), (0, 1, 1, 0, 1, 0)))
+    pruned = t_swin.init_params(dataclasses.replace(
+        t_reg.build_cfg("swin_t"), head_mask=mask), seed=3)
+    blk = pruned["stages"][1]["blocks"][1]
+    assert blk["wq"].shape[0] == blk["rel_bias"].shape[1] == 3
+    assert blk["w_msa"].shape[0] == 3 * blk["wq"].shape[2]
+    assert torch.equal(blk["wq"], b["stages"][1]["blocks"][1]["wq"][[1, 2, 4]])
 
 
 def test_quantize_swin_params_matches_jax_exactly():

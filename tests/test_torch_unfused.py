@@ -307,9 +307,16 @@ def test_tnt_and_layer_groups_raise():
                            embed_dim=32)
     with pytest.raises(NotImplementedError):
         t_sched.compile_schedule(spec, n_classes=10)
+    # Layer groups are ported; TNT's inner layer groups are not.
+    grouped = t_sched.fuse_schedule(
+        t_reg.make_schedule(t_reg.build_cfg("swin_t")), group_size=2)
+    assert grouped.counts()["layer_group"] == 1
+    inner = dataclasses.replace(
+        [p for p in grouped.phases if p.kind == "layer_group"][0],
+        kind="inner_layer_group")
     with pytest.raises(NotImplementedError):
-        t_sched.fuse_schedule(t_reg.make_schedule(t_reg.build_cfg("swin_t")),
-                              group_size=2)
+        t_sched.run_schedule(dataclasses.replace(grouped, phases=(inner,)),
+                             {"patch_embed": None}, torch.zeros(1, 49, 96))
 
 
 # ---------------------------------------------------------------------------
