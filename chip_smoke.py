@@ -31,13 +31,43 @@ Phases (any failure exits non-zero; nothing is caught):
      and grouped DeiT-T, whose kernels must be one layer-group launch per
      group per micro-batch and no per-layer GEMM.
 
-The line before the last is one JSON object with a record per kernel; the
-last line is {"ok": true, "device": {...}}.  Without a card, or without
+The LM slice adds, to phase 2, the flash, decode and RG-LRU scan kernels
+and the gated / bf16 modes of the fused MLP against their plain versions
+in fp32 and bf16 at RecurrentGemma-2B's and stablelm-3b's shapes (flash
+at 13 and 4,096 tokens with the 2048 window; decode over caches of 128
+and 2048 slots with ragged lengths, GQA 10:1 at Dh 256 and MHA at Dh 80;
+the scan at T 13 and 4,096, W 2560; the gated MLP at D 2560, M 7680 and
+6912, N 13 and 4, and at N 4 with its hidden split forced off; every
+activation at a small shape), each output row within a bound at its own
+scale; and, after phase 3:
+  * RecurrentGemma-2B at full width and depth (26 layers, bf16, random
+    weights from seed 0) served through `SlotServer` (6 requests, batch
+    4, prompts of 4-16 tokens, 8 new tokens, cache 128): launch counts
+    per prefill (8 flash, 18 scan, 26 MLP) and per decode step (8
+    decode, 26 MLP), and its logits, teacher-forced with the card's
+    tokens, against the same weights on the CPU through the plain
+    versions in bf16 (within about twice the measured gap) and in float32
+    (the control); then the same path in float32 on the card against the
+    float32 twin (1e-3 of the logit scale: the wiring check);
+  * the ring cache on the card: one 2,100-token prompt with cache 2048
+    in fp32, 8 decode steps, each row against `forward` over all 2,108
+    tokens;
+  * stablelm-3b at full width and 4 layers (bf16, MHA with Dh 80,
+    LayerNorm, gated SiLU), 4 requests, teacher-forced against the CPU
+    the same way;
+  * for both LM paths, decode tokens per second and prefill time per
+    request, with and without the MLP's hidden split, and the device's
+    busy share of a drain under torch.profiler.
+
+The line before the last is one JSON object with a record per kernel
+(each time marked with how it was taken: "profiler" or "cuda_events");
+the last line is {"ok": true, "device": {...}}.  Without a card, or without
 the repository's sources beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -53,6 +83,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores
 INT8_OP_PER_S = 1979e12          # int8 tensor-core peak
+BF16_FLOP_PER_S = 989e12         # bf16 dense tensor-core peak
 
 B_MAIN = 8                       # the largest serving bucket
 BUCKETS = (1, 2, 4, 8)
@@ -88,7 +119,35 @@ KERNELS = (  # name, TPU kernel it replaces, port wrapper
     ("vita_layer_group", "src/repro/kernels/vita_layer.py:300",
      "src/repro_torch/kernels/vita_layer_group.py"),
     ("vita_layer_group_int8", "src/repro/kernels/vita_layer.py:572",
-     "src/repro_torch/kernels/vita_layer_group.py"))
+     "src/repro_torch/kernels/vita_layer_group.py"),
+    ("flash_attention", "src/repro/kernels/head_attention.py:102",
+     "src/repro_torch/kernels/head_attention.py"),
+    ("decode_attention", "src/repro/kernels/head_attention.py:192",
+     "src/repro_torch/kernels/head_attention.py"),
+    ("rglru_scan", "src/repro/kernels/rglru_scan.py:75",
+     "src/repro_torch/kernels/rglru_scan.py"))
+
+# The LM paths: RecurrentGemma-2B at full width and depth (bf16), its
+# ring-cache check (fp32, a prompt past the 2048-token window) and
+# stablelm-3b at full width, 4 layers (bf16).
+LM_REQUESTS, LM_BATCH, LM_MAX_NEW, LM_PROMPT, LM_CACHE = 6, 4, 8, 16, 128
+RING_PROMPT, RING_CACHE, RING_NEW = 2100, 2048, 8
+LM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The served LM logits, teacher-forced, against CPU twins of the same
+# weights through the plain versions, as a share of the logit scale.  Each
+# LM path is served twice on the card.  In float32 (the wiring check) the
+# paths differ by reassociation only: LM_FP32_REL, the vision float
+# paths' and the ring check's bound.  In bf16 (the config's dtype, the
+# slice) against a bf16 twin, bf16 rounding is on both sides, but where it
+# falls differs (cuBLAS against the CPU's GEMMs, P rounded in the flash
+# kernel) and the differences compound with depth: on an H100 80GB HBM3 at
+# 700 W, 3.6% at RecurrentGemma-2B's 26 layers and 1.1% at stablelm-3b's
+# 4, so LM_TWIN_REL is about twice that.  The fp32 twin of the bf16 path
+# is the control (4.3% and 1.1% there): it must stay within
+# LM_CONTROL_REL.
+LM_FP32_REL = 1e-3
+LM_TWIN_REL = {"recurrentgemma-2b": 0.07, "stablelm-3b": 0.02}
+LM_CONTROL_REL = 0.1
 
 
 def fail(msg: str) -> None:
@@ -101,26 +160,44 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call of ``fn``: the kernels and copies it
-    runs on the card, summed by torch.profiler over ``iters`` calls.  Gaps
-    in which the device waits for the host do not count."""
+def device_ms(fn, iters: int = 20, warmup: int = 3):
+    """(ms, timed_by): the mean device time of one call of ``fn``, the
+    kernels and copies it runs on the card summed by torch.profiler over
+    ``iters`` calls (3 where one call takes more than 5 ms), and
+    "profiler".  Gaps in which the device waits for the host do not count.
+    After many sessions in one process the profiler drops a few device
+    events of a session now and then: a session whose count of device
+    events is not a multiple of its calls is run again, twice at most, and
+    then the time is taken with CUDA events instead, marked "cuda_events":
+    device time where the card outruns the host's launches, else the
+    host's launch rate, so it is no kernel time for a callable of many
+    launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        fail("the profiler saw no device time")
-    return us / iters / 1e3
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if time.perf_counter() - t0 > 5e-3:
+        iters = 3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in rows)
+        n = sum(e.count for e in rows)
+        if us > 0 and n % iters == 0:
+            return us / iters / 1e3, "profiler"
+    print(f"[time] the profiler saw {n} device events over {iters} calls "
+          f"({us:.1f} us), three times: timed with CUDA events instead")
+    return time_ms(fn, iters, warmup), "cuda_events"
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -139,10 +216,12 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def bound(flops_f32: float = 0.0, ops_i8: float = 0.0, nbytes: float = 0.0):
+def bound(flops_f32: float = 0.0, ops_i8: float = 0.0, nbytes: float = 0.0,
+          flops_bf16: float = 0.0):
     """(bound_ms, bound_by): the larger of the compute time at peak for
     each operand type and the bytes over the memory rate."""
-    t_ops = flops_f32 / FP32_FLOP_PER_S + ops_i8 / INT8_OP_PER_S
+    t_ops = flops_f32 / FP32_FLOP_PER_S + ops_i8 / INT8_OP_PER_S \
+        + flops_bf16 / BF16_FLOP_PER_S
     t_mem = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
                                     else "bytes")
@@ -241,7 +320,6 @@ def layer_args(bp: dict, x, bias=None, mask=None):
 
 def vit_block(cfg, seed: int, g):
     """Layer 0 of a one-layer ``cfg`` and an input of unit scale."""
-    import dataclasses
     from repro_torch.models import vit
 
     one = dataclasses.replace(cfg, layers=1)
@@ -463,6 +541,18 @@ def group_cases(deit, swin_cfg, sw_params, g):
     return cases
 
 
+def add_record(records: dict, kname: str, tag: str, err: float, fn, plain,
+               library, bnd) -> None:
+    """The first record of a kernel is its main shape; later ones are its
+    other shapes."""
+    r = dict(tag=tag, err=err, fn=fn, plain=plain, library=library,
+             bound=bnd)
+    if "fn" in records[kname]:
+        records[kname]["extra"].append(r)
+    else:
+        records[kname].update(r)
+
+
 def kernel_phase(deit, vitb, swin_cfg):
     """Each kernel against its plain version.  Returns per kernel its main
     record (the main path's shape) and extra timed shapes."""
@@ -475,13 +565,8 @@ def kernel_phase(deit, vitb, swin_cfg):
     g = torch.Generator(device="cuda").manual_seed(1)
     records = {k[0]: {"extra": []} for k in KERNELS}
 
-    def rec(kname, tag, err, fn, plain, library, bnd):
-        r = dict(tag=tag, err=err, fn=fn, plain=plain, library=library,
-                 bound=bnd)
-        if "fn" in records[kname]:
-            records[kname]["extra"].append(r)
-        else:
-            records[kname].update(r)
+    def rec(*args):
+        add_record(records, *args)
 
     # Float and int8 layers at DeiT-T (batch 8) and ViT-B/16 (batch 2),
     # then windowed at Swin-T stage 1 (block 1: shifted), bucket 8.
@@ -731,20 +816,18 @@ def serve_path(model: str, mode: str, fused: bool, group: int, params,
     return dict(logits=gpu, counts=counts, server=server)
 
 
-def profile_drain(name: str, server, where: str) -> list:
-    """Device busy share of a 32-request drain at bucket 8 under
-    torch.profiler (which adds host time of its own), and the kernels
-    that take the device time.  Returns (kernel, device us, count) rows
-    (none when the profiler saw no device time)."""
+def profile_run(name: str, run, where: str, what: str) -> list:
+    """Device busy share of ``run()`` under torch.profiler (which adds
+    host time of its own), the kernels that take the device time, and the
+    host's top self time.  Returns (kernel, device us, count) rows (none
+    when the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    side = server.cfg.image
-    server.submit_many(np.zeros((32, side, side, 3), np.float32))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.run()
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # Device-side events only (kernels and copies); a host op's own
@@ -759,12 +842,12 @@ def profile_drain(name: str, server, where: str) -> list:
               f"share not measured")
         return rows
     top = sorted(rows, key=lambda r: -r[1])[:6]
-    print(f"[profile] served {name} on {where}, 32 requests under "
+    print(f"[profile] served {name} on {where}, {what} under "
           f"torch.profiler: device busy {busy_us / 1e3:.3f} ms of "
           f"{wall_us / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.1f}% "
           f"busy); top: " + "; ".join(
               f"{k[:40]} {t / 1e3:.3f} ms x{c}" for k, t, c in top))
-    # Host side of the same drain: self time of the torch ops and CUDA
+    # Host side of the same run: self time of the torch ops and CUDA
     # runtime calls the profiler records; the rest of the wall is Python
     # and numpy outside them.
     host = [(e.key, e.self_cpu_time_total, e.count)
@@ -777,6 +860,13 @@ def profile_drain(name: str, server, where: str) -> list:
               f"{k[:32]} {t / 1e3:.3f} ms x{c}"
               for k, t, c in sorted(host, key=lambda r: -r[1])[:6]))
     return rows
+
+
+def profile_drain(name: str, server, where: str) -> list:
+    """`profile_run` over a 32-request vision drain at bucket 8."""
+    side = server.cfg.image
+    server.submit_many(np.zeros((32, side, side, 3), np.float32))
+    return profile_run(name, server.run, where, "32 requests")
 
 
 def check_grouped_drain(mode: str, server, where: str) -> None:
@@ -800,6 +890,459 @@ def check_grouped_drain(mode: str, server, where: str) -> None:
           and n_i8 == (8 if mode == "int8" else 0),
           f"grouped deit_t {mode}: the drain did not run one layer-group "
           f"kernel per group per micro-batch and no per-layer GEMM")
+
+
+# ---------------------------------------------------------------------------
+# The LM slice: kernels 9-11 and the gated / bf16 modes of kernel 6
+# ---------------------------------------------------------------------------
+
+
+def check_lm(name: str, got, want) -> float:
+    """An LM kernel against its plain version in the working dtype, row by
+    row (a row is the last axis: one head's output, one step of the scan,
+    one token of the MLP): each row's max|err| <= tol x max(that row's
+    max|want|, 1e-2 x the largest), tol 1e-4 in fp32 (reassociation) and
+    2e-2 in bf16 (a few bf16 ulps at the row's own scale: the kernels
+    round P or the hidden chunk to bf16 where the plain versions keep
+    fp32, and the output is rounded once).  A bound per row keeps the long
+    rows of small outputs (attention over ~1,000 keys averages to ~0.05)
+    from hiding under the scale of the short ones.  Returns the global
+    max|err|."""
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    row_err = diff.reshape(-1, diff.shape[-1]).amax(1)
+    row_scale = want.float().abs().reshape(-1, diff.shape[-1]).amax(1)
+    scale = float(row_scale.max())
+    tol = LM_TOL[want.dtype]
+    ratio = row_err / torch.clamp(row_scale, min=1e-2 * scale or 1e-30)
+    worst = int(ratio.argmax())
+    print(f"[check] {name}: max|err| {float(row_err.max()):.3e} (scale "
+          f"{scale:.3f}); worst row {worst} of {len(ratio)}: max|err| "
+          f"{float(row_err[worst]):.3e} at its scale "
+          f"{float(row_scale[worst]):.3e} = {float(ratio[worst]):.2e} "
+          f"(bound {tol:g} per row)")
+    check(got.dtype == want.dtype and got.shape == want.shape
+          and bool(torch.isfinite(got.float()).all())
+          and float(ratio.max()) <= tol,
+          f"{name} disagrees with its plain version")
+    return float(row_err.max())
+
+
+def rand(g, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def dname(dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "fp32"
+
+
+def flops_at(dtype, flops):
+    """Keyword for `bound`: fp32 inputs at the fp32 rate, bf16 inputs at
+    the bf16 tensor-core rate."""
+    return {"flops_bf16" if dtype == torch.bfloat16 else "flops_f32": flops}
+
+
+def unsplit(fn):
+    """``fn`` run with the fused MLP's hidden split forced to 1 (the
+    kernel's plan without it): what the split buys at a decode step's few
+    rows is measured, not assumed."""
+    from repro_torch.kernels import fused_mlp as fm
+
+    def run():
+        planned = fm.hidden_splits
+        fm.hidden_splits = lambda *a: 1
+        try:
+            return fn()
+        finally:
+            fm.hidden_splits = planned
+    return run
+
+
+def visible_pairs(nq: int, nk: int, causal: bool, window, q_offset=0):
+    """The number of (query, key) pairs the masks leave (for the bound)
+    and the boolean (nq, nk) mask itself (for the library yardstick)."""
+    qpos = torch.arange(nq, device="cuda")[:, None] + q_offset
+    kpos = torch.arange(nk, device="cuda")[None, :]
+    m = torch.ones((nq, nk), dtype=torch.bool, device="cuda")
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return int(m.sum()), m
+
+
+def lm_kernel_phase(records: dict) -> None:
+    """Kernels 9-11 and the LM modes of kernel 6 against their plain
+    versions on the card, fp32 and bf16, at the LM paths' shapes, with a
+    library yardstick each (none for the scan)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import head_attention as ha
+    from repro_torch.kernels import ref, rglru_scan as rs
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    # Flash: RecurrentGemma's prefill (Hq 10 over 1 KV head, Dh 256,
+    # window 2048) at 13 tokens and at 4,096 (the window binds), and
+    # stablelm-3b's (MHA 32 heads, Dh 80, causal) at 13.
+    for tag, hq, hkv, dh, n, window in (
+            ("recurrentgemma-2b prefill 13", 10, 1, 256, 13, 2048),
+            ("recurrentgemma-2b prefill 4096, window 2048", 10, 1, 256,
+             4096, 2048),
+            ("stablelm-3b prefill 13", 32, 32, 80, 13, None)):
+        for dtype in (bf, f32):
+            q = rand(g, (1, hq, n, dh), dtype)
+            k, v = rand(g, (1, hkv, n, dh), dtype), rand(g, (1, hkv, n, dh),
+                                                          dtype)
+            kw = dict(causal=True, window=window)
+            err = check_lm(f"flash_attention {tag} {dname(dtype)}",
+                           ha.flash_attention(q, k, v, **kw),
+                           ref.attention_ref(q, k, v, **kw))
+            pairs, mask = visible_pairs(n, n, True, window)
+            add_record(
+                records, "flash_attention", f"{tag} {dname(dtype)}", err,
+                lambda q=q, k=k, v=v, kw=kw: ha.flash_attention(q, k, v, **kw),
+                lambda q=q, k=k, v=v, kw=kw: ref.attention_ref(q, k, v, **kw),
+                lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=m, enable_gqa=True),
+                bound(nbytes=2 * nbytes(q) + 2 * nbytes(k),
+                      **flops_at(dtype, 4 * pairs * hq * dh)))
+
+    # Decode: batch 4, RecurrentGemma's Hq 10 over 1 KV head of 256 over
+    # caches of 128 (the served path) and 2048 slots, and stablelm-3b's 32
+    # heads of 80 (MHA: one query row per block) over 128; ragged lengths
+    # including 1.
+    for tag, hq, hkv, dh, s_len in (
+            ("recurrentgemma-2b", 10, 1, 256, LM_CACHE),
+            ("recurrentgemma-2b", 10, 1, 256, 2048),
+            ("stablelm-3b", 32, 32, 80, LM_CACHE)):
+        for dtype in (bf, f32):
+            q = rand(g, (4, hq, dh), dtype)
+            kc, vc = (rand(g, (4, hkv, s_len, dh), dtype) for _ in range(2))
+            lengths = torch.tensor([1, s_len // 2 + 5, s_len, s_len // 3],
+                                   dtype=torch.int32, device="cuda")
+            err = check_lm(f"decode_attention {tag} S {s_len} {dname(dtype)}",
+                           ha.decode_attention(q, kc, vc, lengths),
+                           ref.decode_attention_ref(q, kc, vc, lengths))
+            valid = int(lengths.sum())
+            mask = (torch.arange(s_len, device="cuda")[None]
+                    < lengths[:, None])[:, None, None]
+            add_record(
+                records, "decode_attention",
+                f"{tag} B 4, Hq {hq} / Hkv {hkv}, Dh {dh}, S {s_len} "
+                f"{dname(dtype)}", err,
+                lambda a=(q, kc, vc, lengths): ha.decode_attention(*a),
+                lambda a=(q, kc, vc, lengths): ref.decode_attention_ref(*a),
+                lambda q=q, kc=kc, vc=vc, m=mask:
+                    F.scaled_dot_product_attention(
+                        q[:, :, None], kc, vc, attn_mask=m, enable_gqa=True),
+                bound(nbytes=2 * nbytes(q) + nbytes(lengths)
+                      + 2 * valid * hkv * dh * q.element_size(),
+                      **flops_at(dtype, 4 * valid * hq * dh)))
+
+    # The RG-LRU scan: one sequence, W 2560, T 13 (a prompt) and 4096.
+    for t_len in (13, 4096):
+        for dtype in (f32, bf):
+            a = (0.5 + 0.499 * torch.rand((1, t_len, 2560), generator=g,
+                                          device="cuda")).to(dtype)
+            b = rand(g, (1, t_len, 2560), dtype)
+            err = check_lm(f"rglru_scan T {t_len} W 2560 {dname(dtype)}",
+                           rs.rglru_scan(a, b),
+                           ref.linear_recurrence_ref(a, b))
+            add_record(records, "rglru_scan",
+                       f"B 1, T {t_len}, W 2560 {dname(dtype)}", err,
+                       lambda a=a, b=b: rs.rglru_scan(a, b),
+                       lambda a=a, b=b: ref.linear_recurrence_ref(a, b),
+                       None, bound(nbytes=3 * nbytes(a),
+                                   flops_f32=2 * a.numel()))
+
+    # Fused MLP, gated: RecurrentGemma (GELU, D 2560, M 7680) and
+    # stablelm-3b (SiLU, M 6912), each at a 13-token prefill and a decode
+    # step of 4 (the hidden split); fp32 and bf16.  Timed in bf16 (the
+    # paths' dtype).
+    for tag, act, m, n in (("recurrentgemma-2b gated gelu", "gelu", 7680, 13),
+                           ("recurrentgemma-2b gated gelu", "gelu", 7680, 4),
+                           ("stablelm-3b gated silu", "silu", 6912, 13),
+                           ("stablelm-3b gated silu", "silu", 6912, 4)):
+        for dtype in (bf, f32):
+            d = 2560
+            x = rand(g, (n, d), dtype)
+            w1, wg = rand(g, (d, m), dtype, d ** -0.5), rand(g, (d, m), dtype,
+                                                              d ** -0.5)
+            w2 = rand(g, (m, d), dtype, m ** -0.5)
+            err = check_lm(f"fused_mlp {tag} N {n} {dname(dtype)}",
+                           fm.fused_mlp(x, w1, w2, w_gate=wg, activation=act),
+                           ref.fused_mlp_ref(x, w1, None, w2, None,
+                                             activation=act, w_gate=wg))
+            if dtype != bf:
+                continue
+            lib_act = (lambda u: F.gelu(u, approximate="tanh")) \
+                if act == "gelu" else F.silu
+            add_record(
+                records, "fused_mlp", f"{tag} N {n} D {d} M {m} bf16", err,
+                lambda a=(x, w1, w2, wg), act=act: fm.fused_mlp(
+                    a[0], a[1], a[2], w_gate=a[3], activation=act),
+                lambda a=(x, w1, w2, wg), act=act: ref.fused_mlp_ref(
+                    a[0], a[1], None, a[2], None, activation=act,
+                    w_gate=a[3]),
+                lambda a=(x, w1, w2, wg), f=lib_act:
+                    (f(a[0] @ a[3]) * (a[0] @ a[1])) @ a[2],
+                bound(nbytes=nbytes(x, w1, wg, w2) + n * d * 2,
+                      flops_bf16=2 * n * m * (2 * d + d)))
+            if n == 4 and act == "gelu":
+                # The same decode step with the hidden split forced off.
+                run = unsplit(lambda a=(x, w1, w2, wg): fm.fused_mlp(
+                    a[0], a[1], a[2], w_gate=a[3], activation="gelu"))
+                err = check_lm(f"fused_mlp {tag} N {n} bf16, no hidden split",
+                               run(), ref.fused_mlp_ref(
+                                   x, w1, None, w2, None, activation=act,
+                                   w_gate=wg))
+                add_record(
+                    records, "fused_mlp",
+                    f"{tag} N {n} D {d} M {m} bf16, no hidden split", err,
+                    run, records["fused_mlp"]["extra"][-1]["plain"],
+                    records["fused_mlp"]["extra"][-1]["library"],
+                    records["fused_mlp"]["extra"][-1]["bound"])
+    # Every other activation, gated and not, with and without biases, at a
+    # small ragged shape (two output slices; 4 rows: hidden split).
+    for act in ("relu", "relu2", "identity", "gelu", "silu"):
+        for dtype in (f32, bf):
+            d, m, d_out = 96, 200, 300
+            w1, wg = rand(g, (d, m), dtype, 0.1), rand(g, (d, m), dtype, 0.1)
+            w2 = rand(g, (m, d_out), dtype, 0.07)
+            b1, b2 = rand(g, (m,), dtype, 0.1), rand(g, (d_out,), dtype, 0.1)
+            for rows in (4, 37):
+                x = rand(g, (rows, d), dtype)
+                for gate in (None, wg):
+                    check_lm(f"fused_mlp {act} {'gated' if gate is not None else 'ungated'}"
+                             f" biases N {rows} {dname(dtype)}",
+                             fm.fused_mlp(x, w1, w2, b1, b2, gate,
+                                          activation=act),
+                             ref.fused_mlp_ref(x, w1, b1, w2, b2,
+                                               activation=act, w_gate=gate))
+    torch.cuda.synchronize()
+
+
+def expected_lm_launches(cfg, prefills: int, steps: int) -> dict:
+    """Kernel launches of ``prefills`` prefills and ``steps`` decode steps:
+    per prefill one flash_attention per attention layer, one rglru_scan
+    per recurrent layer and one fused_mlp per layer; per decode step one
+    decode_attention per attention layer and one fused_mlp per layer."""
+    from repro_torch.models import transformer
+
+    kinds = transformer.layer_kinds(cfg)
+    n_attn, n_rec = kinds.count("attn"), kinds.count("rec")
+    n_ff = len(kinds) if cfg.d_ff else 0
+    out = {k[0]: 0 for k in KERNELS}
+    out.update(flash_attention=n_attn * prefills, rglru_scan=n_rec * prefills,
+               decode_attention=n_attn * steps,
+               fused_mlp=n_ff * (prefills + steps))
+    return out
+
+
+def teacher_forced(cfg, twin_params, done):
+    """The CPU twin's logits for the card's tokens: one right-padded
+    batch through `forward` (causal, so the padding never reaches a real
+    position), at every position whose next token the card chose.
+    Returns (card logits, CPU logits), (tokens, vocab) each."""
+    from repro_torch.models import transformer
+
+    seqs = [list(r.prompt) + r.generated[:-1] for r in done]
+    tokens = torch.zeros((len(seqs), max(map(len, seqs))), dtype=torch.int32)
+    for i, sq in enumerate(seqs):
+        tokens[i, :len(sq)] = torch.tensor(sq, dtype=torch.int32)
+    with torch.no_grad():
+        logits = transformer.forward(twin_params, {"tokens": tokens}, cfg)
+    got, want = [], []
+    for i, r in enumerate(done):
+        p = len(r.prompt)
+        got.append(np.stack(r.logits))
+        want.append(logits[i, p - 1:p - 1 + len(r.generated),
+                           :cfg.vocab].float().numpy())
+    return np.concatenate(got), np.concatenate(want)
+
+
+def check_teacher_forced(name: str, got, want, rel: float) -> float:
+    """The card's logits against a CPU twin's: max|err| <= rel x logit
+    scale, and a token whose argmax differs must be a near-tie of the
+    card's own logits: its top two within 2 x that token's own max|err|."""
+    row_err = np.abs(got - want).max(1)
+    err = float(row_err.max())
+    scale = float(np.abs(want).max())
+    differ = got.argmax(1) != want.argmax(1)
+    top2 = np.sort(got, axis=1)[:, -2:]
+    gap = top2[:, 1] - top2[:, 0]
+    ties = bool(np.all(gap[differ] <= 2 * row_err[differ]))
+    print(f"[serve] {name}: |cuda - cpu| max {err:.3e} "
+          f"({err / scale:.2%} of the logit scale {scale:.3f}, bound "
+          f"{rel:g}), rms {float(np.sqrt(np.mean((got - want) ** 2))):.3e};"
+          f" argmax differs on {int(differ.sum())} of {len(got)} tokens, "
+          f"each a near-tie of the card's logits within its own error: "
+          f"{ties}")
+    check(np.isfinite(got).all() and err <= rel * scale and ties,
+          f"{name}: logits disagree with the CPU twin")
+    return err
+
+
+def serve_lm(name: str, cfg, params, n_req: int, seed: int,
+             twins: list) -> dict:
+    """Serve ``n_req`` requests through `SlotServer` on the card (launch
+    counts reset just before, read just after), check the counts, the
+    outputs' shapes and the logits, teacher-forced, against each of
+    ``twins``: (label, twin config, CPU params, bound as a share of the
+    logit scale)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    queue = serve.make_requests(cfg, n_req, LM_PROMPT, LM_MAX_NEW, seed)
+    ops.reset_launches()
+    server = serve.SlotServer(cfg, params, LM_BATCH, LM_CACHE,
+                              keep_logits=True)
+    done = serve.drain(server, queue)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    want = expected_lm_launches(cfg, n_req, server.steps)
+    print(f"[serve] {name}: {n_req} requests, {server.steps} decode steps; "
+          f"launches {counts}")
+    check(counts == want, f"{name}: launch counts {counts}, expected {want}")
+    check(len(done) == n_req and all(
+        len(r.generated) == LM_MAX_NEW and len(r.logits) == LM_MAX_NEW
+        and all(lg.shape == (cfg.vocab,) for lg in r.logits) for r in done),
+        f"{name}: not every request got {LM_MAX_NEW} tokens and logits")
+    for label, twin_cfg, twin_params, rel in twins:
+        got, ref_logits = teacher_forced(twin_cfg, twin_params, done)
+        check_teacher_forced(f"{name} vs {label}", got, ref_logits, rel)
+    return dict(counts=counts, server=server)
+
+
+def serve_lm_both(name: str, cfg, params, n_req: int, seed: int):
+    """An LM path served in bf16 (against the bf16 CPU twin, and the fp32
+    one as the control) and in float32 (against the fp32 twin).  Returns
+    the launch counts of each and the float32 params on the card."""
+    from repro_torch.models.layers import to_device
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = cast_tree(params, torch.float32)
+    t0 = time.perf_counter()
+    twin16, twin32 = to_device(params, "cpu"), to_device(params32, "cpu")
+    print(f"[serve] {name}: CPU twins of the same weights in bfloat16 and "
+          f"in float32 ({time.perf_counter() - t0:.1f} s to copy)")
+    arch = name.split()[0]
+    bf = serve_lm(f"{name} bf16", cfg, params, n_req, seed, [
+        ("the bf16 CPU twin", cfg, twin16, LM_TWIN_REL[arch]),
+        ("the fp32 CPU twin (control)", cfg32, twin32, LM_CONTROL_REL)])
+    f32 = serve_lm(f"{name} fp32", cfg32, params32, n_req, seed, [
+        ("the fp32 CPU twin", cfg32, twin32, LM_FP32_REL)])
+    return {f"{name} bf16": bf["counts"], f"{name} fp32": f32["counts"]}, \
+        params32
+
+
+def ring_check(cfg32, params32, where: str) -> None:
+    """One request of 2,100 tokens with cache_len 2048 (prefill keeps the
+    rolled ring; the 2048 window binds), then 8 decode steps, fp32: each
+    logit row equals `forward` over the whole 2,108 tokens."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    rng = np.random.default_rng(5)
+    req = serve.Request(0, rng.integers(0, cfg32.vocab, size=RING_PROMPT),
+                        RING_NEW + 1)
+    server = serve.SlotServer(cfg32, params32, 1, RING_CACHE,
+                              keep_logits=True)
+    t0 = time.perf_counter()
+    done = serve.drain(server, [req])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    r = done[0]
+    seq = torch.tensor(list(r.prompt) + r.generated[:-1], dtype=torch.int32,
+                       device="cuda")[None]
+    with torch.no_grad():
+        full = transformer.forward(params32, {"tokens": seq}, cfg32)
+    want = full[0, RING_PROMPT - 1:, :cfg32.vocab].float().cpu().numpy()
+    got = np.stack(r.logits)
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    same = int((got.argmax(1) == want.argmax(1)).sum())
+    print(f"[ring] recurrentgemma-2b fp32 on {where}: prompt {RING_PROMPT} "
+          f"tokens, cache {RING_CACHE} (window {cfg32.window}), "
+          f"{RING_NEW} decode steps in {dt:.2f} s; last logits vs forward "
+          f"over {seq.shape[1]} tokens: max|err| {err:.3e} over "
+          f"{len(got)} rows (scale {scale:.3f}, bound 1e-3 x scale), argmax "
+          f"equal on {same}/{len(got)}")
+    check(got.shape == want.shape and np.isfinite(got).all()
+          and err <= 1e-3 * scale,
+          "ring-cache decode disagrees with forward over the whole sequence")
+
+
+def lm_times(name: str, cfg, params, where: str) -> None:
+    """Decode tokens per second and prefill time per request of a drain of
+    8 requests at batch 4 (16 new tokens each, no logits kept), with the
+    MLP's hidden split, without it, and with it again; then the profile
+    of a drain under torch.profiler."""
+    from repro_torch.launch import serve
+
+    for split in (True, False, True):
+        server = serve.SlotServer(cfg, params, LM_BATCH, LM_CACHE)
+        run = lambda s=server: serve.drain(s, serve.make_requests(
+            cfg, 8, LM_PROMPT, 16, seed=3))
+        (run if split else unsplit(run))()
+        print(f"[time] served {name} on {where}"
+              f"{'' if split else ', the MLP hidden split forced off'}: "
+              f"batch {LM_BATCH}, 8 requests of 16 new tokens: decode "
+              f"{server.decoded / server.decode_s:.1f} tok/s ({server.steps} "
+              f"steps, {1e3 * server.decode_s / server.steps:.2f} ms per "
+              f"step), prefill {1e3 * float(np.mean(server.prefill_s)):.2f} "
+              f"ms per request (prompts of 4-{LM_PROMPT} tokens; host wall, "
+              f"each ending in a device sync)")
+    server = serve.SlotServer(cfg, params, LM_BATCH, LM_CACHE)
+    queue = serve.make_requests(cfg, LM_BATCH, LM_PROMPT, LM_MAX_NEW, seed=4)
+    rows = profile_run(name, lambda: serve.drain(server, queue), where,
+                       f"a drain of {LM_BATCH} requests ({LM_BATCH} "
+                       f"prefills, {LM_MAX_NEW - 1} decode steps)")
+    want = expected_lm_launches(cfg, LM_BATCH, server.steps)["fused_mlp"]
+    seen = sum(c for k, _, c in rows if "fused_mlp_kernel" in k)
+    print(f"[profile] {name}: fused_mlp_kernel x{seen} in the trace, "
+          f"{want} launched (the trace is complete where they agree)")
+
+
+def cast_tree(tree, dtype):
+    """A copy of a param tree (dicts, lists) with every tensor cast to
+    ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_tree(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def lm_paths(where: str):
+    """The LM served paths: RecurrentGemma-2B full width and depth and
+    stablelm-3b at full width and 4 layers, each in bf16 and in float32
+    (`serve_lm_both`), with RecurrentGemma's fp32 ring-cache check between
+    them.  Returns the launch counts of each served path and (name, cfg,
+    params) of each bf16 path, for `lm_times`."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    rg = configs.get("recurrentgemma-2b")
+    params = transformer.init_params(rg, seed=0, device="cuda")
+    print(f"[serve] recurrentgemma-2b: {rg.n_layers} layers "
+          f"({transformer.layer_kinds(rg).count('attn')} attention), "
+          f"d_model {rg.d_model}, {transformer.param_count(params) / 1e9:.3f}"
+          f" B parameters in {rg.dtype}, random from seed 0")
+    counts, params32 = serve_lm_both("recurrentgemma-2b", rg, params,
+                                     LM_REQUESTS, 0)
+    ring_check(dataclasses.replace(rg, dtype="float32"), params32, where)
+    del params32
+    torch.cuda.empty_cache()
+
+    sl = dataclasses.replace(configs.get("stablelm-3b"), n_layers=4)
+    sl_params = transformer.init_params(sl, seed=0, device="cuda")
+    more, _ = serve_lm_both("stablelm-3b (4 layers)", sl, sl_params, 4, 1)
+    counts.update(more)
+    return counts, [("recurrentgemma-2b bf16", rg, params),
+                    ("stablelm-3b (4 layers) bf16", sl, sl_params)]
 
 
 def main() -> None:
@@ -828,7 +1371,7 @@ def main() -> None:
           f"on {name} ({card})")
 
     # 1. Build.
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = build.build_all()
     for lib, log in sorted(logs.items()):
         info = [ln.strip() for ln in log.splitlines()
@@ -841,6 +1384,8 @@ def main() -> None:
     cfgs = {m: vision_registry.build_cfg(m, full=True)
             for m in MODELS + ("vit_edge",)}
     records = kernel_phase(cfgs["deit_t"], cfgs["vit_edge"], cfgs["swin_t"])
+    lm_kernel_phase(records)
+    print(f"[phase] kernels checked at {time.perf_counter() - t_start:.0f} s")
 
     # 3. Serve every path on the card against its CPU twin.
     images = {m: np.random.default_rng(0).standard_normal(
@@ -872,53 +1417,18 @@ def main() -> None:
         print(f"[serve] {path_name(model, 'int8', True, group)} vs float on "
               f"the card: max|err| {perr:.4f} (ptq_tolerance {tol:.4f})")
         check(perr <= tol, f"{model}: int8 logits outside the PTQ tolerance")
+    print(f"[phase] vision paths served at "
+          f"{time.perf_counter() - t_start:.0f} s")
+    lm_counts, lm_served = lm_paths(f"{name} ({card})")
+    print(f"[phase] LM paths served at {time.perf_counter() - t_start:.0f} s")
     launches = {k[0]: sum(o["counts"][k[0]] for o in served.values())
-                for k in KERNELS}
+                + sum(c[k[0]] for c in lm_counts.values()) for k in KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel was never launched on a served path: {launches}")
 
-    # 4. Times.
-    out = []
-    for kname, replaces, source in KERNELS:
-        r = records[kname]
-        ms, plain_ms = device_ms(r["fn"]), device_ms(r["plain"])
-        lib_ms = device_ms(r["library"]) if r["library"] else None
-        call_ms = time_ms(r["fn"])
-        bound_ms, bound_by = r["bound"]
-        entry = {"name": kname, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches[kname],
-                 "max_abs_err": r["err"], "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound_ms, "bound_by": bound_by,
-                 "library_ms": lib_ms, "call_ms": call_ms, "shape": r["tag"],
-                 "other_shapes": []}
-        print(f"[time] {kname} {r['tag']} on {name} ({card}): device "
-              f"{ms:.4f} ms (per call with the host in the loop "
-              f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
-        for x in r["extra"]:
-            xms, xplain = device_ms(x["fn"]), device_ms(x["plain"])
-            xlib = device_ms(x["library"]) if x["library"] else None
-            entry["other_shapes"].append({
-                "shape": x["tag"], "max_abs_err": x["err"], "ms": xms,
-                "plain_ms": xplain, "library_ms": xlib,
-                "bound_ms": x["bound"][0], "bound_by": x["bound"][1]})
-            print(f"[time] {kname} {x['tag']} on {name} ({card}): device "
-                  f"{xms:.4f} ms, plain {xplain:.4f} ms, library "
-                  f"{'n/a' if xlib is None else f'{xlib:.4f} ms'}, bound "
-                  f"{x['bound'][0]:.4f} ms ({x['bound'][1]})")
-        out.append(entry)
-    print("[time] device, plain and library times are device time summed "
-          "by torch.profiler over 20 calls; the per-call time is CUDA "
-          "events around 50 back-to-back calls")
-    print("[time] library yardsticks (never called by the port): "
-          "vita_layer = cuBLAS matmuls + F.layer_norm + "
-          "F.scaled_dot_product_attention + F.gelu (vita_layer_group: L "
-          "of them in a row); vita_msa_batched = "
-          "torch.matmul projections + F.scaled_dot_product_attention; "
-          "fused_mlp = addmm + tanh-GELU + addmm; int8_matmul = "
-          "torch._int_mm (int32 out, no rescale); none for the int8 layer, "
-          "the int8 layer group and the int8 MSA")
+    # 4. Times: the served throughput and the profiled drains first (their
+    # kernel counts are checked, before the many profiler sessions below),
+    # then every kernel, then the LM paths' tokens per second.
     img_s = {}
     for key, o in served.items():
         server = o["server"]
@@ -947,6 +1457,72 @@ def main() -> None:
     for mode in ("float", "int8"):
         check_grouped_drain(mode, served[("deit_t", mode, True, 4)]["server"],
                             f"{name} ({card})")
+    print(f"[phase] drains profiled at {time.perf_counter() - t_start:.0f} s")
+    # Every kernel's main shape first (the JSON line's numbers), then the
+    # other shapes.
+    out = []
+    for kname, replaces, source in KERNELS:
+        r = records[kname]
+        (ms, by), (plain_ms, plain_by) = (device_ms(r["fn"]),
+                                          device_ms(r["plain"]))
+        lib_ms, lib_by = device_ms(r["library"]) if r["library"] \
+            else (None, None)
+        call_ms = time_ms(r["fn"])
+        bound_ms, bound_by = r["bound"]
+        out.append({"name": kname, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[kname],
+                    "max_abs_err": r["err"], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms, "call_ms": call_ms,
+                    "timed_by": {"ms": by, "plain_ms": plain_by,
+                                 "library_ms": lib_by},
+                    "shape": r["tag"], "other_shapes": []})
+        print(f"[time] {kname} {r['tag']} on {name} ({card}): device "
+              f"{ms:.4f} ms [{by}] (per call with the host in the loop "
+              f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms [{plain_by}], "
+              f"library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms [{lib_by}]'}"
+              f", bound {bound_ms:.4f} ms ({bound_by})")
+    for entry in out:
+        kname = entry["name"]
+        for x in records[kname]["extra"]:
+            (xms, by), (xplain, plain_by) = (device_ms(x["fn"]),
+                                             device_ms(x["plain"]))
+            xlib, lib_by = device_ms(x["library"]) if x["library"] \
+                else (None, None)
+            entry["other_shapes"].append({
+                "shape": x["tag"], "max_abs_err": x["err"], "ms": xms,
+                "plain_ms": xplain, "library_ms": xlib,
+                "bound_ms": x["bound"][0], "bound_by": x["bound"][1],
+                "timed_by": {"ms": by, "plain_ms": plain_by,
+                             "library_ms": lib_by}})
+            print(f"[time] {kname} {x['tag']} on {name} ({card}): device "
+                  f"{xms:.4f} ms [{by}], plain {xplain:.4f} ms [{plain_by}], "
+                  f"library "
+                  f"{'n/a' if xlib is None else f'{xlib:.4f} ms [{lib_by}]'}"
+                  f", bound {x['bound'][0]:.4f} ms ({x['bound'][1]})")
+    print("[time] device, plain and library times are device time summed "
+          "by torch.profiler over 20 calls (3 where a call takes over 5 "
+          "ms), marked [profiler], or where the profiler dropped events, "
+          "CUDA events around the calls, marked [cuda_events] (the host's "
+          "launch rate for a callable of many launches); the per-call time "
+          "is CUDA events around 50 back-to-back calls")
+    print("[time] library yardsticks (never called by the port): "
+          "vita_layer = cuBLAS matmuls + F.layer_norm + "
+          "F.scaled_dot_product_attention + F.gelu (vita_layer_group: L "
+          "of them in a row); vita_msa_batched = "
+          "torch.matmul projections + F.scaled_dot_product_attention; "
+          "fused_mlp = addmm + tanh-GELU + addmm; int8_matmul = "
+          "torch._int_mm (int32 out, no rescale); flash_attention = "
+          "F.scaled_dot_product_attention (enable_gqa, boolean causal + "
+          "window mask); decode_attention = the same with a length mask; "
+          "the gated MLP = matmul + activation + multiply + matmul; none "
+          "for the int8 layer, the int8 layer group, the int8 MSA and the "
+          "RG-LRU scan")
+    print(f"[phase] kernels timed at {time.perf_counter() - t_start:.0f} s")
+    for lm_name, lm_cfg, lm_params in lm_served:
+        lm_times(lm_name, lm_cfg, lm_params, f"{name} ({card})")
+    print(f"[phase] done at {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,0 +1,14 @@
+"""Qwen2.5-32B — dense GQA with QKV bias [hf:Qwen/Qwen2.5-*; hf].
+
+64L d_model=5120 40H (GQA kv=8) d_ff=27648 vocab=152064."""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-32b", family="dense",
+    n_layers=64, d_model=5120, n_heads=40, n_kv_heads=8,
+    d_ff=27648, vocab=152064,
+    qkv_bias=True,
+    activation="silu", gated=True, norm="rms",
+    subquadratic=False,
+)

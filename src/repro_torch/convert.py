@@ -5,8 +5,10 @@
 port's tree of tensors on ``device``.  A leaf with ``.values`` and
 ``.scale`` (a quantized tensor of any framework) becomes the port's
 `QTensor`.  `calibrator_from_scales` turns a frozen ``{site: scale}`` map
-into a frozen port `Calibrator`.  Nothing here imports the framework the
-arrays came from.
+into a frozen port `Calibrator`.  `lm_params_from_numpy` and
+`lm_caches_from_numpy` turn the JAX LM layout (one tree per pattern
+position, stacked over the superblocks) into the port's flat per-layer
+lists.  Nothing here imports the framework the arrays came from.
 """
 
 from __future__ import annotations
@@ -20,7 +22,11 @@ from repro_torch.core.quant import Calibrator, QTensor
 
 
 def _tensor(leaf: Any, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(leaf, copy=True)).to(device)
+    a = np.array(leaf, copy=True)
+    if a.dtype.name == "bfloat16":          # numpy's bfloat16 extension type
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_numpy(tree: Any, device="cpu") -> Any:
@@ -44,3 +50,38 @@ def calibrator_from_scales(scales: Mapping[str, Any],
                   for k, v in scales.items()}
     cal.amax = {k: float(v) * 127.0 for k, v in cal.frozen.items()}
     return cal
+
+
+def _take(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _take(v, i) for k, v in tree.items()}
+    return tree[i].contiguous()
+
+
+def _unstack_layers(stacked: Any, device) -> list:
+    """A tuple of P trees stacked over n superblocks -> the n * P layer
+    trees in order (layer i = position i % P of superblock i // P)."""
+    per_pos = [params_from_numpy(t, device) for t in stacked]
+
+    def first_leaf(t):
+        return first_leaf(next(iter(t.values()))) if isinstance(t, dict) \
+            else t
+    n = first_leaf(per_pos[0]).shape[0]
+    return [_take(per_pos[pos], sb) for sb in range(n)
+            for pos in range(len(per_pos))]
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], device="cpu") -> dict:
+    """The JAX LM parameter tree (leaves array-likes; ``layers`` a tuple
+    with one stacked tree per pattern position, leading axis
+    n_superblocks) -> the port's tree, ``layers`` a flat per-layer list."""
+    out = {k: params_from_numpy(v, device) for k, v in tree.items()
+           if k != "layers"}
+    out["layers"] = _unstack_layers(tree["layers"], device)
+    return out
+
+
+def lm_caches_from_numpy(caches: Any, device="cpu") -> list:
+    """The JAX LM caches (a tuple of stacked per-position cache trees) ->
+    the port's per-layer cache list."""
+    return _unstack_layers(caches, device)

@@ -9,6 +9,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace repro_torch {
@@ -33,6 +34,38 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Element types of the LM kernels: float32 or bfloat16 in memory, float32
+// in registers.  Codes match the wrappers' `_DTYPE_CODES`.
+enum ElemCode { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
+// v rounded to T and back: the TPU kernels' astype(x.dtype) before a product.
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+// MLP activations, in the order of ref.ACTIVATIONS.
+__device__ __forceinline__ float activate(float x, int act) {
+  switch (act) {
+    case 0: return gelu_tanh(x);
+    case 1: return fmaxf(x, 0.f);
+    case 2: { const float r = fmaxf(x, 0.f); return r * r; }
+    case 3: return x / (1.0f + expf(-x));
+    default: return x;
+  }
 }
 
 }  // namespace repro_torch

@@ -1,64 +1,82 @@
-// Fused GELU MLP: out = gelu(x W1 + b1) W2 + b2, the hidden activation
-// never in device memory.
+// Fused MLP: out = act(x W1 + b1) W2 + b2, or gated,
+// out = (act(x Wg) * (x W1 + b1)) W2 + b2, with the hidden activation
+// never in device memory.  float32 or bfloat16 in and out, float32 sums.
 //
 // Replaces: repro/kernels/fused_mlp.py::fused_mlp (the paper's inter-layer
 // MLP optimisation: hidden chunks are computed, pushed through the
 // activation and consumed by the output accumulation at once).  The TPU
 // kernel walks hidden chunks on a sequential grid axis with an (bn, D_out)
-// VMEM accumulator and asserts n % bn == 0.
+// VMEM accumulator, rounds each hidden chunk to x's dtype before the second
+// product, and asserts n % bn == 0.
 //
-// Design: one block per (16-token tile, output-column slice).  The block's
-// x rows stay resident in shared memory (16 x D floats, 12 KiB at D 192,
-// 48 KiB at D 768).  It walks the hidden dimension in chunks of 64:
-//   h = gelu(x_tile . W1[:, chunk] + b1[chunk])   -> shared memory (4 KiB)
-//   acc += h . W2[chunk, slice]                   -> registers
-// with the W1 and W2 slices streamed through 16-deep shared-memory stages,
-// and adds b2 once at the end.  The accumulator is 16 rows x (32*J) columns
-// in registers (J <= 8, two rows and J columns per thread), so an output
-// wider than 256 columns is split across blocks and each block recomputes
-// the hidden chunk for its slice: once at D_out 96-256 (ViT/DeiT-T, Swin-T
-// stages 1-2), twice at 384 (stage 3), three times at 768 (stage 4,
-// ViT-B).  Token counts are ragged (1568 at DeiT-T batch 8, 392 to 25,088
-// at Swin-T): rows past the end are zero-filled and never written, and the
-// hidden and output edges are masked the same way.
-// Bound: operations (2*R*M*(D + D_out) flops at 67 TFLOP/s against
-// 4*(R*(D + D_out) + D*M + M*D_out) bytes), on CUDA cores; the
-// recomputation above adds (slices - 1) * 2*R*M*D.  wgmma/TMA are later
-// work.
+// Design: one block per (row tile, output-column slice, hidden split), as
+// `make_plan` below lays them out.  The block's x rows stay resident in
+// shared memory, in x's type (BR x D: 16 rows, or 8 where 16 do not fit;
+// 80 KiB at D 2560 in bf16, 160 KiB in fp32).  It walks its hidden range in chunks of 64:
+//   h = act(x_tile . Wg[:, chunk]) * (x_tile . W1[:, chunk] + b1[chunk])
+//       (or act(x_tile . W1 + b1)), rounded to x's type -> shared memory
+//   acc += h . W2[chunk, slice]                         -> registers
+// with the W1/Wg and W2 slices streamed through 16-deep shared-memory
+// stages as float.  The accumulator is BR rows x (32*J) columns in
+// registers (J <= 8), so an output wider than 256 columns is split across
+// blocks, each recomputing the hidden chunk for its slice (10 slices at
+// D_out 2560).  Where row tiles x slices leave the card's SMs idle (decode:
+// 4 rows), the hidden dimension is split too: each split writes its
+// float32 partial sums to `partial` (splits x R x D_out) and a second
+// kernel adds them in split order, adds b2 and rounds to x's type.  Rows,
+// hidden and output columns past the ends are masked.
+// Bound: operations (2*R*M*(D*(1 + gated) + D_out) flops; the fp32 CUDA-core
+// rate for fp32 inputs, the bf16 tensor-core rate for bf16) against the
+// bytes of x, the weights and the output; at decode (R = 4) the weights'
+// bytes bound it.  The recomputation per output slice adds
+// (slices - 1) * 2*R*M*D*(1 + gated).  wgmma/TMA are later work.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace repro_torch {
 
-constexpr int WARPS = 8, THREADS = WARPS * 32, BR = 16, RPW = BR / WARPS;
-constexpr int BH = 64, KC = 16;
+constexpr int WARPS = 8, THREADS = WARPS * 32, BH = 64, KC = 16;
+constexpr int BR_MAX = 16;
 
-template <int J>
+template <typename T, int J, int RPW>
 __global__ void __launch_bounds__(THREADS)
-fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                 const float* __restrict__ b1, const float* __restrict__ w2,
-                 const float* __restrict__ b2, float* __restrict__ out, int R,
-                 int D, int Dp, int M, int Dout) {
+fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                 const T* __restrict__ b1, const T* __restrict__ wg,
+                 const T* __restrict__ w2, const T* __restrict__ b2,
+                 T* __restrict__ out, float* __restrict__ partial, int R,
+                 int D, int Dp, int M, int Dout, int act, int chunks_per_split) {
+  constexpr int BR = RPW * WARPS;         // the block's token rows
   constexpr int BO = 32 * J;              // the block's output columns
-  extern __shared__ float Xs[];           // [BR][Dp], Dp = D rounded up to KC
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Xs = reinterpret_cast<T*>(smem_raw);  // [BR][Dp], Dp = D rounded up to KC
   __shared__ float W1s[KC][BH];
-  __shared__ float Hs[BR][BH];
+  __shared__ float Wgs[KC][BH];
+  __shared__ float Hs[BR_MAX][BH];
   __shared__ float W2s[KC][BO];
   const int t = threadIdx.x, lane = t % 32, r0 = (t / 32) * RPW;
   const int row0 = blockIdx.x * BR, c0 = blockIdx.y * BO;
+  const bool gated = wg != nullptr;
   for (int i = t; i < BR * Dp; i += THREADS) {
     const int r = i / Dp, d = i % Dp;
-    Xs[i] = (row0 + r < R && d < D) ? x[(long long)(row0 + r) * D + d] : 0.f;
+    Xs[i] = (row0 + r < R && d < D) ? x[(long long)(row0 + r) * D + d]
+                                    : from_f<T>(0.f);
   }
+  const int m_begin = blockIdx.z * chunks_per_split * BH;
+  const int m_end = min(M, m_begin + chunks_per_split * BH);
   float acc[RPW][J] = {};
-  for (int m0 = 0; m0 < M; m0 += BH) {
-    // h[r][c] = gelu(sum_d x[r][d] * w1[d][m0 + c] + b1[m0 + c]), c = lane, lane + 32
-    float hacc[RPW][2] = {};
+  for (int m0 = m_begin; m0 < m_end; m0 += BH) {
+    // u[r][c] = sum_d x[r][d] w1[d][m0 + c] (and g with wg), c = lane, lane + 32
+    float hacc[RPW][2] = {}, gacc[RPW][2] = {};
     for (int d0 = 0; d0 < Dp; d0 += KC) {
 #pragma unroll
       for (int l = 0; l < KC * BH / THREADS; ++l) {
         const int idx = t + THREADS * l, kk = idx / BH, c = idx % BH;
         const int d = d0 + kk, m = m0 + c;
-        W1s[kk][c] = (d < D && m < M) ? w1[(long long)d * M + m] : 0.f;
+        const bool in = d < D && m < M;
+        const long long o = (long long)d * M + m;
+        W1s[kk][c] = in ? to_f(w1[o]) : 0.f;
+        if (gated) Wgs[kk][c] = in ? to_f(wg[o]) : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -66,9 +84,18 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ w1,
         const float u0 = W1s[kk][lane], u1 = W1s[kk][lane + 32];
 #pragma unroll
         for (int i = 0; i < RPW; ++i) {
-          const float xv = Xs[(r0 + i) * Dp + d0 + kk];
+          const float xv = to_f(Xs[(r0 + i) * Dp + d0 + kk]);
           hacc[i][0] = fmaf(xv, u0, hacc[i][0]);
           hacc[i][1] = fmaf(xv, u1, hacc[i][1]);
+        }
+        if (gated) {
+          const float g0 = Wgs[kk][lane], g1 = Wgs[kk][lane + 32];
+#pragma unroll
+          for (int i = 0; i < RPW; ++i) {
+            const float xv = to_f(Xs[(r0 + i) * Dp + d0 + kk]);
+            gacc[i][0] = fmaf(xv, g0, gacc[i][0]);
+            gacc[i][1] = fmaf(xv, g1, gacc[i][1]);
+          }
         }
       }
       __syncthreads();
@@ -79,7 +106,11 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ w1,
       for (int c2 = 0; c2 < 2; ++c2) {
         const int c = lane + 32 * c2, m = m0 + c;
         float v = 0.f;
-        if (m < M) v = gelu_tanh(b1 ? hacc[i][c2] + b1[m] : hacc[i][c2]);
+        if (m < M) {
+          const float u = b1 ? hacc[i][c2] + to_f(b1[m]) : hacc[i][c2];
+          v = gated ? activate(gacc[i][c2], act) * u : activate(u, act);
+          v = round_to<T>(v);
+        }
         Hs[r0 + i][c] = v;
       }
     // acc[r][c] += sum_k h[r][k] * w2[m0 + k][c0 + c]
@@ -88,7 +119,8 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ w1,
       for (int l = 0; l < KC * BO / THREADS; ++l) {
         const int idx = t + THREADS * l, kk = idx / BO, c = idx % BO;
         const int m = m0 + k0 + kk, col = c0 + c;
-        W2s[kk][c] = (m < M && col < Dout) ? w2[(long long)m * Dout + col] : 0.f;
+        W2s[kk][c] = (m < M && col < Dout) ? to_f(w2[(long long)m * Dout + col])
+                                           : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -113,45 +145,152 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int col = c0 + lane + 32 * j;
-      if (col < Dout)
-        out[(long long)r * Dout + col] = b2 ? acc[i][j] + b2[col] : acc[i][j];
+      if (col >= Dout) continue;
+      const long long o = (long long)r * Dout + col;
+      if (partial)
+        partial[(long long)blockIdx.z * R * Dout + o] = acc[i][j];
+      else
+        out[o] = from_f<T>(b2 ? acc[i][j] + to_f(b2[col]) : acc[i][j]);
     }
   }
 }
 
-template <int J>
-int launch(const float* x, const float* w1, const float* b1, const float* w2,
-           const float* b2, float* out, int R, int D, int M, int Dout,
-           int slices, cudaStream_t stream) {
-  const int Dp = (D + KC - 1) / KC * KC;
-  const int smem = (int)sizeof(float) * BR * Dp;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel<J>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// out = sum over splits of partial (in split order) + b2, rounded to T.
+template <typename T>
+__global__ void fused_mlp_finish(const float* __restrict__ partial,
+                                 const T* __restrict__ b2, T* __restrict__ out,
+                                 long long n, int Dout, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += partial[z * n + i];
+  if (b2) s += to_f(b2[i % Dout]);
+  out[i] = from_f<T>(s);
+}
+
+// The launch plan, known only here: token rows per block (16, or 8 where
+// 16 rows of x in T and the largest static shared memory of the kernel
+// pass the card's opt-in limit), the fewest output slices of at most 256
+// columns, and hidden splits (1 where row tiles x slices cover the card's
+// SMs, else about two blocks per SM, at most one split per 64-wide chunk).
+struct Plan {
+  int rows, slices, splits;
+};
+
+constexpr int STATIC_SMEM_MAX =
+    (int)sizeof(float) * (2 * KC * BH + BR_MAX * BH + KC * 32 * 8);
+
+int make_plan(int R, int D, int M, int Dout, int esize, Plan* p) {
+  int dev = 0, limit = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((R + BR - 1) / BR, slices);
-  fused_mlp_kernel<J><<<grid, THREADS, smem, stream>>>(x, w1, b1, w2, b2, out,
-                                                       R, D, Dp, M, Dout);
+  const long long Dp = (D + KC - 1) / KC * KC;
+  p->rows = 16 * esize * Dp + STATIC_SMEM_MAX <= limit  ? 16
+            : 8 * esize * Dp + STATIC_SMEM_MAX <= limit ? 8
+                                                        : 0;
+  if (p->rows == 0) return (int)cudaErrorInvalidValue;  // D too wide
+  p->slices = (Dout + 255) / 256;
+  const int blocks = (R + p->rows - 1) / p->rows * p->slices;
+  const int chunks = (M + BH - 1) / BH;
+  p->splits =
+      blocks >= sms ? 1 : std::min(chunks, (2 * sms + blocks - 1) / blocks);
+  return (int)cudaSuccess;
+}
+
+template <typename T, int J, int RPW>
+int launch(const T* x, const T* w1, const T* b1, const T* wg, const T* w2,
+           const T* b2, T* out, float* partial, int R, int D, int M, int Dout,
+           int act, int slices, int splits, cudaStream_t stream) {
+  constexpr int BR = RPW * WARPS;
+  const int Dp = (D + KC - 1) / KC * KC;
+  const int smem = (int)sizeof(T) * BR * Dp;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_kernel<T, J, RPW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const int chunks = (M + BH - 1) / BH;
+  const int cps = (chunks + splits - 1) / splits;
+  splits = (chunks + cps - 1) / cps;
+  dim3 grid((R + BR - 1) / BR, slices, splits);
+  fused_mlp_kernel<T, J, RPW><<<grid, THREADS, smem, stream>>>(
+      x, w1, b1, wg, w2, b2, out, splits > 1 ? partial : nullptr, R, D, Dp, M,
+      Dout, act, cps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long n = (long long)R * Dout;
+  fused_mlp_finish<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      partial, b2, out, n, Dout, splits);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int RPW>
+int dispatch_j(const void* x, const void* w1, const void* b1, const void* wg,
+               const void* w2, const void* b2, void* out, float* partial, int R,
+               int D, int M, int Dout, int act, int slices, int splits,
+               cudaStream_t s) {
+  // Slices a multiple of 32 columns wide.
+  const int J = ((Dout + slices - 1) / slices + 31) / 32;
+  auto x_ = (const T*)x, w1_ = (const T*)w1, b1_ = (const T*)b1,
+       wg_ = (const T*)wg, w2_ = (const T*)w2, b2_ = (const T*)b2;
+  auto o_ = (T*)out;
+#define RT_MLP_CASE(JJ)                                                      \
+  case JJ:                                                                   \
+    return launch<T, JJ, RPW>(x_, w1_, b1_, wg_, w2_, b2_, o_, partial, R, D, \
+                              M, Dout, act, slices, splits, s);
+  switch (J) {
+    RT_MLP_CASE(1) RT_MLP_CASE(2) RT_MLP_CASE(3) RT_MLP_CASE(4)
+    RT_MLP_CASE(5) RT_MLP_CASE(6) RT_MLP_CASE(7)
+    default: RT_MLP_CASE(8)
+  }
+#undef RT_MLP_CASE
+}
+
+template <typename T>
+int dispatch(const void* x, const void* w1, const void* b1, const void* wg,
+             const void* w2, const void* b2, void* out, float* partial, int R,
+             int D, int M, int Dout, int act, int splits, cudaStream_t s) {
+  Plan p;
+  const int err = make_plan(R, D, M, Dout, (int)sizeof(T), &p);
+  if (err != 0) return err;
+  if (splits < 1 || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return p.rows == 16
+             ? dispatch_j<T, 2>(x, w1, b1, wg, w2, b2, out, partial, R, D, M,
+                                Dout, act, p.slices, splits, s)
+             : dispatch_j<T, 1>(x, w1, b1, wg, w2, b2, out, partial, R, D, M,
+                                Dout, act, p.slices, splits, s);
 }
 
 }  // namespace repro_torch
 
-extern "C" int rt_fused_mlp(const float* x, const float* w1, const float* b1,
-                            const float* w2, const float* b2, float* out, int R,
-                            int D, int M, int Dout, void* stream) {
+// The plan's hidden splits for R rows of x (D wide, kF32 or kBF16) through
+// an M-wide hidden to Dout columns: the caller sizes `partial` from them.
+extern "C" int rt_fused_mlp_splits(int R, int D, int M, int Dout, int dtype,
+                                   int* splits) {
+  repro_torch::Plan p{0, 0, 1};
+  const int err = repro_torch::make_plan(
+      R, D, M, Dout, dtype == repro_torch::kBF16 ? 2 : 4, &p);
+  *splits = p.splits;
+  return err;
+}
+
+// splits: hidden splits (1 = none; else `partial` holds splits x R x Dout
+// floats); dtype: kF32 or kBF16 for x, every weight, bias and out.
+extern "C" int rt_fused_mlp(const void* x, const void* w1, const void* b1,
+                            const void* wg, const void* w2, const void* b2,
+                            void* out, float* partial, int R, int D, int M,
+                            int Dout, int act, int splits, int dtype,
+                            void* stream) {
   using namespace repro_torch;
-  // The fewest slices of at most 256 columns, each a multiple of 32 wide.
-  const int slices = (Dout + 255) / 256;
-  const int J = ((Dout + slices - 1) / slices + 31) / 32;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (J) {
-    case 1: return launch<1>(x, w1, b1, w2, b2, out, R, D, M, Dout, slices, s);
-    case 2: return launch<2>(x, w1, b1, w2, b2, out, R, D, M, Dout, slices, s);
-    case 3: return launch<3>(x, w1, b1, w2, b2, out, R, D, M, Dout, slices, s);
-    case 4: return launch<4>(x, w1, b1, w2, b2, out, R, D, M, Dout, slices, s);
-    case 5: return launch<5>(x, w1, b1, w2, b2, out, R, D, M, Dout, slices, s);
-    case 6: return launch<6>(x, w1, b1, w2, b2, out, R, D, M, Dout, slices, s);
-    case 7: return launch<7>(x, w1, b1, w2, b2, out, R, D, M, Dout, slices, s);
-    default: return launch<8>(x, w1, b1, w2, b2, out, R, D, M, Dout, slices, s);
-  }
+  return dtype == kBF16
+             ? dispatch<__nv_bfloat16>(x, w1, b1, wg, w2, b2, out, partial, R,
+                                       D, M, Dout, act, splits, s)
+             : dispatch<float>(x, w1, b1, wg, w2, b2, out, partial, R, D, M,
+                               Dout, act, splits, s);
 }

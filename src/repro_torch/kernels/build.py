@@ -39,7 +39,13 @@ SIGNATURES = {
                                     I, F, P, P, P, I, P],
     ("vita_msa", "rt_vita_msa"): [P, P, P, P, P, P, P, I, P, I, I, I, I, I,
                                   F, P],
-    ("fused_mlp", "rt_fused_mlp"): [P, P, P, P, P, P, I, I, I, I, P],
+    ("fused_mlp", "rt_fused_mlp"): [P] * 8 + [I] * 7 + [P],
+    ("fused_mlp", "rt_fused_mlp_splits"): [I] * 5 + [P],
+    ("flash_attention", "rt_flash_attention"): [P] * 4 + [I] * 6 + [F]
+    + [I] * 4 + [P],
+    ("decode_attention", "rt_decode_attention"): [P] * 5 + [I] * 5 + [F, I,
+                                                                      P],
+    ("rglru_scan", "rt_rglru_scan"): [P] * 3 + [I] * 4 + [P],
     ("vita_layer_group", "rt_vita_layer_group"): [P] * 24 + [I] * 8
     + [F, F, P],
     ("vita_layer_group", "rt_vita_layer_group_int8"): [P] * 31 + [I] * 8

@@ -1,26 +1,37 @@
-"""The fused GELU MLP on Hopper (counterpart of
+"""The fused MLP on Hopper (counterpart of
 `repro/kernels/fused_mlp.py::fused_mlp`).
 
-One launch of ``csrc/fused_mlp.cu`` computes gelu(x W1 + b1) W2 + b2 with
-the hidden activation streamed through shared memory in 64-wide chunks:
-it never reaches device memory.  Only the ungated GELU MLP of the vision
-path is ported; the other activations, the gate and non-float32 inputs
-raise.  This function takes CUDA tensors only; the plain version is
-`ref.fused_mlp_ref`, chosen by `ops`.
+One launch of ``csrc/fused_mlp.cu`` computes act(x W1 + b1) W2 + b2, or
+the gated act(x Wg) * (x W1 + b1) W2 + b2, with the hidden activation
+streamed through shared memory in 64-wide chunks: it never reaches device
+memory.  Every activation of `ref.ACTIVATIONS`; float32 or bfloat16 in
+and out with float32 sums, the hidden chunk rounded to x's dtype before
+the second product.  Where too few blocks would fill the card (a decode
+step's few rows), the kernel's launch plan splits the hidden dimension
+and a second kernel adds the float32 partials.  This function takes CUDA
+tensors only; the plain version is `ref.fused_mlp_ref`, chosen by `ops`.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from . import build
+from .head_attention import dtype_code
 from .int8_matmul import _stream, check, ptr
-from .ref import fp32_only, gelu_mlp_only
-from .vita_msa import SMEM_LIMIT
+from .ref import ACTIVATION_CODES, act_fn
 
-_STATIC_SMEM_MAX = 4 * (16 * 64 + 16 * 64 + 16 * 256)
+
+def hidden_splits(rows: int, d: int, m: int, d_out: int, code: int) -> int:
+    """The hidden splits that ``csrc/fused_mlp.cu`` plans for ``rows`` rows
+    (1 where its blocks fill the card), which size the float32 partials."""
+    splits = ctypes.c_int(1)
+    build.call("fused_mlp", "rt_fused_mlp_splits", rows, d, m, d_out, code,
+               ctypes.byref(splits))
+    return splits.value
 
 
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -28,27 +39,31 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
               b2: Optional[torch.Tensor] = None,
               w_gate: Optional[torch.Tensor] = None, *,
               activation: str = "gelu") -> torch.Tensor:
-    """x (..., D); w1 (D, M); w2 (M, D_out); b1 (M,); b2 (D_out,) ->
-    (..., D_out) float32, on the card."""
-    gelu_mlp_only(activation, w_gate)
-    fp32_only("fused_mlp", x, w1, w2, b1, b2)
+    """x (..., D); w1, w_gate (D, M); w2 (M, D_out); b1 (M,); b2 (D_out,),
+    all of x's dtype -> (..., D_out) in x's dtype, on the card."""
+    act_fn(activation)
+    code = dtype_code("fused_mlp", x)
     d = x.shape[-1]
     m, d_out = w2.shape
-    check(x, "x", torch.float32)
-    check(w1, "w1", torch.float32, (d, m))
-    check(w2, "w2", torch.float32, (m, d_out))
+    check(x, "x", x.dtype)
+    check(w1, "w1", x.dtype, (d, m))
+    check(w2, "w2", x.dtype, (m, d_out))
+    if w_gate is not None:
+        check(w_gate, "w_gate", x.dtype, (d, m))
     if b1 is not None:
-        check(b1, "b1", torch.float32, (m,))
+        check(b1, "b1", x.dtype, (m,))
     if b2 is not None:
-        check(b2, "b2", torch.float32, (d_out,))
-    if 4 * 16 * (-(-d // 16) * 16) + _STATIC_SMEM_MAX > SMEM_LIMIT:
-        raise ValueError(f"fused_mlp: D={d} rows do not fit in one block's "
-                         f"shared memory")
+        check(b2, "b2", x.dtype, (d_out,))
     rows = x.numel() // d
     out = torch.empty((*x.shape[:-1], d_out), device=x.device,
-                      dtype=torch.float32)
+                      dtype=x.dtype)
     if rows == 0:
         return out
+    splits = hidden_splits(rows, d, m, d_out, code)
+    partial = None if splits == 1 else torch.empty(
+        (splits, rows, d_out), device=x.device, dtype=torch.float32)
     build.call("fused_mlp", "rt_fused_mlp", ptr(x), ptr(w1), ptr(b1),
-               ptr(w2), ptr(b2), ptr(out), rows, d, m, d_out, _stream())
+               ptr(w_gate), ptr(w2), ptr(b2), ptr(out), ptr(partial), rows,
+               d, m, d_out, ACTIVATION_CODES[activation], splits, code,
+               _stream())
     return out

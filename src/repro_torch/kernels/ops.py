@@ -15,8 +15,10 @@ from typing import Dict
 import torch
 
 from . import fused_mlp as _fused_mlp
+from . import head_attention as _head_attention
 from . import int8_matmul as _int8_matmul
 from . import ref
+from . import rglru_scan as _rglru_scan
 from . import vita_layer as _vita_layer
 from . import vita_layer_group as _vita_layer_group
 from . import vita_msa as _vita_msa
@@ -25,7 +27,9 @@ LAUNCHES: Dict[str, int] = {"vita_layer": 0, "vita_layer_int8": 0,
                             "vita_msa_int8": 0, "int8_matmul": 0,
                             "vita_msa_batched": 0, "fused_mlp": 0,
                             "vita_layer_group": 0,
-                            "vita_layer_group_int8": 0}
+                            "vita_layer_group_int8": 0,
+                            "flash_attention": 0, "decode_attention": 0,
+                            "rglru_scan": 0}
 
 
 def reset_launches() -> None:
@@ -78,8 +82,9 @@ def vita_msa(z, wq, wk, wv):
 
 
 def mlp(x, w1, w2, b1=None, b2=None, w_gate=None, *, activation="gelu"):
-    """The fused MLP act(x W1 + b1) W2 + b2 with the hidden activation
-    never materialised on the card."""
+    """The fused MLP act(x W1 + b1) W2 + b2, or gated
+    act(x W_gate) * (x W1 + b1) W2 + b2, with the hidden activation never
+    materialised on the card; x's dtype in and out."""
     if _on_card("fused_mlp", x):
         return _fused_mlp.fused_mlp(x, w1, w2, b1, b2, w_gate,
                                     activation=activation)
@@ -135,3 +140,30 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
     if _on_card("vita_layer_group_int8", x):
         return _vita_layer_group.vita_layer_group_int8(*args)
     return ref.vita_layer_group_int8_ref(*args)
+
+
+def attention(q, k, v, *, causal=True, window=None, q_offset=0):
+    """LM attention: q (B, Hq, Nq, Dh) over k, v (B, Hkv, Nk, Dh) (GQA),
+    causal and sliding-window masks, query i at position i + q_offset."""
+    if _on_card("flash_attention", q):
+        return _head_attention.flash_attention(q, k, v, causal=causal,
+                                               window=window,
+                                               q_offset=q_offset)
+    return ref.attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """One query per sequence, q (B, Hq, Dh), over a KV cache
+    (B, Hkv, S, Dh) masked by ``lengths`` (B,) int32."""
+    if _on_card("decode_attention", q):
+        return _head_attention.decode_attention(q, k_cache, v_cache, lengths)
+    return ref.decode_attention_ref(q, k_cache, v_cache, lengths)
+
+
+def linear_recurrence(a, b):
+    """h_t = a_t * h_{t-1} + b_t along axis 1 of (B, T, W) (the RG-LRU
+    hot loop), h carried in float32."""
+    if _on_card("rglru_scan", a):
+        return _rglru_scan.rglru_scan(a, b)
+    return ref.linear_recurrence_ref(a, b)

@@ -106,30 +106,135 @@ def fp32_only(name: str, *ts) -> None:
                 f"{name}: only float32 inputs are ported yet, got {t.dtype}")
 
 
-def gelu_mlp_only(activation: str, w_gate) -> None:
-    """Raise for the MLP variants not ported yet (the LM side's)."""
-    if activation != "gelu" or w_gate is not None:
-        raise NotImplementedError(
-            f"fused_mlp: only the ungated gelu MLP is ported yet "
-            f"(activation={activation!r}, gated={w_gate is not None})")
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(torch.relu(x))
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+# The MLP activations of `repro/kernels/ref.py::act_fn` (the kernel's
+# activation codes follow this order, `ACTIVATION_CODES`).
+ACTIVATIONS = {"gelu": gelu, "relu": torch.relu, "relu2": _relu2,
+               "silu": _silu, "identity": lambda x: x}
+ACTIVATION_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
+
+
+def act_fn(name: str):
+    """The activation ``name`` (``gelu`` is the tanh form, like
+    `jax.nn.gelu`); raises for a name the MLP does not know."""
+    if name not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}; known: "
+                         f"{', '.join(ACTIVATIONS)}")
+    return ACTIVATIONS[name]
 
 
 def fused_mlp_ref(x: torch.Tensor, w1: torch.Tensor,
                   b1: Optional[torch.Tensor], w2: torch.Tensor,
                   b2: Optional[torch.Tensor], *, activation: str = "gelu",
                   w_gate: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """out = gelu(x @ w1 + b1) @ w2 + b2 over (..., D) -> (..., D_out).
-    Only the ungated GELU MLP of the vision path is ported; the other
-    activations and the gated variant raise."""
-    gelu_mlp_only(activation, w_gate)
-    fp32_only("fused_mlp", x, w1, b1, w2, b2)
-    h = torch.matmul(x, w1)
+    """out = act(x @ w1 + b1) @ w2 + b2 over (..., D) -> (..., D_out), or
+    gated, h = act(x @ w_gate) * (x @ w1 + b1).  Products and sums in
+    float32; the hidden activation is rounded to x's dtype before the
+    second product, as the TPU kernel does (`fused_mlp.py:59`), and the
+    output is returned in x's dtype."""
+    act = act_fn(activation)
+    xf = x.float()
+    h = torch.matmul(xf, w1.float())
     if b1 is not None:
-        h = h + b1
-    out = torch.matmul(gelu(h), w2)
+        h = h + b1.float()
+    if w_gate is not None:
+        h = act(torch.matmul(xf, w_gate.float())) * h
+    else:
+        h = act(h)
+    out = torch.matmul(h.to(x.dtype).float(), w2.float())
     if b2 is not None:
-        out = out + b2
-    return out
+        out = out + b2.float()
+    return out.to(x.dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """LM attention in float32: q (B, Hq, Nq, Dh), k/v (B, Hkv, Nk, Dh)
+    with Hq % Hkv == 0 (GQA).  Query i sits at position i + ``q_offset``
+    and sees key j where j <= i + q_offset (causal) and j > i + q_offset
+    - ``window`` (sliding window); a row with no such key gives 0.
+    Returns q's dtype."""
+    b, hq, nq, dh = q.shape
+    hkv, nk = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
+    group = hq // hkv
+    scale = scale if scale is not None else dh ** -0.5
+    kr = k.float().repeat_interleave(group, dim=1)
+    vr = v.float().repeat_interleave(group, dim=1)
+    s = torch.matmul(q.float(), kr.transpose(-1, -2)) * scale
+    qpos = torch.arange(nq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(nk, device=q.device)[None, :]
+    mask = torch.ones((nq, nk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), torch.zeros_like(p), p)
+    return torch.matmul(p, vr).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """One query per sequence over a KV cache, in float32: q (B, Hq, Dh),
+    caches (B, Hkv, S, Dh), key j of sequence b valid where j <
+    lengths[b]; a sequence of length 0 gives 0 (`repro/kernels/ops.py`'s
+    masked reference).  Returns q's dtype."""
+    b, hq, dh = q.shape
+    hkv, s_max = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    kr = k_cache.float().repeat_interleave(group, dim=1)
+    vr = v_cache.float().repeat_interleave(group, dim=1)
+    scores = torch.einsum("bhd,bhkd->bhk", q.float(), kr) * (dh ** -0.5)
+    valid = (torch.arange(s_max, device=q.device)[None, None]
+             < lengths.to(q.device)[:, None, None])
+    scores = scores.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    p = torch.where(torch.isnan(p), torch.zeros_like(p), p)
+    return torch.einsum("bhk,bhkd->bhd", p, vr).to(q.dtype)
+
+
+def linear_recurrence_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t along axis 1 of (B, T, W), h_{-1} = 0,
+    carried in float32 one step at a time; returns a's dtype."""
+    h = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32,
+                    device=a.device)
+    out = []
+    for t in range(a.shape[1]):
+        h = a[:, t].float() * h + b[:, t].float()
+        out.append(h)
+    return torch.stack(out, dim=1).to(a.dtype)
+
+
+def rglru_ref(x: torch.Tensor, a: torch.Tensor, gate_x: torch.Tensor,
+              gate_a: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
+              c: float = 8.0) -> torch.Tensor:
+    """The Real-Gated Linear Recurrent Unit, sequentially (the JAX
+    package's oracle): x, gate_x, gate_a (B, T, D), a (D,);
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (sigmoid(gate_x_t) x_t) with
+    a_t = exp(-c softplus(a) sigmoid(gate_a_t))."""
+    a_t = torch.exp(-c * torch.nn.functional.softplus(a)[None]
+                    * torch.sigmoid(gate_a))
+    inp = torch.sqrt(torch.clamp(1.0 - torch.square(a_t), min=1e-12)) \
+        * (torch.sigmoid(gate_x) * x)
+    h = torch.zeros_like(x[:, 0]) if h0 is None else h0
+    out = []
+    for t in range(x.shape[1]):
+        h = a_t[:, t] * h + inp[:, t]
+        out.append(h)
+    return torch.stack(out, dim=1)
 
 
 def vita_msa_batched_ref(z: torch.Tensor, wq: torch.Tensor,

@@ -11,6 +11,11 @@ reassociation (1e-4 of the output scale); an int8 layer may flip a
 requant code by one LSB at a rounding boundary (2% of the output scale).
 A layer group runs the per-layer chain's own tiles, so it equals L calls
 of the chain exactly (int8) or within 1e-6 of the output scale (float).
+The LM kernels (flash and decode attention, the RG-LRU scan, the gated
+and bf16 fused MLP) are held row by row, each output row to 1e-4 of its
+own scale in fp32 and 2e-2 in bf16 (the kernels round P or the hidden
+chunk to bf16 where the plain versions keep fp32, and round the output
+once).
 """
 
 import dataclasses
@@ -22,13 +27,17 @@ import torch
 from repro_torch.core import schedule as sched
 from repro_torch.core.quant import prune_block_heads, quantize_vision_params
 from repro_torch.kernels import fused_mlp as k_fused_mlp
+from repro_torch.kernels import head_attention as k_head_attention
 from repro_torch.kernels import int8_matmul as k_int8_matmul
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rglru_scan as k_rglru_scan
 from repro_torch.kernels import vita_layer as k_vita_layer
 from repro_torch.kernels import vita_layer_group as k_vita_layer_group
 from repro_torch.kernels import vita_msa as k_vita_msa
+from repro_torch import configs
+from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import vision_serve
-from repro_torch.models import vision_registry, vit
+from repro_torch.models import transformer, vision_registry, vit
 
 pytestmark = pytest.mark.cuda
 
@@ -131,8 +140,10 @@ def test_fused_mlp_ragged_and_wide(card):
             got = k_fused_mlp.fused_mlp(x, w1, w2, *bb)
             torch.testing.assert_close(got, want, rtol=0,
                                        atol=1e-4 * float(want.abs().max()))
-    with pytest.raises(NotImplementedError):
-        k_fused_mlp.fused_mlp(x, w1, w2, activation="silu")
+    want = ref.fused_mlp_ref(x, w1, None, w2, None, activation="silu")
+    torch.testing.assert_close(
+        k_fused_mlp.fused_mlp(x, w1, w2, activation="silu"), want, rtol=0,
+        atol=1e-4 * float(want.abs().max()))
 
 
 def test_windowed_layers_and_int8_msa(card):
@@ -294,3 +305,132 @@ def test_grouped_and_pruned_servers_on_the_card_match_the_cpu(card, name,
     w = np.stack([r.logits for r in want])
     tol = (1e-3 if mode == "float" else 2e-2) * np.abs(w).max()
     assert np.abs(g - w).max() <= tol
+
+
+_LM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _lm_close(got, want):
+    """Row by row (the last axis): each row's max|err| within the dtype's
+    tolerance times that row's own max|want| (at least 1e-2 of the
+    largest), so rows of small outputs are held at their own scale."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs().reshape(-1, got.shape[-1])
+    scale = want.float().abs().reshape(-1, got.shape[-1]).amax(1)
+    floor = 1e-2 * float(scale.max()) or 1e-30
+    assert bool((diff.amax(1) <= _LM_TOL[want.dtype]
+                 * torch.clamp(scale, min=floor)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,dh,nq,nk,window,q_offset", [
+    (10, 1, 256, 13, 13, None, 0), (4, 4, 80, 37, 37, None, 0),
+    (4, 2, 64, 150, 150, 40, 0), (4, 1, 32, 5, 70, 16, 65),
+    (2, 1, 16, 3, 9, None, -4)])
+def test_flash_attention_matches_plain(card, dtype, hq, hkv, dh, nq, nk,
+                                       window, q_offset):
+    g = torch.Generator(device=card).manual_seed(hq + dh)
+    q = torch.randn((2, hq, nq, dh), generator=g, device=card).to(dtype)
+    k = torch.randn((2, hkv, nk, dh), generator=g, device=card).to(dtype)
+    v = torch.randn((2, hkv, nk, dh), generator=g, device=card).to(dtype)
+    for causal in (True, False):
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        _lm_close(k_head_attention.flash_attention(q, k, v, **kw),
+                  ref.attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,dh,s", [(10, 1, 256, 128), (8, 8, 80, 77),
+                                         (4, 2, 64, 300)])
+def test_decode_attention_matches_plain(card, dtype, hq, hkv, dh, s):
+    g = torch.Generator(device=card).manual_seed(s)
+    q = torch.randn((4, hq, dh), generator=g, device=card).to(dtype)
+    kc = torch.randn((4, hkv, s, dh), generator=g, device=card).to(dtype)
+    vc = torch.randn((4, hkv, s, dh), generator=g, device=card).to(dtype)
+    lengths = torch.tensor([1, s // 2 + 3, s, 0], dtype=torch.int32,
+                           device=card)
+    got = k_head_attention.decode_attention(q, kc, vc, lengths)
+    _lm_close(got, ref.decode_attention_ref(q, kc, vc, lengths))
+    assert torch.equal(got[3], torch.zeros_like(got[3]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_matches_plain(card, dtype):
+    g = torch.Generator(device=card).manual_seed(4)
+    for b, t, w in ((1, 13, 2560), (3, 257, 100)):
+        a = (0.5 + 0.499 * torch.rand((b, t, w), generator=g,
+                                      device=card)).to(dtype)
+        x = torch.randn((b, t, w), generator=g, device=card).to(dtype)
+        _lm_close(k_rglru_scan.rglru_scan(a, x),
+                  ref.linear_recurrence_ref(a, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", sorted(ref.ACTIVATIONS))
+def test_fused_mlp_every_mode_matches_plain(card, dtype, activation):
+    """Gated and not, with and without biases, at a decode shape (4 rows:
+    hidden split) and a ragged prefill shape, D_out 300 (two slices)."""
+    g = torch.Generator(device=card).manual_seed(len(activation))
+    d, m, d_out = 96, 200, 300
+    w1 = (torch.randn((d, m), generator=g, device=card) * d ** -0.5)
+    wg = (torch.randn((d, m), generator=g, device=card) * d ** -0.5)
+    w2 = (torch.randn((m, d_out), generator=g, device=card) * m ** -0.5)
+    b1 = 0.1 * torch.randn(m, generator=g, device=card)
+    b2 = 0.1 * torch.randn(d_out, generator=g, device=card)
+    w1, wg, w2, b1, b2 = (t.to(dtype) for t in (w1, wg, w2, b1, b2))
+    for rows in (4, 37):
+        x = torch.randn((rows, d), generator=g, device=card).to(dtype)
+        for gate in (None, wg):
+            for bb in ((b1, b2), (None, None)):
+                want = ref.fused_mlp_ref(x, w1, bb[0], w2, bb[1],
+                                         activation=activation, w_gate=gate)
+                got = k_fused_mlp.fused_mlp(x, w1, w2, *bb, gate,
+                                            activation=activation)
+                _lm_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_hidden_split_matches_one_pass(card, dtype, monkeypatch):
+    """A decode step's 4 rows give two blocks, so the kernel's plan splits
+    the hidden dimension; forced to one pass it gives the same result, and
+    both match the plain version."""
+    g = torch.Generator(device=card).manual_seed(3)
+    d, m, d_out = 256, 1000, 300
+    x = torch.randn((4, d), generator=g, device=card).to(dtype)
+    w1, wg = (torch.randn((d, m), generator=g, device=card).to(dtype)
+              * d ** -0.5 for _ in range(2))
+    w2 = (torch.randn((m, d_out), generator=g, device=card)
+          * m ** -0.5).to(dtype)
+    code = 1 if dtype == torch.bfloat16 else 0
+    assert k_fused_mlp.hidden_splits(4, d, m, d_out, code) > 1
+    split = k_fused_mlp.fused_mlp(x, w1, w2, w_gate=wg)
+    monkeypatch.setattr(k_fused_mlp, "hidden_splits", lambda *a: 1)
+    one_pass = k_fused_mlp.fused_mlp(x, w1, w2, w_gate=wg)
+    want = ref.fused_mlp_ref(x, w1, None, w2, None, w_gate=wg)
+    _lm_close(split, want)
+    _lm_close(one_pass, want)
+    _lm_close(split, one_pass)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "stablelm-3b"])
+def test_lm_server_on_the_card_matches_the_cpu(card, arch):
+    """Reduced widths, fp32: the card's greedy tokens and logits against
+    the same weights served on the CPU, and every LM kernel launched."""
+    cfg = configs.get(arch).reduced()
+    params = transformer.init_params(cfg, seed=0, device=card)
+    twin = vit.to_device(params, "cpu")
+    out = {}
+    ops.reset_launches()
+    for where, p in (("cuda", params), ("cpu", twin)):
+        server = lm_serve.SlotServer(cfg, p, 2, 32, keep_logits=True)
+        done = lm_serve.drain(server, lm_serve.make_requests(cfg, 3, 12, 5,
+                                                             seed=2))
+        out[where] = sorted(done, key=lambda r: r.rid)
+    assert ops.LAUNCHES["flash_attention"] > 0
+    assert ops.LAUNCHES["decode_attention"] > 0
+    assert ops.LAUNCHES["fused_mlp"] > 0
+    assert (ops.LAUNCHES["rglru_scan"] > 0) == (arch == "recurrentgemma-2b")
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.generated == b.generated
+        ga, gb = np.stack(a.logits), np.stack(b.logits)
+        assert np.abs(ga - gb).max() <= 1e-3 * np.abs(gb).max()

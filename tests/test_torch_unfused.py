@@ -141,13 +141,16 @@ def test_fused_mlp_matches_pallas(biases, rows):
 
 
 def test_unported_modes_raise():
+    """The bf16 MSA is still to port.  The MLP's other activations and its
+    gate are ported (their parity is `test_torch_lm_kernels.py`'s); an
+    activation the MLP does not know raises."""
     rng = _rng(14)
     x, w1, w2 = (_t(_f32(rng, 4, 8)), _t(_f32(rng, 8, 16)),
                  _t(_f32(rng, 16, 8)))
-    with pytest.raises(NotImplementedError):
-        ops.mlp(x, w1, w2, activation="relu")
-    with pytest.raises(NotImplementedError):
-        ops.mlp(x, w1, w2, w_gate=w1)
+    with pytest.raises(ValueError, match="unknown activation"):
+        ops.mlp(x, w1, w2, activation="tanh")
+    torch.testing.assert_close(ops.mlp(x, w1, w2, activation="relu"),
+                               torch.relu(x @ w1) @ w2)
     z, wq, wk, wv, *_ = map(_tt, _msa_case("global", rng))
     with pytest.raises(NotImplementedError):
         ops.vita_msa_batched(z.bfloat16(), wq, wk, wv)
