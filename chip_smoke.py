@@ -59,6 +59,27 @@ scale; and, after phase 3:
     request, with and without the MLP's hidden split, and the device's
     busy share of a drain under torch.profiler.
 
+The bf16 slice (every weight bf16, `dataclasses.replace(cfg,
+dtype="bfloat16")`) adds, to phase 2, kernels 1, 5 and 6 at DeiT-T full
+width (batch 8) and Swin-T stages 1 (windowed) and 4, and kernel 7 at
+DeiT-T (L 4) and Swin-T stage 3 (L 2), each on float32 activations
+("mixed": held at 1e-5 of the output scale, the fp32 limit) and on bf16
+ones (1e-2 of each output row's own scale), with their library
+yardsticks; and, after phase 3:
+  * bf16 DeiT-T and Swin-T at full width and depth served through a
+    `VisionServer` built by hand on float32 images (mixed mode), fused,
+    unfused and grouped (by 4 and by 2), float and int8 (calibrated on
+    the card from the bf16 params): launch counts as their schedules
+    launch, every launch of a kernel with dtype modes in its (float32,
+    bfloat16) instantiation (`ops.MODE_LAUNCHES`), logits against the
+    same server on the CPU under the fp32 / int8 contracts above;
+  * `forward` on bf16 patches (bf16 throughout) for DeiT-T fused,
+    unfused and grouped by 4 and Swin-T fused, 8 images each: every such
+    launch in its (bfloat16, bfloat16) instantiation, the logits against
+    the bf16 CPU twin (BF16_TWIN_REL) and the fp32 one (the control);
+  * the served rates of the bf16 paths beside the fp32 ones, and one
+    profiled bf16 drain.
+
 The line before the last is one JSON object with a record per kernel
 (each time marked with how it was taken: "profiler" or "cuda_events");
 the last line is {"ok": true, "device": {...}}.  Without a card, or without
@@ -102,6 +123,39 @@ PATHS = (("deit_t", "float", True, 1, 19), ("deit_t", "int8", True, 1, 19),
          ("deit_t_p", "float", True, 1, 11), ("deit_t_p", "int8", True, 1, 11),
          ("swin_t_p", "float", True, 1, 11))
 MODELS = ("deit_t", "swin_t", "deit_t_p", "swin_t_p")
+
+# The bf16 configuration (`dataclasses.replace(cfg, dtype="bfloat16")`:
+# every weight bf16), which the registry does not build: served through a
+# `VisionServer` built by hand on float32 images (mixed mode: float32
+# activations, bf16 weights), (model, mode, fused, group size, requests);
+# 9 = 8 + 1, a ragged tail.  And `forward` on bf16 patches (bf16
+# throughout), (model, fused, group size), 8 images each.
+BF16_PATHS = (
+    ("deit_t", "float", True, 1, 9), ("deit_t", "float", False, 1, 9),
+    ("deit_t", "float", True, 4, 9), ("deit_t", "int8", True, 1, 9),
+    ("deit_t", "int8", False, 1, 9), ("deit_t", "int8", True, 4, 9),
+    ("swin_t", "float", True, 1, 9), ("swin_t", "float", False, 1, 9),
+    ("swin_t", "float", True, 2, 9), ("swin_t", "int8", True, 1, 9),
+    ("swin_t", "int8", False, 1, 9), ("swin_t", "int8", True, 2, 9))
+BF16_FORWARDS = (("deit_t", True, 1), ("deit_t", False, 1),
+                 ("deit_t", True, 4), ("swin_t", True, 1))
+# Kernel checks in the bf16 modes: mixed mode is fp32 math on exactly
+# upcast weights (the fp32 limit); bf16 a few bf16 ulps of each output
+# row's own scale.
+MIXED_TOL, BF16_TOL = 1e-5, 1e-2
+# The bf16 forwards' logits against CPU twins of the same weights, as a
+# share of the logit scale: the bf16 twin within about twice the gap
+# measured on the card (bf16 rounding falls at other places in the kernels
+# and in the plain versions, and compounds with depth: on an H100 80GB HBM3
+# at 700 W, 0.44% at DeiT-T's 12 layers and 0.49% at Swin-T's), the fp32
+# twin (the weights' exact values) as the control (0.26-0.36% there).
+BF16_TWIN_REL = {"deit_t": 0.01, "swin_t": 0.01}
+BF16_CONTROL_REL = 0.01
+# The kernels whose launches `ops.MODE_LAUNCHES` splits by dtype mode, and
+# those counts summed over the run's bf16 paths.
+MODE_KERNELS = ("vita_layer", "vita_layer_int8", "vita_msa_batched",
+                "fused_mlp", "vita_layer_group", "vita_layer_group_int8")
+MODE_TOTALS: dict = {}
 
 KERNELS = (  # name, TPU kernel it replaces, port wrapper
     ("vita_layer", "src/repro/kernels/vita_layer.py:174",
@@ -245,15 +299,16 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def check_close(name: str, got, want) -> float:
-    """Float kernel against its plain version: max|err| <= 1e-4 x
-    max(1, output scale) (fp32 reassociation only)."""
+def check_close(name: str, got, want, tol: float = 1e-4) -> float:
+    """Float kernel against its plain version: max|err| <= tol x max(1,
+    output scale) (fp32 reassociation only)."""
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     print(f"[check] {name}: max|err| {err:.3e} (scale {scale:.3f}, bound "
-          f"1e-4 x max(1, scale))")
-    check(bool(torch.isfinite(got).all()) and err <= 1e-4 * max(1.0, scale),
+          f"{tol:g} x max(1, scale))")
+    check(got.dtype == want.dtype and bool(torch.isfinite(got).all())
+          and err <= tol * max(1.0, scale),
           f"{name} disagrees with its plain version")
     return err
 
@@ -280,11 +335,12 @@ def check_int8_layer(name: str, got, want) -> float:
 
 
 def perturbed(bp: dict, g: torch.Generator) -> dict:
-    """A copy of block ``bp`` with non-zero LN and MLP biases."""
+    """A copy of block ``bp`` with non-zero LN and MLP biases, in the
+    block's dtype."""
     bp = dict(bp)
     for k in ("ln1_b", "ln2_b", "b_up", "b_down"):
-        bp[k] = bp[k] + 0.1 * torch.randn(bp[k].shape, generator=g,
-                                          device="cuda")
+        bp[k] = (bp[k].float() + 0.1 * torch.randn(
+            bp[k].shape, generator=g, device="cuda")).to(bp[k].dtype)
     return bp
 
 
@@ -367,8 +423,8 @@ def sdpa_mask(bias, mask, b: int):
 
 def composed_layer(args, h: int, dh: int, bias=None, mask=None):
     """The float layer as a composition of library calls (cuBLAS matmuls,
-    F.layer_norm, F.scaled_dot_product_attention, F.gelu) — a yardstick
-    the port never calls."""
+    F.layer_norm, F.scaled_dot_product_attention, F.gelu), in the
+    arguments' dtype — a yardstick the port never calls."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     (x, wq, wk, wv, w_msa, l1w, l1b, l2w, l2b, w_up, b_up, w_down,
@@ -376,6 +432,7 @@ def composed_layer(args, h: int, dh: int, bias=None, mask=None):
     wqkv = ref._merge_qkv(wq, wk, wv)
     b, n, d = x.shape
     am = sdpa_mask(bias, mask, b)
+    am = None if am is None else am.to(x.dtype)
 
     def run(xi=x):
         z = F.layer_norm(xi, (d,), l1w, l1b, 1e-5)
@@ -411,6 +468,7 @@ def composed_msa(z, wq, wk, wv, bias=None, mask=None):
     h, _, dh = wq.shape
     wqkv = ref._merge_qkv(wq, wk, wv)
     am = sdpa_mask(bias, mask, z.shape[0])
+    am = None if am is None else am.to(z.dtype)
 
     def run():
         q, k, v = ref._split_qkv(z @ wqkv, h, dh)
@@ -430,39 +488,54 @@ def composed_mlp(x, w1, b1, w2, b2):
 
 
 def msa_bound(z, wq, bias=None, mask=None, qkv_bias=None, int8=False):
-    """Bound of a per-head MSA call: the projections (int8 or fp32) and the
-    fp32 attention, against z, the three weight stacks, the window terms
-    and the (B, H, N, Dh) float output."""
+    """Bound of a per-head MSA call: the projections (int8, or at the rate
+    of z's type: fp32 where z is float32, the bf16 tensor cores where z and
+    the weights are bf16) and the attention, against z, the three weight
+    stacks, the window terms and the (B, H, N, Dh) output (float32 for
+    int8, else z's type)."""
     b, n, d = z.shape
     h, _, dh = wq.shape
     proj = 2 * b * n * d * 3 * h * dh
     attn = 2 * 2 * b * h * n * n * dh
+    out_size = 4 if int8 else z.element_size()
     moved = nbytes(z, bias, mask, qkv_bias) + 3 * nbytes(wq) \
-        + b * h * n * dh * 4
+        + b * h * n * dh * out_size
     if int8:
         return bound(ops_i8=proj, flops_f32=attn, nbytes=moved)
-    return bound(flops_f32=proj + attn, nbytes=moved)
+    return bound(nbytes=moved, **flops_at(z.dtype, proj + attn))
 
 
 def mlp_bound(x, w1, b1, w2, b2):
     rows = x.numel() // x.shape[-1]
     d, m = w1.shape
     d_out = w2.shape[1]
-    return bound(flops_f32=2 * rows * m * (d + d_out),
-                 nbytes=nbytes(x, w1, b1, w2, b2) + rows * d_out * 4)
+    return bound(nbytes=nbytes(x, w1, b1, w2, b2)
+                 + rows * d_out * x.element_size(),
+                 **flops_at(x.dtype, 2 * rows * m * (d + d_out)))
+
+
+def float_layer_bound(f_args, bias=None, mask=None):
+    """Bound of a float layer call, or of a group call (stacked operands:
+    L x the layer's operations): the operations at the rate of x's type
+    against the operands and the window terms read once and the output
+    written once."""
+    x = f_args[0]
+    b, n, d = x.shape
+    *lead, h, _, dh = f_args[1].shape
+    proj, attn = layer_flops(b, n, d, h, dh, f_args[9].shape[-1])
+    return bound(nbytes=nbytes(*f_args) + nbytes(x) + nbytes(bias, mask),
+                 **flops_at(x.dtype, (lead[0] if lead else 1)
+                            * (proj + attn)))
 
 
 def layer_bound(f_args, i_args, bias=None, mask=None):
     x = f_args[0]
     b, n, d = x.shape
     h, _, dh = f_args[1].shape
-    m = f_args[9].shape[1]
-    proj, attn = layer_flops(b, n, d, h, dh, m)
-    win = nbytes(bias, mask)
-    return (bound(flops_f32=proj + attn,
-                  nbytes=nbytes(*f_args) + nbytes(x) + win),
+    proj, attn = layer_flops(b, n, d, h, dh, f_args[9].shape[1])
+    return (float_layer_bound(f_args, bias, mask),
             bound(ops_i8=proj, flops_f32=attn,
-                  nbytes=nbytes(*i_args) + nbytes(x) + win))
+                  nbytes=nbytes(*i_args) + nbytes(x) + nbytes(bias, mask)))
 
 
 def group_args(blocks, x, biases=None, mask=None):
@@ -492,11 +565,9 @@ def group_bound(f_args, i_args, bias=None, mask=None):
     b, n, d = x.shape
     n_l, h, _, dh = f_args[1].shape
     proj, attn = layer_flops(b, n, d, h, dh, f_args[9].shape[2])
-    win = nbytes(bias, mask)
-    return (bound(flops_f32=n_l * (proj + attn),
-                  nbytes=nbytes(*f_args) + nbytes(x) + win),
+    return (float_layer_bound(f_args, bias, mask),
             bound(ops_i8=n_l * proj, flops_f32=n_l * attn,
-                  nbytes=nbytes(*i_args) + nbytes(x) + win))
+                  nbytes=nbytes(*i_args) + nbytes(x) + nbytes(bias, mask)))
 
 
 def check_chain(name: str, got, chain, exact: bool) -> float:
@@ -724,6 +795,154 @@ def kernel_phase(deit, vitb, swin_cfg):
 
 
 # ---------------------------------------------------------------------------
+# The bf16 configuration: kernels 1, 5, 6 and 7 in their bf16 modes
+# ---------------------------------------------------------------------------
+
+
+def check_bf16_mode(name: str, got, want, mode: str) -> float:
+    """A kernel in a bf16 mode against its plain version: "mixed" (float32
+    activations, bf16 weights: fp32 math on exactly upcast weights) at the
+    fp32 limit, max|err| <= 1e-5 x max(1, scale); "bf16" row by row at
+    1e-2 of each row's own scale (a few bf16 ulps: kernel and plain
+    version round at the same points, P and V or the hidden chunk and the
+    output, but fp32 reassociation can move a value across a rounding
+    boundary)."""
+    if mode == "mixed":
+        return check_close(f"{name} {mode}", got, want, tol=MIXED_TOL)
+    return check_lm(f"{name} {mode}", got, want, tol=BF16_TOL)
+
+
+def upcast_then(make, args, *rest):
+    """The library yardstick of a mixed-mode call: the bf16 weights
+    upcast to float32 inside the timed call, then the float32 composition
+    ``make(args, *rest)`` builds and runs."""
+    def run():
+        return make(tuple(a.float() if a is not None else None
+                          for a in args), *rest)()
+    return run
+
+
+def bf16_kernel_phase(records: dict, deit, swin_cfg) -> None:
+    """Kernels 1, 5 and 6 at DeiT-T full width (batch 8) and Swin-T stages
+    1 (windowed, shifted) and 4 (bucket 8), and kernel 7 at DeiT-T (L 4,
+    batch 8) and Swin-T stage 3 (L 2, windowed), every weight bf16, on
+    float32 activations ("mixed") and bf16 ones, against their plain
+    versions on the card.  Kernels 5 and 6 take z = LN1(x) in x's dtype,
+    as the schedule feeds them.  The DeiT-T shapes (the main path's) are
+    timed, with library yardsticks: in bf16 the composition of cuBLAS bf16
+    matmuls, F.layer_norm and SDPA in bf16; in mixed mode the weights
+    upcast, then the fp32 composition."""
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import ops, ref, vita_layer as vl
+    from repro_torch.kernels import vita_layer_group as vg
+    from repro_torch.kernels import vita_msa as vm
+    from repro_torch.models import swin, vit
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    deit16 = dataclasses.replace(deit, dtype="bfloat16")
+    swin16 = dataclasses.replace(swin_cfg, dtype="bfloat16")
+    sw_params = swin.init_params(swin16, seed=1, device="cuda")
+    bp, x = vit_block(deit16, 1, g)
+    cases = [("deit_t", bp, x, None, None),
+             swin_block(sw_params, swin16, 0, 1, g),
+             swin_block(sw_params, swin16, -1, 0, g)]
+    for tag, bp, x, bias, mask in cases:
+        h, _, dh = bp["wq"].shape
+        rec = add_record if tag == "deit_t" else (lambda *a: None)
+        for mode, act in (("mixed", torch.float32), ("bf16", torch.bfloat16)):
+            xa = x.to(act)
+            label = f"{tag} {tuple(xa.shape)} bf16 weights"
+            f_args = (xa, bp["wq"], bp["wk"], bp["wv"], bp["w_msa"],
+                      bp["ln1_w"], bp["ln1_b"], bp["ln2_w"], bp["ln2_b"],
+                      bp["w_up"], bp["b_up"], bp["w_down"], bp["b_down"])
+            lib = (upcast_then(composed_layer, f_args, h, dh, bias, mask)
+                   if mode == "mixed"
+                   else composed_layer(f_args, h, dh, bias, mask))
+            err = check_bf16_mode(f"vita_layer {label}",
+                                  vl.vita_layer(*f_args, bias, mask),
+                                  ref.vita_layer_ref(*f_args, bias, mask),
+                                  mode)
+            rec(records, "vita_layer", f"{label}, {mode}", err,
+                lambda a=f_args, bi=bias, ma=mask: vl.vita_layer(*a, bi, ma),
+                lambda a=f_args, bi=bias, ma=mask: ref.vita_layer_ref(
+                    *a, bi, ma), lib, float_layer_bound(f_args, bias, mask))
+            z = ops.layer_norm(xa, bp["ln1_w"], bp["ln1_b"])
+            w = (bp["wq"], bp["wk"], bp["wv"])
+            lib = (upcast_then(lambda a, bi, ma: composed_msa(*a, bi, ma),
+                               (z,) + w, bias, mask) if mode == "mixed"
+                   else composed_msa(z, *w, bias, mask))
+            err = check_bf16_mode(f"vita_msa_batched {label}",
+                                  vm.vita_msa_batched(z, *w, bias, mask),
+                                  ref.vita_msa_batched_ref(z, *w, bias, mask),
+                                  mode)
+            rec(records, "vita_msa_batched", f"{label}, {mode}", err,
+                lambda z=z, w=w, bi=bias, ma=mask: vm.vita_msa_batched(
+                    z, *w, bi, ma),
+                lambda z=z, w=w, bi=bias, ma=mask: ref.vita_msa_batched_ref(
+                    z, *w, bi, ma), lib, msa_bound(z, w[0], bias, mask))
+            mlp = (bp["w_up"], bp["b_up"], bp["w_down"], bp["b_down"])
+            lib = (upcast_then(lambda a: composed_mlp(*a), (z,) + mlp)
+                   if mode == "mixed" else composed_mlp(z, *mlp))
+            err = check_bf16_mode(f"fused_mlp {label}",
+                                  fm.fused_mlp(z, mlp[0], mlp[2], mlp[1],
+                                               mlp[3]),
+                                  ref.fused_mlp_ref(z, *mlp), mode)
+            rec(records, "fused_mlp", f"{label}, {mode}", err,
+                lambda z=z, p=mlp: fm.fused_mlp(z, p[0], p[2], p[1], p[3]),
+                lambda z=z, p=mlp: ref.fused_mlp_ref(z, *p), lib,
+                mlp_bound(z, *mlp))
+
+    # Kernel 7: DeiT-T L 4 (batch 8) and Swin-T stage 3 L 2 (bucket 8,
+    # four 7x7 windows an image): blocks 0 and 1's weights under one
+    # unshifted mask, as group members share theirs.
+    from repro_torch.core import schedule as sched
+    blocks = [perturbed(bp, g) for bp in vit.init_params(
+        dataclasses.replace(deit16, layers=4), 3, "cuda")["layers"]]
+    x = torch.randn((B_MAIN, deit.tokens, deit.dim), generator=g,
+                    device="cuda")
+    groups = [(f"deit_t L4 {tuple(x.shape)}", blocks, x, None, None)]
+    side, dim = swin16.stage_side(2), swin16.stage_dim(2)
+    ph = sched.Phase(kind="layer", path=(), site="", grid=(side, side),
+                     window=swin16.window)
+    blocks = [perturbed(bp, g) for bp in sw_params["stages"][2]["blocks"][:2]]
+    terms = [sched._window_terms(ph, bp, torch.device("cuda"))
+             for bp in blocks]
+    xs = sched._fold(ph, torch.randn((B_MAIN, side * side, dim), generator=g,
+                                     device="cuda"))
+    groups.append((f"swin_t stage 3 L2 {tuple(xs.shape)} windowed", blocks,
+                   xs, torch.stack([t[0] for t in terms]), terms[0][1]))
+    keys = ("wq", "wk", "wv", "w_msa", "ln1_w", "ln1_b", "ln2_w", "ln2_b",
+            "w_up", "b_up", "w_down", "b_down")
+    for tag, blocks, x, bias, mask in groups:
+        rec = add_record if tag.startswith("deit_t") else (lambda *a: None)
+        stacks = tuple(torch.stack([bp[k] for bp in blocks]).contiguous()
+                       for k in keys)
+        for mode, act in (("mixed", torch.float32), ("bf16", torch.bfloat16)):
+            f_args = (x.to(act),) + stacks
+            got = vg.vita_layer_group(*f_args, bias, mask)
+            err = check_bf16_mode(f"vita_layer_group {tag} bf16 weights",
+                                  got, ref.vita_layer_group_ref(
+                                      *f_args, bias, mask), mode)
+            if mode == "mixed":
+                chain = f_args[0]
+                for l in range(len(blocks)):
+                    chain = vl.vita_layer(
+                        chain, *[a[l] for a in stacks],
+                        None if bias is None else bias[l], mask)
+                check_chain(f"vita_layer_group {tag} mixed", got, chain,
+                            False)
+            lib = (upcast_then(lambda a, bi, ma: composed_group(a, bi, ma),
+                               f_args, bias, mask) if mode == "mixed"
+                   else composed_group(f_args, bias, mask))
+            rec(records, "vita_layer_group", f"{tag} bf16 weights, {mode}",
+                err, lambda a=f_args, bi=bias, ma=mask: vg.vita_layer_group(
+                    *a, bi, ma),
+                lambda a=f_args, bi=bias, ma=mask: ref.vita_layer_group_ref(
+                    *a, bi, ma), lib, float_layer_bound(f_args, bias, mask))
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
@@ -795,8 +1014,17 @@ def serve_path(model: str, mode: str, fused: bool, group: int, params,
         calibrator=server.calibrator)
     twin_reqs = twin.submit_many(images)
     twin.run()
-    cpu = np.stack([r.logits for r in twin_reqs])
-    shape = (len(images), server.cfg.n_classes)
+    check_twin(name, mode, gpu, np.stack([r.logits for r in twin_reqs]),
+               server.cfg.n_classes)
+    return dict(logits=gpu, counts=counts, server=server)
+
+
+def check_twin(name: str, mode: str, gpu, cpu, n_classes: int) -> None:
+    """Served logits on the card against the CPU twin's: float within 1e-3
+    of the logit scale (fp32 reassociation); int8 within 0.02 of it, every
+    argmax difference a near-tie of the CPU logits (single-LSB requant
+    flips)."""
+    shape = (len(cpu), n_classes)
     check(gpu.shape == shape and np.isfinite(gpu).all(),
           f"{name}: logits not finite of shape {shape}")
     scale = float(np.abs(cpu).max())
@@ -809,11 +1037,119 @@ def serve_path(model: str, mode: str, fused: bool, group: int, params,
         n_differ, ties = argmax_check(gpu, cpu, err)
         print(f"[serve] {name}: |cuda - cpu| max {err:.3e} (scale "
               f"{scale:.3f}, bound 0.02 x scale); argmax differs on "
-              f"{n_differ}/{len(images)} requests, each a near-tie of the "
+              f"{n_differ}/{len(cpu)} requests, each a near-tie of the "
               f"CPU logits: {ties}")
         check(err <= 0.02 * scale and ties,
               f"{name}: logits disagree with the CPU twin")
+
+
+def check_modes(name: str, counts: dict, modes: dict, act: str) -> None:
+    """Every launch of a kernel with dtype modes on a bf16 path ran its
+    (``act``, bfloat16) instantiation: the float kernels with bf16
+    weights, the int8 layers with bf16 LN vectors and biases.  Adds the
+    path's modes to MODE_TOTALS."""
+    n_mode = sum(counts[k] for k in MODE_KERNELS)
+    print(f"[serve] {name}: launches by dtype mode {modes}")
+    check(sum(modes.values()) == n_mode and all(
+        k[0] in MODE_KERNELS and k[1:] == (act, "bfloat16") for k in modes),
+        f"{name}: a launch of {MODE_KERNELS} did not run the ({act}, "
+        f"bfloat16) instantiation: {modes}")
+    for k, v in modes.items():
+        MODE_TOTALS[k] = MODE_TOTALS.get(k, 0) + v
+
+
+def serve_bf16_path(model: str, mode: str, fused: bool, group: int, cfg16,
+                    params, images, qparams=None, calibrator=None) -> dict:
+    """A bf16 config (every weight bf16) brought to `VisionServer` on the
+    card, as a user brings a config the registry does not build: float32
+    images, so mixed mode.  int8 quantizes the bf16 params and, without a
+    calibrator, calibrates on the card through `calibrate`.  Launch counts
+    are reset just before (calibration included) and read just after;
+    the logits are checked against the same server on the CPU."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.vision_serve import (ServeConfig, VisionServer,
+                                                 calibrate)
+    from repro_torch.models import vision_registry, vit
+
+    name = path_name(model, mode, fused, group) + ", bf16 weights"
+    cfg = dataclasses.replace(cfg16, fused=fused, fuse_group=group)
+    sc = ServeConfig(mode=mode, buckets=BUCKETS)
+    if mode == "int8" and qparams is None:
+        qparams = vision_registry.quantize(params)
+    calibrates = mode == "int8" and calibrator is None
+    ops.reset_launches()
+    if calibrates:
+        bank = np.random.default_rng(0).standard_normal(
+            (2 * N_CAL, cfg.image, cfg.image, 3)).astype(np.float32)
+        calibrator = calibrate(qparams, cfg, bank, device="cuda",
+                               n_batches=N_CAL)
+    server = VisionServer(cfg, params, serve_cfg=sc, qparams=qparams,
+                          calibrator=calibrator, model_name=model)
+    reqs = server.submit_many(images)
+    stats = server.run()
+    torch.cuda.synchronize()
+    counts, modes = dict(ops.LAUNCHES), dict(ops.MODE_LAUNCHES)
+    mb = stats["batches"]
+    want = expected_launches(vision_registry.make_schedule(cfg), mode, mb,
+                             N_CAL if calibrates else 0)
+    print(f"[serve] {name}: {len(images)} requests in {mb} micro-batches"
+          f"{' + calibration' if calibrates else ''}; launches {counts}")
+    check(counts == want, f"{name}: launch counts {counts}, expected {want}")
+    check_modes(name, counts, modes, "float32")
+    gpu = np.stack([r.logits for r in reqs])
+    twin = VisionServer(cfg, vit.to_device(params, "cpu"),
+                        serve_cfg=dataclasses.replace(sc, device="cpu"),
+                        qparams=None if qparams is None
+                        else vit.to_device(qparams, "cpu"),
+                        calibrator=calibrator, model_name=model)
+    twin_reqs = twin.submit_many(images)
+    twin.run()
+    check_twin(name, mode, gpu, np.stack([r.logits for r in twin_reqs]),
+               cfg.n_classes)
     return dict(logits=gpu, counts=counts, server=server)
+
+
+def bf16_forward(model: str, fused: bool, group: int, cfg16, params,
+                 images) -> dict:
+    """`forward` on bf16 patches on the card (bf16 throughout; launch
+    counts reset just before, read just after), against the same weights
+    and patches on the CPU through the plain versions in bf16 (within
+    about twice the measured gap, BF16_TWIN_REL) and, as the control, in
+    float32 (the weights' exact values, BF16_CONTROL_REL)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import vision_registry, vit
+    from repro_torch.models.layers import cast_params
+
+    name = f"{path_name(model, 'float', fused, group)} forward, all bf16"
+    cfg = dataclasses.replace(cfg16, fused=fused, fuse_group=group)
+    fwd = vision_registry.forward_fn(cfg)
+    patches = vit.extract_patches(torch.from_numpy(images), cfg.patch
+                                  ).to(torch.bfloat16)
+    x = patches.to("cuda")
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = fwd(params, x, cfg)
+    torch.cuda.synchronize()
+    counts, modes = dict(ops.LAUNCHES), dict(ops.MODE_LAUNCHES)
+    want = expected_launches(vision_registry.make_schedule(cfg), "float", 1,
+                             0)
+    print(f"[serve] {name}: {len(images)} images; launches {counts}")
+    check(counts == want, f"{name}: launch counts {counts}, expected {want}")
+    check_modes(name, counts, modes, "bfloat16")
+    check(got.dtype == torch.bfloat16
+          and tuple(got.shape) == (len(images), cfg.n_classes),
+          f"{name}: logits are {got.dtype} {tuple(got.shape)}")
+    cpu = vit.to_device(params, "cpu")
+    with torch.inference_mode():
+        twin16 = fwd(cpu, patches, cfg)
+        twin32 = fwd(cast_params(cpu, torch.float32), patches.float(),
+                     dataclasses.replace(cfg, dtype="float32"))
+    card = got.float().cpu().numpy()
+    check_teacher_forced(f"{name} vs the bf16 CPU twin", card,
+                         twin16.float().numpy(), BF16_TWIN_REL[model])
+    check_teacher_forced(f"{name} vs the fp32 CPU twin (control)", card,
+                         twin32.numpy(), BF16_CONTROL_REL)
+    return dict(counts=counts)
 
 
 def profile_run(name: str, run, where: str, what: str) -> list:
@@ -897,7 +1233,7 @@ def check_grouped_drain(mode: str, server, where: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def check_lm(name: str, got, want) -> float:
+def check_lm(name: str, got, want, tol=None) -> float:
     """An LM kernel against its plain version in the working dtype, row by
     row (a row is the last axis: one head's output, one step of the scan,
     one token of the MLP): each row's max|err| <= tol x max(that row's
@@ -913,7 +1249,7 @@ def check_lm(name: str, got, want) -> float:
     row_err = diff.reshape(-1, diff.shape[-1]).amax(1)
     row_scale = want.float().abs().reshape(-1, diff.shape[-1]).amax(1)
     scale = float(row_scale.max())
-    tol = LM_TOL[want.dtype]
+    tol = tol or LM_TOL[want.dtype]
     ratio = row_err / torch.clamp(row_scale, min=1e-2 * scale or 1e-30)
     worst = int(ratio.argmax())
     print(f"[check] {name}: max|err| {float(row_err.max()):.3e} (scale "
@@ -1220,10 +1556,10 @@ def serve_lm_both(name: str, cfg, params, n_req: int, seed: int):
     """An LM path served in bf16 (against the bf16 CPU twin, and the fp32
     one as the control) and in float32 (against the fp32 twin).  Returns
     the launch counts of each and the float32 params on the card."""
-    from repro_torch.models.layers import to_device
+    from repro_torch.models.layers import cast_params, to_device
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = cast_tree(params, torch.float32)
+    params32 = cast_params(params, torch.float32)
     t0 = time.perf_counter()
     twin16, twin32 = to_device(params, "cpu"), to_device(params32, "cpu")
     print(f"[serve] {name}: CPU twins of the same weights in bfloat16 and "
@@ -1306,16 +1642,6 @@ def lm_times(name: str, cfg, params, where: str) -> None:
           f"{want} launched (the trace is complete where they agree)")
 
 
-def cast_tree(tree, dtype):
-    """A copy of a param tree (dicts, lists) with every tensor cast to
-    ``dtype``."""
-    if isinstance(tree, dict):
-        return {k: cast_tree(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [cast_tree(v, dtype) for v in tree]
-    return tree.to(dtype)
-
-
 def lm_paths(where: str):
     """The LM served paths: RecurrentGemma-2B full width and depth and
     stablelm-3b at full width and 4 layers, each in bf16 and in float32
@@ -1375,7 +1701,8 @@ def main() -> None:
     logs = build.build_all()
     for lib, log in sorted(logs.items()):
         info = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if ln.startswith("nvcc ") or "registers" in ln
+                or "spill" in ln]
         print(f"[build] {lib}: " + " | ".join(info))
     print(f"[build] {len(build.LIBRARIES)} libraries ready in "
           f"{build.BUILD_DIR} ({time.perf_counter() - t0:.1f} s)")
@@ -1385,6 +1712,7 @@ def main() -> None:
             for m in MODELS + ("vit_edge",)}
     records = kernel_phase(cfgs["deit_t"], cfgs["vit_edge"], cfgs["swin_t"])
     lm_kernel_phase(records)
+    bf16_kernel_phase(records, cfgs["deit_t"], cfgs["swin_t"])
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.0f} s")
 
     # 3. Serve every path on the card against its CPU twin.
@@ -1419,9 +1747,47 @@ def main() -> None:
         check(perr <= tol, f"{model}: int8 logits outside the PTQ tolerance")
     print(f"[phase] vision paths served at "
           f"{time.perf_counter() - t_start:.0f} s")
+
+    # 3b. The bf16 configuration: served (mixed mode) and `forward` on bf16
+    # patches, every weight bf16, random from seed 0.
+    cfg16 = {m: dataclasses.replace(cfgs[m], dtype="bfloat16")
+             for m in ("deit_t", "swin_t")}
+    params16 = {m: vision_registry.init_params(c, seed=0, device="cuda")
+                for m, c in cfg16.items()}
+    served16, quant16 = {}, {}
+    for model, mode, fused, group, n_req in BF16_PATHS:
+        q = quant16.get((model, group), (None, None))
+        out = serve_bf16_path(model, mode, fused, group, cfg16[model],
+                              params16[model], images[model][:n_req],
+                              qparams=q[0], calibrator=q[1])
+        if mode == "int8":
+            quant16[(model, group)] = (out["server"].qparams,
+                                       out["server"].calibrator)
+        served16[(model, mode, fused, group)] = out
+    for model, _, fused, group, _ in BF16_PATHS:
+        if not fused or (model, "int8", fused, group) not in served16:
+            continue
+        f_log = served16[(model, "float", fused, group)]["logits"]
+        i_log = served16[(model, "int8", fused, group)]["logits"]
+        tol = ptq_tolerance(float(np.abs(f_log).max()))
+        perr = float(np.abs(i_log - f_log).max())
+        print(f"[serve] {path_name(model, 'int8', fused, group)}, bf16 "
+              f"weights, vs float on the card: max|err| {perr:.4f} "
+              f"(ptq_tolerance {tol:.4f})")
+        check(perr <= tol, f"{model} bf16: int8 logits outside the PTQ "
+                           f"tolerance")
+    forwards = [bf16_forward(model, fused, group, cfg16[model],
+                             params16[model], images[model][:B_MAIN])
+                for model, fused, group in BF16_FORWARDS]
+    print(f"[serve] launches by dtype mode over the bf16 paths: "
+          f"{MODE_TOTALS}")
+    print(f"[phase] bf16 paths served at "
+          f"{time.perf_counter() - t_start:.0f} s")
     lm_counts, lm_served = lm_paths(f"{name} ({card})")
     print(f"[phase] LM paths served at {time.perf_counter() - t_start:.0f} s")
     launches = {k[0]: sum(o["counts"][k[0]] for o in served.values())
+                + sum(o["counts"][k[0]] for o in served16.values())
+                + sum(o["counts"][k[0]] for o in forwards)
                 + sum(c[k[0]] for c in lm_counts.values()) for k in KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel was never launched on a served path: {launches}")
@@ -1430,7 +1796,8 @@ def main() -> None:
     # kernel counts are checked, before the many profiler sessions below),
     # then every kernel, then the LM paths' tokens per second.
     img_s = {}
-    for key, o in served.items():
+    for key, o in [*served.items(),
+                   *(((*k, "bf16"), o) for k, o in served16.items())]:
         server = o["server"]
         shape = (server.cfg.image, server.cfg.image, 3)
         server.submit_many(np.zeros((16,) + shape, np.float32))
@@ -1438,13 +1805,18 @@ def main() -> None:
         server.submit_many(np.zeros((64,) + shape, np.float32))
         stats = server.run()
         img_s[key] = stats["throughput_img_s"]
-        print(f"[time] served {path_name(*key)} on {name} ({card}): "
+        bf = ", bf16 weights" if len(key) > 4 else ""
+        print(f"[time] served {path_name(*key[:4])}{bf} on {name} ({card}): "
               f"bucket {BUCKETS[-1]}, {stats['requests']} requests: "
               f"{stats['throughput_img_s']:.1f} img/s, p50 latency "
               f"{stats['latency_p50_ms']:.3f} ms (drain: queue included), "
               f"p50 service {stats['service_p50_ms']:.3f} ms")
-    for (model, mode, fused, group), v in img_s.items():
-        if group > 1:
+    for (model, mode, fused, group, *bf), v in img_s.items():
+        if bf and (model, mode, fused, group) in img_s:
+            print(f"[time] served {path_name(model, mode, fused, group)}: "
+                  f"bf16 weights {v:.1f} img/s beside fp32 "
+                  f"{img_s[(model, mode, fused, group)]:.1f} img/s (one run)")
+        if group > 1 and not bf:
             print(f"[time] served {model} {mode}: grouped by {group} "
                   f"{v:.1f} img/s beside per-layer "
                   f"{img_s[(model, mode, True, 1)]:.1f} img/s (one run; "
@@ -1457,6 +1829,9 @@ def main() -> None:
     for mode in ("float", "int8"):
         check_grouped_drain(mode, served[("deit_t", mode, True, 4)]["server"],
                             f"{name} ({card})")
+    profile_drain("deit_t float, bf16 weights",
+                  served16[("deit_t", "float", True, 1)]["server"],
+                  f"{name} ({card})")
     print(f"[phase] drains profiled at {time.perf_counter() - t_start:.0f} s")
     # Every kernel's main shape first (the JSON line's numbers), then the
     # other shapes.

@@ -35,6 +35,14 @@ freed param tree drops its entries; param trees are not mutated in
 place).  The (L, 4) int8 activation scales come from the frozen
 calibrator's own cache, `Calibrator.stacked`.
 
+dtypes flow as in the reference: LayerNorm returns its input's dtype
+(`ops.layer_norm`); the float embed / merge / head products take
+PyTorch's promotion of their two operands (float32 x bfloat16 gives
+float32, as jnp's does, where torch.matmul would raise), so a bf16 model
+served on float32 images keeps a float32 residual stream and float32
+logits, and `forward` on bf16 patches runs bf16 throughout; the kernels
+take each (activation, weight) dtype pair of `ref.PORTED_MODES`.
+
 TNT phases (and so ``inner_layer_group``) and sharding come with later
 slices.
 """
@@ -54,7 +62,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from repro_torch.core.perfmodel import VisionModelSpec
 from repro_torch.core.quant import INT8_MAX, QTensor, stack_qtensors
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import gelu, layer_norm_ref
+from repro_torch.kernels.ref import gelu
 
 NEG_INF = -1e30
 
@@ -295,10 +303,11 @@ def _rel_index_on(win: int, device: torch.device) -> torch.Tensor:
 
 def _window_terms(ph: Phase, bp: Any, device: torch.device):
     """The (H, n, n) relative-position bias gathered from the block's
-    table and the (nW, n, n) shifted-window mask of a windowed phase."""
+    table, in float32 (as the kernels take it), and the (nW, n, n)
+    shifted-window mask of a windowed phase."""
     gh, gw = ph.grid
     idx = _rel_index_on(ph.window, device)
-    bias = bp["rel_bias"][idx].permute(2, 0, 1).contiguous()
+    bias = bp["rel_bias"].float()[idx].permute(2, 0, 1).contiguous()
     return bias, _mask_on(gh, gw, ph.window, ph.shift, device)
 
 
@@ -347,7 +356,8 @@ def _matmul(x: torch.Tensor, w: Any, obs, site: str) -> torch.Tensor:
         xq = _quant(x, scale).reshape(-1, x.shape[-1])
         y = ops.int8_matmul(xq, w.values, scale, w.scale.reshape(-1))
         return y.reshape(*x.shape[:-1], w.values.shape[-1])
-    return x @ w
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
 
 
 def _head_scale(wq: QTensor) -> torch.Tensor:
@@ -378,7 +388,7 @@ def _msa_phase(ph: Phase, bp: Any, x: torch.Tensor, obs,
                quantized: bool) -> torch.Tensor:
     """Unfused MSA phase: LN -> per-head MSA (windowed: folded into the
     batch axis) -> concat projection -> residual."""
-    z = layer_norm_ref(x, bp["ln1_w"], bp["ln1_b"])
+    z = ops.layer_norm(x, bp["ln1_w"], bp["ln1_b"])
     if ph.window:
         bias, mask = _window_terms(ph, bp, x.device)
         sa = _per_head_msa(bp, _fold(ph, z), obs, ph.site, quantized, bias,
@@ -393,7 +403,7 @@ def _mlp_phase(ph: Phase, bp: Any, x: torch.Tensor, obs,
                quantized: bool) -> torch.Tensor:
     """Unfused MLP phase: LN -> up -> GELU -> down -> residual; float
     through the fused MLP kernel, int8 through two int8 matmuls."""
-    h = layer_norm_ref(x, bp["ln2_w"], bp["ln2_b"])
+    h = ops.layer_norm(x, bp["ln2_w"], bp["ln2_b"])
     if quantized:
         hid = gelu(_matmul(h, bp["w_up"], obs, f"{ph.site}.w_up")
                    + bp["b_up"])
@@ -475,8 +485,8 @@ def _group_operands(ph: Phase, params: Any) -> Dict[str, Any]:
         sp = _stack_block_params([_subtree(params, p) for p in paths])
         if ph.window:
             idx = _rel_index_on(ph.window, sp["rel_bias"].device)
-            sp["bias"] = sp["rel_bias"][:, idx].permute(0, 3, 1, 2
-                                                         ).contiguous()
+            sp["bias"] = sp["rel_bias"].float()[:, idx].permute(
+                0, 3, 1, 2).contiguous()
         per_tree[paths] = sp
     return sp
 
@@ -538,7 +548,7 @@ def _merge_phase(ph: Phase, sp: Any, x: torch.Tensor, obs) -> torch.Tensor:
     gh, gw = ph.grid
     xs = x.reshape(b, gh // 2, 2, gw // 2, 2, c)
     xs = xs.permute(0, 1, 3, 2, 4, 5).reshape(b, gh // 2, gw // 2, 4 * c)
-    xs = layer_norm_ref(xs, sp["merge_ln_w"], sp["merge_ln_b"])
+    xs = ops.layer_norm(xs, sp["merge_ln_w"], sp["merge_ln_b"])
     xs = _matmul(xs, sp["merge_w"], obs, ph.site)
     return xs.reshape(b, (gh // 2) * (gw // 2), xs.shape[-1])
 
@@ -551,7 +561,7 @@ def _apply_phase(sched: Schedule, ph: Phase, params: Any, x: torch.Tensor,
     if ph.kind == "embed":
         x = _matmul(x, params["patch_embed"], obs, ph.site)
         if ph.norm:
-            x = layer_norm_ref(x, params["pe_ln_w"], params["pe_ln_b"])
+            x = ops.layer_norm(x, params["pe_ln_w"], params["pe_ln_b"])
         if ph.pos_embed:
             x = x + params["pos_embed"][None]
     elif ph.kind == "msa":
@@ -566,7 +576,7 @@ def _apply_phase(sched: Schedule, ph: Phase, params: Any, x: torch.Tensor,
     elif ph.kind == "merge":
         x = _merge_phase(ph, _subtree(params, ph.path), x, obs)
     elif ph.kind == "head":
-        x = layer_norm_ref(x, params["ln_f_w"], params["ln_f_b"])
+        x = ops.layer_norm(x, params["ln_f_w"], params["ln_f_b"])
         x = _matmul(x.mean(dim=1), params["head"], obs, ph.site)
     else:
         raise NotImplementedError(

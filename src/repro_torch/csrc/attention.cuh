@@ -19,12 +19,16 @@
 namespace repro_torch {
 
 // brow/mrow: this row's relative-position bias and region mask (N each),
-// both null outside windowed mode.  out[o + e] is float, or int8 quantised
-// at *out_scale when out_scale is not null.
+// both null outside windowed mode.  V is VT: fp32, or bf16 for the bf16
+// mode of vita_msa.cu, where P is rounded to bf16 too before the AV
+// product (the TPU kernel's p.astype(z.dtype), v.astype(z.dtype)); the sum
+// stays fp32.  out[o + e] is OT: float, bf16, or int8 quantised at
+// *out_scale.
+template <typename VT, typename OT>
 __device__ __forceinline__ void attend_row(
-    const float* qrow, const float* Ks, int ks, const float* Vs, int N,
+    const float* qrow, const float* Ks, int ks, const VT* Vs, int N,
     int Dh, float scale, const float* brow, const float* mrow, float* prow,
-    void* out, long long o, const float* out_scale) {
+    OT* out, long long o, const float* out_scale) {
   const int lane = threadIdx.x % 32;
   float mx = __int_as_float(0xff800000);  // -inf
   for (int j = lane; j < N; j += 32) {
@@ -44,16 +48,12 @@ __device__ __forceinline__ void attend_row(
     sum += p;
   }
   sum = warp_sum(sum);
-  for (int j = lane; j < N; j += 32) prow[j] = prow[j] / sum;
+  for (int j = lane; j < N; j += 32) prow[j] = round_to<VT>(prow[j] / sum);
   __syncwarp();
-  const float qs = out_scale ? *out_scale : 1.0f;
   for (int e = lane; e < Dh; e += 32) {
     float a = 0.f;
-    for (int j = 0; j < N; ++j) a = fmaf(prow[j], Vs[j * Dh + e], a);
-    if (out_scale)
-      static_cast<int8_t*>(out)[o + e] = quant_i8(a, qs);
-    else
-      static_cast<float*>(out)[o + e] = a;
+    for (int j = 0; j < N; ++j) a = fmaf(prow[j], to_f(Vs[j * Dh + e]), a);
+    store_f(out, o + e, a, out_scale);
   }
   __syncwarp();
 }
@@ -102,11 +102,15 @@ __device__ __forceinline__ void attention_tile(
     const long long g = base + (long long)n * sn;
     for (int e = lane; e < Dh; e += 32) qrow[e] = q[g + e];
     __syncwarp();
-    attend_row(qrow, Ks, ks, Vs, N, Dh, scale,
-               bias_h ? bias_h + (size_t)n * N : nullptr,
-               mask_w ? mask_w + (size_t)n * N : nullptr, prow, out,
-               (long long)b * ob + (long long)n * on + (long long)h * oh,
-               out_scale);
+    const float* brow = bias_h ? bias_h + (size_t)n * N : nullptr;
+    const float* mrow = mask_w ? mask_w + (size_t)n * N : nullptr;
+    const long long o = (long long)b * ob + (long long)n * on + (long long)h * oh;
+    if (out_scale)
+      attend_row(qrow, Ks, ks, Vs, N, Dh, scale, brow, mrow, prow,
+                 static_cast<int8_t*>(out), o, out_scale);
+    else
+      attend_row(qrow, Ks, ks, Vs, N, Dh, scale, brow, mrow, prow,
+                 static_cast<float*>(out), o, nullptr);
   }
   __syncthreads();
 }

@@ -36,10 +36,11 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Element types of the LM kernels: float32 or bfloat16 in memory, float32
-// in registers.  Codes match the wrappers' `_DTYPE_CODES`.
+// Element types: float32 or bfloat16 in memory, float32 in registers.
+// Codes match the wrappers' `DTYPE_CODES` (kernels/int8_matmul.py).
 enum ElemCode { kF32 = 0, kBF16 = 1 };
 
+// Loads: an element of either type, read into fp32.
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -55,6 +56,43 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 // v rounded to T and back: the TPU kernels' astype(x.dtype) before a product.
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
+}
+
+// Stores of an fp32 result: float, bf16 (rounded to nearest even), or int8
+// quantised at *q_scale (the requant chain's outputs).
+__device__ __forceinline__ void store_f(float* out, long long i, float v,
+                                        const float*) {
+  out[i] = v;
+}
+__device__ __forceinline__ void store_f(__nv_bfloat16* out, long long i,
+                                        float v, const float*) {
+  out[i] = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_f(int8_t* out, long long i, float v,
+                                        const float* q_scale) {
+  out[i] = quant_i8(v, *q_scale);
+}
+
+// Host-side dispatch of a vision kernel's dtype mode (ref.PORTED_MODES):
+// calls f(Tag<activation type>, Tag<weight type>) for the codes of
+// float32 / float32, float32 / bf16 and bf16 / bf16; any other pair is
+// refused with cudaErrorInvalidValue.
+template <typename T> struct Tag { using type = T; };
+
+template <typename F> int dispatch_mode(int xt, int wt, F&& f) {
+  if (xt == kF32 && wt == kF32) return f(Tag<float>{}, Tag<float>{});
+  if (xt == kF32 && wt == kBF16) return f(Tag<float>{}, Tag<__nv_bfloat16>{});
+  if (xt == kBF16 && wt == kBF16)
+    return f(Tag<__nv_bfloat16>{}, Tag<__nv_bfloat16>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// One element type from its code (float32 or bf16), as a Tag; other codes
+// are refused.
+template <typename F> int dispatch_type(int code, F&& f) {
+  if (code == kF32) return f(Tag<float>{});
+  if (code == kBF16) return f(Tag<__nv_bfloat16>{});
+  return (int)cudaErrorInvalidValue;
 }
 
 // MLP activations, in the order of ref.ACTIVATIONS.

@@ -1,6 +1,8 @@
 // Fused MLP: out = act(x W1 + b1) W2 + b2, or gated,
 // out = (act(x Wg) * (x W1 + b1)) W2 + b2, with the hidden activation
-// never in device memory.  float32 or bfloat16 in and out, float32 sums.
+// never in device memory.  x and out are XT, the weights and biases WT:
+// float32 / float32, bf16 / bf16, or float32 x with bf16 weights (a bf16
+// vision model served on float32 images); float32 sums.
 //
 // Replaces: repro/kernels/fused_mlp.py::fused_mlp (the paper's inter-layer
 // MLP optimisation: hidden chunks are computed, pushed through the
@@ -14,10 +16,11 @@
 // shared memory, in x's type (BR x D: 16 rows, or 8 where 16 do not fit;
 // 80 KiB at D 2560 in bf16, 160 KiB in fp32).  It walks its hidden range in chunks of 64:
 //   h = act(x_tile . Wg[:, chunk]) * (x_tile . W1[:, chunk] + b1[chunk])
-//       (or act(x_tile . W1 + b1)), rounded to x's type -> shared memory
+//       (or act(x_tile . W1 + b1)), rounded to x's type (not the
+//       weights': the TPU kernel's h.astype(x.dtype)) -> shared memory
 //   acc += h . W2[chunk, slice]                         -> registers
 // with the W1/Wg and W2 slices streamed through 16-deep shared-memory
-// stages as float.  The accumulator is BR rows x (32*J) columns in
+// stages as float (bf16 weights exactly).  The accumulator is BR rows x (32*J) columns in
 // registers (J <= 8), so an output wider than 256 columns is split across
 // blocks, each recomputing the hidden chunk for its slice (10 slices at
 // D_out 2560).  Where row tiles x slices leave the card's SMs idle (decode:
@@ -39,17 +42,17 @@ namespace repro_torch {
 constexpr int WARPS = 8, THREADS = WARPS * 32, BH = 64, KC = 16;
 constexpr int BR_MAX = 16;
 
-template <typename T, int J, int RPW>
+template <typename XT, typename WT, int J, int RPW>
 __global__ void __launch_bounds__(THREADS)
-fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                 const T* __restrict__ b1, const T* __restrict__ wg,
-                 const T* __restrict__ w2, const T* __restrict__ b2,
-                 T* __restrict__ out, float* __restrict__ partial, int R,
+fused_mlp_kernel(const XT* __restrict__ x, const WT* __restrict__ w1,
+                 const WT* __restrict__ b1, const WT* __restrict__ wg,
+                 const WT* __restrict__ w2, const WT* __restrict__ b2,
+                 XT* __restrict__ out, float* __restrict__ partial, int R,
                  int D, int Dp, int M, int Dout, int act, int chunks_per_split) {
   constexpr int BR = RPW * WARPS;         // the block's token rows
   constexpr int BO = 32 * J;              // the block's output columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Xs = reinterpret_cast<T*>(smem_raw);  // [BR][Dp], Dp = D rounded up to KC
+  XT* Xs = reinterpret_cast<XT*>(smem_raw);  // [BR][Dp], Dp = D rounded up to KC
   __shared__ float W1s[KC][BH];
   __shared__ float Wgs[KC][BH];
   __shared__ float Hs[BR_MAX][BH];
@@ -60,7 +63,7 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   for (int i = t; i < BR * Dp; i += THREADS) {
     const int r = i / Dp, d = i % Dp;
     Xs[i] = (row0 + r < R && d < D) ? x[(long long)(row0 + r) * D + d]
-                                    : from_f<T>(0.f);
+                                    : from_f<XT>(0.f);
   }
   const int m_begin = blockIdx.z * chunks_per_split * BH;
   const int m_end = min(M, m_begin + chunks_per_split * BH);
@@ -109,7 +112,7 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
         if (m < M) {
           const float u = b1 ? hacc[i][c2] + to_f(b1[m]) : hacc[i][c2];
           v = gated ? activate(gacc[i][c2], act) * u : activate(u, act);
-          v = round_to<T>(v);
+          v = round_to<XT>(v);
         }
         Hs[r0 + i][c] = v;
       }
@@ -150,26 +153,26 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
       if (partial)
         partial[(long long)blockIdx.z * R * Dout + o] = acc[i][j];
       else
-        out[o] = from_f<T>(b2 ? acc[i][j] + to_f(b2[col]) : acc[i][j]);
+        out[o] = from_f<XT>(b2 ? acc[i][j] + to_f(b2[col]) : acc[i][j]);
     }
   }
 }
 
-// out = sum over splits of partial (in split order) + b2, rounded to T.
-template <typename T>
+// out = sum over splits of partial (in split order) + b2, rounded to XT.
+template <typename XT, typename WT>
 __global__ void fused_mlp_finish(const float* __restrict__ partial,
-                                 const T* __restrict__ b2, T* __restrict__ out,
+                                 const WT* __restrict__ b2, XT* __restrict__ out,
                                  long long n, int Dout, int splits) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
   for (int z = 0; z < splits; ++z) s += partial[z * n + i];
   if (b2) s += to_f(b2[i % Dout]);
-  out[i] = from_f<T>(s);
+  out[i] = from_f<XT>(s);
 }
 
 // The launch plan, known only here: token rows per block (16, or 8 where
-// 16 rows of x in T and the largest static shared memory of the kernel
+// 16 rows of x in its type and the largest static shared memory of the kernel
 // pass the card's opt-in limit), the fewest output slices of at most 256
 // columns, and hidden splits (1 where row tiles x slices cover the card's
 // SMs, else about two blocks per SM, at most one split per 64-wide chunk).
@@ -202,46 +205,48 @@ int make_plan(int R, int D, int M, int Dout, int esize, Plan* p) {
   return (int)cudaSuccess;
 }
 
-template <typename T, int J, int RPW>
-int launch(const T* x, const T* w1, const T* b1, const T* wg, const T* w2,
-           const T* b2, T* out, float* partial, int R, int D, int M, int Dout,
-           int act, int slices, int splits, cudaStream_t stream) {
+template <typename XT, typename WT, int J, int RPW>
+int launch(const XT* x, const WT* w1, const WT* b1, const WT* wg,
+           const WT* w2, const WT* b2, XT* out, float* partial, int R, int D,
+           int M, int Dout, int act, int slices, int splits,
+           cudaStream_t stream) {
   constexpr int BR = RPW * WARPS;
   const int Dp = (D + KC - 1) / KC * KC;
-  const int smem = (int)sizeof(T) * BR * Dp;
+  const int smem = (int)sizeof(XT) * BR * Dp;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel<T, J, RPW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fused_mlp_kernel<XT, WT, J, RPW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int chunks = (M + BH - 1) / BH;
   const int cps = (chunks + splits - 1) / splits;
   splits = (chunks + cps - 1) / cps;
   dim3 grid((R + BR - 1) / BR, slices, splits);
-  fused_mlp_kernel<T, J, RPW><<<grid, THREADS, smem, stream>>>(
+  fused_mlp_kernel<XT, WT, J, RPW><<<grid, THREADS, smem, stream>>>(
       x, w1, b1, wg, w2, b2, out, splits > 1 ? partial : nullptr, R, D, Dp, M,
       Dout, act, cps);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long n = (long long)R * Dout;
-  fused_mlp_finish<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+  fused_mlp_finish<XT, WT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       partial, b2, out, n, Dout, splits);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int RPW>
+template <typename XT, typename WT, int RPW>
 int dispatch_j(const void* x, const void* w1, const void* b1, const void* wg,
                const void* w2, const void* b2, void* out, float* partial, int R,
                int D, int M, int Dout, int act, int slices, int splits,
                cudaStream_t s) {
   // Slices a multiple of 32 columns wide.
   const int J = ((Dout + slices - 1) / slices + 31) / 32;
-  auto x_ = (const T*)x, w1_ = (const T*)w1, b1_ = (const T*)b1,
-       wg_ = (const T*)wg, w2_ = (const T*)w2, b2_ = (const T*)b2;
-  auto o_ = (T*)out;
+  auto x_ = (const XT*)x;
+  auto w1_ = (const WT*)w1, b1_ = (const WT*)b1, wg_ = (const WT*)wg,
+       w2_ = (const WT*)w2, b2_ = (const WT*)b2;
+  auto o_ = (XT*)out;
 #define RT_MLP_CASE(JJ)                                                      \
   case JJ:                                                                   \
-    return launch<T, JJ, RPW>(x_, w1_, b1_, wg_, w2_, b2_, o_, partial, R, D, \
-                              M, Dout, act, slices, splits, s);
+    return launch<XT, WT, JJ, RPW>(x_, w1_, b1_, wg_, w2_, b2_, o_, partial, \
+                                   R, D, M, Dout, act, slices, splits, s);
   switch (J) {
     RT_MLP_CASE(1) RT_MLP_CASE(2) RT_MLP_CASE(3) RT_MLP_CASE(4)
     RT_MLP_CASE(5) RT_MLP_CASE(6) RT_MLP_CASE(7)
@@ -250,26 +255,27 @@ int dispatch_j(const void* x, const void* w1, const void* b1, const void* wg,
 #undef RT_MLP_CASE
 }
 
-template <typename T>
+template <typename XT, typename WT>
 int dispatch(const void* x, const void* w1, const void* b1, const void* wg,
              const void* w2, const void* b2, void* out, float* partial, int R,
              int D, int M, int Dout, int act, int splits, cudaStream_t s) {
   Plan p;
-  const int err = make_plan(R, D, M, Dout, (int)sizeof(T), &p);
+  const int err = make_plan(R, D, M, Dout, (int)sizeof(XT), &p);
   if (err != 0) return err;
   if (splits < 1 || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   return p.rows == 16
-             ? dispatch_j<T, 2>(x, w1, b1, wg, w2, b2, out, partial, R, D, M,
-                                Dout, act, p.slices, splits, s)
-             : dispatch_j<T, 1>(x, w1, b1, wg, w2, b2, out, partial, R, D, M,
-                                Dout, act, p.slices, splits, s);
+             ? dispatch_j<XT, WT, 2>(x, w1, b1, wg, w2, b2, out, partial, R,
+                                     D, M, Dout, act, p.slices, splits, s)
+             : dispatch_j<XT, WT, 1>(x, w1, b1, wg, w2, b2, out, partial, R,
+                                     D, M, Dout, act, p.slices, splits, s);
 }
 
 }  // namespace repro_torch
 
-// The plan's hidden splits for R rows of x (D wide, kF32 or kBF16) through
-// an M-wide hidden to Dout columns: the caller sizes `partial` from them.
+// The plan's hidden splits for R rows of x (D wide, x's ElemCode kF32 or
+// kBF16) through an M-wide hidden to Dout columns: the caller sizes
+// `partial` from them.
 extern "C" int rt_fused_mlp_splits(int R, int D, int M, int Dout, int dtype,
                                    int* splits) {
   repro_torch::Plan p{0, 0, 1};
@@ -280,17 +286,18 @@ extern "C" int rt_fused_mlp_splits(int R, int D, int M, int Dout, int dtype,
 }
 
 // splits: hidden splits (1 = none; else `partial` holds splits x R x Dout
-// floats); dtype: kF32 or kBF16 for x, every weight, bias and out.
+// floats); xt: the ElemCode of x and out, wt: of every weight and bias
+// (`dispatch_mode`: float32 / float32, float32 / bf16, bf16 / bf16).
 extern "C" int rt_fused_mlp(const void* x, const void* w1, const void* b1,
                             const void* wg, const void* w2, const void* b2,
                             void* out, float* partial, int R, int D, int M,
-                            int Dout, int act, int splits, int dtype,
+                            int Dout, int act, int splits, int xt, int wt,
                             void* stream) {
   using namespace repro_torch;
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == kBF16
-             ? dispatch<__nv_bfloat16>(x, w1, b1, wg, w2, b2, out, partial, R,
-                                       D, M, Dout, act, splits, s)
-             : dispatch<float>(x, w1, b1, wg, w2, b2, out, partial, R, D, M,
-                               Dout, act, splits, s);
+  return dispatch_mode(xt, wt, [&](auto xtag, auto wtag) {
+    return dispatch<typename decltype(xtag)::type,
+                    typename decltype(wtag)::type>(
+        x, w1, b1, wg, w2, b2, out, partial, R, D, M, Dout, act, splits, s);
+  });
 }

@@ -4,9 +4,16 @@
 // persistent group kernel walks the tiles of each stage).
 //
 // Design: 64x64 output tile per 256 threads, 16-deep k slices staged in
-// shared memory (A transposed so both operands are read as broadcasts or
-// consecutive words), 4x4 outputs per thread accumulated with fmaf in k
-// order.  Every edge (M = B*196, N = 1000 classes, K) is masked with zero
+// shared memory as fp32 (A transposed so both operands are read as
+// broadcasts or consecutive words), 4x4 outputs per thread accumulated with
+// fmaf in k order.
+//
+// Types: A is always fp32 (every A in the layer chain is an fp32
+// intermediate: z, SA, LN2's z, the GELU hidden).  B and the bias are WT
+// (float or bf16, read into fp32 on staging: bf16 weights are used exactly,
+// never rounded), the residual RT and C OT (float or bf16): in the bf16
+// modes the last product of a layer adds the bf16 input x and writes the
+// layer's output in x's type, every other output stays fp32.  Every edge (M = B*196, N = 1000 classes, K) is masked with zero
 // fill.  CUDA cores only: wgmma/TMA are a later PR's work.
 //
 // B is addressed in column groups so that per-head (H, D, Dh) weight stacks
@@ -31,10 +38,11 @@ struct GemmF32Smem {
 };
 
 // Output tile (mt, nt) of C; every thread of a 256-thread block calls it.
+template <typename WT, typename RT, typename OT>
 __device__ __forceinline__ void gemm_f32_tile(
     GemmF32Smem& s, int mt, int nt, const float* A, long long lda,
-    const float* B, long long ldb, int grp, long long grp_stride, float* C,
-    long long ldc, int M, int N, int K, const float* bias, const float* res,
+    const WT* B, long long ldb, int grp, long long grp_stride, OT* C,
+    long long ldc, int M, int N, int K, const WT* bias, const RT* res,
     long long ldr, int gelu) {
   const int t = threadIdx.x, tx = t % 16, ty = t / 16;
   const int m0 = mt * GF_BM, n0 = nt * GF_BN;
@@ -50,7 +58,7 @@ __device__ __forceinline__ void gemm_f32_tile(
       int n = n0 + nn;
       k = k0 + kk;
       s.Bs[kk][nn] = (n < N && k < K)
-                         ? B[(long long)(n / grp) * grp_stride + (long long)k * ldb + (n % grp)]
+                         ? to_f(B[(long long)(n / grp) * grp_stride + (long long)k * ldb + (n % grp)])
                          : 0.f;
     }
     __syncthreads();
@@ -77,10 +85,10 @@ __device__ __forceinline__ void gemm_f32_tile(
       int n = n0 + tx + 16 * j;
       if (n >= N) continue;
       float v = acc[i][j];
-      if (bias) v = v + bias[n];
+      if (bias) v = v + to_f(bias[n]);
       if (gelu) v = gelu_tanh(v);
-      if (res) v = res[(long long)m * ldr + n] + v;
-      C[(long long)m * ldc + n] = v;
+      if (res) v = to_f(res[(long long)m * ldr + n]) + v;
+      store_f(C, (long long)m * ldc + n, v, nullptr);
     }
   }
 }

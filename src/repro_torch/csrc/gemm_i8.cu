@@ -12,18 +12,20 @@
 // __dp4a (4 MACs per instruction), not the int8 tensor cores.
 // Design: one block per 64x64 output tile; the tile and its epilogue
 // (out_kind 0: int32, 1: rescaled float, 2: requantised int8) are
-// `gemm_i8_tile` (gemm_i8.cuh), shared with the layer-group kernel.
+// `gemm_i8_tile` (gemm_i8.cuh), shared with the layer-group kernel; the
+// bias is float or bf16 (bt).
 #include "gemm_i8.cuh"
 
 namespace repro_torch {
 
+template <typename BT>
 __global__ void __launch_bounds__(256)
 gemm_i8_kernel(const int8_t* __restrict__ A, long long lda,
                const int8_t* __restrict__ B, long long ldb, int grp,
                long long grp_stride, void* __restrict__ C, long long ldc,
                int out_kind, int M, int N, int K,
                const float* __restrict__ x_scale, const float* __restrict__ w_scale,
-               const float* __restrict__ bias, const float* __restrict__ res,
+               const BT* __restrict__ bias, const float* __restrict__ res,
                long long ldr, int gelu, const float* __restrict__ out_scale) {
   __shared__ GemmI8Smem s;
   gemm_i8_tile(s, blockIdx.y, blockIdx.x, A, lda, B, ldb, grp, grp_stride, C,
@@ -37,12 +39,16 @@ extern "C" int rt_gemm_i8(const int8_t* A, long long lda, const int8_t* B,
                           long long ldb, int grp, long long grp_stride, void* C,
                           long long ldc, int out_kind, int M, int N, int K,
                           const float* x_scale, const float* w_scale,
-                          const float* bias, const float* res, long long ldr,
-                          int gelu, const float* out_scale, void* stream) {
+                          const void* bias, const float* res, long long ldr,
+                          int gelu, const float* out_scale, int bt,
+                          void* stream) {
   using namespace repro_torch;
   dim3 grid((N + GI_BN - 1) / GI_BN, (M + GI_BM - 1) / GI_BM);
-  gemm_i8_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      A, lda, B, ldb, grp, grp_stride, C, ldc, out_kind, M, N, K, x_scale,
-      w_scale, bias, res, ldr, gelu, out_scale);
-  return (int)cudaGetLastError();
+  return dispatch_type(bt, [&](auto btag) {
+    using BT = typename decltype(btag)::type;
+    gemm_i8_kernel<BT><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        A, lda, B, ldb, grp, grp_stride, C, ldc, out_kind, M, N, K, x_scale,
+        w_scale, (const BT*)bias, res, ldr, gelu, out_scale);
+    return (int)cudaGetLastError();
+  });
 }

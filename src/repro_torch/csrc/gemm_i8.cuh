@@ -12,7 +12,9 @@
 // Epilogue (out_kind): 0 writes the raw int32 accumulator; 1 writes
 //   v = acc * (x_scale * w_scale[n])  [+ bias[n]]  [-> gelu]  [res + v]
 // as float; 2 writes the same v quantised to int8 at *out_scale.  Missing
-// scales count as 1.  B is addressed in column groups as in gemm_f32.cuh,
+// scales count as 1.  The bias is BT: float, or bf16 read into fp32 (a
+// bf16 model's biases stay bf16 under PTQ, as the TPU kernels' in-kernel
+// astype(float32) reads them).  B is addressed in column groups as in gemm_f32.cuh,
 // and, as there, no pointer carries __restrict__.
 #pragma once
 
@@ -28,11 +30,12 @@ struct __align__(16) GemmI8Smem {
 };
 
 // Output tile (mt, nt) of C; every thread of a 256-thread block calls it.
+template <typename BT>
 __device__ __forceinline__ void gemm_i8_tile(
     GemmI8Smem& s, int mt, int nt, const int8_t* A, long long lda,
     const int8_t* B, long long ldb, int grp, long long grp_stride, void* C,
     long long ldc, int out_kind, int M, int N, int K, const float* x_scale,
-    const float* w_scale, const float* bias, const float* res, long long ldr,
+    const float* w_scale, const BT* bias, const float* res, long long ldr,
     int gelu, const float* out_scale) {
   const int t = threadIdx.x, tx = t % 16, ty = t / 16;
   const int m0 = mt * GI_BM, n0 = nt * GI_BN;
@@ -85,7 +88,7 @@ __device__ __forceinline__ void gemm_i8_tile(
       }
       float sc = xs * (w_scale ? w_scale[n] : 1.0f);
       float v = (float)acc[i][j] * sc;
-      if (bias) v = v + bias[n];
+      if (bias) v = v + to_f(bias[n]);
       if (gelu) v = gelu_tanh(v);
       if (res) v = res[(long long)m * ldr + n] + v;
       if (out_kind == 1)

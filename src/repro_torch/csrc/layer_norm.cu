@@ -7,14 +7,17 @@
 // GEMMs read them back: "nothing leaves the grid" is dropped here.
 // Bound: bytes (one read of x, one write of z; ~10 flops per element).
 // Design: one warp per row (`layer_norm_row`, layer_norm.cuh, shared with
-// the layer-group kernel), rows spread over 8 warps a block.
+// the layer-group kernel), rows spread over 8 warps a block.  x and the LN
+// vectors are float32 or bf16 (`dispatch_mode`: the vision modes); z is
+// always fp32 (or int8), as the TPU kernel's z scratch.
 #include "layer_norm.cuh"
 
 namespace repro_torch {
 
-__global__ void layer_norm_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ w,
-                                  const float* __restrict__ b,
+template <typename XT, typename VT>
+__global__ void layer_norm_kernel(const XT* __restrict__ x,
+                                  const VT* __restrict__ w,
+                                  const VT* __restrict__ b,
                                   void* __restrict__ out, int rows, int d,
                                   float eps, const float* __restrict__ q_scale) {
   const int warps = blockDim.x / 32;
@@ -25,13 +28,20 @@ __global__ void layer_norm_kernel(const float* __restrict__ x,
 
 }  // namespace repro_torch
 
-// out: float (rows, d) when q_scale is null, else int8 quantised at *q_scale.
-extern "C" int rt_layer_norm(const float* x, const float* w, const float* b,
+// out: float (rows, d) when q_scale is null, else int8 quantised at
+// *q_scale; xt / vt: the ElemCode of x and of the LN vectors.
+extern "C" int rt_layer_norm(const void* x, const void* w, const void* b,
                              void* out, int rows, int d, float eps,
-                             const float* q_scale, void* stream) {
+                             const float* q_scale, int xt, int vt,
+                             void* stream) {
+  using namespace repro_torch;
   const int warps = 8;
   dim3 grid((rows + warps - 1) / warps);
-  repro_torch::layer_norm_kernel<<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
-      x, w, b, out, rows, d, eps, q_scale);
-  return (int)cudaGetLastError();
+  return dispatch_mode(xt, vt, [&](auto xtag, auto vtag) {
+    using XT = typename decltype(xtag)::type;
+    using VT = typename decltype(vtag)::type;
+    layer_norm_kernel<XT, VT><<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
+        (const XT*)x, (const VT*)w, (const VT*)b, out, rows, d, eps, q_scale);
+    return (int)cudaGetLastError();
+  });
 }

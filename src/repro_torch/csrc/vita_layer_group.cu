@@ -29,12 +29,23 @@
 //                                        into L2 meanwhile
 //   7. y = h1 + hid . w_down[l] + b_down[l]
 //
-// x is read once (layer 0's y); `out` carries y between layers.  The
-// wrapper allocates the workspace z, q, k, v, sa, h1, hid and the barrier
-// counter in one buffer; at DeiT-T batch 8 it is ~12 MB and stays in L2.
+// x is read once (layer 0's y); an fp32 `carry` holds y between layers,
+// and the last layer's stage 7 writes `out` in x's type: the activation is
+// rounded once, at the end, as the TPU kernel carries y in an fp32 scratch
+// and casts at its last step.  (In bf16 a group is therefore not L calls of
+// the per-layer chain, each of which rounds its output; in fp32 and with
+// fp32 x it is, bit for bit.)  The wrapper allocates the workspace z, q, k,
+// v, sa, h1, hid, carry and the barrier counter in one buffer; at DeiT-T
+// batch 8 it is ~13 MB and stays in L2.
+//
+// Types: x and out are XT (float or bf16); the float kernel's weight
+// stacks, LN vectors and biases WT (float or bf16, read into fp32 as
+// staged), the int8 kernel's LN vectors and biases WT beside int8 weights;
+// every workspace buffer is fp32 (or int8), so all math is fp32 as in the
+// TPU kernel.  The relative-position bias and the mask are fp32.
 // The tiles are the per-layer chain's own device code (gemm_f32.cuh,
-// gemm_i8.cuh, layer_norm.cuh, attention.cuh) at the same tile shapes, so
-// a group computes bit for bit what L calls of the chain compute.
+// gemm_i8.cuh, layer_norm.cuh, attention.cuh) at the same tile shapes,
+// which is what makes a group with fp32 x equal to L calls of the chain.
 //
 // Barrier: a counter in device memory that each block's thread 0 bumps
 // after a __threadfence and then waits on; valid because the cooperative
@@ -57,13 +68,13 @@ namespace repro_torch {
 constexpr int LG_THREADS = 256;
 
 struct LayerGroupArgs {
-  const float* x;
-  float* out;
-  // (L, ...) stacks: float in the float kernel, int8 in the int8 kernel.
+  const void* x;                  // (R, D) in XT
+  void* out;                      // (R, D) in XT
+  // (L, ...) stacks: WT in the float kernel, int8 in the int8 kernel.
   const void *wq, *wk, *wv, *wmsa, *wup, *wdown;
   // int8 only: act (L, 4) and the weight scales (L, H*Dh) / (L, D) / (L, M).
   const float *act, *wq_s, *wk_s, *wv_s, *wmsa_s, *wup_s, *wdown_s;
-  const float *ln1w, *ln1b, *ln2w, *ln2b, *bup, *bdown;
+  const void *ln1w, *ln1b, *ln2w, *ln2b, *bup, *bdown;   // WT
   const float *bias, *mask;       // (L, H, N, N) and (nW, N, N), or null
   // workspace; z, sa and hid are int8 in the int8 kernel
   void* z;
@@ -71,6 +82,7 @@ struct LayerGroupArgs {
   void* sa;
   float* h1;
   void* hid;
+  float* carry;                   // y between layers, fp32
   unsigned int* bar;
   int B, N, D, H, Dh, M, L, nW;
   float scale, eps;
@@ -99,10 +111,49 @@ __device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
     asm volatile("prefetch.global.L2 [%0];" ::"l"(c + off));
 }
 
-template <bool I8>
+// Stage 4 of layer l, tile t: h1 = y + SA . w_msa[l], with y of type YT
+// (x's type at layer 0, the fp32 carry after it).
+template <bool I8, typename WT, typename W, typename YT>
+__device__ __forceinline__ void concat_tile(const LayerGroupArgs& a,
+                                            unsigned char* smem, int t, int nt,
+                                            const W* wmsa, const YT* y,
+                                            const float* act, int l) {
+  const int R = a.B * a.N, HD = a.H * a.Dh, D = a.D;
+  if constexpr (I8)
+    gemm_i8_tile(*reinterpret_cast<GemmI8Smem*>(smem), t / nt, t % nt,
+                 static_cast<const int8_t*>(a.sa), HD, wmsa, D, D, 0, a.h1, D, 1,
+                 R, D, HD, act + 1, a.wmsa_s + (size_t)l * D,
+                 static_cast<const WT*>(nullptr), y, D, 0, nullptr);
+  else
+    gemm_f32_tile(*reinterpret_cast<GemmF32Smem*>(smem), t / nt, t % nt,
+                  static_cast<const float*>(a.sa), HD, wmsa, D, D, 0, a.h1, D,
+                  R, D, HD, static_cast<const WT*>(nullptr), y, D, 0);
+}
+
+// Stage 7 of layer l, tile t: y' = h1 + hid . w_down[l] + b_down[l] into
+// `dst` of type OT (the fp32 carry, or out in x's type at the last layer).
+template <bool I8, typename WT, typename W, typename OT>
+__device__ __forceinline__ void down_tile(const LayerGroupArgs& a,
+                                          unsigned char* smem, int t, int nt,
+                                          const W* wdown, OT* dst,
+                                          const float* act, int l) {
+  const int R = a.B * a.N, D = a.D, M = a.M;
+  const WT* bdown = static_cast<const WT*>(a.bdown) + (size_t)l * D;
+  if constexpr (I8)
+    gemm_i8_tile(*reinterpret_cast<GemmI8Smem*>(smem), t / nt, t % nt,
+                 static_cast<const int8_t*>(a.hid), M, wdown, D, D, 0, dst, D, 1,
+                 R, D, M, act + 3, a.wdown_s + (size_t)l * D, bdown, a.h1, D, 0,
+                 nullptr);
+  else
+    gemm_f32_tile(*reinterpret_cast<GemmF32Smem*>(smem), t / nt, t % nt,
+                  static_cast<const float*>(a.hid), M, wdown, D, D, 0, dst, D,
+                  R, D, M, bdown, a.h1, D, 0);
+}
+
+template <bool I8, typename XT, typename WT>
 __device__ __forceinline__ void layer_group_body(const LayerGroupArgs& a,
                                                  unsigned char* smem) {
-  using W = typename std::conditional<I8, int8_t, float>::type;
+  using W = typename std::conditional<I8, int8_t, WT>::type;
   GemmF32Smem& gf = *reinterpret_cast<GemmF32Smem*>(smem);
   GemmI8Smem& gi = *reinterpret_cast<GemmI8Smem*>(smem);
   const int R = a.B * a.N, HD = a.H * a.Dh, D = a.D, M = a.M, N = a.N;
@@ -112,9 +163,14 @@ __device__ __forceinline__ void layer_group_body(const LayerGroupArgs& a,
   const int mt = cdiv(R, GF_BM);  // GF_BM == GI_BM
   const size_t qkv_sz = (size_t)a.H * D * a.Dh, msa_sz = (size_t)HD * D,
                mlp_sz = (size_t)D * M;
+  const XT* x = static_cast<const XT*>(a.x);
+  const WT* ln1w = static_cast<const WT*>(a.ln1w);
+  const WT* ln1b = static_cast<const WT*>(a.ln1b);
+  const WT* ln2w = static_cast<const WT*>(a.ln2w);
+  const WT* ln2b = static_cast<const WT*>(a.ln2b);
+  const WT* bup = static_cast<const WT*>(a.bup);
   unsigned int target = 0;
   for (int l = 0; l < a.L; ++l) {
-    const float* y = l == 0 ? a.x : a.out;
     const W* wq = static_cast<const W*>(a.wq) + l * qkv_sz;
     const W* wk = static_cast<const W*>(a.wk) + l * qkv_sz;
     const W* wv = static_cast<const W*>(a.wv) + l * qkv_sz;
@@ -124,10 +180,15 @@ __device__ __forceinline__ void layer_group_body(const LayerGroupArgs& a,
     const float* act = I8 ? a.act + 4 * l : nullptr;
     const float* bias = a.bias ? a.bias + (size_t)l * a.H * N * N : nullptr;
 
-    // 1. LN1(y) -> z
-    for (int r = gwarp; r < R; r += nwarps)
-      layer_norm_row(y, a.ln1w + l * D, a.ln1b + l * D, a.z, r, D, a.eps,
-                     I8 ? act : nullptr);
+    // 1. LN1(y) -> z, y = x at layer 0, else the carry
+    for (int r = gwarp; r < R; r += nwarps) {
+      if (l == 0)
+        layer_norm_row(x, ln1w + l * D, ln1b + l * D, a.z, r, D, a.eps,
+                       I8 ? act : nullptr);
+      else
+        layer_norm_row(static_cast<const float*>(a.carry), ln1w + l * D,
+                       ln1b + l * D, a.z, r, D, a.eps, I8 ? act : nullptr);
+    }
     grid_barrier(a.bar, target);
 
     // 2. Q, K, V
@@ -142,11 +203,13 @@ __device__ __forceinline__ void layer_group_body(const LayerGroupArgs& a,
                             (size_t)l * HD;
           gemm_i8_tile(gi, r / nt, r % nt, static_cast<const int8_t*>(a.z), D, w,
                        a.Dh, a.Dh, (long long)D * a.Dh, o, HD, 1, R, HD, D, act,
-                       ws, nullptr, nullptr, HD, 0, nullptr);
+                       ws, static_cast<const WT*>(nullptr), nullptr, HD, 0,
+                       nullptr);
         } else {
           gemm_f32_tile(gf, r / nt, r % nt, static_cast<const float*>(a.z), D, w,
-                        a.Dh, a.Dh, (long long)D * a.Dh, o, HD, R, HD, D, nullptr,
-                        nullptr, HD, 0);
+                        a.Dh, a.Dh, (long long)D * a.Dh, o, HD, R, HD, D,
+                        static_cast<const WT*>(nullptr),
+                        static_cast<const float*>(nullptr), HD, 0);
         }
       }
     }
@@ -169,21 +232,19 @@ __device__ __forceinline__ void layer_group_body(const LayerGroupArgs& a,
     {
       const int nt = cdiv(D, GF_BN);
       for (int t = blockIdx.x; t < mt * nt; t += gridDim.x) {
-        if constexpr (I8)
-          gemm_i8_tile(gi, t / nt, t % nt, static_cast<const int8_t*>(a.sa), HD,
-                       wmsa, D, D, 0, a.h1, D, 1, R, D, HD, act + 1,
-                       a.wmsa_s + (size_t)l * D, nullptr, y, D, 0, nullptr);
+        if (l == 0)
+          concat_tile<I8, WT>(a, smem, t, nt, wmsa, x, act, l);
         else
-          gemm_f32_tile(gf, t / nt, t % nt, static_cast<const float*>(a.sa), HD,
-                        wmsa, D, D, 0, a.h1, D, R, D, HD, nullptr, y, D, 0);
+          concat_tile<I8, WT>(a, smem, t, nt, wmsa,
+                              static_cast<const float*>(a.carry), act, l);
       }
     }
     grid_barrier(a.bar, target);
 
     // 5. LN2(h1) -> z
     for (int r = gwarp; r < R; r += nwarps)
-      layer_norm_row(a.h1, a.ln2w + l * D, a.ln2b + l * D, a.z, r, D, a.eps,
-                     I8 ? act + 2 : nullptr);
+      layer_norm_row(static_cast<const float*>(a.h1), ln2w + l * D,
+                     ln2b + l * D, a.z, r, D, a.eps, I8 ? act + 2 : nullptr);
     grid_barrier(a.bar, target);
 
     // 6. hid = gelu(z . w_up[l] + b_up[l]), next layer's weights into L2
@@ -199,45 +260,45 @@ __device__ __forceinline__ void layer_group_body(const LayerGroupArgs& a,
         if constexpr (I8)
           gemm_i8_tile(gi, t / nt, t % nt, static_cast<const int8_t*>(a.z), D,
                        wup, M, M, 0, a.hid, M, 2, R, M, D, act + 2,
-                       a.wup_s + (size_t)l * M, a.bup + (size_t)l * M, nullptr, M,
+                       a.wup_s + (size_t)l * M, bup + (size_t)l * M, nullptr, M,
                        1, act + 3);
         else
           gemm_f32_tile(gf, t / nt, t % nt, static_cast<const float*>(a.z), D,
                         wup, M, M, 0, static_cast<float*>(a.hid), M, R, M, D,
-                        a.bup + (size_t)l * M, nullptr, M, 1);
+                        bup + (size_t)l * M, static_cast<const float*>(nullptr),
+                        M, 1);
       }
     }
     grid_barrier(a.bar, target);
 
-    // 7. y = h1 + hid . w_down[l] + b_down[l]
+    // 7. y = h1 + hid . w_down[l] + b_down[l]: into the carry, or rounded
+    //    once into out at the last layer
     {
       const int nt = cdiv(D, GF_BN);
       for (int t = blockIdx.x; t < mt * nt; t += gridDim.x) {
-        if constexpr (I8)
-          gemm_i8_tile(gi, t / nt, t % nt, static_cast<const int8_t*>(a.hid), M,
-                       wdown, D, D, 0, a.out, D, 1, R, D, M, act + 3,
-                       a.wdown_s + (size_t)l * D, a.bdown + (size_t)l * D, a.h1,
-                       D, 0, nullptr);
+        if (l + 1 < a.L)
+          down_tile<I8, WT>(a, smem, t, nt, wdown, a.carry, act, l);
         else
-          gemm_f32_tile(gf, t / nt, t % nt, static_cast<const float*>(a.hid), M,
-                        wdown, D, D, 0, a.out, D, R, D, M,
-                        a.bdown + (size_t)l * D, a.h1, D, 0);
+          down_tile<I8, WT>(a, smem, t, nt, wdown, static_cast<XT*>(a.out),
+                            act, l);
       }
     }
     if (l + 1 < a.L) grid_barrier(a.bar, target);
   }
 }
 
+template <typename XT, typename WT>
 __global__ void __launch_bounds__(LG_THREADS)
 vita_layer_group_kernel(LayerGroupArgs a) {
   extern __shared__ __align__(16) unsigned char lg_smem[];
-  layer_group_body<false>(a, lg_smem);
+  layer_group_body<false, XT, WT>(a, lg_smem);
 }
 
+template <typename VT>
 __global__ void __launch_bounds__(LG_THREADS)
 vita_layer_group_int8_kernel(LayerGroupArgs a) {
   extern __shared__ __align__(16) unsigned char lg_smem[];
-  layer_group_body<true>(a, lg_smem);
+  layer_group_body<true, float, VT>(a, lg_smem);
 }
 
 // Grid: as many blocks as fit on the card at once with this shared memory,
@@ -276,46 +337,55 @@ static int launch_group(const void* kernel, LayerGroupArgs& a, bool i8,
 
 }  // namespace repro_torch
 
-// Float group: weights (L, ...) float32; ws_* are the workspace views
-// z (R, D), q/k/v/sa (R, H*Dh), h1 (R, D), hid (R, M) float32 with R = B*N,
-// and bar one uint32.
+// Float group: x and out in xt, the weights (L, ...), LN vectors and
+// biases in wt (ElemCodes; `dispatch_mode`); ws_* are the workspace views
+// z (R, D), q/k/v/sa (R, H*Dh), h1 (R, D), hid (R, M), carry (R, D)
+// float32 with R = B*N, and bar one uint32.
 extern "C" int rt_vita_layer_group(
-    const float* x, const float* wq, const float* wk, const float* wv,
-    const float* wmsa, const float* ln1w, const float* ln1b, const float* ln2w,
-    const float* ln2b, const float* wup, const float* bup, const float* wdown,
-    const float* bdown, const float* bias, const float* mask, float* out,
+    const void* x, const void* wq, const void* wk, const void* wv,
+    const void* wmsa, const void* ln1w, const void* ln1b, const void* ln2w,
+    const void* ln2b, const void* wup, const void* bup, const void* wdown,
+    const void* bdown, const float* bias, const float* mask, void* out,
     void* z, float* q, float* k, float* v, void* sa, float* h1, void* hid,
-    unsigned int* bar, int B, int N, int D, int H, int Dh, int M, int L, int nW,
-    float scale, float eps, void* stream) {
+    float* carry, unsigned int* bar, int B, int N, int D, int H, int Dh, int M,
+    int L, int nW, float scale, float eps, int xt, int wt, void* stream) {
   using namespace repro_torch;
   LayerGroupArgs a{x, out, wq, wk, wv, wmsa, wup, wdown,
                    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                    ln1w, ln1b, ln2w, ln2b, bup, bdown, bias, mask,
-                   z, q, k, v, sa, h1, hid, bar, B, N, D, H, Dh, M, L, nW, scale,
-                   eps};
-  return launch_group((const void*)vita_layer_group_kernel, a, false,
-                      (cudaStream_t)stream);
+                   z, q, k, v, sa, h1, hid, carry, bar, B, N, D, H, Dh, M, L, nW,
+                   scale, eps};
+  return dispatch_mode(xt, wt, [&](auto xtag, auto wtag) {
+    using XT = typename decltype(xtag)::type;
+    using WT = typename decltype(wtag)::type;
+    return launch_group((const void*)vita_layer_group_kernel<XT, WT>, a, false,
+                        (cudaStream_t)stream);
+  });
 }
 
-// int8 group: weights (L, ...) int8; act (L, 4); weight scales (L, H*Dh) for
-// Q/K/V, (L, D) for w_msa and w_down, (L, M) for w_up.  Workspace as above
+// int8 group: x and out float32; weights (L, ...) int8; act (L, 4); weight
+// scales (L, H*Dh) for Q/K/V, (L, D) for w_msa and w_down, (L, M) for
+// w_up; LN vectors and biases in vt (float32 or bf16).  Workspace as above
 // but z (R, D), sa (R, H*Dh) and hid (R, M) int8.
 extern "C" int rt_vita_layer_group_int8(
     const float* x, const int8_t* wq, const int8_t* wk, const int8_t* wv,
     const int8_t* wmsa, const int8_t* wup, const int8_t* wdown, const float* act,
     const float* wq_s, const float* wk_s, const float* wv_s, const float* wmsa_s,
-    const float* wup_s, const float* wdown_s, const float* ln1w, const float* ln1b,
-    const float* ln2w, const float* ln2b, const float* bup, const float* bdown,
+    const float* wup_s, const float* wdown_s, const void* ln1w, const void* ln1b,
+    const void* ln2w, const void* ln2b, const void* bup, const void* bdown,
     const float* bias, const float* mask, float* out, void* z, float* q, float* k,
-    float* v, void* sa, float* h1, void* hid, unsigned int* bar, int B, int N,
-    int D, int H, int Dh, int M, int L, int nW, float scale, float eps,
-    void* stream) {
+    float* v, void* sa, float* h1, void* hid, float* carry, unsigned int* bar,
+    int B, int N, int D, int H, int Dh, int M, int L, int nW, float scale,
+    float eps, int vt, void* stream) {
   using namespace repro_torch;
   LayerGroupArgs a{x, out, wq, wk, wv, wmsa, wup, wdown,
                    act, wq_s, wk_s, wv_s, wmsa_s, wup_s, wdown_s,
                    ln1w, ln1b, ln2w, ln2b, bup, bdown, bias, mask,
-                   z, q, k, v, sa, h1, hid, bar, B, N, D, H, Dh, M, L, nW, scale,
-                   eps};
-  return launch_group((const void*)vita_layer_group_int8_kernel, a, true,
-                      (cudaStream_t)stream);
+                   z, q, k, v, sa, h1, hid, carry, bar, B, N, D, H, Dh, M, L, nW,
+                   scale, eps};
+  return dispatch_type(vt, [&](auto vtag) {
+    using VT = typename decltype(vtag)::type;
+    return launch_group((const void*)vita_layer_group_int8_kernel<VT>, a, true,
+                        (cudaStream_t)stream);
+  });
 }

@@ -28,6 +28,16 @@
 // Windowed mode (Swin) and qkv_bias as in attention.cu / the TPU kernel:
 // bias (H, N, N) + mask (nW, N, N) join the scores after the scale, the
 // mask picked by b % nW; qkv_bias (3, H, Dh) is added to the projections.
+//
+// dtype modes (ref.PORTED_MODES), as the TPU kernel runs them: z is ZT and
+// the weights and qkv_bias WT, each read into fp32 as they are staged, so
+// Q, K and V are fp32 sums of exact products.  With z fp32 (bf16 weights
+// or not) everything after is fp32 and the output fp32.  With z bf16 the
+// kernel rounds where the TPU kernel rounds (`softmax_av`, out_dtype =
+// z.dtype): V is kept in shared memory as bf16, P is rounded to bf16
+// before the AV product, the AV sum is fp32 and the output bf16.  K, Q and
+// the scores stay fp32.  The bf16 build stages V in half the bytes:
+// `msa_smem_bytes` (kernels/vita_msa.py) mirrors the layout below.
 #include "attention.cuh"
 
 namespace repro_torch {
@@ -37,10 +47,12 @@ constexpr int TM = 64, TE = 64, KC = 16;
 
 // out[r * ld + e] = sum_d z[(n0 + r) * D + d] * W[d * Dh + e] (+ bias[e])
 // for r < rows, e < Dh: 64 x 64 output tiles, 4 x 4 per thread, KC-deep
-// slices of z and W staged in shared memory, summed in d order with fmaf.
-__device__ void project(const float* __restrict__ z, int D, int n0, int rows,
-                        const float* __restrict__ W, int Dh,
-                        const float* __restrict__ bias, float* out, int ld,
+// slices of z and W staged in shared memory as fp32, summed in d order with
+// fmaf, stored as OT (fp32, or bf16 for V in the bf16 mode).
+template <typename ZT, typename WT, typename OT>
+__device__ void project(const ZT* __restrict__ z, int D, int n0, int rows,
+                        const WT* __restrict__ W, int Dh,
+                        const WT* __restrict__ bias, OT* out, int ld,
                         float (*Zs)[TM], float (*Ws)[TE]) {
   const int t = threadIdx.x, tx = t % 16, ty = t / 16;
   for (int r0 = 0; r0 < rows; r0 += TM) {
@@ -52,10 +64,11 @@ __device__ void project(const float* __restrict__ z, int D, int n0, int rows,
           const int idx = t + THREADS * l;
           int r = idx / KC, c = idx % KC, d = d0 + c;
           Zs[c][r] = (r0 + r < rows && d < D)
-                         ? z[(long long)(n0 + r0 + r) * D + d] : 0.f;
+                         ? to_f(z[(long long)(n0 + r0 + r) * D + d]) : 0.f;
           const int kk = idx / TE, e = idx % TE;
           d = d0 + kk;
-          Ws[kk][e] = (e0 + e < Dh && d < D) ? W[(long long)d * Dh + e0 + e] : 0.f;
+          Ws[kk][e] = (e0 + e < Dh && d < D) ? to_f(W[(long long)d * Dh + e0 + e])
+                                             : 0.f;
         }
         __syncthreads();
 #pragma unroll
@@ -79,33 +92,44 @@ __device__ void project(const float* __restrict__ z, int D, int n0, int rows,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int e = e0 + tx + 16 * j;
-          if (e < Dh) out[r * ld + e] = bias ? acc[i][j] + bias[e] : acc[i][j];
+          if (e < Dh)
+            store_f(out, (long long)r * ld + e,
+                    bias ? acc[i][j] + to_f(bias[e]) : acc[i][j], nullptr);
         }
       }
     }
   }
 }
 
+// Dynamic shared memory of one block, in bytes: K [N][Dh+1], Q [QTILE][Dh]
+// and WARPS score rows [N] in fp32, then V [N][Dh] in ZT.
+__host__ __device__ inline size_t msa_smem_bytes(int N, int Dh, size_t zsize) {
+  return sizeof(float) * ((size_t)N * (Dh + 1) + (size_t)QTILE * Dh +
+                          (size_t)WARPS * N) +
+         zsize * N * Dh;
+}
+
+template <typename ZT, typename WT>
 __global__ void __launch_bounds__(THREADS)
-vita_msa_kernel(const float* __restrict__ z, const float* __restrict__ wq,
-                const float* __restrict__ wk, const float* __restrict__ wv,
-                const float* __restrict__ qkv_bias,
+vita_msa_kernel(const ZT* __restrict__ z, const WT* __restrict__ wq,
+                const WT* __restrict__ wk, const WT* __restrict__ wv,
+                const WT* __restrict__ qkv_bias,
                 const float* __restrict__ bias, const float* __restrict__ mask,
-                int nW, float* __restrict__ out, int N, int D, int H, int Dh,
+                int nW, ZT* __restrict__ out, int N, int D, int H, int Dh,
                 float scale) {
   extern __shared__ float smem[];
   __shared__ float Zs[KC][TM];
   __shared__ float Ws[KC][TE];
   const int ks = Dh + 1;                  // padded K row: lanes read distinct banks
   float* Ks = smem;                       // [N][Dh+1]
-  float* Vs = Ks + (size_t)N * ks;        // [N][Dh]
-  float* Qs = Vs + (size_t)N * Dh;        // [QTILE][Dh]
+  float* Qs = Ks + (size_t)N * ks;        // [QTILE][Dh]
   const int warp = threadIdx.x / 32;
   float* prow = Qs + QTILE * Dh + (size_t)warp * N;   // [N]
+  ZT* Vs = reinterpret_cast<ZT*>(Qs + QTILE * Dh + (size_t)WARPS * N);  // [N][Dh]
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * QTILE;
-  const float* zb = z + (long long)b * N * D;
+  const ZT* zb = z + (long long)b * N * D;
   const long long wo = (long long)h * D * Dh;
-  const float* qb = qkv_bias ? qkv_bias + (size_t)h * Dh : nullptr;
+  const WT* qb = qkv_bias ? qkv_bias + (size_t)h * Dh : nullptr;
   const size_t part = (size_t)H * Dh;     // stride from the Q to the K to the V bias
   project(zb, D, 0, N, wk + wo, Dh, qb ? qb + part : nullptr, Ks, ks, Zs, Ws);
   project(zb, D, 0, N, wv + wo, Dh, qb ? qb + 2 * part : nullptr, Vs, Dh, Zs, Ws);
@@ -125,18 +149,25 @@ vita_msa_kernel(const float* __restrict__ z, const float* __restrict__ wq,
 
 }  // namespace repro_torch
 
-extern "C" int rt_vita_msa(const float* z, const float* wq, const float* wk,
-                           const float* wv, const float* qkv_bias,
+// zt / wt: the ElemCode of z (and out) and of the weights and qkv_bias.
+extern "C" int rt_vita_msa(const void* z, const void* wq, const void* wk,
+                           const void* wv, const void* qkv_bias,
                            const float* bias, const float* mask, int nW,
-                           float* out, int B, int N, int D, int H, int Dh,
-                           float scale, void* stream) {
+                           void* out, int B, int N, int D, int H, int Dh,
+                           float scale, int zt, int wt, void* stream) {
   using namespace repro_torch;
-  const int smem = (int)sizeof(float) * (N * (2 * Dh + 1) + QTILE * Dh + WARPS * N);
-  cudaError_t err = cudaFuncSetAttribute(
-      vita_msa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + QTILE - 1) / QTILE, H, B);
-  vita_msa_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      z, wq, wk, wv, qkv_bias, bias, mask, nW, out, N, D, H, Dh, scale);
-  return (int)cudaGetLastError();
+  return dispatch_mode(zt, wt, [&](auto ztag, auto wtag) {
+    using ZT = typename decltype(ztag)::type;
+    using WT = typename decltype(wtag)::type;
+    const int smem = (int)msa_smem_bytes(N, Dh, sizeof(ZT));
+    cudaError_t err = cudaFuncSetAttribute(
+        vita_msa_kernel<ZT, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((N + QTILE - 1) / QTILE, H, B);
+    vita_msa_kernel<ZT, WT><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const ZT*)z, (const WT*)wq, (const WT*)wk, (const WT*)wv,
+        (const WT*)qkv_bias, bias, mask, nW, (ZT*)out, N, D, H, Dh, scale);
+    return (int)cudaGetLastError();
+  });
 }

@@ -15,6 +15,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -30,26 +32,26 @@ F = ctypes.c_float
 
 # C signature of every entry point: (library, symbol) -> argtypes.
 SIGNATURES = {
-    ("layer_norm", "rt_layer_norm"): [P, P, P, P, I, I, F, P, P],
+    ("layer_norm", "rt_layer_norm"): [P, P, P, P, I, I, F, P, I, I, P],
     ("gemm_f32", "rt_gemm_f32"): [P, L, P, L, I, L, P, L, I, I, I, P, P, L,
-                                  I, P],
+                                  I, I, I, I, P],
     ("gemm_i8", "rt_gemm_i8"): [P, L, P, L, I, L, P, L, I, I, I, I, P, P, P,
-                                P, L, I, P, P],
+                                P, L, I, P, I, P],
     ("attention", "rt_attention"): [P, P, P, L, L, L, P, L, L, L, I, I, I,
                                     I, F, P, P, P, I, P],
     ("vita_msa", "rt_vita_msa"): [P, P, P, P, P, P, P, I, P, I, I, I, I, I,
-                                  F, P],
-    ("fused_mlp", "rt_fused_mlp"): [P] * 8 + [I] * 7 + [P],
+                                  F, I, I, P],
+    ("fused_mlp", "rt_fused_mlp"): [P] * 8 + [I] * 8 + [P],
     ("fused_mlp", "rt_fused_mlp_splits"): [I] * 5 + [P],
     ("flash_attention", "rt_flash_attention"): [P] * 4 + [I] * 6 + [F]
     + [I] * 4 + [P],
     ("decode_attention", "rt_decode_attention"): [P] * 5 + [I] * 5 + [F, I,
                                                                       P],
     ("rglru_scan", "rt_rglru_scan"): [P] * 3 + [I] * 4 + [P],
-    ("vita_layer_group", "rt_vita_layer_group"): [P] * 24 + [I] * 8
-    + [F, F, P],
-    ("vita_layer_group", "rt_vita_layer_group_int8"): [P] * 31 + [I] * 8
-    + [F, F, P],
+    ("vita_layer_group", "rt_vita_layer_group"): [P] * 25 + [I] * 8
+    + [F, F, I, I, P],
+    ("vita_layer_group", "rt_vita_layer_group_int8"): [P] * 32 + [I] * 8
+    + [F, F, I, P],
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in SIGNATURES}))
 
@@ -78,28 +80,33 @@ def _target(name: str) -> Path:
 
 def build_all(names: Iterable[str] = LIBRARIES) -> Dict[str, str]:
     """Compile every missing library in parallel (one nvcc each).  Returns
-    each compiler's output (registers, shared memory, spills from ptxas)
-    keyed by library; raises with the log if any compile fails."""
+    each compiler's output, after a first line "nvcc <seconds> s" (its
+    wall time), with registers, shared memory and spills from ptxas, keyed
+    by library; raises with the log if any compile fails."""
     missing = [n for n in names if not _target(n).exists()]
     if not missing:
         return {}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in missing:
-        out = _target(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+
+    def compile_one(name: str):
+        tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc.returncode, tmp, (f"nvcc {time.perf_counter() - t0:.1f}"
+                                      f" s\n{proc.stdout}")
+
+    with ThreadPoolExecutor(len(missing)) as pool:
+        results = dict(zip(missing, pool.map(compile_one, missing)))
     logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
+    for name, (rc, tmp, log) in results.items():
+        logs[name] = log
+        if rc != 0:
             failed.append(name)
         else:
-            os.replace(tmp, out)
+            os.replace(tmp, _target(name))
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
                            "\n".join(logs[n] for n in failed))

@@ -4,9 +4,11 @@
 One launch of ``csrc/fused_mlp.cu`` computes act(x W1 + b1) W2 + b2, or
 the gated act(x Wg) * (x W1 + b1) W2 + b2, with the hidden activation
 streamed through shared memory in 64-wide chunks: it never reaches device
-memory.  Every activation of `ref.ACTIVATIONS`; float32 or bfloat16 in
-and out with float32 sums, the hidden chunk rounded to x's dtype before
-the second product.  Where too few blocks would fill the card (a decode
+memory.  Every activation of `ref.ACTIVATIONS`; x (and out) float32 or
+bfloat16, the weights and biases float32 or bfloat16 (`ref.PORTED_MODES`:
+float32 x with bf16 weights is a bf16 vision model served on float32
+images), float32 sums, the hidden chunk rounded to x's dtype before the
+second product.  Where too few blocks would fill the card (a decode
 step's few rows), the kernel's launch plan splits the hidden dimension
 and a second kernel adds the float32 partials.  This function takes CUDA
 tensors only; the plain version is `ref.fused_mlp_ref`, chosen by `ops`.
@@ -20,9 +22,8 @@ from typing import Optional
 import torch
 
 from . import build
-from .head_attention import dtype_code
-from .int8_matmul import _stream, check, ptr
-from .ref import ACTIVATION_CODES, act_fn
+from .int8_matmul import DTYPE_CODES, _stream, check, dtype_code, ptr
+from .ref import ACTIVATION_CODES, act_fn, check_mode
 
 
 def hidden_splits(rows: int, d: int, m: int, d_out: int, code: int) -> int:
@@ -40,20 +41,21 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
               w_gate: Optional[torch.Tensor] = None, *,
               activation: str = "gelu") -> torch.Tensor:
     """x (..., D); w1, w_gate (D, M); w2 (M, D_out); b1 (M,); b2 (D_out,),
-    all of x's dtype -> (..., D_out) in x's dtype, on the card."""
+    the weights of one dtype -> (..., D_out) in x's dtype, on the card."""
     act_fn(activation)
     code = dtype_code("fused_mlp", x)
+    wt = check_mode("fused_mlp", x, w1, w2, b1, b2, w_gate)
     d = x.shape[-1]
     m, d_out = w2.shape
     check(x, "x", x.dtype)
-    check(w1, "w1", x.dtype, (d, m))
-    check(w2, "w2", x.dtype, (m, d_out))
+    check(w1, "w1", wt, (d, m))
+    check(w2, "w2", wt, (m, d_out))
     if w_gate is not None:
-        check(w_gate, "w_gate", x.dtype, (d, m))
+        check(w_gate, "w_gate", wt, (d, m))
     if b1 is not None:
-        check(b1, "b1", x.dtype, (m,))
+        check(b1, "b1", wt, (m,))
     if b2 is not None:
-        check(b2, "b2", x.dtype, (d_out,))
+        check(b2, "b2", wt, (d_out,))
     rows = x.numel() // d
     out = torch.empty((*x.shape[:-1], d_out), device=x.device,
                       dtype=x.dtype)
@@ -65,5 +67,5 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     build.call("fused_mlp", "rt_fused_mlp", ptr(x), ptr(w1), ptr(b1),
                ptr(w_gate), ptr(w2), ptr(b2), ptr(out), ptr(partial), rows,
                d, m, d_out, ACTIVATION_CODES[activation], splits, code,
-               _stream())
+               DTYPE_CODES[wt], _stream())
     return out

@@ -17,18 +17,10 @@ from typing import Optional
 import torch
 
 from . import build
-from .int8_matmul import _stream, check, ptr
+from .int8_matmul import _stream, check, dtype_code, ptr
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 16        # query rows of one decode tile (Hq / Hkv)
-
-
-def dtype_code(name: str, t: torch.Tensor) -> int:
-    if t.dtype not in DTYPE_CODES:
-        raise TypeError(f"{name}: float32 or bfloat16 inputs only, got "
-                        f"{t.dtype}")
-    return DTYPE_CODES[t.dtype]
 
 
 def _heads(name: str, hq: int, hkv: int, dh: int) -> None:

@@ -18,6 +18,18 @@ import torch
 from . import build
 
 
+# Element-type codes of the kernels' C interfaces (csrc/common.cuh's
+# ElemCode).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(name: str, t: torch.Tensor) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: float32 or bfloat16 inputs only, got "
+                        f"{t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -65,17 +77,19 @@ def launch_gemm_i8(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
     ``out``'s dtype picks the epilogue: int32 is the raw accumulator;
     float32 is acc * (x_scale * w_scale[n]) [+ bias] [-> gelu] [res +];
     int8 is that float quantised at ``out_scale``.  Scales are float32
-    device tensors (x_scale and out_scale hold one value)."""
+    device tensors (x_scale and out_scale hold one value); the bias is
+    float32 or bf16 (a bf16 model's PTQ keeps its biases bf16)."""
     k, n, ldb, grp, grp_stride = b_layout(w)
     m = a.shape[0]
     check(a, "a", torch.int8, (m, k))
     check(w, "w", torch.int8)
     check(out, "out", out.dtype, (m, n))
     kind = _OUT_KIND[out.dtype]
+    bias_code = 0 if bias is None else dtype_code("bias", bias)
     for t, nm, numel in ((x_scale, "x_scale", 1), (w_scale, "w_scale", n),
                          (bias, "bias", n), (out_scale, "out_scale", 1)):
         if t is not None:
-            check(t, nm, torch.float32)
+            check(t, nm, bias.dtype if t is bias else torch.float32)
             if t.numel() != numel:
                 raise ValueError(
                     f"{nm} has {t.numel()} values, expected {numel}")
@@ -86,7 +100,7 @@ def launch_gemm_i8(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
     build.call("gemm_i8", "rt_gemm_i8", ptr(a), k, ptr(w), ldb, grp,
                grp_stride, ptr(out), n, kind, m, n, k, ptr(x_scale),
                ptr(w_scale), ptr(bias), ptr(res), n, int(gelu),
-               ptr(out_scale), _stream())
+               ptr(out_scale), bias_code, _stream())
     return out
 
 

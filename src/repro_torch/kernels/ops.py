@@ -5,12 +5,15 @@ There is no backend switch: the tensor decides.  A CUDA tensor launches
 the port's Hopper kernel (or raises — nothing falls back), a CPU tensor
 takes the plain PyTorch version in `ref`.  `LAUNCHES` holds one plain
 integer per kernel, bumped only where the kernel is launched, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels; `MODE_LAUNCHES` splits
+the launches of the kernels with dtype modes (`ref.PORTED_MODES`) by
+(kernel, activation dtype, weight dtype), so it can show which of their
+instantiations ran (the int8 layers by their LN vectors' dtype).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,22 +33,40 @@ LAUNCHES: Dict[str, int] = {"vita_layer": 0, "vita_layer_int8": 0,
                             "vita_layer_group_int8": 0,
                             "flash_attention": 0, "decode_attention": 0,
                             "rglru_scan": 0}
+MODE_LAUNCHES: Dict[Tuple[str, str, str], int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    MODE_LAUNCHES.clear()
 
 
-def _on_card(name: str, t: torch.Tensor) -> bool:
-    """True for a CUDA tensor (and counts one launch of ``name``), False
-    for a CPU tensor; any other device raises."""
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _on_card(name: str, t: torch.Tensor,
+             w: Optional[torch.Tensor] = None) -> bool:
+    """True for a CUDA tensor (and counts one launch of ``name``, and of
+    its (t's dtype, w's dtype) mode where ``w`` is given), False for a CPU
+    tensor; any other device raises."""
     if t.is_cuda:
         LAUNCHES[name] += 1
+        if w is not None:
+            key = (name, _dtype_name(t), _dtype_name(w))
+            MODE_LAUNCHES[key] = MODE_LAUNCHES.get(key, 0) + 1
         return True
     if t.device.type != "cpu":
         raise ValueError(f"{name}: no kernel for device {t.device}")
     return False
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """LayerNorm in float32 returning x's dtype: the counterpart of
+    `repro/kernels/ops.py::layer_norm`, plain PyTorch on either device (it
+    never was a Pallas kernel)."""
+    return ref.layer_norm_ref(x, w, b, eps).to(x.dtype)
 
 
 def int8_matmul(x_q, w_q, x_scale=None, w_scale=None, out_dtype=None):
@@ -70,7 +91,7 @@ def vita_msa_batched(z, wq, wk, wv, bias=None, mask=None, qkv_bias=None):
     """Float per-head MSA: (B, N, D) -> (B, H, N, Dh).  ``bias`` (H, N, N)
     and ``mask`` (nW, N, N) select the windowed (Swin) mode; ``qkv_bias``
     (3, H, Dh) is the optional per-head projection bias."""
-    if _on_card("vita_msa_batched", z):
+    if _on_card("vita_msa_batched", z, wq):
         return _vita_msa.vita_msa_batched(z, wq, wk, wv, bias, mask,
                                           qkv_bias)
     return ref.vita_msa_batched_ref(z, wq, wk, wv, bias, mask, qkv_bias)
@@ -85,7 +106,7 @@ def mlp(x, w1, w2, b1=None, b2=None, w_gate=None, *, activation="gelu"):
     """The fused MLP act(x W1 + b1) W2 + b2, or gated
     act(x W_gate) * (x W1 + b1) W2 + b2, with the hidden activation never
     materialised on the card; x's dtype in and out."""
-    if _on_card("fused_mlp", x):
+    if _on_card("fused_mlp", x, w1):
         return _fused_mlp.fused_mlp(x, w1, w2, b1, b2, w_gate,
                                     activation=activation)
     return ref.fused_mlp_ref(x, w1, b1, w2, b2, activation=activation,
@@ -95,7 +116,7 @@ def mlp(x, w1, w2, b1=None, b2=None, w_gate=None, *, activation="gelu"):
 def vita_layer_fused(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
                      w_up, b_up, w_down, b_down, bias=None, mask=None):
     """One fused float encoder layer: (B, N, D) -> (B, N, D)."""
-    if _on_card("vita_layer", x):
+    if _on_card("vita_layer", x, wq):
         return _vita_layer.vita_layer(x, wq, wk, wv, w_msa, ln1_w, ln1_b,
                                       ln2_w, ln2_b, w_up, b_up, w_down,
                                       b_down, bias, mask)
@@ -112,7 +133,7 @@ def vita_layer_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
     args = (x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q, act_scales,
             wq_scale, wk_scale, wv_scale, wmsa_scale, wup_scale, wdown_scale,
             ln1_w, ln1_b, ln2_w, ln2_b, b_up, b_down, bias, mask)
-    if _on_card("vita_layer_int8", x):
+    if _on_card("vita_layer_int8", x, ln1_w):
         return _vita_layer.vita_layer_int8(*args)
     return ref.vita_layer_int8_ref(*args)
 
@@ -123,7 +144,7 @@ def vita_layer_group(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
     kernel launch: (B, N, D) -> (B, N, D)."""
     args = (x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
             w_down, b_down, bias, mask)
-    if _on_card("vita_layer_group", x):
+    if _on_card("vita_layer_group", x, wq):
         return _vita_layer_group.vita_layer_group(*args)
     return ref.vita_layer_group_ref(*args)
 
@@ -137,7 +158,7 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
     args = (x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q, act_scales,
             wq_scale, wk_scale, wv_scale, wmsa_scale, wup_scale, wdown_scale,
             ln1_w, ln1_b, ln2_w, ln2_b, b_up, b_down, bias, mask)
-    if _on_card("vita_layer_group_int8", x):
+    if _on_card("vita_layer_group_int8", x, ln1_w):
         return _vita_layer_group.vita_layer_group_int8(*args)
     return ref.vita_layer_group_int8_ref(*args)
 

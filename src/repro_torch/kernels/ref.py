@@ -75,10 +75,13 @@ def _window_extra(s: torch.Tensor, bias: Optional[torch.Tensor],
 
 def softmax_av(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                scale: float, bias: Optional[torch.Tensor] = None,
-               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               mask: Optional[torch.Tensor] = None,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """QK^T * scale [+ bias[h] + mask[i % nW]] -> max-subtracted softmax
     (divide by the row sum) -> .V over the last two axes (engine 2 of
-    `repro/kernels/vita_msa.py`, windowed mode included)."""
+    `repro/kernels/vita_msa.py`, windowed mode included), in float32; P
+    and V are rounded to ``out_dtype`` before the AV product, as the TPU
+    kernel's `softmax_av` does (a no-op for float32)."""
     if (bias is None) != (mask is None):
         raise ValueError("windowed mode needs both bias and mask")
     s = _window_extra(torch.matmul(q, k.transpose(-1, -2)) * scale, bias,
@@ -86,7 +89,7 @@ def softmax_av(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = s - s.amax(dim=-1, keepdim=True)
     p = torch.exp(s)
     p = p / p.sum(dim=-1, keepdim=True)
-    return torch.matmul(p, v)
+    return torch.matmul(p.to(out_dtype).float(), v.to(out_dtype).float())
 
 
 def _qkv_with_bias(q, k, v, qkv_bias: Optional[torch.Tensor]):
@@ -98,12 +101,27 @@ def _qkv_with_bias(q, k, v, qkv_bias: Optional[torch.Tensor]):
     return q + qb[0], k + qb[1], v + qb[2]
 
 
-def fp32_only(name: str, *ts) -> None:
-    """Raise for inputs of a mode not ported yet (bf16, ...)."""
-    for t in ts:
-        if t is not None and t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"{name}: only float32 inputs are ported yet, got {t.dtype}")
+# The (activation dtype, weight dtype) modes the vision kernels run, as
+# the TPU kernels do: float32 throughout; float32 activations with bf16
+# weights (the server's mixed mode, fp32 math on exactly upcast weights);
+# bf16 throughout (`forward` on bf16 patches).
+PORTED_MODES = ((torch.float32, torch.float32),
+                (torch.float32, torch.bfloat16),
+                (torch.bfloat16, torch.bfloat16))
+
+
+def check_mode(name: str, act: torch.Tensor, *weights) -> torch.dtype:
+    """The weights' dtype, after checking that every weight (None skipped)
+    shares it and that (act's dtype, it) is one of `PORTED_MODES`; any
+    other combination raises NotImplementedError."""
+    dts = {w.dtype for w in weights if w is not None}
+    mode = (act.dtype, *dts)
+    if mode not in PORTED_MODES:
+        raise NotImplementedError(
+            f"{name}: activations {act.dtype} with weights "
+            f"{sorted(map(str, dts))} is not a ported mode (float32 / "
+            f"float32, float32 / bfloat16, bfloat16 / bfloat16)")
+    return mode[1]
 
 
 def _relu2(x: torch.Tensor) -> torch.Tensor:
@@ -138,8 +156,9 @@ def fused_mlp_ref(x: torch.Tensor, w1: torch.Tensor,
     gated, h = act(x @ w_gate) * (x @ w1 + b1).  Products and sums in
     float32; the hidden activation is rounded to x's dtype before the
     second product, as the TPU kernel does (`fused_mlp.py:59`), and the
-    output is returned in x's dtype."""
+    output is returned in x's dtype.  Modes: `PORTED_MODES`."""
     act = act_fn(activation)
+    check_mode("fused_mlp", x, w1, b1, w2, b2, w_gate)
     xf = x.float()
     h = torch.matmul(xf, w1.float())
     if b1 is not None:
@@ -245,12 +264,18 @@ def vita_msa_batched_ref(z: torch.Tensor, wq: torch.Tensor,
                          ) -> torch.Tensor:
     """Float per-head MSA: z (B, N, D), w* (H, D, Dh) -> (B, H, N, Dh).
     Windowed mode: windows folded into the batch axis, ``bias`` (H, N, N)
-    and ``mask`` (nW, N, N); ``qkv_bias`` (3, H, Dh) optional."""
-    fp32_only("vita_msa_batched", z, wq, wk, wv)
+    and ``mask`` (nW, N, N); ``qkv_bias`` (3, H, Dh) optional.  As the
+    TPU kernel: float32 math on upcast inputs, P and V rounded to z's
+    dtype before the AV product (`softmax_av`), the output cast to z's
+    dtype (`PORTED_MODES`); in float32 this is the JAX oracle's math."""
+    check_mode("vita_msa_batched", z, wq, wk, wv, qkv_bias)
     dh = wq.shape[2]
-    q, k, v = (torch.einsum("bnd,hde->bhne", z, w) for w in (wq, wk, wv))
+    zf = z.float()
+    q, k, v = (torch.einsum("bnd,hde->bhne", zf, w.float())
+               for w in (wq, wk, wv))
     q, k, v = _qkv_with_bias(q, k, v, qkv_bias)
-    return softmax_av(q, k, v, scale=dh ** -0.5, bias=bias, mask=mask)
+    return softmax_av(q, k, v, scale=dh ** -0.5, bias=bias, mask=mask,
+                      out_dtype=z.dtype).to(z.dtype)
 
 
 def vita_msa_ref(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -300,12 +325,10 @@ def _attend_heads(q, k, v, dh: int, bias=None, mask=None) -> torch.Tensor:
     return sa.permute(0, 2, 1, 3).reshape(b, n, h * dh)
 
 
-def vita_layer_ref(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
-                   w_up, b_up, w_down, b_down, bias=None, mask=None):
-    """Fused encoder layer: x (B, N, D) -> (B, N, D).
-
-    LN1 -> merged-QKV -> per-head softmax.V [+ window bias/mask] ->
-    concat projection -> residual -> LN2 -> GELU MLP -> residual."""
+def _layer_f32(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up,
+               b_up, w_down, b_down, bias=None, mask=None) -> torch.Tensor:
+    """One float encoder layer in float32 math on upcast inputs; returns
+    float32 (the TPU kernel's fp32 scratch, before its output cast)."""
     h, d, dh = wq.shape
     z = layer_norm_ref(x, ln1_w, ln1_b)
     qkv = torch.matmul(z, _merge_qkv(wq, wk, wv).float())
@@ -314,8 +337,21 @@ def vita_layer_ref(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
     h1 = x.float() + torch.matmul(merged, w_msa.float())
     z2 = layer_norm_ref(h1, ln2_w, ln2_b)
     hid = gelu(torch.matmul(z2, w_up.float()) + b_up.float())
-    y = h1 + (torch.matmul(hid, w_down.float()) + b_down.float())
-    return y.to(x.dtype)
+    return h1 + (torch.matmul(hid, w_down.float()) + b_down.float())
+
+
+def vita_layer_ref(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
+                   w_up, b_up, w_down, b_down, bias=None, mask=None):
+    """Fused encoder layer: x (B, N, D) -> (B, N, D).
+
+    LN1 -> merged-QKV -> per-head softmax.V [+ window bias/mask] ->
+    concat projection -> residual -> LN2 -> GELU MLP -> residual, every
+    intermediate in float32, the output cast once to x's dtype
+    (`PORTED_MODES`)."""
+    check_mode("vita_layer", x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w,
+               ln2_b, w_up, b_up, w_down, b_down)
+    return _layer_f32(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up,
+                      b_up, w_down, b_down, bias, mask).to(x.dtype)
 
 
 def vita_layer_int8_ref(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
@@ -350,17 +386,20 @@ def vita_layer_int8_ref(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
 
 def vita_layer_group_ref(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
                          w_up, b_up, w_down, b_down, bias=None, mask=None):
-    """Layer group: L stacked encoder layers through `vita_layer_ref`, one
-    after the other.  Every weight operand carries the layer as its
-    leading axis; ``bias`` is (L, H, n, n) and ``mask`` (nW, n, n) is
-    shared by the members."""
+    """Layer group: L stacked encoder layers one after the other, the
+    activation carried in float32 between them and cast to x's dtype
+    once at the end, as the TPU kernel carries it in its fp32 scratch (so
+    in bf16 a group is not L bf16 layer calls).  Every weight operand
+    carries the layer as its leading axis; ``bias`` is (L, H, n, n) and
+    ``mask`` (nW, n, n) is shared by the members."""
+    stacks = (wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
+              w_down, b_down)
+    check_mode("vita_layer_group", x, *stacks)
     y = x
     for l in range(wq.shape[0]):
-        y = vita_layer_ref(y, wq[l], wk[l], wv[l], w_msa[l], ln1_w[l],
-                           ln1_b[l], ln2_w[l], ln2_b[l], w_up[l], b_up[l],
-                           w_down[l], b_down[l],
-                           None if bias is None else bias[l], mask)
-    return y
+        y = _layer_f32(y, *(t[l] for t in stacks),
+                       None if bias is None else bias[l], mask)
+    return y.to(x.dtype)
 
 
 def vita_layer_group_int8_ref(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,

@@ -12,8 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .head_attention import dtype_code
-from .int8_matmul import _stream, check, ptr
+from .int8_matmul import _stream, check, dtype_code, ptr
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,13 @@ tiles for all its layers in one launch (`vita_layer_group.py`).
 Windowed (Swin) mode: the caller folds windows into the batch axis and
 passes ``bias`` (H, n, n) and ``mask`` (nW, n, n); every step of the chain
 but attention is per token, so only the attention launch takes them.
+
+dtype modes (`ref.PORTED_MODES`), as the TPU kernel runs them: x is
+float32 or bf16, the weights, LN vectors and biases float32 or bf16, and
+every intermediate (z, Q/K/V, SA, h1, the hidden) is float32, so bf16
+weights are used exactly; only the last GEMM rounds, writing y in x's
+dtype (the TPU kernel's fp32 scratch and its output cast).  The int8 layer
+takes float32 x and float32 or bf16 LN vectors and biases.
 These functions take CUDA tensors only; the plain versions are
 `ref.vita_layer_ref` / `vita_layer_int8_ref`, chosen by `ops`.
 """
@@ -35,7 +42,9 @@ from typing import Optional
 import torch
 
 from . import build
-from .int8_matmul import _stream, b_layout, check, launch_gemm_i8, ptr
+from .int8_matmul import (DTYPE_CODES, _stream, b_layout, check, dtype_code,
+                          launch_gemm_i8, ptr)
+from .ref import check_mode
 from .vita_msa import launch_attention
 
 
@@ -43,17 +52,20 @@ def launch_layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       out: torch.Tensor, *, eps: float = 1e-5,
                       q_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Row LayerNorm of x (R, D) into ``out`` (float32, or int8 quantised
-    at ``q_scale``) on the current stream."""
+    at ``q_scale``) on the current stream; x and the LN vectors are
+    float32 or bf16 (a mode of `ref.PORTED_MODES`)."""
     rows, d = x.shape
-    check(x, "x", torch.float32)
-    check(w, "ln weight", torch.float32, (d,))
-    check(b, "ln bias", torch.float32, (d,))
+    vt = check_mode("layer_norm", x, w, b)
+    check(x, "x", x.dtype)
+    check(w, "ln weight", vt, (d,))
+    check(b, "ln bias", vt, (d,))
     check(out, "out", torch.int8 if q_scale is not None else torch.float32,
           (rows, d))
     if q_scale is not None:
         check(q_scale, "q_scale", torch.float32, (1,))
     build.call("layer_norm", "rt_layer_norm", ptr(x), ptr(w), ptr(b),
-               ptr(out), rows, d, eps, ptr(q_scale), _stream())
+               ptr(out), rows, d, eps, ptr(q_scale), DTYPE_CODES[x.dtype],
+               DTYPE_CODES[vt], _stream())
     return out
 
 
@@ -61,20 +73,26 @@ def launch_gemm_f32(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
                     bias: Optional[torch.Tensor] = None,
                     res: Optional[torch.Tensor] = None,
                     gelu: bool = False) -> torch.Tensor:
-    """out (M, N) = [res +] act(a (M, K) . w [+ bias]) in fp32 on the
-    current stream; ``w`` is (K, N) or a per-head (H, K, Dh) stack."""
+    """out (M, N) = [res +] act(a (M, K) . w [+ bias]) with fp32 sums on
+    the current stream; ``w`` is (K, N) or a per-head (H, K, Dh) stack.
+    ``a`` is float32; ``w`` and ``bias`` float32 or bf16 (one dtype),
+    ``res`` and ``out`` float32 or bf16 each."""
     k, n, ldb, grp, grp_stride = b_layout(w)
     m = a.shape[0]
     check(a, "a", torch.float32, (m, k))
-    check(w, "w", torch.float32)
-    check(out, "out", torch.float32, (m, n))
+    wt = dtype_code("w", w)
+    check(w, "w", w.dtype)
+    ot = dtype_code("out", out)
+    check(out, "out", out.dtype, (m, n))
     if bias is not None:
-        check(bias, "bias", torch.float32, (n,))
+        check(bias, "bias", w.dtype, (n,))
+    rt = 0
     if res is not None:
-        check(res, "res", torch.float32, (m, n))
+        rt = dtype_code("res", res)
+        check(res, "res", res.dtype, (m, n))
     build.call("gemm_f32", "rt_gemm_f32", ptr(a), k, ptr(w), ldb, grp,
                grp_stride, ptr(out), n, m, n, k, ptr(bias), ptr(res), n,
-               int(gelu), _stream())
+               int(gelu), wt, rt, ot, _stream())
     return out
 
 
@@ -88,17 +106,21 @@ def _attend(q, k, v, out, b, n, h, dh, bias, mask, out_scale=None):
 
 def vita_layer(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
                w_down, b_down, bias=None, mask=None) -> torch.Tensor:
-    """One float encoder layer on the card: x (B, N, D) -> (B, N, D).
+    """One float encoder layer on the card: x (B, N, D) -> (B, N, D) in
+    x's dtype.
 
     wq/wk/wv (H, D, Dh); w_msa (D, D) with head-major rows; w_up (D, M);
-    w_down (M, D); LN vectors and b_down (D,); b_up (M,)."""
+    w_down (M, D); LN vectors and b_down (D,); b_up (M,); all of one
+    dtype, which with x's is a mode of `ref.PORTED_MODES`."""
     b, n, d = x.shape
     h, _, dh = wq.shape
     m = w_up.shape[1]
-    check(x, "x", torch.float32)
-    check(w_msa, "w_msa", torch.float32, (h * dh, d))
-    check(w_up, "w_up", torch.float32, (d, m))
-    check(w_down, "w_down", torch.float32, (m, d))
+    wt = check_mode("vita_layer", x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w,
+                    ln2_b, w_up, b_up, w_down, b_down)
+    check(x, "x", x.dtype)
+    check(w_msa, "w_msa", wt, (h * dh, d))
+    check(w_up, "w_up", wt, (d, m))
+    check(w_down, "w_down", wt, (m, d))
     rows = b * n
     x2 = x.reshape(rows, d)
 
@@ -108,13 +130,14 @@ def vita_layer(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
     z = launch_layer_norm(x2, ln1_w, ln1_b, empty(d))
     qkv = []
     for w in (wq, wk, wv):
-        check(w, "wq/wk/wv", torch.float32, (h, d, dh))
+        check(w, "wq/wk/wv", wt, (h, d, dh))
         qkv.append(launch_gemm_f32(z, w, empty(h * dh)))
     sa = _attend(*qkv, empty(h * dh), b, n, h, dh, bias, mask)
     h1 = launch_gemm_f32(sa, w_msa, empty(d), res=x2)
     z2 = launch_layer_norm(h1, ln2_w, ln2_b, empty(d))
     hid = launch_gemm_f32(z2, w_up, empty(m), bias=b_up, gelu=True)
-    y = launch_gemm_f32(hid, w_down, empty(d), bias=b_down, res=h1)
+    y = launch_gemm_f32(hid, w_down, torch.empty_like(x2), bias=b_down,
+                        res=h1)
     return y.reshape(b, n, d)
 
 
@@ -126,11 +149,14 @@ def vita_layer_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q, act_scales,
 
     w*_q int8; ``act_scales`` (4,) = frozen [qkv_in, w_msa, w_up, w_down]
     activation scales; w*_scale per-(head, channel) (H, Dh) for QKV and
-    per-output-channel (D,)/(M,)/(D,) for the plain matmuls."""
+    per-output-channel (D,)/(M,)/(D,) for the plain matmuls; LN vectors
+    and biases float32 or bf16 (read into fp32 in the kernels)."""
     b, n, d = x.shape
     h, _, dh = wq_q.shape
     m = wup_q.shape[1]
     check(x, "x", torch.float32)
+    check_mode("vita_layer_int8", x, ln1_w, ln1_b, ln2_w, ln2_b, b_up,
+               b_down)
     check(act_scales, "act_scales", torch.float32, (4,))
     check(wmsa_q, "wmsa_q", torch.int8, (h * dh, d))
     check(wup_q, "wup_q", torch.int8, (d, m))

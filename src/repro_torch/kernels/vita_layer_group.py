@@ -7,18 +7,25 @@ with the activation resident in VMEM across all L layers.  Here each group
 call is ONE cooperative launch of ``csrc/vita_layer_group.cu``: a
 persistent grid walks seven stages per layer (LN1, Q/K/V, attention,
 concat + residual, LN2, up + GELU, down + residual) with a grid-wide
-barrier between stages, reusing the per-layer chain's own tile code, so a
-group equals L calls of `vita_layer.vita_layer` / `vita_layer_int8`.  The
-source note says what bounds it and how its design differs from the TPU's.
+barrier between stages, reusing the per-layer chain's own tile code.  The
+activation is carried between layers in a float32 buffer and rounded to
+x's dtype once, at the end, as the TPU kernel carries it in fp32 scratch:
+with float32 x a group equals L calls of `vita_layer.vita_layer` /
+`vita_layer_int8`; with bf16 x it is not (each call rounds its output).
+The source note says what bounds it and how its design differs from the
+TPU's.
 
 Operands carry the layer as their leading axis: wq/wk/wv (L, H, D, Dh);
 w_msa (L, H*Dh, D); w_up (L, D, M); w_down (L, M, D); LN vectors and
 b_down (L, D); b_up (L, M).  Windowed (Swin) groups take ``bias``
 (L, H, n, n) and one shared ``mask`` (nW, n, n): members share window and
-shift.  The wrapper allocates the workspace (z, q, k, v, sa, h1, hid and
-the barrier counter) as one buffer.  These functions take CUDA tensors
-only; the plain versions are `ref.vita_layer_group_ref` /
-`vita_layer_group_int8_ref`, chosen by `ops`.
+shift.  The float group takes x and the stacks in a mode of
+`ref.PORTED_MODES`; the int8 group float32 x with float32 or bf16 LN
+vectors and biases.  The wrapper allocates the workspace (z, q, k, v, sa,
+h1, hid, the float32 carry and the barrier counter) as one buffer.  These
+functions take CUDA tensors only; the plain versions are
+`ref.vita_layer_group_ref` / `vita_layer_group_int8_ref`, chosen by
+`ops`.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from typing import Optional
 import torch
 
 from . import build
-from .int8_matmul import _stream, check, ptr
+from .int8_matmul import DTYPE_CODES, _stream, check, ptr
+from .ref import check_mode
 from .vita_msa import SMEM_LIMIT
 
 _ALIGN = 256
@@ -44,12 +52,13 @@ def group_smem_bytes(n: int, dh: int) -> int:
 
 def _workspace(device, rows: int, d: int, hd: int, m: int, int8: bool):
     """One buffer carved into the barrier counter and z, q, k, v, sa, h1,
-    hid (z, sa and hid int8 in the int8 kernel)."""
+    hid and the carry (z, sa and hid int8 in the int8 kernel)."""
     act, asz = (torch.int8, 1) if int8 else (torch.float32, 4)
     parts = [((1,), torch.int32, 4), ((rows, d), act, asz),
              ((rows, hd), torch.float32, 4), ((rows, hd), torch.float32, 4),
              ((rows, hd), torch.float32, 4), ((rows, hd), act, asz),
-             ((rows, d), torch.float32, 4), ((rows, m), act, asz)]
+             ((rows, d), torch.float32, 4), ((rows, m), act, asz),
+             ((rows, d), torch.float32, 4)]
     nbytes = [size * shape[0] * (shape[1] if len(shape) > 1 else 1)
               for shape, _, size in parts]
     padded = [-(-nb // _ALIGN) * _ALIGN for nb in nbytes]
@@ -62,10 +71,11 @@ def _workspace(device, rows: int, d: int, hd: int, m: int, int8: bool):
 
 
 def _check_common(x, wq, w_msa, w_up, w_down, vecs_d, b_up, bias, mask,
-                  wdtype):
+                  wdtype, vdtype):
     """Shapes (b, n, d, L, h, dh, m, nW) of a group call, after checking
-    every operand; raises on what the kernel does not take."""
-    check(x, "x", torch.float32)
+    every operand (weights of ``wdtype``, LN vectors and biases of
+    ``vdtype``); raises on what the kernel does not take."""
+    check(x, "x", x.dtype)
     b, n, d = x.shape
     n_l, h, _, dh = wq.shape
     m = w_up.shape[2]
@@ -73,8 +83,8 @@ def _check_common(x, wq, w_msa, w_up, w_down, vecs_d, b_up, bias, mask,
     check(w_up, "w_up", wdtype, (n_l, d, m))
     check(w_down, "w_down", wdtype, (n_l, m, d))
     for t, nm in vecs_d:
-        check(t, nm, torch.float32, (n_l, d))
-    check(b_up, "b_up", torch.float32, (n_l, m))
+        check(t, nm, vdtype, (n_l, d))
+    check(b_up, "b_up", vdtype, (n_l, m))
     if (bias is None) != (mask is None):
         raise ValueError("windowed mode needs both bias and mask (pass a "
                          "zero mask for unshifted blocks)")
@@ -96,15 +106,17 @@ def vita_layer_group(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
                      w_up, b_up, w_down, b_down,
                      bias: Optional[torch.Tensor] = None,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """L float encoder layers on the card in one launch: x (B, N, D)
-    float32 -> (B, N, D) float32."""
+    """L float encoder layers on the card in one launch: x (B, N, D) ->
+    (B, N, D) in x's dtype, the stacks in one dtype that with x's is a
+    mode of `ref.PORTED_MODES`."""
+    wt = check_mode("vita_layer_group", x, wq, wk, wv, w_msa, ln1_w, ln1_b,
+                    ln2_w, ln2_b, w_up, b_up, w_down, b_down)
     b, n, d, n_l, h, dh, m, n_w = _check_common(
         x, wq, w_msa, w_up, w_down,
         ((ln1_w, "ln1_w"), (ln1_b, "ln1_b"), (ln2_w, "ln2_w"),
-         (ln2_b, "ln2_b"), (b_down, "b_down")), b_up, bias, mask,
-        torch.float32)
+         (ln2_b, "ln2_b"), (b_down, "b_down")), b_up, bias, mask, wt, wt)
     for w, nm in ((wq, "wq"), (wk, "wk"), (wv, "wv")):
-        check(w, nm, torch.float32, (n_l, h, d, dh))
+        check(w, nm, wt, (n_l, h, d, dh))
     out = torch.empty_like(x)
     ws = _workspace(x.device, b * n, d, h * dh, m, int8=False)
     build.call("vita_layer_group", "rt_vita_layer_group", ptr(x), ptr(wq),
@@ -112,7 +124,8 @@ def vita_layer_group(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
                ptr(ln2_w), ptr(ln2_b), ptr(w_up), ptr(b_up), ptr(w_down),
                ptr(b_down), ptr(bias), ptr(mask), ptr(out),
                *(ptr(t) for t in ws[1:]), ptr(ws[0]), b, n, d, h, dh, m, n_l,
-               n_w, dh ** -0.5, LN_EPS, _stream())
+               n_w, dh ** -0.5, LN_EPS, DTYPE_CODES[x.dtype],
+               DTYPE_CODES[wt], _stream())
     return out
 
 
@@ -126,12 +139,16 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
     """L int8 encoder layers on the card in one launch: x (B, N, D)
     float32 -> float32.  ``act_scales`` (L, 4) holds each member's frozen
     [qkv_in, w_msa, w_up, w_down] scales; weight scales are (L, H, Dh) for
-    Q/K/V and per output channel (L, D) / (L, M) / (L, D)."""
+    Q/K/V and per output channel (L, D) / (L, M) / (L, D); LN vectors and
+    biases float32 or bf16."""
+    check(x, "x", torch.float32)
+    vt = check_mode("vita_layer_group_int8", x, ln1_w, ln1_b, ln2_w, ln2_b,
+                    b_up, b_down)
     b, n, d, n_l, h, dh, m, n_w = _check_common(
         x, wq_q, wmsa_q, wup_q, wdown_q,
         ((ln1_w, "ln1_w"), (ln1_b, "ln1_b"), (ln2_w, "ln2_w"),
          (ln2_b, "ln2_b"), (b_down, "b_down")), b_up, bias, mask,
-        torch.int8)
+        torch.int8, vt)
     check(act_scales, "act_scales", torch.float32, (n_l, 4))
     for w, nm in ((wq_q, "wq_q"), (wk_q, "wk_q"), (wv_q, "wv_q")):
         check(w, nm, torch.int8, (n_l, h, d, dh))
@@ -155,5 +172,5 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
                ptr(ln1_w), ptr(ln1_b), ptr(ln2_w), ptr(ln2_b), ptr(b_up),
                ptr(b_down), ptr(bias), ptr(mask), ptr(out),
                *(ptr(t) for t in ws[1:]), ptr(ws[0]), b, n, d, h, dh, m, n_l,
-               n_w, dh ** -0.5, LN_EPS, _stream())
+               n_w, dh ** -0.5, LN_EPS, DTYPE_CODES[vt], _stream())
     return out

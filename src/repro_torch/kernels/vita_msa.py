@@ -5,7 +5,9 @@ Counterpart of `repro/kernels/vita_msa.py`.
   * `vita_msa_batched` / `vita_msa` replace the float (B, H)-grid Pallas
     kernel: one launch of ``csrc/vita_msa.cu`` projects Q, K and V and
     attends with all three kept in shared memory, so SA is the only tensor
-    it writes.
+    it writes.  z and the weights are float32 or bf16 (`ref.PORTED_MODES`);
+    with bf16 z it rounds P and V to bf16 before the AV product, as the TPU
+    kernel does, and writes SA in z's dtype.
   * `vita_msa_int8` replaces the int8 kernel of the calibration pass and
     the unfused int8 executor: three int8 GEMMs (``csrc/gemm_i8.cu``)
     project Q, K and V with the per-(head, channel) requant (and the
@@ -26,8 +28,8 @@ from typing import Optional
 import torch
 
 from . import build
-from .int8_matmul import _stream, check, launch_gemm_i8, ptr
-from .ref import fp32_only
+from .int8_matmul import DTYPE_CODES, _stream, check, launch_gemm_i8, ptr
+from .ref import check_mode
 
 # Shared memory one block may use on an H100 (bytes), and the static
 # staging buffers of csrc/vita_msa.cu that come out of it.
@@ -35,10 +37,12 @@ SMEM_LIMIT = 232448
 _MSA_STATIC_SMEM = 2 * 16 * 64 * 4
 
 
-def msa_smem_bytes(n: int, dh: int) -> int:
-    """Dynamic shared memory of one csrc/vita_msa.cu block: K [N][Dh+1],
-    V [N][Dh], a 32-row Q tile and 8 score rows of N."""
-    return 4 * (n * (2 * dh + 1) + 32 * dh + 8 * n)
+def msa_smem_bytes(n: int, dh: int, z_size: int = 4) -> int:
+    """Dynamic shared memory of one csrc/vita_msa.cu block (its
+    `msa_smem_bytes`): K [N][Dh+1], a 32-row Q tile and 8 score rows of N
+    in fp32, and V [N][Dh] in z's type (``z_size`` bytes: bf16 halves
+    it)."""
+    return 4 * (n * (dh + 1) + 32 * dh + 8 * n) + z_size * n * dh
 
 
 def window_operands(bias, mask, *, b: int, h: int, n: int):
@@ -86,25 +90,29 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def vita_msa_batched(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                      wv: torch.Tensor, bias=None, mask=None,
                      qkv_bias=None) -> torch.Tensor:
-    """z (B, N, D) float32; wq/wk/wv (H, D, Dh) float32 -> (B, H, N, Dh)
-    float32, on the card.  Windowed mode takes ``bias`` (H, N, N) and
-    ``mask`` (nW, N, N); ``qkv_bias`` (3, H, Dh) is optional."""
-    fp32_only("vita_msa_batched", z, wq, wk, wv)
+    """z (B, N, D); wq/wk/wv (H, D, Dh) -> (B, H, N, Dh) in z's dtype, on
+    the card; (z, weights) float32 / float32, float32 / bf16 or bf16 /
+    bf16.  Windowed mode takes ``bias`` (H, N, N) and ``mask`` (nW, N, N)
+    in float32; ``qkv_bias`` (3, H, Dh), in the weights' dtype, is
+    optional."""
     b, n, d = z.shape
     h, _, dh = wq.shape
-    check(z, "z", torch.float32)
+    wt = check_mode("vita_msa_batched", z, wq, wk, wv, qkv_bias)
+    check(z, "z", z.dtype)
     for w, nm in ((wq, "wq"), (wk, "wk"), (wv, "wv")):
-        check(w, nm, torch.float32, (h, d, dh))
+        check(w, nm, wt, (h, d, dh))
     if qkv_bias is not None:
-        check(qkv_bias, "qkv_bias", torch.float32, (3, h, dh))
+        check(qkv_bias, "qkv_bias", wt, (3, h, dh))
     bias, mask, n_w = window_operands(bias, mask, b=b, h=h, n=n)
-    if msa_smem_bytes(n, dh) + _MSA_STATIC_SMEM > SMEM_LIMIT:
+    if msa_smem_bytes(n, dh, z.element_size()) + _MSA_STATIC_SMEM \
+            > SMEM_LIMIT:
         raise ValueError(f"vita_msa_batched: N={n}, Dh={dh} needs more "
                          f"shared memory than one block has")
-    out = torch.empty((b, h, n, dh), device=z.device, dtype=torch.float32)
+    out = torch.empty((b, h, n, dh), device=z.device, dtype=z.dtype)
     build.call("vita_msa", "rt_vita_msa", ptr(z), ptr(wq), ptr(wk), ptr(wv),
                ptr(qkv_bias), ptr(bias), ptr(mask), n_w, ptr(out), b, n, d,
-               h, dh, dh ** -0.5, _stream())
+               h, dh, dh ** -0.5, DTYPE_CODES[z.dtype], DTYPE_CODES[wt],
+               _stream())
     return out
 
 
@@ -121,13 +129,13 @@ def vita_msa_int8(z_q: torch.Tensor, wq_q: torch.Tensor, wk_q: torch.Tensor,
                   qkv_bias=None) -> torch.Tensor:
     """z_q (B, N, D) int8; w*_q (H, D, Dh) int8; x_scale scalar float32;
     w*_scale (H, Dh) float32 -> (B, H, N, Dh) float32, on the card.  The
-    float ``qkv_bias`` (3, H, Dh) joins in the GEMM epilogue, after the
-    requant; ``bias``/``mask`` select the windowed mode."""
+    float32 or bf16 ``qkv_bias`` (3, H, Dh) joins in the GEMM epilogue,
+    after the requant; ``bias``/``mask`` select the windowed mode."""
     b, n, d = z_q.shape
     h, _, dh = wq_q.shape
     check(z_q, "z_q", torch.int8)
     if qkv_bias is not None:
-        check(qkv_bias, "qkv_bias", torch.float32, (3, h, dh))
+        check(qkv_bias, "qkv_bias", qkv_bias.dtype, (3, h, dh))
     xs = x_scale.reshape(1)
     z2 = z_q.reshape(b * n, d)
     proj = []

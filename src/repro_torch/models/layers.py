@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 
 Params = Dict[str, Any]
 
@@ -44,6 +44,16 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
                         device=gen.device) * 0.02).to(dtype)
 
 
+def cast_params(tree: Any, dtype: torch.dtype) -> Any:
+    """A param tree (dicts, lists, tensors) with every tensor cast to
+    ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_params(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_params(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
 def to_device(tree: Any, device) -> Any:
     """Move a param tree (dicts, lists, tensors, `QTensor`s) to ``device``."""
     if isinstance(tree, dict):
@@ -66,12 +76,6 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     return ((xf * torch.rsqrt(var + eps)) * (1.0 + w.float())).to(x.dtype)
 
 
-def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """float32 LayerNorm (`ref.layer_norm_ref`); returns x's dtype."""
-    return ref.layer_norm_ref(x, w, b, eps).to(x.dtype)
-
-
 def norm_init(d: int, kind: str, dtype: torch.dtype, device=None) -> Params:
     if kind == "rms":
         return {"w": torch.zeros((d,), dtype=dtype, device=device)}
@@ -83,7 +87,7 @@ def apply_norm(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
     if kind == "rms":
         return rms_norm(x, p["w"])
     if kind == "ln":
-        return layer_norm(x, p["w"], p["b"])
+        return ops.layer_norm(x, p["w"], p["b"])
     raise NotImplementedError(
         f"norm {kind!r} is not ported (rms_mp is the training side's)")
 

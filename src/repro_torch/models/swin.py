@@ -27,7 +27,7 @@ from repro_torch.core.perfmodel import StageSpec, VisionModelSpec
 from repro_torch.core.quant import prune_block_heads
 from repro_torch.kernels.ref import gelu, layer_norm_ref
 from repro_torch.models.config import normalize_head_mask
-from repro_torch.models.layers import dense_init, to_device
+from repro_torch.models.layers import cast_params, dense_init, to_device
 
 Params = Dict[str, Any]
 
@@ -43,6 +43,8 @@ class SwinConfig:
     window: int = 7
     mlp_ratio: float = 4.0
     n_classes: int = 1000
+    dtype: str = "float32"         # every weight's dtype ("bfloat16": the
+                                   # kernels' bf16 modes)
     fused: bool = True             # fuse msa+mlp pairs into layer phases
     fuse_group: int = 1            # >1: group runs of fused layers into
                                    # layer_group phases
@@ -91,11 +93,13 @@ def swin_edge(image: int = 56, **kw) -> SwinConfig:
 
 
 def init_params(cfg: SwinConfig, seed: int = 0, device="cpu") -> Params:
-    """Random float32 params from ``seed`` (a `torch.Generator` on the CPU,
-    so every device gets the same weights), placed on ``device``.  Same
-    layout and distributions as the JAX init; the numbers differ (tests
-    carry JAX's weights across with `convert.params_from_numpy`).  A
-    ``head_mask`` prunes each stage's blocks after the dense draw, as in
+    """Random params from ``seed`` (a `torch.Generator` on the CPU, so
+    every device gets the same weights), drawn in float32, cast to
+    ``cfg.dtype`` (every leaf: the relative-position tables, the merge and
+    embed LayerNorms too) and placed on ``device``.  Same layout and
+    distributions as the JAX init; the numbers differ (tests carry JAX's
+    weights across with `convert.params_from_numpy`).  A ``head_mask``
+    prunes each stage's blocks after the dense draw, as in
     `models.vit.init_params`."""
     gen = torch.Generator().manual_seed(int(seed))
 
@@ -126,10 +130,6 @@ def init_params(cfg: SwinConfig, seed: int = 0, device="cpu") -> Params:
                 "w_down": dense_init(gen, hid, dim),
                 "b_down": torch.zeros(dim),
             })
-        mask = cfg.stage_mask(s_i)
-        if mask:
-            blocks = [prune_block_heads(bp, row)
-                      for bp, row in zip(blocks, mask)]
         stage: Params = {"blocks": blocks}
         if s_i < len(cfg.depths) - 1:
             stage["merge_ln_w"] = torch.ones(4 * dim)
@@ -141,6 +141,12 @@ def init_params(cfg: SwinConfig, seed: int = 0, device="cpu") -> Params:
     params["ln_f_w"] = torch.ones(dim)
     params["ln_f_b"] = torch.zeros(dim)
     params["head"] = dense_init(gen, dim, cfg.n_classes)
+    params = cast_params(params, getattr(torch, cfg.dtype))
+    for s_i, stage in enumerate(params["stages"]):
+        mask = cfg.stage_mask(s_i)
+        if mask:
+            stage["blocks"] = [prune_block_heads(bp, row)
+                               for bp, row in zip(stage["blocks"], mask)]
     return to_device(params, device)
 
 

@@ -21,7 +21,7 @@ from repro_torch.core import schedule as sched_lib
 from repro_torch.core.perfmodel import StageSpec, VisionModelSpec
 from repro_torch.core.quant import prune_block_heads
 from repro_torch.models.config import normalize_head_mask
-from repro_torch.models.layers import dense_init, to_device
+from repro_torch.models.layers import cast_params, dense_init, to_device
 
 Params = Dict[str, Any]
 
@@ -36,6 +36,8 @@ class ViTConfig:
     layers: int = 12
     mlp_ratio: float = 4.0
     n_classes: int = 1000
+    dtype: str = "float32"         # every weight's dtype ("bfloat16": the
+                                   # kernels' bf16 modes)
     fused: bool = True             # fuse msa+mlp pairs into layer phases
     fuse_group: int = 1            # >1: group runs of fused layers into
                                    # layer_group phases
@@ -67,23 +69,24 @@ class ViTConfig:
         return self.patch * self.patch * 3
 
 
-def vit_b16(image: int = 256) -> ViTConfig:
-    return ViTConfig(name=f"vit_b16_{image}", image=image)
+def vit_b16(image: int = 256, **kw) -> ViTConfig:
+    return ViTConfig(name=f"vit_b16_{image}", image=image, **kw)
 
 
-def deit_t() -> ViTConfig:
-    return ViTConfig(name="deit_t_224", image=224, dim=192, heads=3)
+def deit_t(**kw) -> ViTConfig:
+    return ViTConfig(name="deit_t_224", image=224, dim=192, heads=3, **kw)
 
 
 def init_params(cfg: ViTConfig, seed: int = 0,
                 device="cpu") -> Params:
-    """Random float32 params from ``seed`` (a `torch.Generator` on the CPU,
-    so every device gets the same weights), placed on ``device``.  Same
-    layout and distributions as the JAX init; the numbers differ (tests
-    carry JAX's weights across with `convert.params_from_numpy`).  A
-    ``head_mask`` draws the dense weights first (the same stream as the
-    unmasked config) and then prunes each layer, so surviving heads equal
-    the dense model's."""
+    """Random params from ``seed`` (a `torch.Generator` on the CPU, so
+    every device gets the same weights), drawn in float32, cast to
+    ``cfg.dtype`` and placed on ``device``.  Same layout and distributions
+    as the JAX init; the numbers differ (tests carry JAX's weights across
+    with `convert.params_from_numpy`).  A ``head_mask`` draws the dense
+    weights first (the same stream as the unmasked config) and then prunes
+    each layer, in ``cfg.dtype`` as the JAX init does, so surviving heads
+    equal the dense model's."""
     gen = torch.Generator().manual_seed(int(seed))
     d, dh, m = cfg.dim, cfg.head_dim, cfg.mlp_hidden
 
@@ -104,13 +107,15 @@ def init_params(cfg: ViTConfig, seed: int = 0,
             "w_up": dense_init(gen, d, m), "b_up": torch.zeros(m),
             "w_down": dense_init(gen, m, d), "b_down": torch.zeros(d),
         })
-    if cfg.head_mask:
-        layers = [prune_block_heads(lp, row)
-                  for lp, row in zip(layers, cfg.head_mask)]
     params["layers"] = layers
     params["ln_f_w"] = torch.ones(d)
     params["ln_f_b"] = torch.zeros(d)
     params["head"] = dense_init(gen, d, cfg.n_classes)
+    params = cast_params(params, getattr(torch, cfg.dtype))
+    if cfg.head_mask:
+        params["layers"] = [prune_block_heads(lp, row)
+                            for lp, row in zip(params["layers"],
+                                               cfg.head_mask)]
     return to_device(params, device)
 
 

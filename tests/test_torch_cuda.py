@@ -307,6 +307,182 @@ def test_grouped_and_pruned_servers_on_the_card_match_the_cpu(card, name,
     assert np.abs(g - w).max() <= tol
 
 
+# The bf16 vision modes of kernels 1, 5, 6 and 7 (`ref.PORTED_MODES`):
+# "mixed" is float32 activations with bf16 weights (fp32 math on exactly
+# upcast weights: the fp32 limit), "bf16" bf16 throughout (kernels and
+# plain versions round at the same points, P and V or the hidden chunk
+# and the output, but fp32 reassociation can move a value across a
+# rounding boundary: 1e-2 of each output row's own scale, a few bf16
+# ulps).
+_BF16_MODES = {"mixed": torch.float32, "bf16": torch.bfloat16}
+_BF16_TOL = {"mixed": 1e-5, "bf16": 1e-2}
+
+
+def _held(got, want, mode):
+    """max|err| per output row (last axis) over max(that row's scale,
+    1e-2 x the largest) within the mode's limit; dtypes and shapes
+    equal."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs().reshape(-1, got.shape[-1])
+    rows = want.float().abs().reshape(-1, got.shape[-1]).amax(1)
+    ratio = diff.amax(1) / torch.clamp(rows, min=1e-2 * float(rows.max()))
+    assert float(ratio.max()) <= _BF16_TOL[mode], float(ratio.max())
+
+
+def _bf16_blocks(card, layers=1, seed=2):
+    """vit_edge blocks with bf16 weights and non-zero LN vectors and
+    biases."""
+    cfg = dataclasses.replace(vision_registry.build_cfg("vit_edge"),
+                              layers=layers, dtype="bfloat16")
+    g = torch.Generator(device=card).manual_seed(seed)
+    blocks = []
+    for bp in vit.init_params(cfg, seed=seed, device=card)["layers"]:
+        bp = dict(bp)
+        for k in ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "b_up", "b_down"):
+            bp[k] = (bp[k].float() + 0.1 * torch.randn(
+                bp[k].shape, generator=g, device=card)).bfloat16()
+        blocks.append(bp)
+    return cfg, blocks
+
+
+@pytest.mark.parametrize("mode", sorted(_BF16_MODES))
+@pytest.mark.parametrize("windowed", [False, True])
+def test_vita_layer_and_msa_bf16_modes(card, mode, windowed):
+    """Kernels 1 and 5 with bf16 weights on float32 (mixed) or bf16
+    activations, global and windowed, against their plain versions."""
+    cfg, (bp,) = _bf16_blocks(card)
+    h, dh = cfg.heads, cfg.head_dim
+    x = torch.randn((2, 17, cfg.dim), device=card)
+    bias = mask = None
+    if windowed:
+        x, bias, mask = _windows(card, h, cfg.dim)
+    x = x.to(_BF16_MODES[mode])
+    f_args = (x, *[bp[k] for k in _ORDER], bias, mask)
+    _held(k_vita_layer.vita_layer(*f_args), ref.vita_layer_ref(*f_args), mode)
+    w = (bp["wq"], bp["wk"], bp["wv"])
+    qb = (0.2 * torch.randn((3, h, dh), device=card)).bfloat16()
+    for q in (None, qb):
+        _held(k_vita_msa.vita_msa_batched(x, *w, bias, mask, q),
+              ref.vita_msa_batched_ref(x, *w, bias, mask, q), mode)
+
+
+@pytest.mark.parametrize("mode", sorted(_BF16_MODES))
+def test_fused_mlp_bf16_weights(card, mode):
+    """Kernel 6 with bf16 weights and biases on float32 (mixed) or bf16
+    x, ragged and wider than one block's 256 columns."""
+    dt = _BF16_MODES[mode]
+    for rows, d, m, d_out in ((37, 96, 384, 96), (2 * 17, 40, 72, 300)):
+        x = torch.randn((rows, d), device=card).to(dt)
+        w1 = (torch.randn((d, m), device=card) * d ** -0.5).bfloat16()
+        w2 = (torch.randn((m, d_out), device=card) * m ** -0.5).bfloat16()
+        b1 = torch.randn(m, device=card).bfloat16()
+        b2 = torch.randn(d_out, device=card).bfloat16()
+        for bb in ((b1, b2), (None, None)):
+            _held(k_fused_mlp.fused_mlp(x, w1, w2, *bb),
+                  ref.fused_mlp_ref(x, w1, bb[0], w2, bb[1]), mode)
+
+
+@pytest.mark.parametrize("mode", sorted(_BF16_MODES))
+@pytest.mark.parametrize("windowed", [False, True])
+def test_layer_group_bf16_modes(card, mode, windowed):
+    """Kernel 7 with bf16 stacks against its plain version (fp32 carry,
+    one rounding at the end); in mixed mode also equal to three calls of
+    the per-layer chain, as in fp32."""
+    cfg, blocks = _bf16_blocks(card, layers=3)
+    x = torch.randn((2, 17, cfg.dim), device=card)
+    bias = mask = None
+    if windowed:
+        x, _, mask = _windows(card, cfg.heads, cfg.dim)
+        bias = 0.5 * torch.randn((3, cfg.heads, 16, 16), device=card)
+    x = x.to(_BF16_MODES[mode])
+    sp = [torch.stack([bp[k] for bp in blocks]) for k in _ORDER]
+    got = k_vita_layer_group.vita_layer_group(x, *sp, bias, mask)
+    _held(got, ref.vita_layer_group_ref(x, *sp, bias, mask), mode)
+    if mode == "mixed":
+        y = x
+        for l, bp in enumerate(blocks):
+            y = k_vita_layer.vita_layer(y, *[bp[k] for k in _ORDER],
+                                        None if bias is None else bias[l],
+                                        mask)
+        assert float((got - y).abs().max()) <= 1e-6 * float(y.abs().max())
+
+
+def test_int8_kernels_read_bf16_vectors(card):
+    """Kernels 2, 3 and 8 with a bf16 model's LN vectors and biases give
+    exactly what they give with the same vectors upcast to float32 (the
+    TPU kernels' in-kernel astype)."""
+    cfg, blocks = _bf16_blocks(card, layers=2)
+    h, dh = cfg.heads, cfg.head_dim
+    qs = [quantize_vision_params(bp) for bp in blocks]
+    x = torch.randn((2, 17, cfg.dim), device=card)
+    acts = torch.tensor([[4.0, 2.0, 4.0, 3.0]] * 2, device=card) / 127.0
+    vec_keys = ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "b_up", "b_down")
+
+    def group_args(vdtype):
+        return [x] + [torch.stack([q[k].values for q in qs]) for k in
+                      ("wq", "wk", "wv", "w_msa", "w_up", "w_down")] \
+            + [acts] + [torch.stack([q[k].scale.reshape(h, dh) for q in qs])
+                        for k in ("wq", "wk", "wv")] \
+            + [torch.stack([q[k].scale.reshape(-1) for q in qs])
+               for k in ("w_msa", "w_up", "w_down")] \
+            + [torch.stack([bp[k] for bp in blocks]).to(vdtype)
+               for k in vec_keys]
+
+    bf, f32 = group_args(torch.bfloat16), group_args(torch.float32)
+    assert torch.equal(k_vita_layer_group.vita_layer_group_int8(*bf),
+                       k_vita_layer_group.vita_layer_group_int8(*f32))
+    layer_bf = [a[0] for a in bf[1:]]
+    layer_f32 = [a[0] for a in f32[1:]]
+    assert torch.equal(k_vita_layer.vita_layer_int8(x, *layer_bf),
+                       k_vita_layer.vita_layer_int8(x, *layer_f32))
+    zq = torch.clamp(torch.round(x / 0.03), -127, 127).to(torch.int8)
+    qb = (0.2 * torch.randn((3, h, dh), device=card)).bfloat16()
+    m_args = (zq, *layer_bf[:3], torch.tensor(0.03, device=card),
+              *layer_bf[7:10])
+    assert torch.equal(k_vita_msa.vita_msa_int8(*m_args, qkv_bias=qb),
+                       k_vita_msa.vita_msa_int8(*m_args, qkv_bias=qb.float()))
+
+
+@pytest.mark.parametrize("name,mode,fused,group", [
+    ("vit_edge", "float", True, 1), ("vit_edge", "int8", True, 1),
+    ("vit_edge", "float", False, 1), ("vit_edge", "float", True, 2),
+    ("swin_t", "float", True, 2), ("swin_t", "int8", False, 1)])
+def test_bf16_model_served_on_the_card_matches_the_cpu(card, name, mode,
+                                                       fused, group):
+    """A bf16 model brought to `VisionServer` (float32 images: mixed
+    mode) on the card against the same server on the CPU."""
+    cfg = dataclasses.replace(vision_registry.build_cfg(name),
+                              dtype="bfloat16", fused=fused, fuse_group=group)
+    params = vision_registry.init_params(cfg, 0, "cpu")
+    side = cfg.image
+    images = np.random.default_rng(0).standard_normal(
+        (5, side, side, 3)).astype(np.float32)
+    qparams = cal = None
+    if mode == "int8":
+        qparams = vision_registry.quantize(params)
+        cal = vision_serve.calibrate(qparams, cfg, images[:4],
+                                     device="cpu", n_batches=2)
+    logits = []
+    for device in (card, "cpu"):
+        server = vision_serve.VisionServer(
+            cfg, params, serve_cfg=vision_serve.ServeConfig(
+                mode=mode, buckets=(1, 4), device=str(device)),
+            qparams=qparams, calibrator=cal)
+        reqs = server.submit_many(images)
+        ops.reset_launches()
+        server.run()
+        if device == card:
+            # every launch with a dtype mode ran the bf16-weight one
+            assert sum(ops.LAUNCHES.values()) > 0
+            assert all(k[2] == "bfloat16" for k in ops.MODE_LAUNCHES)
+            assert (sum(ops.MODE_LAUNCHES.values()) > 0) == (
+                fused or mode == "float")
+        logits.append(np.stack([r.logits for r in reqs]))
+    g, w = logits
+    tol = (1e-3 if mode == "float" else 2e-2) * np.abs(w).max()
+    assert np.abs(g - w).max() <= tol
+
+
 _LM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 

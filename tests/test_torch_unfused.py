@@ -141,9 +141,11 @@ def test_fused_mlp_matches_pallas(biases, rows):
 
 
 def test_unported_modes_raise():
-    """The bf16 MSA is still to port.  The MLP's other activations and its
-    gate are ported (their parity is `test_torch_lm_kernels.py`'s); an
-    activation the MLP does not know raises."""
+    """bf16 z with float32 weights is no ported dtype mode of the MSA and
+    raises (the ported bf16 modes are `test_torch_bf16.py`'s).  The MLP's
+    other activations and its gate are ported (their parity is
+    `test_torch_lm_kernels.py`'s); an activation the MLP does not know
+    raises."""
     rng = _rng(14)
     x, w1, w2 = (_t(_f32(rng, 4, 8)), _t(_f32(rng, 8, 16)),
                  _t(_f32(rng, 16, 8)))
