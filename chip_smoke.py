@@ -37,9 +37,11 @@ in fp32 and bf16 at RecurrentGemma-2B's and stablelm-3b's shapes (flash
 at 13 and 4,096 tokens with the 2048 window; decode over caches of 128
 and 2048 slots with ragged lengths, GQA 10:1 at Dh 256 and MHA at Dh 80;
 the scan at T 13 and 4,096, W 2560; the gated MLP at D 2560, M 7680 and
-6912, N 13 and 4, and at N 4 with its hidden split forced off; every
-activation at a small shape), each output row within a bound at its own
-scale; and, after phase 3:
+6912, N 13 and 4, and at N 4 with the plan asked for its fewest hidden
+splits; every activation at a small shape), each output row within a
+bound at its own scale, with each timed shape's launch plan printed
+(`[plan]`: the fused MLP's regime and hidden splits, decode attention's
+key splits); and, after phase 3:
   * RecurrentGemma-2B at full width and depth (26 layers, bf16, random
     weights from seed 0) served through `SlotServer` (6 requests, batch
     4, prompts of 4-16 tokens, 8 new tokens, cache 128): launch counts
@@ -56,7 +58,8 @@ scale; and, after phase 3:
     LayerNorm, gated SiLU), 4 requests, teacher-forced against the CPU
     the same way;
   * for both LM paths, decode tokens per second and prefill time per
-    request, with and without the MLP's hidden split, and the device's
+    request, with the MLP's planned hidden splits and with its fewest,
+    and the device's
     busy share of a drain under torch.profiler.
 
 The bf16 slice (every weight bf16, `dataclasses.replace(cfg,
@@ -738,6 +741,7 @@ def kernel_phase(deit, vitb, swin_cfg):
             f"fused_mlp {tag} {tuple(z.shape)} M={mlp[0].shape[1]}",
             fm.fused_mlp(z, mlp[0], mlp[2], mlp[1], mlp[3]),
             ref.fused_mlp_ref(z, *mlp))
+        mlp_plan(f"{tag} {tuple(z.shape)} fp32", z, mlp[0], mlp[2])
         rec("fused_mlp", tag, err,
             lambda z=z, p=mlp: fm.fused_mlp(z, p[0], p[2], p[1], p[3]),
             lambda z=z, p=mlp: ref.fused_mlp_ref(z, *p),
@@ -887,6 +891,8 @@ def bf16_kernel_phase(records: dict, deit, swin_cfg) -> None:
                                   fm.fused_mlp(z, mlp[0], mlp[2], mlp[1],
                                                mlp[3]),
                                   ref.fused_mlp_ref(z, *mlp), mode)
+            if tag == "deit_t":
+                mlp_plan(f"{label}, {mode}", z, mlp[0], mlp[2])
             rec(records, "fused_mlp", f"{label}, {mode}", err,
                 lambda z=z, p=mlp: fm.fused_mlp(z, p[0], p[2], p[1], p[3]),
                 lambda z=z, p=mlp: ref.fused_mlp_ref(z, *p), lib,
@@ -1279,19 +1285,35 @@ def flops_at(dtype, flops):
 
 
 def unsplit(fn):
-    """``fn`` run with the fused MLP's hidden split forced to 1 (the
-    kernel's plan without it): what the split buys at a decode step's few
-    rows is measured, not assumed."""
+    """``fn`` run with the fused MLP's plan asked for one hidden split: the
+    fewest the kernel takes (one block where it can hold every hidden
+    chunk, else one per 8 chunks: 15 blocks at M 7680 in the few-rows
+    regime), so what the split buys at a decode step's few rows is
+    measured, not assumed."""
     from repro_torch.kernels import fused_mlp as fm
 
     def run():
         planned = fm.hidden_splits
-        fm.hidden_splits = lambda *a: 1
+        fm.hidden_splits = lambda *a: planned(*a, requested=1)
         try:
             return fn()
         finally:
             fm.hidden_splits = planned
     return run
+
+
+def mlp_plan(tag: str, x, w1, w2) -> None:
+    """Print the fused MLP's launch plan for x against (w1, w2): the
+    regime (library) and the hidden splits, planned and fewest."""
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels.int8_matmul import DTYPE_CODES
+
+    d, (m, d_out) = x.shape[-1], w2.shape
+    rows, code = x.numel() // d, DTYPE_CODES[x.dtype]
+    print(f"[plan] fused_mlp {tag}: {rows} rows -> {fm._library(rows)} "
+          f"regime, {fm.hidden_splits(rows, d, m, d_out, code)} hidden "
+          f"splits (fewest "
+          f"{fm.hidden_splits(rows, d, m, d_out, code, requested=1)})")
 
 
 def visible_pairs(nq: int, nk: int, causal: bool, window, q_offset=0):
@@ -1362,6 +1384,11 @@ def lm_kernel_phase(records: dict) -> None:
                            ha.decode_attention(q, kc, vc, lengths),
                            ref.decode_attention_ref(q, kc, vc, lengths))
             valid = int(lengths.sum())
+            splits = ha.decode_splits(4, hkv, s_len)
+            print(f"[plan] decode_attention {tag} B 4, Hkv {hkv}, S {s_len}"
+                  f" {dname(dtype)}: {splits} key splits of "
+                  f"{-(-(-(-s_len // 32)) // splits) * 32} slots, "
+                  f"{4 * hkv * splits} blocks")
             mask = (torch.arange(s_len, device="cuda")[None]
                     < lengths[:, None])[:, None, None]
             add_record(
@@ -1395,8 +1422,9 @@ def lm_kernel_phase(records: dict) -> None:
 
     # Fused MLP, gated: RecurrentGemma (GELU, D 2560, M 7680) and
     # stablelm-3b (SiLU, M 6912), each at a 13-token prefill and a decode
-    # step of 4 (the hidden split); fp32 and bf16.  Timed in bf16 (the
-    # paths' dtype).
+    # step of 4 (the few-rows regime); fp32 and bf16.  Timed in bf16 (the
+    # paths' dtype) and, for RecurrentGemma's decode step, in fp32 (the
+    # ring path's dtype).
     for tag, act, m, n in (("recurrentgemma-2b gated gelu", "gelu", 7680, 13),
                            ("recurrentgemma-2b gated gelu", "gelu", 7680, 4),
                            ("stablelm-3b gated silu", "silu", 6912, 13),
@@ -1411,12 +1439,15 @@ def lm_kernel_phase(records: dict) -> None:
                            fm.fused_mlp(x, w1, w2, w_gate=wg, activation=act),
                            ref.fused_mlp_ref(x, w1, None, w2, None,
                                              activation=act, w_gate=wg))
-            if dtype != bf:
+            timed_f32 = n == 4 and act == "gelu"
+            if dtype != bf and not timed_f32:
                 continue
+            mlp_plan(f"{tag} N {n} {dname(dtype)}", x, w1, w2)
             lib_act = (lambda u: F.gelu(u, approximate="tanh")) \
                 if act == "gelu" else F.silu
             add_record(
-                records, "fused_mlp", f"{tag} N {n} D {d} M {m} bf16", err,
+                records, "fused_mlp",
+                f"{tag} N {n} D {d} M {m} {dname(dtype)}", err,
                 lambda a=(x, w1, w2, wg), act=act: fm.fused_mlp(
                     a[0], a[1], a[2], w_gate=a[3], activation=act),
                 lambda a=(x, w1, w2, wg), act=act: ref.fused_mlp_ref(
@@ -1424,24 +1455,26 @@ def lm_kernel_phase(records: dict) -> None:
                     w_gate=a[3]),
                 lambda a=(x, w1, w2, wg), f=lib_act:
                     (f(a[0] @ a[3]) * (a[0] @ a[1])) @ a[2],
-                bound(nbytes=nbytes(x, w1, wg, w2) + n * d * 2,
-                      flops_bf16=2 * n * m * (2 * d + d)))
-            if n == 4 and act == "gelu":
-                # The same decode step with the hidden split forced off.
+                bound(nbytes=nbytes(x, w1, wg, w2) + n * d * x.element_size(),
+                      **flops_at(dtype, 2 * n * m * (2 * d + d))))
+            if n == 4 and act == "gelu" and dtype == bf:
+                # The same decode step at the plan's fewest hidden splits.
                 run = unsplit(lambda a=(x, w1, w2, wg): fm.fused_mlp(
                     a[0], a[1], a[2], w_gate=a[3], activation="gelu"))
-                err = check_lm(f"fused_mlp {tag} N {n} bf16, no hidden split",
-                               run(), ref.fused_mlp_ref(
+                err = check_lm(f"fused_mlp {tag} N {n} bf16, fewest hidden "
+                               f"splits", run(), ref.fused_mlp_ref(
                                    x, w1, None, w2, None, activation=act,
                                    w_gate=wg))
                 add_record(
                     records, "fused_mlp",
-                    f"{tag} N {n} D {d} M {m} bf16, no hidden split", err,
+                    f"{tag} N {n} D {d} M {m} bf16, fewest hidden splits",
+                    err,
                     run, records["fused_mlp"]["extra"][-1]["plain"],
                     records["fused_mlp"]["extra"][-1]["library"],
                     records["fused_mlp"]["extra"][-1]["bound"])
     # Every other activation, gated and not, with and without biases, at a
-    # small ragged shape (two output slices; 4 rows: hidden split).
+    # small ragged shape: 4 rows (the few-rows regime) and 37 (many rows:
+    # two output slices).
     for act in ("relu", "relu2", "identity", "gelu", "silu"):
         for dtype in (f32, bf):
             d, m, d_out = 96, 200, 300
@@ -1614,8 +1647,8 @@ def ring_check(cfg32, params32, where: str) -> None:
 def lm_times(name: str, cfg, params, where: str) -> None:
     """Decode tokens per second and prefill time per request of a drain of
     8 requests at batch 4 (16 new tokens each, no logits kept), with the
-    MLP's hidden split, without it, and with it again; then the profile
-    of a drain under torch.profiler."""
+    MLP's planned hidden splits, with its fewest, and planned again; then
+    the profile of a drain under torch.profiler."""
     from repro_torch.launch import serve
 
     for split in (True, False, True):
@@ -1624,7 +1657,7 @@ def lm_times(name: str, cfg, params, where: str) -> None:
             cfg, 8, LM_PROMPT, 16, seed=3))
         (run if split else unsplit(run))()
         print(f"[time] served {name} on {where}"
-              f"{'' if split else ', the MLP hidden split forced off'}: "
+              f"{'' if split else ', the MLP at its fewest hidden splits'}: "
               f"batch {LM_BATCH}, 8 requests of 16 new tokens: decode "
               f"{server.decoded / server.decode_s:.1f} tok/s ({server.steps} "
               f"steps, {1e3 * server.decode_s / server.steps:.2f} ms per "
@@ -1810,7 +1843,9 @@ def main() -> None:
               f"bucket {BUCKETS[-1]}, {stats['requests']} requests: "
               f"{stats['throughput_img_s']:.1f} img/s, p50 latency "
               f"{stats['latency_p50_ms']:.3f} ms (drain: queue included), "
-              f"p50 service {stats['service_p50_ms']:.3f} ms")
+              f"p50 service {stats['service_p50_ms']:.3f} ms (host launches "
+              f"and device), p50 device {stats['device_p50_ms']:.3f} ms a "
+              f"micro-batch (CUDA events)")
     for (model, mode, fused, group, *bf), v in img_s.items():
         if bf and (model, mode, fused, group) in img_s:
             print(f"[time] served {path_name(model, mode, fused, group)}: "

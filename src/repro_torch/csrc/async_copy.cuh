@@ -1,0 +1,92 @@
+// Asynchronous 16-byte copies from device memory into shared memory
+// (cp.async, sm_80 and later), the bf16 tensor-core pieces (ldmatrix,
+// mma.sync m16n8k16 with fp32 accumulation) and the launch helpers shared
+// by decode_attention.cu and fused_mlp*.cu.
+#pragma once
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace repro_torch {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src to dst, bypassing L1; where `valid` is false nothing
+// is read and dst is zero-filled (the src-size operand 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i; register i of every lane holds its part of
+// matrix i.  `trans` loads each matrix transposed.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a . b for a 16x16 bf16 A (row major, 4 registers), a 16x8 bf16 B
+// (column major, 2 registers) and a 16x8 fp32 accumulator (4 registers).
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Lane addressing of ldmatrix.x4 over a 16 x 16 block: the row and the
+// column (in elements) whose 16 bytes this lane points at; matrices 0-3
+// are (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15).
+__device__ __forceinline__ int lm_row(int lane) {
+  return (lane % 8) + 8 * ((lane / 8) % 2);
+}
+__device__ __forceinline__ int lm_col(int lane) { return 8 * (lane / 16); }
+
+// True where `p` and a row of `ld` elements of T keep 16-byte chunks
+// aligned.
+template <typename T>
+inline bool vec_ok(const void* p, long long ld) {
+  return p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (ld * (long long)sizeof(T)) % 16 == 0;
+}
+
+// The card's SM count.
+inline int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
+}
+
+}  // namespace repro_torch

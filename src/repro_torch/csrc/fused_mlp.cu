@@ -1,8 +1,10 @@
-// Fused MLP: out = act(x W1 + b1) W2 + b2, or gated,
+// Fused MLP, few rows (a decode step or a short prompt: at most 16 rows
+// of x): out = act(x W1 + b1) W2 + b2, or gated,
 // out = (act(x Wg) * (x W1 + b1)) W2 + b2, with the hidden activation
 // never in device memory.  x and out are XT, the weights and biases WT:
 // float32 / float32, bf16 / bf16, or float32 x with bf16 weights (a bf16
-// vision model served on float32 images); float32 sums.
+// vision model served on float32 images); float32 sums.  Many rows go to
+// fused_mlp_rows.cu (the wrapper's plan, kernels/fused_mlp.py).
 //
 // Replaces: repro/kernels/fused_mlp.py::fused_mlp (the paper's inter-layer
 // MLP optimisation: hidden chunks are computed, pushed through the
@@ -11,283 +13,344 @@
 // VMEM accumulator, rounds each hidden chunk to x's dtype before the second
 // product, and asserts n % bn == 0.
 //
-// Design: one block per (row tile, output-column slice, hidden split), as
-// `make_plan` below lays them out.  The block's x rows stay resident in
-// shared memory, in x's type (BR x D: 16 rows, or 8 where 16 do not fit;
-// 80 KiB at D 2560 in bf16, 160 KiB in fp32).  It walks its hidden range in chunks of 64:
-//   h = act(x_tile . Wg[:, chunk]) * (x_tile . W1[:, chunk] + b1[chunk])
-//       (or act(x_tile . W1 + b1)), rounded to x's type (not the
-//       weights': the TPU kernel's h.astype(x.dtype)) -> shared memory
-//   acc += h . W2[chunk, slice]                         -> registers
-// with the W1/Wg and W2 slices streamed through 16-deep shared-memory
-// stages as float (bf16 weights exactly).  The accumulator is BR rows x (32*J) columns in
-// registers (J <= 8), so an output wider than 256 columns is split across
-// blocks, each recomputing the hidden chunk for its slice (10 slices at
-// D_out 2560).  Where row tiles x slices leave the card's SMs idle (decode:
-// 4 rows), the hidden dimension is split too: each split writes its
-// float32 partial sums to `partial` (splits x R x D_out) and a second
-// kernel adds them in split order, adds b2 and rounds to x's type.  Rows,
-// hidden and output columns past the ends are masked.
-// Bound: operations (2*R*M*(D*(1 + gated) + D_out) flops; the fp32 CUDA-core
-// rate for fp32 inputs, the bf16 tensor-core rate for bf16) against the
-// bytes of x, the weights and the output; at decode (R = 4) the weights'
-// bytes bound it.  The recomputation per output slice adds
-// (slices - 1) * 2*R*M*D*(1 + gated).  wgmma/TMA are later work.
-#include <algorithm>
-
-#include "common.cuh"
+// Bound: bytes.  With 4-16 rows the products are 2-32 flops per weight
+// byte, so the weights (D x M, twice gated, and M x D_out) have to be read
+// once at the memory's rate: 118 MB, 35 us, at RecurrentGemma-2B's D 2560,
+// M 7680 in bf16.
+// Design: every weight byte is read once.
+//   * Block z takes a range of 64-wide hidden chunks (about one block per
+//     SM: `split_chunks`, at most 8 chunks a block) and ALL D_out
+//     columns, so each hidden chunk is computed exactly once.  Phase 1
+//     computes the block's hidden chunks (all rows, padded to 16) into
+//     shared memory, rounded to x's type; phase 2 walks the output in
+//     column tiles, each the sum over the block's hidden rows, and writes
+//     it once: into the block's fp32 partial (rows x D_out), which a
+//     finish kernel adds in block order with b2, rounded to x's type (a
+//     single block writes out itself).
+//   * x, W1 and Wg tiles (phase 1: 128 rows of D in bf16, 64 in fp32) and
+//     W2 tiles (phase 2: 64 hidden rows x 512 bytes) are one sequence of
+//     steps through a four-stage ring of 16-byte cp.async copies (up to
+//     45 KiB a stage, ~100 KiB in flight per SM), so phase 2's weights are
+//     in flight while phase 1 ends.  Fewer, larger steps paid: on the
+//     H100 the step count, not the ring's depth, set the time (4, 6 or 8
+//     stages of half this depth ran alike; twice the depth ran faster).  Tile rows are padded by 16 bytes so
+//     that ldmatrix rows fall on distinct banks.  Rows, hidden and output
+//     columns past the ends are zero-filled.
+//   * bf16: mma.sync m16n8k16 (bf16 in, fp32 accumulate) on ldmatrix
+//     fragments, the rows padded to 16.  fp32 and mixed: fp32 FMAs on CUDA
+//     cores, each thread a column and up to 4 (phase 1) or 8-16 (phase 2)
+//     rows, x and h read 4 deep along k; the row count and the gate are
+//     template constants of the inner loops, which have no branch (a
+//     branch kept the loads from running ahead of the FMAs).
+#include "fused_mlp.cuh"
 
 namespace repro_torch {
 
-constexpr int WARPS = 8, THREADS = WARPS * 32, BH = 64, KC = 16;
-constexpr int BR_MAX = 16;
+constexpr int FEW_ROWS = 16, FEW_STAGES = 4, FEW_CPB_MAX = 8;
 
-template <typename XT, typename WT, int J, int RPW>
-__global__ void __launch_bounds__(THREADS)
+template <typename XT, typename WT>
+struct Few {
+  static constexpr bool TC = sizeof(XT) == 2;  // bf16 x and weights: mma
+  static constexpr int KT = 256 / (int)sizeof(WT);  // phase-1 depth
+  static constexpr int NT = 512 / (int)sizeof(WT);  // phase-2 width
+  static constexpr int SX = KT * (int)sizeof(XT) + 16;
+  static constexpr int SW = MLP_BH * (int)sizeof(WT) + 16;
+  static constexpr int S2 = NT * (int)sizeof(WT) + 16;
+  static constexpr int P1 = FEW_ROWS * SX + 2 * KT * SW;
+  static constexpr int P2 = MLP_BH * S2;
+  static constexpr int STAGE = P1 > P2 ? P1 : P2;
+  using HT = typename std::conditional<TC, __nv_bfloat16, float>::type;
+  static __host__ __device__ int hs_stride(int cpb) {
+    return cpb * MLP_BH * (int)sizeof(HT) + 16;
+  }
+  static int smem(int cpb) {
+    return FEW_STAGES * STAGE + FEW_ROWS * hs_stride(cpb);
+  }
+};
+
+template <typename XT, typename WT>
+__global__ void __launch_bounds__(MLP_THREADS)
 fused_mlp_kernel(const XT* __restrict__ x, const WT* __restrict__ w1,
                  const WT* __restrict__ b1, const WT* __restrict__ wg,
                  const WT* __restrict__ w2, const WT* __restrict__ b2,
                  XT* __restrict__ out, float* __restrict__ partial, int R,
-                 int D, int Dp, int M, int Dout, int act, int chunks_per_split) {
-  constexpr int BR = RPW * WARPS;         // the block's token rows
-  constexpr int BO = 32 * J;              // the block's output columns
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  XT* Xs = reinterpret_cast<XT*>(smem_raw);  // [BR][Dp], Dp = D rounded up to KC
-  __shared__ float W1s[KC][BH];
-  __shared__ float Wgs[KC][BH];
-  __shared__ float Hs[BR_MAX][BH];
-  __shared__ float W2s[KC][BO];
-  const int t = threadIdx.x, lane = t % 32, r0 = (t / 32) * RPW;
-  const int row0 = blockIdx.x * BR, c0 = blockIdx.y * BO;
+                 int D, int M, int Dout, int act, int cpb, int vecs) {
+  using C = Few<XT, WT>;
+  constexpr int KT = C::KT, NT = C::NT, BH = MLP_BH;
+  extern __shared__ __align__(16) unsigned char smem[];
   const bool gated = wg != nullptr;
-  for (int i = t; i < BR * Dp; i += THREADS) {
-    const int r = i / Dp, d = i % Dp;
-    Xs[i] = (row0 + r < R && d < D) ? x[(long long)(row0 + r) * D + d]
-                                    : from_f<XT>(0.f);
+  const bool vx = vecs & 1, vw1 = vecs & 2, vw2 = vecs & 4;
+  const int chunks = (M + BH - 1) / BH;
+  const int c_begin = blockIdx.x * cpb, ncb = min(cpb, chunks - c_begin);
+  const int nk1 = (D + KT - 1) / KT, p1 = ncb * nk1;
+  const int total = p1 + (Dout + NT - 1) / NT * ncb;
+  unsigned char* hs = smem + FEW_STAGES * C::STAGE;
+  const int hss = C::hs_stride(cpb);
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+
+  auto issue = [&](int s) {
+    unsigned char* st = smem + (s % FEW_STAGES) * C::STAGE;
+    if (s < p1) {
+      const int d0 = (s % nk1) * KT, m0 = (c_begin + s / nk1) * BH;
+      load_tile<XT>(st, C::SX, x, D, 0, R, d0, D, FEW_ROWS, KT, vx);
+      st += FEW_ROWS * C::SX;
+      load_tile<WT>(st, C::SW, w1, M, d0, D, m0, M, KT, BH, vw1);
+      if (gated)
+        load_tile<WT>(st + KT * C::SW, C::SW, wg, M, d0, D, m0, M, KT, BH,
+                      vw1);
+    } else {
+      const int s2 = s - p1;
+      load_tile<WT>(st, C::S2, w2, Dout, (c_begin + s2 % ncb) * BH, M,
+                    s2 / ncb * NT, Dout, BH, NT, vw2);
+    }
+  };
+
+  // Phase 1: hacc / gacc (the up and gate products); phase 2: oacc.
+  float hacc[4], gacc[4], oacc[4][4];
+  for (int s = 0; s < FEW_STAGES - 1; ++s) {
+    if (s < total) issue(s);
+    cp_async_commit();
   }
-  const int m_begin = blockIdx.z * chunks_per_split * BH;
-  const int m_end = min(M, m_begin + chunks_per_split * BH);
-  float acc[RPW][J] = {};
-  for (int m0 = m_begin; m0 < m_end; m0 += BH) {
-    // u[r][c] = sum_d x[r][d] w1[d][m0 + c] (and g with wg), c = lane, lane + 32
-    float hacc[RPW][2] = {}, gacc[RPW][2] = {};
-    for (int d0 = 0; d0 < Dp; d0 += KC) {
+  for (int s = 0; s < total; ++s) {
+    if (s + FEW_STAGES - 1 < total) issue(s + FEW_STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<FEW_STAGES - 1>();
+    __syncthreads();
+    const unsigned char* st = smem + (s % FEW_STAGES) * C::STAGE;
+    if (s < p1) {
+      const int kt = s % nk1, cl = s / nk1, m0 = (c_begin + cl) * BH;
+      if (kt == 0) {
 #pragma unroll
-      for (int l = 0; l < KC * BH / THREADS; ++l) {
-        const int idx = t + THREADS * l, kk = idx / BH, c = idx % BH;
-        const int d = d0 + kk, m = m0 + c;
-        const bool in = d < D && m < M;
-        const long long o = (long long)d * M + m;
-        W1s[kk][c] = in ? to_f(w1[o]) : 0.f;
-        if (gated) Wgs[kk][c] = in ? to_f(wg[o]) : 0.f;
+        for (int i = 0; i < 4; ++i) hacc[i] = gacc[i] = 0.f;
       }
-      __syncthreads();
+      const unsigned char* w1s = st + FEW_ROWS * C::SX;
+      const unsigned char* wgs = w1s + KT * C::SW;
+      if constexpr (C::TC) {
+        // Warp w: hidden columns [8w, 8w + 8) of the chunk, all 16 rows
+        // (the gate's branch outside the loop keeps it straight-line).
+        auto products = [&](auto gated_c) {
 #pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const float u0 = W1s[kk][lane], u1 = W1s[kk][lane + 32];
+          for (int k2 = 0; k2 < KT / 32; ++k2) {
+            uint32_t a0[4], a1[4], b[4];
+            const unsigned char* xa =
+                st + lm_row(lane) * C::SX + (k2 * 32 + lm_col(lane)) * 2;
+            ldmatrix_x4(a0, xa);
+            ldmatrix_x4(a1, xa + 32);
+            ldmatrix_x4_trans(b, w1s + (k2 * 32 + lane) * C::SW + warp * 16);
+            mma_bf16_16816(hacc, a0, b[0], b[1]);
+            mma_bf16_16816(hacc, a1, b[2], b[3]);
+            if constexpr (decltype(gated_c)::value) {
+              ldmatrix_x4_trans(b,
+                                wgs + (k2 * 32 + lane) * C::SW + warp * 16);
+              mma_bf16_16816(gacc, a0, b[0], b[1]);
+              mma_bf16_16816(gacc, a1, b[2], b[3]);
+            }
+          }
+        };
+        if (gated)
+          products(std::true_type{});
+        else
+          products(std::false_type{});
+        if (kt == nk1 - 1) {
+          const int g = lane / 4, col = warp * 8 + 2 * (lane % 4);
 #pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          const float xv = to_f(Xs[(r0 + i) * Dp + d0 + kk]);
-          hacc[i][0] = fmaf(xv, u0, hacc[i][0]);
-          hacc[i][1] = fmaf(xv, u1, hacc[i][1]);
+          for (int h = 0; h < 2; ++h) {
+            const int r = g + 8 * h;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              v[e] = hidden_value<XT, WT>(hacc[2 * h + e], gacc[2 * h + e],
+                                          r < R && m0 + col + e < M, b1,
+                                          m0 + col + e, act, gated);
+            *reinterpret_cast<__nv_bfloat162*>(
+                hs + r * hss + (cl * BH + col) * 2) =
+                __floats2bfloat162_rn(v[0], v[1]);
+          }
         }
-        if (gated) {
-          const float g0 = Wgs[kk][lane], g1 = Wgs[kk][lane + 32];
+      } else {
+        // Thread: hidden column t % 64, rows t / 64 + 4i (x, fp32 here,
+        // read 4 deep along k).  The loop is straight-line: one row where
+        // the thread has one valid row (a decode step's 4), else 4 (rows
+        // past R are zeros), the gate's branch outside it.
+        const int col = t % BH, rq = t / BH;
+        constexpr int SWE = C::SW / (int)sizeof(WT);
+        const WT* w1r = reinterpret_cast<const WT*>(w1s) + col;
+        const WT* wgr = reinterpret_cast<const WT*>(wgs) + col;
+        auto products = [&](auto nr_c, auto gated_c) {
+          constexpr int NR = decltype(nr_c)::value;
+          constexpr bool GATED = decltype(gated_c)::value;
+          for (int k = 0; k < KT; k += 4) {
+            float xv[NR][4];
 #pragma unroll
-          for (int i = 0; i < RPW; ++i) {
-            const float xv = to_f(Xs[(r0 + i) * Dp + d0 + kk]);
-            gacc[i][0] = fmaf(xv, g0, gacc[i][0]);
-            gacc[i][1] = fmaf(xv, g1, gacc[i][1]);
+            for (int i = 0; i < NR; ++i)
+              load4(reinterpret_cast<const float*>(st + (rq + 4 * i) * C::SX) +
+                        k, xv[i]);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float u = to_f(w1r[(k + kk) * SWE]);
+#pragma unroll
+              for (int i = 0; i < NR; ++i)
+                hacc[i] = fmaf(xv[i][kk], u, hacc[i]);
+              if constexpr (GATED) {
+                const float gw = to_f(wgr[(k + kk) * SWE]);
+#pragma unroll
+                for (int i = 0; i < NR; ++i)
+                  gacc[i] = fmaf(xv[i][kk], gw, gacc[i]);
+              }
+            }
+          }
+        };
+        if (R - rq <= 4)
+          gated ? products(std::integral_constant<int, 1>{}, std::true_type{})
+                : products(std::integral_constant<int, 1>{},
+                           std::false_type{});
+        else
+          gated ? products(std::integral_constant<int, 4>{}, std::true_type{})
+                : products(std::integral_constant<int, 4>{},
+                           std::false_type{});
+        if (kt == nk1 - 1) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = rq + 4 * i, m = m0 + col;
+            reinterpret_cast<float*>(hs + r * hss)[cl * BH + col] =
+                hidden_value<XT, WT>(hacc[i], gacc[i], r < R && m < M, b1,
+                                     m, act, gated);
           }
         }
       }
-      __syncthreads();
-    }
+    } else {
+      const int s2 = s - p1, kc = s2 % ncb, n0 = s2 / ncb * NT;
+      if (kc == 0) {
 #pragma unroll
-    for (int i = 0; i < RPW; ++i)
+        for (int i = 0; i < 16; ++i) oacc[i / 4][i % 4] = 0.f;
+      }
+      if constexpr (C::TC) {
+        // Warp w: output columns [32w, 32w + 32) of the tile.
 #pragma unroll
-      for (int c2 = 0; c2 < 2; ++c2) {
-        const int c = lane + 32 * c2, m = m0 + c;
-        float v = 0.f;
-        if (m < M) {
-          const float u = b1 ? hacc[i][c2] + to_f(b1[m]) : hacc[i][c2];
-          v = gated ? activate(gacc[i][c2], act) * u : activate(u, act);
-          v = round_to<XT>(v);
+        for (int ks = 0; ks < BH / 16; ++ks) {
+          uint32_t a[4], b[4];
+          ldmatrix_x4(a, hs + lm_row(lane) * hss +
+                             (kc * BH + ks * 16 + lm_col(lane)) * 2);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            ldmatrix_x4_trans(b, st + (ks * 16 + lm_row(lane)) * C::S2 +
+                                     (warp * 32 + 16 * np + lm_col(lane)) * 2);
+            mma_bf16_16816(oacc[2 * np], a, b[0], b[1]);
+            mma_bf16_16816(oacc[2 * np + 1], a, b[2], b[3]);
+          }
         }
-        Hs[r0 + i][c] = v;
-      }
-    // acc[r][c] += sum_k h[r][k] * w2[m0 + k][c0 + c]
-    for (int k0 = 0; k0 < BH; k0 += KC) {
+        if (kc == ncb - 1) {
+          const int g = lane / 4;
 #pragma unroll
-      for (int l = 0; l < KC * BO / THREADS; ++l) {
-        const int idx = t + THREADS * l, kk = idx / BO, c = idx % BO;
-        const int m = m0 + k0 + kk, col = c0 + c;
-        W2s[kk][c] = (m < M && col < Dout) ? to_f(w2[(long long)m * Dout + col])
-                                           : 0.f;
-      }
-      __syncthreads();
+          for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        float hv[RPW];
+            for (int i = 0; i < 4; ++i)
+              emit<XT, WT>(oacc[j][i], g + 8 * (i / 2),
+                           n0 + warp * 32 + 8 * j + 2 * (lane % 4) + i % 2,
+                           R, Dout, out, partial, blockIdx.x, b2);
+        }
+      } else {
+        // Thread: output column t % NT, rows t / NT + RG i (h read 4
+        // deep along k); the rows a thread owns at R <= 4, or all RPT
+        // (rows past R are zeros), in a straight-line loop.
+        constexpr int RG = MLP_THREADS / NT, RPT = FEW_ROWS / RG;
+        constexpr int SMALL = 4 / RG, S2E = C::S2 / (int)sizeof(WT);
+        const int col = t % NT, rq = t / NT;
+        const WT* w2r = reinterpret_cast<const WT*>(st) + col;
+        const float* hr = reinterpret_cast<const float*>(hs) + kc * BH;
+        const int hse = hss / 4;
+        auto products = [&](auto nr_c) {
+          constexpr int NR = decltype(nr_c)::value;
+          for (int k = 0; k < BH; k += 4) {
+            float h[NR][4];
 #pragma unroll
-        for (int i = 0; i < RPW; ++i) hv[i] = Hs[r0 + i][k0 + kk];
+            for (int i = 0; i < NR; ++i)
+              load4(hr + (rq + RG * i) * hse + k, h[i]);
 #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const float u = W2s[kk][lane + 32 * j];
+            for (int kk = 0; kk < 4; ++kk) {
+              const float w = to_f(w2r[(k + kk) * S2E]);
 #pragma unroll
-          for (int i = 0; i < RPW; ++i) acc[i][j] = fmaf(hv[i], u, acc[i][j]);
+              for (int i = 0; i < NR; ++i)
+                oacc[i / 4][i % 4] =
+                    fmaf(h[i][kk], w, oacc[i / 4][i % 4]);
+            }
+          }
+        };
+        if (R <= 4)
+          products(std::integral_constant<int, SMALL>{});
+        else
+          products(std::integral_constant<int, RPT>{});
+        if (kc == ncb - 1) {
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+            emit<XT, WT>(oacc[i / 4][i % 4], rq + RG * i, n0 + col, R, Dout,
+                         out, partial, blockIdx.x, b2);
         }
       }
-      __syncthreads();
     }
+    __syncthreads();  // the stage is free for the step STAGES - 1 ahead
   }
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = row0 + r0 + i;
-    if (r >= R) continue;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int col = c0 + lane + 32 * j;
-      if (col >= Dout) continue;
-      const long long o = (long long)r * Dout + col;
-      if (partial)
-        partial[(long long)blockIdx.z * R * Dout + o] = acc[i][j];
-      else
-        out[o] = from_f<XT>(b2 ? acc[i][j] + to_f(b2[col]) : acc[i][j]);
-    }
-  }
+  cp_async_wait<0>();
 }
 
-// out = sum over splits of partial (in split order) + b2, rounded to XT.
-template <typename XT, typename WT>
-__global__ void fused_mlp_finish(const float* __restrict__ partial,
-                                 const WT* __restrict__ b2, XT* __restrict__ out,
-                                 long long n, int Dout, int splits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[z * n + i];
-  if (b2) s += to_f(b2[i % Dout]);
-  out[i] = from_f<XT>(s);
-}
-
-// The launch plan, known only here: token rows per block (16, or 8 where
-// 16 rows of x in its type and the largest static shared memory of the kernel
-// pass the card's opt-in limit), the fewest output slices of at most 256
-// columns, and hidden splits (1 where row tiles x slices cover the card's
-// SMs, else about two blocks per SM, at most one split per 64-wide chunk).
-struct Plan {
-  int rows, slices, splits;
-};
-
-constexpr int STATIC_SMEM_MAX =
-    (int)sizeof(float) * (2 * KC * BH + BR_MAX * BH + KC * 32 * 8);
-
-int make_plan(int R, int D, int M, int Dout, int esize, Plan* p) {
-  int dev = 0, limit = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long Dp = (D + KC - 1) / KC * KC;
-  p->rows = 16 * esize * Dp + STATIC_SMEM_MAX <= limit  ? 16
-            : 8 * esize * Dp + STATIC_SMEM_MAX <= limit ? 8
-                                                        : 0;
-  if (p->rows == 0) return (int)cudaErrorInvalidValue;  // D too wide
-  p->slices = (Dout + 255) / 256;
-  const int blocks = (R + p->rows - 1) / p->rows * p->slices;
-  const int chunks = (M + BH - 1) / BH;
-  p->splits =
-      blocks >= sms ? 1 : std::min(chunks, (2 * sms + blocks - 1) / blocks);
-  return (int)cudaSuccess;
-}
-
-template <typename XT, typename WT, int J, int RPW>
-int launch(const XT* x, const WT* w1, const WT* b1, const WT* wg,
-           const WT* w2, const WT* b2, XT* out, float* partial, int R, int D,
-           int M, int Dout, int act, int slices, int splits,
-           cudaStream_t stream) {
-  constexpr int BR = RPW * WARPS;
-  const int Dp = (D + KC - 1) / KC * KC;
-  const int smem = (int)sizeof(XT) * BR * Dp;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel<XT, WT, J, RPW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int chunks = (M + BH - 1) / BH;
-  const int cps = (chunks + splits - 1) / splits;
-  splits = (chunks + cps - 1) / cps;
-  dim3 grid((R + BR - 1) / BR, slices, splits);
-  fused_mlp_kernel<XT, WT, J, RPW><<<grid, THREADS, smem, stream>>>(
-      x, w1, b1, wg, w2, b2, out, splits > 1 ? partial : nullptr, R, D, Dp, M,
-      Dout, act, cps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const long long n = (long long)R * Dout;
-  fused_mlp_finish<XT, WT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      partial, b2, out, n, Dout, splits);
-  return (int)cudaGetLastError();
-}
-
-template <typename XT, typename WT, int RPW>
-int dispatch_j(const void* x, const void* w1, const void* b1, const void* wg,
-               const void* w2, const void* b2, void* out, float* partial, int R,
-               int D, int M, int Dout, int act, int slices, int splits,
-               cudaStream_t s) {
-  // Slices a multiple of 32 columns wide.
-  const int J = ((Dout + slices - 1) / slices + 31) / 32;
-  auto x_ = (const XT*)x;
-  auto w1_ = (const WT*)w1, b1_ = (const WT*)b1, wg_ = (const WT*)wg,
-       w2_ = (const WT*)w2, b2_ = (const WT*)b2;
-  auto o_ = (XT*)out;
-#define RT_MLP_CASE(JJ)                                                      \
-  case JJ:                                                                   \
-    return launch<XT, WT, JJ, RPW>(x_, w1_, b1_, wg_, w2_, b2_, o_, partial, \
-                                   R, D, M, Dout, act, slices, splits, s);
-  switch (J) {
-    RT_MLP_CASE(1) RT_MLP_CASE(2) RT_MLP_CASE(3) RT_MLP_CASE(4)
-    RT_MLP_CASE(5) RT_MLP_CASE(6) RT_MLP_CASE(7)
-    default: RT_MLP_CASE(8)
-  }
-#undef RT_MLP_CASE
-}
-
-template <typename XT, typename WT>
-int dispatch(const void* x, const void* w1, const void* b1, const void* wg,
-             const void* w2, const void* b2, void* out, float* partial, int R,
-             int D, int M, int Dout, int act, int splits, cudaStream_t s) {
-  Plan p;
-  const int err = make_plan(R, D, M, Dout, (int)sizeof(XT), &p);
+// Chunks per block and the splits (blocks) for `requested` splits (0:
+// one block per SM).
+int few_plan(int M, int requested, int* cpb, int* splits) {
+  int sms = 0;
+  const int err = sm_count(&sms);
   if (err != 0) return err;
-  if (splits < 1 || (splits > 1 && partial == nullptr))
-    return (int)cudaErrorInvalidValue;
-  return p.rows == 16
-             ? dispatch_j<XT, WT, 2>(x, w1, b1, wg, w2, b2, out, partial, R,
-                                     D, M, Dout, act, p.slices, splits, s)
-             : dispatch_j<XT, WT, 1>(x, w1, b1, wg, w2, b2, out, partial, R,
-                                     D, M, Dout, act, p.slices, splits, s);
+  *splits = split_chunks((M + MLP_BH - 1) / MLP_BH, requested, sms,
+                         FEW_CPB_MAX, cpb);
+  return 0;
+}
+
+template <typename XT, typename WT>
+int launch(const void* x_, const void* w1_, const void* b1_, const void* wg_,
+           const void* w2_, const void* b2_, void* out_, float* partial,
+           int R, int D, int M, int Dout, int act, int splits,
+           cudaStream_t stream) {
+  using C = Few<XT, WT>;
+  auto x = (const XT*)x_;
+  auto w1 = (const WT*)w1_, b1 = (const WT*)b1_, wg = (const WT*)wg_,
+       w2 = (const WT*)w2_, b2 = (const WT*)b2_;
+  auto out = (XT*)out_;
+  if (R > FEW_ROWS) return (int)cudaErrorInvalidValue;
+  int cpb = 1;
+  int err = few_plan(M, splits, &cpb, &splits);
+  if (err != 0) return err;
+  if (splits > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+  const int smem = C::smem(cpb);
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_mlp_kernel<XT, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vecs = (vec_ok<XT>(x, D) ? 1 : 0) |
+                   (vec_ok<WT>(w1, M) && (!wg || vec_ok<WT>(wg, M)) ? 2 : 0) |
+                   (vec_ok<WT>(w2, Dout) ? 4 : 0);
+  fused_mlp_kernel<XT, WT><<<splits, MLP_THREADS, smem, stream>>>(
+      x, w1, b1, wg, w2, b2, out, splits > 1 ? partial : nullptr, R, D, M,
+      Dout, act, cpb, vecs);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return launch_finish<XT, WT>(partial, b2, out, R, Dout, splits, stream);
 }
 
 }  // namespace repro_torch
 
-// The plan's hidden splits for R rows of x (D wide, x's ElemCode kF32 or
-// kBF16) through an M-wide hidden to Dout columns: the caller sizes
-// `partial` from them.
+// The hidden splits (blocks, each writing an R x Dout fp32 partial) the
+// few-rows plan makes for an M-wide hidden: one block per SM, or about
+// `requested` (> 0), never more than 8 chunks of 64 a block.  R, D, Dout
+// and dtype do not change it.
 extern "C" int rt_fused_mlp_splits(int R, int D, int M, int Dout, int dtype,
-                                   int* splits) {
-  repro_torch::Plan p{0, 0, 1};
-  const int err = repro_torch::make_plan(
-      R, D, M, Dout, dtype == repro_torch::kBF16 ? 2 : 4, &p);
-  *splits = p.splits;
-  return err;
+                                   int requested, int* splits) {
+  int cpb = 1;
+  (void)R; (void)D; (void)Dout; (void)dtype;
+  return repro_torch::few_plan(M, requested, &cpb, splits);
 }
 
-// splits: hidden splits (1 = none; else `partial` holds splits x R x Dout
-// floats); xt: the ElemCode of x and out, wt: of every weight and bias
-// (`dispatch_mode`: float32 / float32, float32 / bf16, bf16 / bf16).
+// R <= 16 rows; splits: from rt_fused_mlp_splits (1: no partial, else
+// `partial` holds splits x R x Dout floats); xt: the ElemCode of x and
+// out, wt: of every weight and bias (`dispatch_mode`).
 extern "C" int rt_fused_mlp(const void* x, const void* w1, const void* b1,
                             const void* wg, const void* w2, const void* b2,
                             void* out, float* partial, int R, int D, int M,
@@ -296,8 +359,8 @@ extern "C" int rt_fused_mlp(const void* x, const void* w1, const void* b1,
   using namespace repro_torch;
   cudaStream_t s = (cudaStream_t)stream;
   return dispatch_mode(xt, wt, [&](auto xtag, auto wtag) {
-    return dispatch<typename decltype(xtag)::type,
-                    typename decltype(wtag)::type>(
+    return launch<typename decltype(xtag)::type,
+                  typename decltype(wtag)::type>(
         x, w1, b1, wg, w2, b2, out, partial, R, D, M, Dout, act, splits, s);
   });
 }

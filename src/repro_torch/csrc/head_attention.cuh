@@ -1,7 +1,7 @@
-// The LM attention tile shared by flash_attention.cu and
-// decode_attention.cu: up to 16 query rows of one KV head attend over a
-// range of keys, streamed through shared memory in tiles of 64 keys with an
-// online softmax (float32 scores, running max and sum, float32
+// The LM attention tile of flash_attention.cu (decode_attention.cu, split
+// over the cache, has its own): up to 16 query rows of one KV head attend
+// over a range of keys, streamed through shared memory in tiles of 64
+// keys with an online softmax (float32 scores, running max and sum, float32
 // accumulator).  As in the TPU kernels (repro/kernels/head_attention.py),
 // the probabilities are rounded to V's type before P.V and the row sum is
 // kept unrounded; a row with no valid key gives 0.  Masked keys get p = 0

@@ -42,11 +42,14 @@ SIGNATURES = {
     ("vita_msa", "rt_vita_msa"): [P, P, P, P, P, P, P, I, P, I, I, I, I, I,
                                   F, I, I, P],
     ("fused_mlp", "rt_fused_mlp"): [P] * 8 + [I] * 8 + [P],
-    ("fused_mlp", "rt_fused_mlp_splits"): [I] * 5 + [P],
+    ("fused_mlp", "rt_fused_mlp_splits"): [I] * 6 + [P],
+    ("fused_mlp_rows", "rt_fused_mlp_rows"): [P] * 8 + [I] * 8 + [P],
+    ("fused_mlp_rows", "rt_fused_mlp_rows_splits"): [I] * 6 + [P],
     ("flash_attention", "rt_flash_attention"): [P] * 4 + [I] * 6 + [F]
     + [I] * 4 + [P],
-    ("decode_attention", "rt_decode_attention"): [P] * 5 + [I] * 5 + [F, I,
-                                                                      P],
+    ("decode_attention", "rt_decode_attention"): [P] * 6 + [I] * 5
+    + [F, I, I, P],
+    ("decode_attention", "rt_decode_attention_splits"): [I] * 4 + [P],
     ("rglru_scan", "rt_rglru_scan"): [P] * 3 + [I] * 4 + [P],
     ("vita_layer_group", "rt_vita_layer_group"): [P] * 25 + [I] * 8
     + [F, F, I, I, P],

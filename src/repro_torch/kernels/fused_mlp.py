@@ -1,17 +1,26 @@
 """The fused MLP on Hopper (counterpart of
 `repro/kernels/fused_mlp.py::fused_mlp`).
 
-One launch of ``csrc/fused_mlp.cu`` computes act(x W1 + b1) W2 + b2, or
-the gated act(x Wg) * (x W1 + b1) W2 + b2, with the hidden activation
-streamed through shared memory in 64-wide chunks: it never reaches device
-memory.  Every activation of `ref.ACTIVATIONS`; x (and out) float32 or
-bfloat16, the weights and biases float32 or bfloat16 (`ref.PORTED_MODES`:
-float32 x with bf16 weights is a bf16 vision model served on float32
-images), float32 sums, the hidden chunk rounded to x's dtype before the
-second product.  Where too few blocks would fill the card (a decode
-step's few rows), the kernel's launch plan splits the hidden dimension
-and a second kernel adds the float32 partials.  This function takes CUDA
-tensors only; the plain version is `ref.fused_mlp_ref`, chosen by `ops`.
+One call computes act(x W1 + b1) W2 + b2, or the gated
+act(x Wg) * (x W1 + b1) W2 + b2, with the hidden activation streamed
+through shared memory in 64-wide chunks: it never reaches device memory.
+Every activation of `ref.ACTIVATIONS`; x (and out) float32 or bfloat16,
+the weights and biases float32 or bfloat16 (`ref.PORTED_MODES`: float32
+x with bf16 weights is a bf16 vision model served on float32 images),
+float32 sums, the hidden chunk rounded to x's dtype before the second
+product.  The launch plan picks a regime from the row count:
+
+  * at most ``FEW_ROWS`` rows (a decode step, a short prompt):
+    ``csrc/fused_mlp.cu``, bound by the weights' bytes: each block
+    computes a range of hidden chunks once for every output column and
+    writes an fp32 partial, which a second kernel adds in order;
+  * more rows (vision tokens): ``csrc/fused_mlp_rows.cu``, a 64-row tile
+    on the bf16 tensor cores (fp32 FMAs for fp32 x), with a hidden split
+    where its tiles leave SMs idle.
+
+`hidden_splits` is the plan's count of fp32 partials.  This function
+takes CUDA tensors only; the plain version is `ref.fused_mlp_ref`,
+chosen by `ops`.
 """
 
 from __future__ import annotations
@@ -26,11 +35,22 @@ from .int8_matmul import DTYPE_CODES, _stream, check, dtype_code, ptr
 from .ref import ACTIVATION_CODES, act_fn, check_mode
 
 
-def hidden_splits(rows: int, d: int, m: int, d_out: int, code: int) -> int:
-    """The hidden splits that ``csrc/fused_mlp.cu`` plans for ``rows`` rows
-    (1 where its blocks fill the card), which size the float32 partials."""
+FEW_ROWS = 16     # the few-rows regime's largest row count
+
+
+def _library(rows: int) -> str:
+    return "fused_mlp" if rows <= FEW_ROWS else "fused_mlp_rows"
+
+
+def hidden_splits(rows: int, d: int, m: int, d_out: int, code: int,
+                  requested: int = 0) -> int:
+    """The hidden splits the plan makes for ``rows`` rows (1: no partial;
+    each split writes a float32 (rows, d_out) partial).  ``requested`` > 0
+    asks for about that many instead (the fewest the kernel takes at 1),
+    which measures what the split buys."""
+    lib = _library(rows)
     splits = ctypes.c_int(1)
-    build.call("fused_mlp", "rt_fused_mlp_splits", rows, d, m, d_out, code,
+    build.call(lib, f"rt_{lib}_splits", rows, d, m, d_out, code, requested,
                ctypes.byref(splits))
     return splits.value
 
@@ -64,8 +84,9 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     splits = hidden_splits(rows, d, m, d_out, code)
     partial = None if splits == 1 else torch.empty(
         (splits, rows, d_out), device=x.device, dtype=torch.float32)
-    build.call("fused_mlp", "rt_fused_mlp", ptr(x), ptr(w1), ptr(b1),
-               ptr(w_gate), ptr(w2), ptr(b2), ptr(out), ptr(partial), rows,
-               d, m, d_out, ACTIVATION_CODES[activation], splits, code,
-               DTYPE_CODES[wt], _stream())
+    lib = _library(rows)
+    build.call(lib, f"rt_{lib}", ptr(x), ptr(w1), ptr(b1), ptr(w_gate),
+               ptr(w2), ptr(b2), ptr(out), ptr(partial), rows, d, m, d_out,
+               ACTIVATION_CODES[activation], splits, code, DTYPE_CODES[wt],
+               _stream())
     return out

@@ -2,9 +2,12 @@
 `repro/kernels/head_attention.py`): `flash_attention` for prefill and
 `decode_attention` for one query per sequence over a KV cache.
 
-Both launch CUDA kernels over the shared online-softmax tile of
-``csrc/head_attention.cuh`` (``csrc/flash_attention.cu``,
-``csrc/decode_attention.cu``; their source notes say what bounds them).
+`flash_attention` launches ``csrc/flash_attention.cu`` over the
+online-softmax tile of ``csrc/head_attention.cuh``; `decode_attention`
+launches ``csrc/decode_attention.cu``, split over the cache
+(flash-decoding: `decode_splits` key ranges per KV head, combined in
+split order by a second kernel) with the K/V tiles streamed by
+asynchronous copies.  Their source notes say what bounds them.
 float32 or bfloat16 in and out, float32 sums; head_dim up to 256.  These
 functions take CUDA tensors only; the plain versions are
 `ref.attention_ref` and `ref.decode_attention_ref`, chosen by `ops`.
@@ -12,6 +15,7 @@ functions take CUDA tensors only; the plain versions are
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -56,6 +60,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def decode_splits(batch: int, kv_heads: int, slots: int) -> int:
+    """The key splits ``csrc/decode_attention.cu`` plans for ``batch``
+    sequences of ``kv_heads`` KV heads over ``slots`` cache slots (about
+    one block per SM, at most one per 32-key tile), which size the
+    float32 workspace of the split partials."""
+    splits = ctypes.c_int(1)
+    build.call("decode_attention", "rt_decode_attention_splits", batch,
+               kv_heads, slots, 0, ctypes.byref(splits))
+    return splits.value
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      scale: Optional[float] = None) -> torch.Tensor:
@@ -76,7 +91,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    splits = decode_splits(b, hkv, s)
+    ws = None if splits == 1 else torch.empty(
+        b * hq * splits * (dh + 2), device=q.device, dtype=torch.float32)
     build.call("decode_attention", "rt_decode_attention", ptr(q),
-               ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(out), b, hq, hkv,
-               s, dh, dh ** -0.5 if scale is None else scale, code, _stream())
+               ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(out), ptr(ws),
+               b, hq, hkv, s, dh, dh ** -0.5 if scale is None else scale,
+               splits, code, _stream())
     return out

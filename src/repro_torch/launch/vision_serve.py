@@ -17,9 +17,13 @@ instead.
     weights and calibrated activation scales through the int8 layer
     kernel (fused) or the int8 MSA kernel (unfused) and the int8 matmul.
 
-`dispatch` launches the forward on the current CUDA stream and records an
-event after it without waiting; `complete` waits on that event.  On the
-CPU the forward completes inside `dispatch`.  The server runs on the card
+`dispatch` stamps each request's ``t_start`` just before it issues the
+forward (as the JAX server stamps it at its asynchronous jitted call), so
+``service_s`` spans the host's launches and the device's work; on the
+card it records a CUDA event before and after the forward without
+waiting, and `complete` waits on the second and keeps the device time
+between them (``device_p50_ms`` of `run`).  On the CPU the forward
+completes inside `dispatch`.  The server runs on the card
 unless ``ServeConfig(device="cpu")`` asks otherwise.
 
 Usage (on a machine with a card; ``--device cpu`` runs the plain path):
@@ -123,16 +127,18 @@ class VisionRequest:
 
 class InFlight:
     """A dispatched micro-batch: its logits tensor and, on the card, the
-    CUDA event recorded after its forward."""
+    CUDA events recorded before (``start``) and after (``event``) its
+    forward."""
 
-    __slots__ = ("requests", "bucket", "out", "event")
+    __slots__ = ("requests", "bucket", "out", "event", "start")
 
     def __init__(self, requests: List[VisionRequest], bucket: int,
-                 out: torch.Tensor, event):
+                 out: torch.Tensor, event, start=None):
         self.requests = requests
         self.bucket = bucket
         self.out = out
         self.event = event
+        self.start = start
 
 
 class VisionServer:
@@ -183,6 +189,7 @@ class VisionServer:
         self.done: List[VisionRequest] = []
         self.n_batches = 0
         self.n_padded = 0
+        self.device_ms: List[float] = []   # per micro-batch, on the card
         self._rid = 0
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -237,17 +244,21 @@ class VisionServer:
                            images.dtype)
             images = np.concatenate([images, pad])
             self.n_padded += bucket - len(requests)
-        with torch.inference_mode():
-            out = self.forward(torch.from_numpy(images).to(self.device))
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
+        on_card = self.device.type == "cuda"
+        start = event = None
         t = time.perf_counter()
         for req in requests:
             req.t_start = t
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        with torch.inference_mode():
+            out = self.forward(torch.from_numpy(images).to(self.device))
+        if on_card:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
         self.n_batches += 1
-        return InFlight(requests, bucket, out, event)
+        return InFlight(requests, bucket, out, event, start)
 
     def complete(self, inflight: Optional[InFlight]) -> int:
         """Wait for an in-flight micro-batch and stamp its requests done;
@@ -256,6 +267,7 @@ class VisionServer:
             return 0
         if inflight.event is not None:
             inflight.event.synchronize()
+            self.device_ms.append(inflight.start.elapsed_time(inflight.event))
         logits = inflight.out.cpu().numpy()
         t = time.perf_counter()
         for i, req in enumerate(inflight.requests):
@@ -272,6 +284,7 @@ class VisionServer:
         """Drain the whole queue and return this run's serving statistics."""
         batches0, padded0, done0 = self.n_batches, self.n_padded, \
             len(self.done)
+        device0 = len(self.device_ms)
         t0 = time.perf_counter()
         served = 0
         while self.queue:
@@ -294,6 +307,9 @@ class VisionServer:
             "throughput_img_s": served / dt if dt > 0 else 0.0,
             "latency_p50_ms": pct(lat_ms, 50),
             "service_p50_ms": pct(service_ms, 50),
+            "device_p50_ms": (float(np.percentile(self.device_ms[device0:],
+                                                  50))
+                              if len(self.device_ms) > device0 else None),
             "fusion_policy": (self.fusion_policy.mode
                               if self.fusion_policy else None),
             "fused_buckets": {str(b): bool(c.fused)

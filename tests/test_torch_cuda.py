@@ -15,7 +15,9 @@ The LM kernels (flash and decode attention, the RG-LRU scan, the gated
 and bf16 fused MLP) are held row by row, each output row to 1e-4 of its
 own scale in fp32 and 2e-2 in bf16 (the kernels round P or the hidden
 chunk to bf16 where the plain versions keep fp32, and round the output
-once).
+once).  Decode attention's key split is also held against a one-split
+launch, and the fused MLP's two regimes meet at the row count where its
+plan switches.
 """
 
 import dataclasses
@@ -566,26 +568,98 @@ def test_fused_mlp_every_mode_matches_plain(card, dtype, activation):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_mlp_hidden_split_matches_one_pass(card, dtype, monkeypatch):
-    """A decode step's 4 rows give two blocks, so the kernel's plan splits
-    the hidden dimension; forced to one pass it gives the same result, and
-    both match the plain version."""
+@pytest.mark.parametrize("rows", [4, 40])
+def test_fused_mlp_hidden_split_matches_one_pass(card, dtype, rows,
+                                                 monkeypatch):
+    """A decode step's 4 rows (the few-rows regime: a block per SM over
+    the hidden chunks) and 40 rows (one row tile in two output slices: the
+    many-rows regime splits the hidden dimension to fill the card) both
+    give more than one hidden split; asked for one, the plan takes one
+    (8 chunks fit one block), and all three match."""
     g = torch.Generator(device=card).manual_seed(3)
-    d, m, d_out = 256, 1000, 300
-    x = torch.randn((4, d), generator=g, device=card).to(dtype)
+    d, m, d_out = 256, 500, 300
+    x = torch.randn((rows, d), generator=g, device=card).to(dtype)
     w1, wg = (torch.randn((d, m), generator=g, device=card).to(dtype)
               * d ** -0.5 for _ in range(2))
     w2 = (torch.randn((m, d_out), generator=g, device=card)
           * m ** -0.5).to(dtype)
     code = 1 if dtype == torch.bfloat16 else 0
-    assert k_fused_mlp.hidden_splits(4, d, m, d_out, code) > 1
+    assert k_fused_mlp.hidden_splits(rows, d, m, d_out, code) > 1
     split = k_fused_mlp.fused_mlp(x, w1, w2, w_gate=wg)
-    monkeypatch.setattr(k_fused_mlp, "hidden_splits", lambda *a: 1)
+    planned = k_fused_mlp.hidden_splits
+    monkeypatch.setattr(k_fused_mlp, "hidden_splits",
+                        lambda *a: planned(*a, requested=1))
+    assert k_fused_mlp.hidden_splits(rows, d, m, d_out, code) == 1
     one_pass = k_fused_mlp.fused_mlp(x, w1, w2, w_gate=wg)
     want = ref.fused_mlp_ref(x, w1, None, w2, None, w_gate=wg)
     _lm_close(split, want)
     _lm_close(one_pass, want)
     _lm_close(split, one_pass)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "mixed", "bf16"])
+@pytest.mark.parametrize("activation", sorted(ref.ACTIVATIONS))
+def test_fused_mlp_regimes_meet_at_the_switch(card, mode, activation):
+    """The last row count of the few-rows regime and the first of the
+    many-rows one, in every dtype mode and activation, gated and not, with
+    and without biases, at a ragged shape (D_out 300: a bf16 W2 row of 600
+    bytes is no whole number of 16-byte copies)."""
+    xdt = torch.bfloat16 if mode == "bf16" else torch.float32
+    wdt = torch.float32 if mode == "fp32" else torch.bfloat16
+    g = torch.Generator(device=card).manual_seed(len(activation) + len(mode))
+    d, m, d_out = 136, 328, 300
+    w1, wg = ((torch.randn((d, m), generator=g, device=card)
+               * d ** -0.5).to(wdt) for _ in range(2))
+    w2 = (torch.randn((m, d_out), generator=g, device=card)
+          * m ** -0.5).to(wdt)
+    b1 = (0.1 * torch.randn(m, generator=g, device=card)).to(wdt)
+    b2 = (0.1 * torch.randn(d_out, generator=g, device=card)).to(wdt)
+    few = k_fused_mlp.FEW_ROWS
+    assert (k_fused_mlp._library(few), k_fused_mlp._library(few + 1)) == \
+        ("fused_mlp", "fused_mlp_rows")
+    for rows in (few, few + 1):
+        x = torch.randn((rows, d), generator=g, device=card).to(xdt)
+        for gate in (None, wg):
+            for bb in ((b1, b2), (None, None)):
+                want = ref.fused_mlp_ref(x, w1, bb[0], w2, bb[1],
+                                         activation=activation, w_gate=gate)
+                got = k_fused_mlp.fused_mlp(x, w1, w2, *bb, gate,
+                                            activation=activation)
+                if mode == "mixed":
+                    _held(got, want, mode)
+                else:
+                    _lm_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,dh,s", [(10, 1, 256, 2048), (16, 16, 80, 128),
+                                         (4, 2, 64, 300), (4, 2, 20, 100)])
+def test_decode_attention_splits_match_one_split(card, dtype, hq, hkv, dh,
+                                                 s, monkeypatch):
+    """The key split (flash-decoding) against a one-split launch and the
+    plain version: lengths 0, 1 and S, one that ends inside a 32-key tile
+    and one inside a split; Dh 80 (stablelm-3b, one query row per block)
+    and Dh 20 (bf16 rows of 40 bytes: staged without 16-byte copies)."""
+    g = torch.Generator(device=card).manual_seed(s + dh)
+    b = 6
+    q = torch.randn((b, hq, dh), generator=g, device=card).to(dtype)
+    kc = torch.randn((b, hkv, s, dh), generator=g, device=card).to(dtype)
+    vc = torch.randn((b, hkv, s, dh), generator=g, device=card).to(dtype)
+    splits = k_head_attention.decode_splits(b, hkv, s)
+    assert splits > 1
+    tiles = -(-s // 32)
+    per = -(-tiles // splits) * 32          # keys of one split
+    lengths = torch.tensor([0, 1, s, 45, min(s - 1, per + 17), s - 3],
+                           dtype=torch.int32, device=card)
+    want = ref.decode_attention_ref(q, kc, vc, lengths)
+    got = k_head_attention.decode_attention(q, kc, vc, lengths)
+    monkeypatch.setattr(k_head_attention, "decode_splits", lambda *a: 1)
+    one = k_head_attention.decode_attention(q, kc, vc, lengths)
+    _lm_close(got, want)
+    _lm_close(one, want)
+    _lm_close(got, one)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(one[0], torch.zeros_like(one[0]))
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "stablelm-3b"])

@@ -1,6 +1,8 @@
 """The port's LM path held against the JAX package on the CPU, at
 `reduced()` of recurrentgemma-2b (the Griffin rec/rec/attn pattern, 26
-layers of width 64) and stablelm-3b (MHA, LayerNorm, gated SiLU): the
+layers of width 64), stablelm-3b (MHA, LayerNorm, gated SiLU),
+qwen2.5-32b (`qkv_bias`), nemotron-4-15b (relu2, LayerNorm) and
+h2o-danube-1.8b (sliding window): the
 same JAX weights carried over by `convert.lm_params_from_numpy`, the same
 numpy tokens, through `forward`, `prefill` (logits and caches) and
 `decode_step`; the ring KV cache past the window; the slot server's
@@ -32,7 +34,8 @@ from repro_torch.launch import steps as t_steps
 from repro_torch.models import transformer as t_tr
 from repro_torch.models.config import ModelConfig as TModelConfig
 
-ARCHS = ["recurrentgemma-2b", "stablelm-3b"]
+ARCHS = ["recurrentgemma-2b", "stablelm-3b", "qwen2.5-32b",
+         "nemotron-4-15b", "h2o-danube-1.8b"]
 REL = 2e-5
 
 
