@@ -15,7 +15,12 @@ Phases (any failure exits non-zero; nothing is caught):
      widths, with qkv_bias and without the MLP biases once each; the
      float and int8 layer groups at DeiT-T (12 layers, batch 8), Swin-T
      stage 4 (2 layers, bucket 8, windowed) and a pruned width (DeiT-T,
-     2 layers of 2 heads), also against L calls of the per-layer kernel;
+     2 layers of 2 heads), also against L calls of the per-layer chain
+     over the group's own tiles (float: `tile_chain`, within 1e-6 of the
+     scale; int8: the int8 layer, exactly); each timed shape of the float
+     layer and the float MSA prints its plan (`[plan]`: the layer's
+     launches, counted on one call, the operand types, and the fields of
+     the MSA tile's plan: cluster, row slice, ring stages, shared memory);
   3. serve DeiT-T (224 px, 12 layers) and Swin-T (224 px, depths
      2/2/6/2), and their head-pruned variants, random weights from a
      seed, through make_server on the card: DeiT-T fused float and int8,
@@ -105,7 +110,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense), used for bounds.
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores
+# fp32-accurate products: split TF32 at the 495 TFLOP/s TF32 rate (the
+# card's fastest fp32 route, which kernels 1 and 5 take; every fp32 row is
+# held to it, against 67 TFLOP/s outside the tensor cores): three passes
+# where both operands are fp32, two where one is bf16 (exact in TF32).
+FP32_FLOP_PER_S = 495e12 / 3
+MIXED_FLOP_PER_S = 495e12 / 2    # fp32 x bf16 products
 INT8_OP_PER_S = 1979e12          # int8 tensor-core peak
 BF16_FLOP_PER_S = 989e12         # bf16 dense tensor-core peak
 
@@ -274,11 +284,11 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def bound(flops_f32: float = 0.0, ops_i8: float = 0.0, nbytes: float = 0.0,
-          flops_bf16: float = 0.0):
+          flops_bf16: float = 0.0, flops_mixed: float = 0.0):
     """(bound_ms, bound_by): the larger of the compute time at peak for
-    each operand type and the bytes over the memory rate."""
+    each pair of operand types and the bytes over the memory rate."""
     t_ops = flops_f32 / FP32_FLOP_PER_S + ops_i8 / INT8_OP_PER_S \
-        + flops_bf16 / BF16_FLOP_PER_S
+        + flops_bf16 / BF16_FLOP_PER_S + flops_mixed / MIXED_FLOP_PER_S
     t_mem = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
                                     else "bytes")
@@ -492,10 +502,10 @@ def composed_mlp(x, w1, b1, w2, b2):
 
 def msa_bound(z, wq, bias=None, mask=None, qkv_bias=None, int8=False):
     """Bound of a per-head MSA call: the projections (int8, or at the rate
-    of z's type: fp32 where z is float32, the bf16 tensor cores where z and
-    the weights are bf16) and the attention, against z, the three weight
-    stacks, the window terms and the (B, H, N, Dh) output (float32 for
-    int8, else z's type)."""
+    of z's and the weights' types, `flops_at`) and the attention (fp32
+    unless z is bf16), against z, the three weight stacks, the window
+    terms and the (B, H, N, Dh) output (float32 for int8, else z's
+    type)."""
     b, n, d = z.shape
     h, _, dh = wq.shape
     proj = 2 * b * n * d * 3 * h * dh
@@ -505,7 +515,7 @@ def msa_bound(z, wq, bias=None, mask=None, qkv_bias=None, int8=False):
         + b * h * n * dh * out_size
     if int8:
         return bound(ops_i8=proj, flops_f32=attn, nbytes=moved)
-    return bound(nbytes=moved, **flops_at(z.dtype, proj + attn))
+    return bound(nbytes=moved, **flops_at(z.dtype, proj, wq.dtype, attn))
 
 
 def mlp_bound(x, w1, b1, w2, b2):
@@ -514,21 +524,22 @@ def mlp_bound(x, w1, b1, w2, b2):
     d_out = w2.shape[1]
     return bound(nbytes=nbytes(x, w1, b1, w2, b2)
                  + rows * d_out * x.element_size(),
-                 **flops_at(x.dtype, 2 * rows * m * (d + d_out)))
+                 **flops_at(x.dtype, 2 * rows * m * (d + d_out), w1.dtype))
 
 
 def float_layer_bound(f_args, bias=None, mask=None):
     """Bound of a float layer call, or of a group call (stacked operands:
-    L x the layer's operations): the operations at the rate of x's type
-    against the operands and the window terms read once and the output
-    written once."""
+    L x the layer's operations): the operations at the rate of x's and the
+    weights' types (`flops_at`) against the operands and the window terms
+    read once and the output written once."""
     x = f_args[0]
     b, n, d = x.shape
     *lead, h, _, dh = f_args[1].shape
     proj, attn = layer_flops(b, n, d, h, dh, f_args[9].shape[-1])
+    n_l = lead[0] if lead else 1
     return bound(nbytes=nbytes(*f_args) + nbytes(x) + nbytes(bias, mask),
-                 **flops_at(x.dtype, (lead[0] if lead else 1)
-                            * (proj + attn)))
+                 **flops_at(x.dtype, n_l * proj, f_args[1].dtype,
+                            n_l * attn))
 
 
 def layer_bound(f_args, i_args, bias=None, mask=None):
@@ -574,8 +585,10 @@ def group_bound(f_args, i_args, bias=None, mask=None):
 
 
 def check_chain(name: str, got, chain, exact: bool) -> float:
-    """A layer group against L calls of the per-layer kernel, which runs
-    the same tiles: int8 exactly, float within 1e-6 x scale."""
+    """A layer group against L calls of the per-layer chain over the same
+    tiles (int8: `vita_layer_int8`; float: `tile_chain`, the float layer
+    over the group's CUDA-core tiles): int8 exactly, float within 1e-6 x
+    scale."""
     torch.cuda.synchronize()
     err = float((got - chain).abs().max())
     scale = float(chain.abs().max())
@@ -659,14 +672,16 @@ def kernel_phase(deit, vitb, swin_cfg):
         err_i = check_int8_layer(f"vita_layer_int8 {tag} B={b}",
                                  vl.vita_layer_int8(*i_args, bias, mask),
                                  ref.vita_layer_int8_ref(*i_args, bias, mask))
-        if tag == "vit_b16":
-            continue
         fb, ib = layer_bound(f_args, i_args, bias, mask)
         h, dh = bp["wq"].shape[0], bp["wq"].shape[2]
+        layer_plan(f"{tag} {tuple(x.shape)}",
+                   lambda: vl.vita_layer(*f_args, bias, mask), x, bp["wq"])
         rec("vita_layer", tag, err,
             lambda a=f_args, bi=bias, ma=mask: vl.vita_layer(*a, bi, ma),
             lambda a=f_args, bi=bias, ma=mask: ref.vita_layer_ref(*a, bi, ma),
             composed_layer(f_args, h, dh, bias, mask), fb)
+        if tag == "vit_b16":
+            continue
         rec("vita_layer_int8", tag, err_i,
             lambda a=i_args, bi=bias, ma=mask: vl.vita_layer_int8(*a, bi, ma),
             lambda a=i_args, bi=bias, ma=mask: ref.vita_layer_int8_ref(
@@ -729,6 +744,7 @@ def kernel_phase(deit, vitb, swin_cfg):
             f"vita_msa_batched {tag} {tuple(z.shape)} H={w[0].shape[0]}",
             vm.vita_msa_batched(z, *w, bias, mask),
             ref.vita_msa_batched_ref(z, *w, bias, mask))
+        msa_plan_line(f"{tag} {tuple(z.shape)}", z, w[0])
         rec("vita_msa_batched", tag, err,
             lambda z=z, w=w, bi=bias, ma=mask: vm.vita_msa_batched(
                 z, *w, bi, ma),
@@ -766,7 +782,7 @@ def kernel_phase(deit, vitb, swin_cfg):
                           ref.vita_layer_group_ref(*f_args, bias, mask))
         chain = x
         for l in range(n_l):
-            chain = vl.vita_layer(chain, *[a[l] for a in f_args[1:]],
+            chain = vg.tile_chain(chain, *[a[l] for a in f_args[1:]],
                                   None if bias is None else bias[l], mask)
         check_chain(f"vita_layer_group {tag}",
                     vg.vita_layer_group(*f_args, bias, mask), chain, False)
@@ -866,6 +882,9 @@ def bf16_kernel_phase(records: dict, deit, swin_cfg) -> None:
                                   vl.vita_layer(*f_args, bias, mask),
                                   ref.vita_layer_ref(*f_args, bias, mask),
                                   mode)
+            layer_plan(f"{label}, {mode}",
+                       lambda: vl.vita_layer(*f_args, bias, mask), xa,
+                       bp["wq"])
             rec(records, "vita_layer", f"{label}, {mode}", err,
                 lambda a=f_args, bi=bias, ma=mask: vl.vita_layer(*a, bi, ma),
                 lambda a=f_args, bi=bias, ma=mask: ref.vita_layer_ref(
@@ -879,6 +898,7 @@ def bf16_kernel_phase(records: dict, deit, swin_cfg) -> None:
                                   vm.vita_msa_batched(z, *w, bias, mask),
                                   ref.vita_msa_batched_ref(z, *w, bias, mask),
                                   mode)
+            msa_plan_line(f"{label}, {mode}", z, w[0])
             rec(records, "vita_msa_batched", f"{label}, {mode}", err,
                 lambda z=z, w=w, bi=bias, ma=mask: vm.vita_msa_batched(
                     z, *w, bi, ma),
@@ -932,7 +952,7 @@ def bf16_kernel_phase(records: dict, deit, swin_cfg) -> None:
             if mode == "mixed":
                 chain = f_args[0]
                 for l in range(len(blocks)):
-                    chain = vl.vita_layer(
+                    chain = vg.tile_chain(
                         chain, *[a[l] for a in stacks],
                         None if bias is None else bias[l], mask)
                 check_chain(f"vita_layer_group {tag} mixed", got, chain,
@@ -1278,10 +1298,17 @@ def dname(dtype) -> str:
     return "bf16" if dtype == torch.bfloat16 else "fp32"
 
 
-def flops_at(dtype, flops):
-    """Keyword for `bound`: fp32 inputs at the fp32 rate, bf16 inputs at
-    the bf16 tensor-core rate."""
-    return {"flops_bf16" if dtype == torch.bfloat16 else "flops_f32": flops}
+def flops_at(dtype, flops, w_dtype=None, act=0.0):
+    """Keywords for `bound`: ``flops`` of products of inputs of ``dtype``
+    with weights of ``w_dtype`` (default ``dtype``), and ``act`` of
+    products of two activations.  bf16 inputs run them all at the bf16
+    tensor-core rate; fp32 inputs at the fp32 rate, but for the weight
+    products with bf16 weights, at the fp32 x bf16 rate."""
+    if dtype == torch.bfloat16:
+        return {"flops_bf16": flops + act}
+    if w_dtype == torch.bfloat16:
+        return {"flops_mixed": flops, "flops_f32": act}
+    return {"flops_f32": flops + act}
 
 
 def unsplit(fn):
@@ -1314,6 +1341,57 @@ def mlp_plan(tag: str, x, w1, w2) -> None:
           f"regime, {fm.hidden_splits(rows, d, m, d_out, code)} hidden "
           f"splits (fewest "
           f"{fm.hidden_splits(rows, d, m, d_out, code, requested=1)})")
+
+
+def plan_fields(p) -> str:
+    """An MSA tile plan (`vita_msa.MsaPlan`) as its fields."""
+    return ", ".join(f"{k} {v}" for k, v in p._asdict().items())
+
+
+def msa_plan_line(tag: str, z, wq) -> None:
+    """Print the MSA tile's plan for z (B, N, D) against the (H, D, Dh)
+    stack: the operand types, the clusters and the tile's layout."""
+    from repro_torch.kernels import vita_msa as vm
+
+    b, n, _ = z.shape
+    h, _, dh = wq.shape
+    p = vm.msa_plan(n, dh, z.element_size(), wq.element_size())
+    print(f"[plan] vita_msa_batched {tag}: z {dname(z.dtype)}, weights "
+          f"{dname(wq.dtype)}; {b * h} clusters ({b * h * p.cluster} "
+          f"blocks); {plan_fields(p)}")
+
+
+def launches(fn) -> int:
+    """The kernel launches one call of ``fn`` makes (calls of
+    `build.call`)."""
+    from repro_torch.kernels import build
+
+    real, count = build.call, [0]
+
+    def counted(*args):
+        count[0] += 1
+        return real(*args)
+
+    build.call = counted
+    try:
+        fn()
+    finally:
+        build.call = real
+    return count[0]
+
+
+def layer_plan(tag: str, run, x, wq) -> None:
+    """Print kernel 1's plan for x (B, N, D): the launches one call of
+    ``run`` makes and the MSA tile's plan on the fp32 LN1 output."""
+    from repro_torch.kernels import vita_msa as vm
+
+    b, n, _ = x.shape
+    h, _, dh = wq.shape
+    p = vm.msa_plan(n, dh, 4, wq.element_size())
+    print(f"[plan] vita_layer {tag}: {launches(run)} launches; x "
+          f"{dname(x.dtype)}, weights {dname(wq.dtype)}; MSA tile on fp32 "
+          f"z, {b * h} clusters ({b * h * p.cluster} blocks); "
+          f"{plan_fields(p)}")
 
 
 def visible_pairs(nq: int, nk: int, causal: bool, window, q_offset=0):

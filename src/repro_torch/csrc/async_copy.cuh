@@ -1,12 +1,15 @@
 // Asynchronous 16-byte copies from device memory into shared memory
-// (cp.async, sm_80 and later), the bf16 tensor-core pieces (ldmatrix,
-// mma.sync m16n8k16 with fp32 accumulation) and the launch helpers shared
-// by decode_attention.cu and fused_mlp*.cu.
+// (cp.async, sm_80 and later) and the 2-D tile loader over them, the bf16
+// tensor-core pieces (ldmatrix, mma.sync m16n8k16 with fp32 accumulation)
+// and the launch helpers shared by decode_attention.cu, fused_mlp*.cu,
+// vita_msa.cu and mma_gemm.cu.
 #pragma once
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace repro_torch {
 
@@ -32,6 +35,37 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Tile rows [row0, row0 + tr) x columns [col0, col0 + tc) of a row-major
+// (rows x cols, leading dimension ld) matrix into shared memory at `dst`
+// (row stride `ds` bytes) by THREADS threads; entries past the matrix are
+// zeros.  With `vec` (ld and the base 16-byte aligned, col0 a multiple of
+// 16 bytes) each 16-byte chunk inside the matrix is a cp.async; a chunk
+// across its right edge, and every chunk without `vec`, is copied by
+// plain loads.
+template <typename T, int THREADS>
+__device__ __forceinline__ void load_tile(unsigned char* dst, int ds,
+                                          const T* __restrict__ src,
+                                          long long ld, int row0, int rows,
+                                          int col0, int cols, int tr, int tc,
+                                          bool vec) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int cpr = tc / V;
+  for (int i = threadIdx.x; i < tr * cpr; i += THREADS) {
+    const int r = i / cpr, c = (i % cpr) * V, row = row0 + r, col = col0 + c;
+    T* d = reinterpret_cast<T*>(dst + r * ds) + c;
+    const bool rin = row < rows;
+    if (vec && (!rin || col + V <= cols || col >= cols)) {
+      const bool ok = rin && col + V <= cols;
+      cp_async16(d, ok ? src + row * ld + col : src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        d[e] = rin && col + e < cols ? src[row * ld + col + e]
+                                     : from_f<T>(0.f);
+    }
+  }
 }
 
 // Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row

@@ -92,16 +92,19 @@ fused_mlp_kernel(const XT* __restrict__ x, const WT* __restrict__ w1,
     unsigned char* st = smem + (s % FEW_STAGES) * C::STAGE;
     if (s < p1) {
       const int d0 = (s % nk1) * KT, m0 = (c_begin + s / nk1) * BH;
-      load_tile<XT>(st, C::SX, x, D, 0, R, d0, D, FEW_ROWS, KT, vx);
+      load_tile<XT, MLP_THREADS>(st, C::SX, x, D, 0, R, d0, D, FEW_ROWS, KT,
+                                 vx);
       st += FEW_ROWS * C::SX;
-      load_tile<WT>(st, C::SW, w1, M, d0, D, m0, M, KT, BH, vw1);
+      load_tile<WT, MLP_THREADS>(st, C::SW, w1, M, d0, D, m0, M, KT, BH,
+                                 vw1);
       if (gated)
-        load_tile<WT>(st + KT * C::SW, C::SW, wg, M, d0, D, m0, M, KT, BH,
-                      vw1);
+        load_tile<WT, MLP_THREADS>(st + KT * C::SW, C::SW, wg, M, d0, D, m0,
+                                   M, KT, BH, vw1);
     } else {
       const int s2 = s - p1;
-      load_tile<WT>(st, C::S2, w2, Dout, (c_begin + s2 % ncb) * BH, M,
-                    s2 / ncb * NT, Dout, BH, NT, vw2);
+      load_tile<WT, MLP_THREADS>(st, C::S2, w2, Dout,
+                                 (c_begin + s2 % ncb) * BH, M, s2 / ncb * NT,
+                                 Dout, BH, NT, vw2);
     }
   };
 

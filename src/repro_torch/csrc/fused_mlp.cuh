@@ -1,6 +1,5 @@
 // Pieces shared by the fused MLP's two regimes (fused_mlp.cu: few rows,
-// fused_mlp_rows.cu: many rows): the 2-D tile loader over 16-byte
-// asynchronous copies, the hidden activation, the fragment addressing of
+// fused_mlp_rows.cu: many rows): the hidden activation, the fragment addressing of
 // the bf16 tensor-core path, the output store and the kernel that adds
 // fp32 partials in order.
 #pragma once
@@ -14,36 +13,6 @@
 namespace repro_torch {
 
 constexpr int MLP_THREADS = 256, MLP_BH = 64;  // threads; hidden chunk
-
-// Tile rows [row0, row0 + tr) x columns [col0, col0 + tc) of a row-major
-// (rows x cols, leading dimension ld) matrix into shared memory at `dst`
-// (row stride `ds` bytes); entries past the matrix are zeros.  With `vec`
-// (ld and the base 16-byte aligned, col0 a multiple of 16 bytes) each
-// 16-byte chunk inside the matrix is a cp.async; a chunk across its right
-// edge, and every chunk without `vec`, is copied by plain loads.
-template <typename T>
-__device__ __forceinline__ void load_tile(unsigned char* dst, int ds,
-                                          const T* __restrict__ src,
-                                          long long ld, int row0, int rows,
-                                          int col0, int cols, int tr, int tc,
-                                          bool vec) {
-  constexpr int V = 16 / (int)sizeof(T);
-  const int cpr = tc / V;
-  for (int i = threadIdx.x; i < tr * cpr; i += MLP_THREADS) {
-    const int r = i / cpr, c = (i % cpr) * V, row = row0 + r, col = col0 + c;
-    T* d = reinterpret_cast<T*>(dst + r * ds) + c;
-    const bool rin = row < rows;
-    if (vec && (!rin || col + V <= cols || col >= cols)) {
-      const bool ok = rin && col + V <= cols;
-      cp_async16(d, ok ? src + row * ld + col : src, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e)
-        d[e] = rin && col + e < cols ? src[row * ld + col + e]
-                                     : from_f<T>(0.f);
-    }
-  }
-}
 
 // The hidden value of column m: act(g) * (u + b1[m]) gated, else
 // act(u + b1[m]), rounded to x's type (the TPU kernel's h.astype(x.dtype)

@@ -88,15 +88,17 @@ fused_mlp_rows_kernel(const XT* __restrict__ x, const WT* __restrict__ w1,
     const int j = s % per, m0 = (ch0 + s / per) * BH;
     if (j < nk1) {
       const int d0 = j * KT1;
-      load_tile<XT>(st, C::SX, x, D, row0, R, d0, D, BR, KT1, vx);
+      load_tile<XT, MLP_THREADS>(st, C::SX, x, D, row0, R, d0, D, BR, KT1,
+                                 vx);
       st += BR * C::SX;
-      load_tile<WT>(st, C::SW, w1, M, d0, D, m0, M, KT1, BH, vw1);
+      load_tile<WT, MLP_THREADS>(st, C::SW, w1, M, d0, D, m0, M, KT1, BH,
+                                 vw1);
       if (gated)
-        load_tile<WT>(st + KT1 * C::SW, C::SW, wg, M, d0, D, m0, M, KT1, BH,
-                      vw1);
+        load_tile<WT, MLP_THREADS>(st + KT1 * C::SW, C::SW, wg, M, d0, D, m0,
+                                   M, KT1, BH, vw1);
     } else {
-      load_tile<WT>(st, C::S2, w2, Dout, m0 + (j - nk1) * KT2, M, c0, Dout,
-                    KT2, bo, vw2);
+      load_tile<WT, MLP_THREADS>(st, C::S2, w2, Dout, m0 + (j - nk1) * KT2,
+                                 M, c0, Dout, KT2, bo, vw2);
     }
   };
 

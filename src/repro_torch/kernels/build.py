@@ -39,8 +39,10 @@ SIGNATURES = {
                                 P, L, I, P, I, P],
     ("attention", "rt_attention"): [P, P, P, L, L, L, P, L, L, L, I, I, I,
                                     I, F, P, P, P, I, P],
-    ("vita_msa", "rt_vita_msa"): [P, P, P, P, P, P, P, I, P, I, I, I, I, I,
-                                  F, I, I, P],
+    ("vita_msa", "rt_vita_msa"): [P] * 7 + [I, P, L, L, L] + [I] * 5
+    + [F, I, I, P, P],
+    ("mma_gemm", "rt_mma_gemm"): [P, L, P, L, P, L, I, I, I, P, P, L, I, I,
+                                  I, I, P],
     ("fused_mlp", "rt_fused_mlp"): [P] * 8 + [I] * 8 + [P],
     ("fused_mlp", "rt_fused_mlp_splits"): [I] * 6 + [P],
     ("fused_mlp_rows", "rt_fused_mlp_rows"): [P] * 8 + [I] * 8 + [P],

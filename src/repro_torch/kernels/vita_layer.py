@@ -6,29 +6,43 @@ Counterpart of `repro/kernels/vita_layer.py::vita_layer` and
 does not carry over: Hopper blocks run in parallel and carry nothing
 between them, and at DeiT-T widths x, z and the accumulator are 147 KiB
 each per image (w_up alone 576 KiB in fp32) against 227 KB of shared
-memory a block.  So the layer is a chain of small kernels whose
-intermediates (Q/K/V, SA, h1, the MLP hidden) go through device memory —
-at these sizes they stay in the 50 MB L2.  This drops the TPU kernel's
-"nothing leaves the grid" property.  A layer group runs the same chain's
-tiles for all its layers in one launch (`vita_layer_group.py`).
+memory a block.  So the layer is a chain of kernels whose intermediates
+(SA, h1, the MLP hidden; Q/K/V too in the int8 chain) go through device
+memory — at these sizes they stay in the 50 MB L2.  This drops the TPU
+kernel's "nothing leaves the grid" property.
 
-  float: LN1 (csrc/layer_norm.cu) -> Q, K, V GEMMs reading the (H, D, Dh)
-         stacks in place (csrc/gemm_f32.cu) -> attention (csrc/attention.cu)
-         -> concat GEMM + residual -> LN2 -> up GEMM + bias + GELU ->
-         down GEMM + bias + residual.                          (9 launches)
-  int8:  the same chain with csrc/gemm_i8.cu: LN1 quantises to int8 at
-         act_scales[0]; the QKV epilogue applies act_scales[0] * w_scale;
-         attention writes SA quantised at act_scales[1]; the up epilogue
-         adds the bias, applies GELU and quantises at act_scales[3].
+  float: LN1 (csrc/layer_norm.cu) -> the MSA tile (csrc/vita_msa.cu, one
+         thread-block cluster per (image, head): Q/K/V projected on chip
+         and never stored, SA written merged (B*N, H*Dh) in fp32) ->
+         concat GEMM + residual (csrc/mma_gemm.cu) -> LN2 -> up GEMM +
+         bias + GELU -> down GEMM + bias + residual.          (6 launches)
+         Bound: operations, 2*B*N*(3*D*H*Dh + H*Dh*D + 2*D*M) for the
+         products plus 4*B*H*N*N*Dh for the attention.  Every product runs
+         on the tensor cores: split TF32 on fp32 operands (three passes
+         with fp32 weights, two with bf16 weights, which TF32 holds
+         exactly), so the sums are fp32-accurate in every mode (measured
+         on an H100 at DeiT-T batch 8: 1.6e-6 of an output scale of 6.0
+         in fp32, 1.7e-6 of 5.7 with bf16 weights).
+  int8:  LN1 quantises to int8 at act_scales[0] -> Q, K, V int8 GEMMs
+         (csrc/gemm_i8.cu) whose epilogue applies act_scales[0] * w_scale
+         -> attention (csrc/attention.cu) writes SA quantised at
+         act_scales[1] -> concat GEMM + residual -> LN2 quantising at
+         act_scales[2] -> up GEMM + bias + GELU quantising at
+         act_scales[3] -> down GEMM + bias + residual.        (9 launches)
+
+Shapes: the float layer takes the (N, Dh) the MSA tile's plan fits
+(`vita_msa.msa_plan`: Dh <= 64, N <= 512, K and V of all N tokens in one
+block's shared memory: N up to 256 at Dh 64, 512 at Dh 32), and the
+float layer group refuses the rest too; the int8 layer is not limited so.
 
 Windowed (Swin) mode: the caller folds windows into the batch axis and
-passes ``bias`` (H, n, n) and ``mask`` (nW, n, n); every step of the chain
+passes ``bias`` (H, n, n) and ``mask`` (nW, n, n); every step of a chain
 but attention is per token, so only the attention launch takes them.
 
 dtype modes (`ref.PORTED_MODES`), as the TPU kernel runs them: x is
 float32 or bf16, the weights, LN vectors and biases float32 or bf16, and
-every intermediate (z, Q/K/V, SA, h1, the hidden) is float32, so bf16
-weights are used exactly; only the last GEMM rounds, writing y in x's
+every intermediate (z, Q/K/V, P and V, SA, h1, the hidden) is float32, so
+bf16 weights are used exactly; only the last GEMM rounds, writing y in x's
 dtype (the TPU kernel's fp32 scratch and its output cast).  The int8 layer
 takes float32 x and float32 or bf16 LN vectors and biases.
 These functions take CUDA tensors only; the plain versions are
@@ -42,10 +56,10 @@ from typing import Optional
 import torch
 
 from . import build
-from .int8_matmul import (DTYPE_CODES, _stream, b_layout, check, dtype_code,
+from .int8_matmul import (DTYPE_CODES, _stream, check, dtype_code,
                           launch_gemm_i8, ptr)
 from .ref import check_mode
-from .vita_msa import launch_attention
+from .vita_msa import launch_attention, launch_msa
 
 
 def launch_layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -69,19 +83,19 @@ def launch_layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def launch_gemm_f32(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
+def launch_mma_gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
                     bias: Optional[torch.Tensor] = None,
                     res: Optional[torch.Tensor] = None,
                     gelu: bool = False) -> torch.Tensor:
-    """out (M, N) = [res +] act(a (M, K) . w [+ bias]) with fp32 sums on
-    the current stream; ``w`` is (K, N) or a per-head (H, K, Dh) stack.
-    ``a`` is float32; ``w`` and ``bias`` float32 or bf16 (one dtype),
-    ``res`` and ``out`` float32 or bf16 each."""
-    k, n, ldb, grp, grp_stride = b_layout(w)
-    m = a.shape[0]
-    check(a, "a", torch.float32, (m, k))
+    """out (M, N) = [res +] act(a (M, K) . w (K, N) [+ bias]) on the
+    tensor cores (fp32-accurate split TF32) on the current stream.  ``a``
+    is float32; ``w`` and ``bias`` float32 or bf16 (one dtype), ``res``
+    and ``out`` float32 or bf16 each."""
+    m, k = a.shape
+    n = w.shape[1]
+    check(a, "a", torch.float32)
     wt = dtype_code("w", w)
-    check(w, "w", w.dtype)
+    check(w, "w", w.dtype, (k, n))
     ot = dtype_code("out", out)
     check(out, "out", out.dtype, (m, n))
     if bias is not None:
@@ -90,9 +104,9 @@ def launch_gemm_f32(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
     if res is not None:
         rt = dtype_code("res", res)
         check(res, "res", res.dtype, (m, n))
-    build.call("gemm_f32", "rt_gemm_f32", ptr(a), k, ptr(w), ldb, grp,
-               grp_stride, ptr(out), n, m, n, k, ptr(bias), ptr(res), n,
-               int(gelu), wt, rt, ot, _stream())
+    build.call("mma_gemm", "rt_mma_gemm", ptr(a), k, ptr(w), n, ptr(out), n,
+               m, n, k, ptr(bias), ptr(res), n, int(gelu), wt, rt, ot,
+               _stream())
     return out
 
 
@@ -128,15 +142,12 @@ def vita_layer(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
         return torch.empty((rows, cols), device=x.device, dtype=torch.float32)
 
     z = launch_layer_norm(x2, ln1_w, ln1_b, empty(d))
-    qkv = []
-    for w in (wq, wk, wv):
-        check(w, "wq/wk/wv", wt, (h, d, dh))
-        qkv.append(launch_gemm_f32(z, w, empty(h * dh)))
-    sa = _attend(*qkv, empty(h * dh), b, n, h, dh, bias, mask)
-    h1 = launch_gemm_f32(sa, w_msa, empty(d), res=x2)
+    sa = launch_msa(z.view(b, n, d), wq, wk, wv, empty(h * dh),
+                    (n * h * dh, h * dh, dh), bias=bias, mask=mask)
+    h1 = launch_mma_gemm(sa, w_msa, empty(d), res=x2)
     z2 = launch_layer_norm(h1, ln2_w, ln2_b, empty(d))
-    hid = launch_gemm_f32(z2, w_up, empty(m), bias=b_up, gelu=True)
-    y = launch_gemm_f32(hid, w_down, torch.empty_like(x2), bias=b_down,
+    hid = launch_mma_gemm(z2, w_up, empty(m), bias=b_up, gelu=True)
+    y = launch_mma_gemm(hid, w_down, torch.empty_like(x2), bias=b_down,
                         res=h1)
     return y.reshape(b, n, d)
 

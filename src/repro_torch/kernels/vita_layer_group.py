@@ -10,10 +10,14 @@ concat + residual, LN2, up + GELU, down + residual) with a grid-wide
 barrier between stages, reusing the per-layer chain's own tile code.  The
 activation is carried between layers in a float32 buffer and rounded to
 x's dtype once, at the end, as the TPU kernel carries it in fp32 scratch:
-with float32 x a group equals L calls of `vita_layer.vita_layer` /
-`vita_layer_int8`; with bf16 x it is not (each call rounds its output).
-The source note says what bounds it and how its design differs from the
-TPU's.
+with float32 x a float group equals L calls of `tile_chain` (the float
+layer over the same tiles: csrc/layer_norm.cu, csrc/gemm_f32.cu and
+csrc/attention.cu, the chain `vita_layer.vita_layer` ran before it moved
+onto the tensor cores; kept to hold the group to, run by the tests and
+chip_smoke.py, never on a served path) and an int8 group L calls of
+`vita_layer.vita_layer_int8`; with bf16 x it is not (each call rounds its
+output).  The source note says what bounds it and how its design differs
+from the TPU's.
 
 Operands carry the layer as their leading axis: wq/wk/wv (L, H, D, Dh);
 w_msa (L, H*Dh, D); w_up (L, D, M); w_down (L, M, D); LN vectors and
@@ -35,9 +39,11 @@ from typing import Optional
 import torch
 
 from . import build
-from .int8_matmul import DTYPE_CODES, _stream, check, ptr
+from .int8_matmul import (DTYPE_CODES, _stream, b_layout, check, dtype_code,
+                          ptr)
 from .ref import check_mode
-from .vita_msa import SMEM_LIMIT
+from .vita_layer import _attend, launch_layer_norm
+from .vita_msa import SMEM_LIMIT, msa_plan
 
 _ALIGN = 256
 LN_EPS = 1e-5
@@ -117,6 +123,9 @@ def vita_layer_group(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
          (ln2_b, "ln2_b"), (b_down, "b_down")), b_up, bias, mask, wt, wt)
     for w, nm in ((wq, "wq"), (wk, "wk"), (wv, "wv")):
         check(w, nm, wt, (n_l, h, d, dh))
+    # The shapes the float layer's MSA tile takes (fp32 LN1 output), so a
+    # grouped and a per-layer schedule serve the same models.
+    msa_plan(n, dh, 4, wq.element_size())
     out = torch.empty_like(x)
     ws = _workspace(x.device, b * n, d, h * dh, m, int8=False)
     build.call("vita_layer_group", "rt_vita_layer_group", ptr(x), ptr(wq),
@@ -174,3 +183,62 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
                *(ptr(t) for t in ws[1:]), ptr(ws[0]), b, n, d, h, dh, m, n_l,
                n_w, dh ** -0.5, LN_EPS, DTYPE_CODES[vt], _stream())
     return out
+
+
+def launch_gemm_f32(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
+                    bias: Optional[torch.Tensor] = None,
+                    res: Optional[torch.Tensor] = None,
+                    gelu: bool = False) -> torch.Tensor:
+    """out (M, N) = [res +] act(a (M, K) . w [+ bias]) with fp32 FMAs on
+    the current stream (csrc/gemm_f32.cu, the group kernel's GEMM tile);
+    ``w`` is (K, N) or a per-head (H, K, Dh) stack.  ``a`` is float32;
+    ``w`` and ``bias`` float32 or bf16 (one dtype), ``res`` and ``out``
+    float32 or bf16 each."""
+    k, n, ldb, grp, grp_stride = b_layout(w)
+    m = a.shape[0]
+    check(a, "a", torch.float32, (m, k))
+    wt = dtype_code("w", w)
+    check(w, "w", w.dtype)
+    ot = dtype_code("out", out)
+    check(out, "out", out.dtype, (m, n))
+    if bias is not None:
+        check(bias, "bias", w.dtype, (n,))
+    rt = 0
+    if res is not None:
+        rt = dtype_code("res", res)
+        check(res, "res", res.dtype, (m, n))
+    build.call("gemm_f32", "rt_gemm_f32", ptr(a), k, ptr(w), ldb, grp,
+               grp_stride, ptr(out), n, m, n, k, ptr(bias), ptr(res), n,
+               int(gelu), wt, rt, ot, _stream())
+    return out
+
+
+def tile_chain(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
+               w_down, b_down, bias=None, mask=None) -> torch.Tensor:
+    """One float encoder layer as the group kernel's own tiles compute it,
+    one launch each: LN1, Q, K, V (gemm_f32), attention, concat +
+    residual, LN2, up + GELU, down + residual (9 launches); x (B, N, D)
+    -> (B, N, D) in x's dtype, arguments as `vita_layer.vita_layer`.  A
+    float group equals L calls of it within fp32 reassociation of the
+    same sums (the group carries the activation in fp32).  Not counted in
+    `ops.LAUNCHES`: no served path calls it."""
+    b, n, d = x.shape
+    h, _, dh = wq.shape
+    m = w_up.shape[1]
+    check_mode("tile_chain", x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w,
+               ln2_b, w_up, b_up, w_down, b_down)
+    rows = b * n
+    x2 = x.reshape(rows, d)
+
+    def empty(cols):
+        return torch.empty((rows, cols), device=x.device, dtype=torch.float32)
+
+    z = launch_layer_norm(x2, ln1_w, ln1_b, empty(d))
+    qkv = [launch_gemm_f32(z, w, empty(h * dh)) for w in (wq, wk, wv)]
+    sa = _attend(*qkv, empty(h * dh), b, n, h, dh, bias, mask)
+    h1 = launch_gemm_f32(sa, w_msa, empty(d), res=x2)
+    z2 = launch_layer_norm(h1, ln2_w, ln2_b, empty(d))
+    hid = launch_gemm_f32(z2, w_up, empty(m), bias=b_up, gelu=True)
+    y = launch_gemm_f32(hid, w_down, torch.empty_like(x2), bias=b_down,
+                        res=h1)
+    return y.reshape(b, n, d)

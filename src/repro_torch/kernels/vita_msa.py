@@ -3,11 +3,15 @@
 Counterpart of `repro/kernels/vita_msa.py`.
 
   * `vita_msa_batched` / `vita_msa` replace the float (B, H)-grid Pallas
-    kernel: one launch of ``csrc/vita_msa.cu`` projects Q, K and V and
-    attends with all three kept in shared memory, so SA is the only tensor
-    it writes.  z and the weights are float32 or bf16 (`ref.PORTED_MODES`);
-    with bf16 z it rounds P and V to bf16 before the AV product, as the TPU
-    kernel does, and writes SA in z's dtype.
+    kernel: one launch of ``csrc/vita_msa.cu`` runs one thread-block
+    cluster per (image, head), whose blocks each project Q, K and V for
+    their own rows on the tensor cores, share K and V through distributed
+    shared memory and attend with everything kept on chip, so SA is the
+    only tensor it writes (`msa_plan` sizes the cluster).  z and the
+    weights are float32 or bf16 (`ref.PORTED_MODES`); with bf16 z it
+    rounds P and V to bf16 before the AV product, as the TPU kernel does,
+    and writes SA in z's dtype.  `launch_msa` is the same launch with the
+    output strides free: the fused float layer writes SA merged.
   * `vita_msa_int8` replaces the int8 kernel of the calibration pass and
     the unfused int8 executor: three int8 GEMMs (``csrc/gemm_i8.cu``)
     project Q, K and V with the per-(head, channel) requant (and the
@@ -16,14 +20,16 @@ Counterpart of `repro/kernels/vita_msa.py`.
 
 All of them take the windowed (Swin) mode: the caller folds windows into
 the batch axis and passes ``bias`` (H, N, N) and ``mask`` (nW, N, N).
-`launch_attention` is the building block the fused layers reuse.  These
+`launch_attention` is the building block the int8 layer reuses.  These
 functions take CUDA tensors only; the plain versions in `ref` are chosen
 by `ops` for CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -31,18 +37,81 @@ from . import build
 from .int8_matmul import DTYPE_CODES, _stream, check, launch_gemm_i8, ptr
 from .ref import check_mode
 
-# Shared memory one block may use on an H100 (bytes), and the static
-# staging buffers of csrc/vita_msa.cu that come out of it.
+# Shared memory one block may use on an H100 (bytes).
 SMEM_LIMIT = 232448
-_MSA_STATIC_SMEM = 2 * 16 * 64 * 4
+_MSA_ROWS, _MSA_SUB, _MSA_WARPS, _MSA_MAX_CLUSTER = 64, 32, 16, 8
+_MSA_MIN_STAGES, _MSA_MAX_STAGES = 3, 8
 
 
-def msa_smem_bytes(n: int, dh: int, z_size: int = 4) -> int:
-    """Dynamic shared memory of one csrc/vita_msa.cu block (its
-    `msa_smem_bytes`): K [N][Dh+1], a 32-row Q tile and 8 score rows of N
-    in fp32, and V [N][Dh] in z's type (``z_size`` bytes: bf16 halves
-    it)."""
-    return 4 * (n * (dh + 1) + 32 * dh + 8 * n) + z_size * n * dh
+class MsaPlan(NamedTuple):
+    """One csrc/vita_msa.cu launch, field for field the tile's
+    `MsaLayout` (csrc/msa_tile.cuh), which the launch takes as is:
+    ``cluster`` blocks per (image, head), each owning ``rows`` tokens;
+    ``dp`` is Dh padded to the tile's width, ``nk`` N padded to 16 keys
+    and ``lds`` the score rows' stride; the projection's copy ring has
+    ``stages`` of ``stage`` bytes; the ``*_off`` are the byte offsets of Q,
+    K, V, the scores, bf16 P and the ring in a block's ``smem`` bytes of
+    shared memory."""
+    dp: int
+    rows: int
+    cluster: int
+    nk: int
+    lds: int
+    stage: int
+    stages: int
+    q_off: int
+    k_off: int
+    v_off: int
+    s_off: int
+    p_off: int
+    ring_off: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def msa_plan(n: int, dh: int, z_size: int = 4,
+             w_size: Optional[int] = None) -> MsaPlan:
+    """The MSA tile's layout for N tokens of head width Dh, z and the
+    weights of ``z_size`` and ``w_size`` bytes (default: z's): one block
+    per 64-row slice of N, at most 8; Q, then K and V for all N rows
+    (fp32, V in z's type) and the scores of a 32-row pass (with bf16 P in
+    the bf16 mode), each row padded so that fragment loads hit distinct
+    banks; and the projection's ring (z [64][KC + 8], W [KC][3 DP + pad],
+    KC 32 for fp32 z and 64 for bf16) overlaying K, V and the scores, as
+    many stages (3-8) as they hold.  Raises ValueError where Dh exceeds
+    64, N exceeds 512 or the layout exceeds one block's shared memory:
+    the float layer and layer group (kernels 1 and 7) refuse those shapes
+    too, through this plan."""
+    w_size = z_size if w_size is None else w_size
+    dp = 32 if dh <= 32 else 64 if dh <= 64 else 0
+    rows = _MSA_ROWS
+    cluster = -(-n // rows)
+    if dp == 0 or n < 1 or cluster > _MSA_MAX_CLUSTER:
+        raise ValueError(f"MSA tile: no cluster plan for N={n}, Dh={dh} "
+                         f"(Dh <= 64 and N <= {rows * _MSA_MAX_CLUSTER} "
+                         f"only)")
+    kc = 32 if z_size == 4 else 64
+    nk = -(-n // 16) * 16
+    lds = -(-nk // 32) * 32 + 8
+    ldv = dp + 4 if z_size == 4 else dp + 8
+    ldw = 3 * dp + (4 if w_size == 4 else 8)
+    qb = rows * (dp + 8) * 4
+    kb = cluster * rows * (dp + 8) * 4
+    vb = cluster * rows * ldv * z_size
+    sb = _MSA_SUB * lds * 4
+    pb = _MSA_SUB * (nk + 8) * 2 if z_size == 2 else 0
+    red = (_MSA_WARPS - 2 * (dp // 16)) * 8 * 32 * 4     # P.V's key groups
+    kvs = kb + vb + max(sb + pb, red)
+    stage = rows * (kc + 8) * z_size + kc * ldw * w_size
+    stages = min(_MSA_MAX_STAGES, max(_MSA_MIN_STAGES, kvs // stage))
+    smem = qb + max(kvs, stages * stage)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"MSA tile: N={n}, Dh={dh} needs {smem} bytes of "
+                         f"shared memory a block, more than one block has "
+                         f"({SMEM_LIMIT})")
+    return MsaPlan(dp, rows, cluster, nk, lds, stage, stages, q_off=0,
+                   k_off=qb, v_off=qb + kb, s_off=qb + kb + vb,
+                   p_off=qb + kb + vb + sb, ring_off=qb, smem=smem)
 
 
 def window_operands(bias, mask, *, b: int, h: int, n: int):
@@ -87,14 +156,15 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def vita_msa_batched(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
-                     wv: torch.Tensor, bias=None, mask=None,
-                     qkv_bias=None) -> torch.Tensor:
-    """z (B, N, D); wq/wk/wv (H, D, Dh) -> (B, H, N, Dh) in z's dtype, on
-    the card; (z, weights) float32 / float32, float32 / bf16 or bf16 /
-    bf16.  Windowed mode takes ``bias`` (H, N, N) and ``mask`` (nW, N, N)
-    in float32; ``qkv_bias`` (3, H, Dh), in the weights' dtype, is
-    optional."""
+def launch_msa(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+               wv: torch.Tensor, out: torch.Tensor, out_strides, *,
+               bias=None, mask=None, qkv_bias=None) -> torch.Tensor:
+    """csrc/vita_msa.cu on the current stream: z (B, N, D) and the (H, D,
+    Dh) weight stacks (a mode of `ref.PORTED_MODES`) into ``out`` of z's
+    dtype, element e of (image, token, head) at out[b*ob + n*on + h*oh +
+    e] for ``out_strides`` (ob, on, oh).  Windowed mode takes ``bias``
+    (H, N, N) and ``mask`` (nW, N, N) in float32; ``qkv_bias`` (3, H, Dh),
+    in the weights' dtype, is optional."""
     b, n, d = z.shape
     h, _, dh = wq.shape
     wt = check_mode("vita_msa_batched", z, wq, wk, wv, qkv_bias)
@@ -103,17 +173,30 @@ def vita_msa_batched(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
         check(w, nm, wt, (h, d, dh))
     if qkv_bias is not None:
         check(qkv_bias, "qkv_bias", wt, (3, h, dh))
+    check(out, "out", z.dtype)
     bias, mask, n_w = window_operands(bias, mask, b=b, h=h, n=n)
-    if msa_smem_bytes(n, dh, z.element_size()) + _MSA_STATIC_SMEM \
-            > SMEM_LIMIT:
-        raise ValueError(f"vita_msa_batched: N={n}, Dh={dh} needs more "
-                         f"shared memory than one block has")
-    out = torch.empty((b, h, n, dh), device=z.device, dtype=z.dtype)
+    plan = msa_plan(n, dh, z.element_size(), wq.element_size())
     build.call("vita_msa", "rt_vita_msa", ptr(z), ptr(wq), ptr(wk), ptr(wv),
-               ptr(qkv_bias), ptr(bias), ptr(mask), n_w, ptr(out), b, n, d,
-               h, dh, dh ** -0.5, DTYPE_CODES[z.dtype], DTYPE_CODES[wt],
-               _stream())
+               ptr(qkv_bias), ptr(bias), ptr(mask), n_w, ptr(out),
+               *out_strides, b, n, d, h, dh, dh ** -0.5,
+               DTYPE_CODES[z.dtype], DTYPE_CODES[wt],
+               (ctypes.c_int * len(plan))(*plan), _stream())
     return out
+
+
+def vita_msa_batched(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                     wv: torch.Tensor, bias=None, mask=None,
+                     qkv_bias=None) -> torch.Tensor:
+    """z (B, N, D); wq/wk/wv (H, D, Dh) -> (B, H, N, Dh) in z's dtype, on
+    the card; (z, weights) float32 / float32, float32 / bf16 or bf16 /
+    bf16.  Windowed mode takes ``bias`` (H, N, N) and ``mask`` (nW, N, N)
+    in float32; ``qkv_bias`` (3, H, Dh), in the weights' dtype, is
+    optional."""
+    b, n, _ = z.shape
+    h, _, dh = wq.shape
+    out = torch.empty((b, h, n, dh), device=z.device, dtype=z.dtype)
+    return launch_msa(z, wq, wk, wv, out, (h * n * dh, dh, n * dh),
+                      bias=bias, mask=mask, qkv_bias=qkv_bias)
 
 
 def vita_msa(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,

@@ -10,7 +10,9 @@ Tolerances: int8 products are exact; float results differ by fp32
 reassociation (1e-4 of the output scale); an int8 layer may flip a
 requant code by one LSB at a rounding boundary (2% of the output scale).
 A layer group runs the per-layer chain's own tiles, so it equals L calls
-of the chain exactly (int8) or within 1e-6 of the output scale (float).
+of the chain exactly (int8) or within 1e-6 of the output scale (float:
+`tile_chain`, the float layer over the group's tiles; `vita_layer` itself
+runs the tensor-core tiles, held to the plain version and to that chain).
 The LM kernels (flash and decode attention, the RG-LRU scan, the gated
 and bf16 fused MLP) are held row by row, each output row to 1e-4 of its
 own scale in fp32 and 2e-2 in bf16 (the kernels round P or the hidden
@@ -251,8 +253,9 @@ def test_layer_group_kernels_match_plain_and_chain(card, kind):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
     y = x
     for l, bp in enumerate(blocks):
-        y = k_vita_layer.vita_layer(y, *[bp[k] for k in _ORDER],
-                                    None if bias is None else bias[l], mask)
+        y = k_vita_layer_group.tile_chain(y, *[bp[k] for k in _ORDER],
+                                          None if bias is None else bias[l],
+                                          mask)
     assert float((got - y).abs().max()) <= 1e-6 * scale
     qs = [quantize_vision_params(bp) for bp in blocks]
     acts = torch.tensor([[4.0, 2.0, 4.0, 3.0]] * 3, device=card) / 127.0
@@ -403,9 +406,9 @@ def test_layer_group_bf16_modes(card, mode, windowed):
     if mode == "mixed":
         y = x
         for l, bp in enumerate(blocks):
-            y = k_vita_layer.vita_layer(y, *[bp[k] for k in _ORDER],
-                                        None if bias is None else bias[l],
-                                        mask)
+            y = k_vita_layer_group.tile_chain(
+                y, *[bp[k] for k in _ORDER],
+                None if bias is None else bias[l], mask)
         assert float((got - y).abs().max()) <= 1e-6 * float(y.abs().max())
 
 
@@ -684,3 +687,146 @@ def test_lm_server_on_the_card_matches_the_cpu(card, arch):
         assert a.generated == b.generated
         ga, gb = np.stack(a.logits), np.stack(b.logits)
         assert np.abs(ga - gb).max() <= 1e-3 * np.abs(gb).max()
+
+
+# Kernels 5 and 1 on the tensor cores: the MSA tile (one thread-block
+# cluster per (image, head), K and V shared through distributed shared
+# memory) and the layer's split-TF32 GEMM tile, in every dtype mode, at
+# the bounds of the checks above: float32 1e-4 of the output scale, mixed
+# 1e-5 and bf16 1e-2 of each row's scale (`_held`).
+_MODES3 = {"fp32": (torch.float32, torch.float32),
+           "mixed": (torch.float32, torch.bfloat16),
+           "bf16": (torch.bfloat16, torch.bfloat16)}
+
+
+def _close(got, want, mode):
+    if mode == "fp32":
+        assert got.dtype == want.dtype and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+    else:
+        _held(got, want, mode)
+
+
+def _widest(dh, z_size, w_size):
+    """The widest N the plan admits at head width ``dh``."""
+    n = 64 * k_vita_msa._MSA_MAX_CLUSTER
+    while True:
+        try:
+            k_vita_msa.msa_plan(n, dh, z_size, w_size)
+            return n
+        except ValueError:
+            n -= 1
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES3))
+@pytest.mark.parametrize("n", [17, 49, 64, 65, 150, 196, 256, 300, 380,
+                               420, "widest"])
+def test_vita_msa_batched_every_cluster_size(card, mode, n):
+    """Kernel 5 at every cluster size the plan chooses (1-8 blocks of 64
+    rows; Dh 64 up to N 256, Dh 32 past it), slices that end ragged,
+    global and windowed, with and without qkv_bias, and a head-pruned
+    stack (H*Dh < D)."""
+    zt, wt = _MODES3[mode]
+    g = torch.Generator(device=card).manual_seed(7)
+    dh = 32 if n == "widest" or n > 256 else 64
+    if n == "widest":
+        n = _widest(dh, zt.itemsize, wt.itemsize)
+    plan = k_vita_msa.msa_plan(n, dh, zt.itemsize, wt.itemsize)
+    assert plan.cluster <= 8 and (plan.cluster - 1) * plan.rows < n \
+        <= plan.cluster * plan.rows
+    for h, d in ((2, 96), (1, 96)):          # (1, 96): one head kept
+        w = [(torch.randn((h, d, dh), generator=g, device=card)
+              * d ** -0.5).to(wt) for _ in range(3)]
+        qb = (0.2 * torch.randn((3, h, dh), generator=g,
+                                device=card)).to(wt)
+        z = torch.randn((4, n, d), generator=g, device=card).to(zt)
+        bias = 0.5 * torch.randn((h, n, n), generator=g, device=card)
+        mask = torch.where(torch.rand((2, n, n), generator=g, device=card)
+                           > 0.7, -1e30, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()
+        for bi, ma, q in ((None, None, None), (None, None, qb),
+                          (bias, mask, qb)):
+            _close(k_vita_msa.vita_msa_batched(z, *w, bi, ma, q),
+                   ref.vita_msa_batched_ref(z, *w, bi, ma, q), mode)
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES3))
+@pytest.mark.parametrize("model", ["deit_t", "deit_t_196", "swin_t"])
+def test_vita_layer_tensor_core_tiles_match_plain_and_chain(card, mode,
+                                                            model):
+    """Kernel 1 (LN1, the MSA tile, the split-TF32 GEMMs) at a reduced
+    DeiT-T width (D 192, 3 heads) over 16 tokens (one block a cluster)
+    and over DeiT-T's 196 (clusters of 4: the distributed shared memory
+    gather and SA written merged by several blocks), and a windowed Swin
+    block (four shifted 4x4 windows, D 96), against its plain version and
+    against the old per-layer chain (`tile_chain`: CUDA-core tiles, the
+    layer group's), each at the mode's bound."""
+    xt, wt = _MODES3[mode]
+    cfg = dataclasses.replace(vision_registry.build_cfg("deit_t"), layers=1,
+                              dtype="float32" if wt == torch.float32
+                              else "bfloat16")
+    if model == "swin_t":
+        cfg = dataclasses.replace(cfg, dim=96)
+    g = torch.Generator(device=card).manual_seed(11)
+    bp = dict(vit.init_params(cfg, seed=4, device=card)["layers"][0])
+    for k in ("ln1_b", "ln2_b", "b_up", "b_down"):
+        bp[k] = (bp[k].float() + 0.1 * torch.randn(
+            bp[k].shape, generator=g, device=card)).to(wt)
+    n = 196 if model == "deit_t_196" else cfg.tokens
+    if model == "deit_t_196":
+        assert k_vita_msa.msa_plan(n, cfg.head_dim, 4,
+                                   wt.itemsize).cluster == 4
+    x = torch.randn((2, n, cfg.dim), generator=g, device=card)
+    bias = mask = None
+    if model == "swin_t":
+        x, bias, mask = _windows(card, cfg.heads, cfg.dim)
+    f_args = (x.to(xt), *[bp[k] for k in _ORDER], bias, mask)
+    got = k_vita_layer.vita_layer(*f_args)
+    _close(got, ref.vita_layer_ref(*f_args), mode)
+    _close(got, k_vita_layer_group.tile_chain(*f_args), mode)
+
+
+@pytest.mark.parametrize("wt", [torch.float32, torch.bfloat16])
+def test_float_layer_and_group_accept_the_same_shapes(card, wt):
+    """The float layer (kernel 1, the MSA tile) and the float layer group
+    (kernel 7, its CUDA-core tiles) take the same (N, Dh): where the
+    tile's plan fits, both run and agree with the plain layer; where it
+    does not (Dh past 64, N past 512, K and V past one block's shared
+    memory), both raise ValueError."""
+    g = torch.Generator(device=card).manual_seed(5)
+    shapes = ((49, 32), (196, 64), (256, 64), (300, 64), (420, 64),
+              (196, 80), (40, 128), (480, 32), (513, 32))
+    accepted = []
+    for n, dh in shapes:
+        d, m = 2 * dh, 48
+
+        def r(*shape, s=1.0):
+            return (s * torch.randn(shape, generator=g, device=card)).to(wt)
+
+        bp = {"wq": r(2, d, dh, s=d ** -0.5), "wk": r(2, d, dh, s=d ** -0.5),
+              "wv": r(2, d, dh, s=d ** -0.5),
+              "w_msa": r(2 * dh, d, s=d ** -0.5),
+              "ln1_w": 1 + r(d, s=0.1), "ln1_b": r(d, s=0.1),
+              "ln2_w": 1 + r(d, s=0.1), "ln2_b": r(d, s=0.1),
+              "w_up": r(d, m, s=d ** -0.5), "b_up": r(m, s=0.1),
+              "w_down": r(m, d, s=m ** -0.5), "b_down": r(d, s=0.1)}
+        x = torch.randn((1, n, d), generator=g, device=card)
+        args = [bp[k] for k in _ORDER]
+        try:
+            got = k_vita_layer.vita_layer(x, *args)
+        except ValueError:
+            got = None
+        try:
+            grouped = k_vita_layer_group.vita_layer_group(
+                x, *[a[None] for a in args])
+        except ValueError:
+            grouped = None
+        assert (got is None) == (grouped is None), (n, dh)
+        if got is not None:
+            accepted.append((n, dh))
+            want = ref.vita_layer_ref(x, *args)
+            _close(got, want, "fp32" if wt == torch.float32 else "mixed")
+            _close(grouped, want, "fp32" if wt == torch.float32 else "mixed")
+    assert (196, 64) in accepted and (49, 32) in accepted
+    assert (196, 80) not in accepted and (513, 32) not in accepted
