@@ -10,17 +10,24 @@ Phases (any failure exits non-zero; nothing is caught):
      float and int8 layers at DeiT-T full width (batch 8) and ViT-B/16
      widths (batch 2), and windowed at Swin-T stage 1 (bucket 8, shifted
      mask); the int8 MSA at DeiT-T, and windowed with qkv_bias at Swin-T
-     stage 1; the int8 matmul at the embed and head shapes; the float MSA
-     and the fused MLP at DeiT-T, Swin-T stages 1 and 4 and ViT-B/16
+     stage 1; the int8 matmul at the embed and head shapes, and the int8
+     layer's products through the same kernel (Q/K/V per-head stacks, up
+     with an int8 output, down with a residual), each exactly; the float
+     MSA and the fused MLP at DeiT-T, Swin-T stages 1 and 4 and ViT-B/16
      widths, with qkv_bias and without the MLP biases once each; the
      float and int8 layer groups at DeiT-T (12 layers, batch 8), Swin-T
      stage 4 (2 layers, bucket 8, windowed) and a pruned width (DeiT-T,
-     2 layers of 2 heads), also against L calls of the per-layer chain
-     over the group's own tiles (float: `tile_chain`, within 1e-6 of the
-     scale; int8: the int8 layer, exactly); each timed shape of the float
-     layer and the float MSA prints its plan (`[plan]`: the layer's
-     launches, counted on one call, the operand types, and the fields of
-     the MSA tile's plan: cluster, row slice, ring stages, shared memory);
+     2 layers of 2 heads), also against L calls of the per-layer kernel
+     (float: `vita_layer`, within 1e-6 of the scale, the measured error
+     printed, 0 where bit for bit; int8: `vita_layer_int8`, exactly);
+     each timed shape of the float layer and the float MSA prints its
+     plan (`[plan]`: the layer's launches, counted on one call, the
+     operand types, and the fields of the MSA tile's plan: cluster, row
+     slice, ring stages, shared memory), each float group its plan (grid,
+     shared memory, and per stage the tiles and waves), and each int8
+     matmul shape its plan (tile, k groups, copy widths), and, after the
+     timing phase, its device time at each k-group count the kernel is
+     built for;
   3. serve DeiT-T (224 px, 12 layers) and Swin-T (224 px, depths
      2/2/6/2), and their head-pruned variants, random weights from a
      seed, through make_server on the card: DeiT-T fused float and int8,
@@ -120,6 +127,9 @@ INT8_OP_PER_S = 1979e12          # int8 tensor-core peak
 BF16_FLOP_PER_S = 989e12         # bf16 dense tensor-core peak
 
 B_MAIN = 8                       # the largest serving bucket
+# torch._int_mm (the int8 matmul's library yardstick) takes more than 16
+# rows only.
+INT_MM_MIN_ROWS = 16
 BUCKETS = (1, 2, 4, 8)
 N_CAL = 4                        # calibration batches (8 images, 4 x 2)
 
@@ -585,15 +595,16 @@ def group_bound(f_args, i_args, bias=None, mask=None):
 
 
 def check_chain(name: str, got, chain, exact: bool) -> float:
-    """A layer group against L calls of the per-layer chain over the same
-    tiles (int8: `vita_layer_int8`; float: `tile_chain`, the float layer
-    over the group's CUDA-core tiles): int8 exactly, float within 1e-6 x
-    scale."""
+    """A layer group against L calls of the per-layer kernel, whose tiles
+    it runs in the same order (int8: `vita_layer_int8`; float:
+    `vita_layer`): int8 exactly, float within 1e-6 x scale (the design
+    makes it equal; the printed error says whether it is)."""
     torch.cuda.synchronize()
     err = float((got - chain).abs().max())
     scale = float(chain.abs().max())
-    print(f"[check] {name} vs the per-layer chain: max|err| {err:.3e} "
-          f"(scale {scale:.3f}, bound {'0' if exact else '1e-6 x scale'})")
+    print(f"[check] {name} vs L calls of the per-layer kernel: max|err| "
+          f"{err:.3e}, bit for bit: {err == 0.0} (scale {scale:.3f}, bound "
+          f"{'0' if exact else '1e-6 x scale'})")
     check(err == 0.0 if exact else err <= 1e-6 * scale,
           f"{name} disagrees with the per-layer chain")
     return err
@@ -702,14 +713,19 @@ def kernel_phase(deit, vitb, swin_cfg):
             lambda a=m_args: ref.vita_msa_int8_ref(*a), None,
             msa_bound(zq, i_args[1], bias, mask, qb, int8=True))
 
-    # int8 matmul at the embed and head shapes, exact int32.
+    # int8 matmul (kernel 4) at the embed and head shapes, exact int32 and
+    # rescaled; then the int8 layer's products through the same kernel
+    # (`launch_gemm_i8`, as kernels 2 and 3 compose it) at DeiT-T batch 8.
     n, d = deit.tokens, deit.dim
-    for (mm, kk, nn), tag in (((B_MAIN * n, deit.patch_dim, d), "embed"),
+    rows, m_hid = B_MAIN * n, int(d * deit.mlp_ratio)
+
+    def i8(*shape, gen=g):
+        return torch.randint(-127, 128, shape, device="cuda", generator=gen,
+                             dtype=torch.int8)
+
+    for (mm, kk, nn), tag in (((rows, deit.patch_dim, d), "embed"),
                               ((B_MAIN, d, deit.n_classes), "head")):
-        a = torch.randint(-127, 128, (mm, kk), device="cuda", generator=g,
-                          dtype=torch.int8)
-        w = torch.randint(-127, 128, (kk, nn), device="cuda", generator=g,
-                          dtype=torch.int8)
+        a, w = i8(mm, kk), i8(kk, nn)
         ws = torch.rand(nn, device="cuda", generator=g) * 1e-2
         xs = torch.tensor(0.02, device="cuda")
         exact = torch.equal(im.int8_matmul(a, w), ref.int8_matmul_ref(a, w))
@@ -720,14 +736,62 @@ def kernel_phase(deit, vitb, swin_cfg):
         print(f"[check] int8_matmul {tag} ({mm}x{kk})x({kk}x{nn}): int32 "
               f"equal {exact}; rescaled max|err| {err:.3e} (bound 0)")
         check(exact and err == 0.0, f"int8_matmul {tag} disagrees")
-        if tag == "embed":
-            rec("int8_matmul", tag, err,
-                lambda a=a, w=w, xs=xs, ws=ws: im.int8_matmul(a, w, xs, ws),
-                lambda a=a, w=w, xs=xs, ws=ws: ref.int8_matmul_ref(
-                    a, w, xs, ws),
-                lambda a=a, w=w: torch._int_mm(a, w),
-                bound(ops_i8=2 * mm * kk * nn,
-                      nbytes=nbytes(a, w, xs, ws) + mm * nn * 4))
+        i8_plan_line(f"{tag} ({mm}x{kk})x({kk}x{nn})", a, w)
+        rec("int8_matmul", f"{tag} ({mm}x{kk})x({kk}x{nn})", err,
+            lambda a=a, w=w, xs=xs, ws=ws: im.int8_matmul(a, w, xs, ws),
+            lambda a=a, w=w, xs=xs, ws=ws: ref.int8_matmul_ref(
+                a, w, xs, ws),
+            (lambda a=a, w=w: torch._int_mm(a, w)) if mm > INT_MM_MIN_ROWS
+            else None,
+            bound(ops_i8=2 * mm * kk * nn,
+                  nbytes=nbytes(a, w, xs, ws) + mm * nn * 4))
+    # These inputs come from a generator of their own, so that every other
+    # check of this phase sees the inputs it saw before they were added.
+    gl = torch.Generator(device="cuda").manual_seed(18)
+    h, dh = deit.heads, deit.head_dim
+    xs = torch.tensor([0.02], device="cuda")
+    qs = torch.tensor([0.05], device="cuda")
+    layer_i8 = (
+        ("layer Q/K/V per-head stack", i8(rows, d, gen=gl),
+         i8(h, d, dh, gen=gl), torch.float32, {}),
+        ("layer up + GELU, int8 out", i8(rows, d, gen=gl),
+         i8(d, m_hid, gen=gl), torch.int8,
+         {"bias": torch.randn(m_hid, device="cuda", generator=gl),
+          "gelu": True, "out_scale": qs}),
+        ("layer down + residual", i8(rows, m_hid, gen=gl),
+         i8(m_hid, d, gen=gl), torch.float32,
+         {"bias": torch.randn(d, device="cuda", generator=gl),
+          "res": torch.randn((rows, d), device="cuda", generator=gl)}))
+    for tag, a, w, out_dtype, kw in layer_i8:
+        k_in, n_out = im.b_layout(w)[:2]
+        kw = dict(kw, x_scale=xs, w_scale=torch.rand(
+            n_out, device="cuda", generator=gl) * 1e-2)
+        out = torch.empty((rows, n_out), device="cuda", dtype=out_dtype)
+        got = im.launch_gemm_i8(a, w, out, **kw)
+        want = ref.gemm_i8_ref(a, w, out_dtype, **kw)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err, flips = float(diff.max()), int((diff > 0).sum())
+        # Through GELU the tile's tanh and the plain version's round apart
+        # by an ulp now and then; an int8 code may then flip by one.
+        exact = "GELU" not in tag
+        print(f"[check] int8_matmul {tag} ({rows}x{k_in})x({k_in}x"
+              f"{n_out}): max|err| {err:.3e}, {flips} of {got.numel()} "
+              f"outputs differ (bound {'0' if exact else '1 code'})")
+        check(err == 0.0 if exact else err <= 1.0,
+              f"int8_matmul {tag} disagrees")
+        i8_plan_line(f"{tag} ({rows}x{k_in})x({k_in}x{n_out})", a, w)
+        merged = w.permute(1, 0, 2).reshape(k_in, n_out).contiguous() \
+            if w.dim() == 3 else w
+        rec("int8_matmul", f"{tag} ({rows}x{k_in})x({k_in}x{n_out})", err,
+            lambda a=a, w=w, o=out, kw=kw: im.launch_gemm_i8(a, w, o, **kw),
+            lambda a=a, w=w, dt=out_dtype, kw=kw: ref.gemm_i8_ref(
+                a, w, dt, **kw),
+            lambda a=a, w=merged: torch._int_mm(a, w),
+            bound(ops_i8=2 * rows * k_in * n_out,
+                  nbytes=nbytes(a, w, *[t for t in kw.values()
+                                        if isinstance(t, torch.Tensor)])
+                  + out.numel() * out.element_size()))
 
     # Float MSA and fused MLP: DeiT-T batch 8 (the unfused main path),
     # Swin-T stage 1 (shifted) and stage 4 at bucket 8, ViT-B/16 batch 2.
@@ -780,9 +844,10 @@ def kernel_phase(deit, vitb, swin_cfg):
         err = check_close(f"vita_layer_group {tag}",
                           vg.vita_layer_group(*f_args, bias, mask),
                           ref.vita_layer_group_ref(*f_args, bias, mask))
+        group_plan_line(tag, x, f_args[1], f_args[9].shape[2])
         chain = x
         for l in range(n_l):
-            chain = vg.tile_chain(chain, *[a[l] for a in f_args[1:]],
+            chain = vl.vita_layer(chain, *[a[l] for a in f_args[1:]],
                                   None if bias is None else bias[l], mask)
         check_chain(f"vita_layer_group {tag}",
                     vg.vita_layer_group(*f_args, bias, mask), chain, False)
@@ -952,11 +1017,13 @@ def bf16_kernel_phase(records: dict, deit, swin_cfg) -> None:
             if mode == "mixed":
                 chain = f_args[0]
                 for l in range(len(blocks)):
-                    chain = vg.tile_chain(
+                    chain = vl.vita_layer(
                         chain, *[a[l] for a in stacks],
                         None if bias is None else bias[l], mask)
                 check_chain(f"vita_layer_group {tag} mixed", got, chain,
                             False)
+            group_plan_line(f"{tag} bf16 weights, {mode}", f_args[0],
+                            stacks[0], stacks[8].shape[2])
             lib = (upcast_then(lambda a, bi, ma: composed_group(a, bi, ma),
                                f_args, bias, mask) if mode == "mixed"
                    else composed_group(f_args, bias, mask))
@@ -1231,27 +1298,50 @@ def profile_drain(name: str, server, where: str) -> list:
     return profile_run(name, server.run, where, "32 requests")
 
 
+# The kernels of the per-layer paths, by the name the profiler gives
+# them: none may run between embed and head in a grouped drain.
+PER_LAYER_KERNELS = ("layer_norm_kernel", "vita_msa_kernel",
+                     "mma_gemm_kernel", "attention_kernel",
+                     "fused_mlp_rows_kernel", "fused_mlp_kernel")
+
+
 def check_grouped_drain(mode: str, server, where: str) -> None:
     """The grouped DeiT-T drain's device kernels: one layer-group launch
-    per group per micro-batch (32 requests = 4 micro-batches of 8) and no
-    per-layer GEMM (int8: the only GEMMs are the embed and head int8
-    matmuls)."""
+    per group per micro-batch (32 requests = 4 micro-batches of 8), no
+    per-layer kernel (`PER_LAYER_KERNELS`), and int8 GEMMs
+    (`mma_gemm_i8_kernel`) only for embed and head in int8 (none in
+    float).  The trace is read only when it is complete: when it holds as
+    many layer-group kernels as the drain launched (`ops.LAUNCHES`); the
+    profiler drops an event now and then, and the drain is then profiled
+    again, twice at most."""
+    from repro_torch.kernels import ops
     from repro_torch.models import vision_registry
 
-    rows = profile_drain(f"deit_t {mode} grouped by 4", server, where)
     groups = vision_registry.make_schedule(server.cfg).counts()["layer_group"]
-    kernel = "vita_layer_group_int8_kernel" if mode == "int8" \
-        else "vita_layer_group_kernel"
-    n_group = sum(c for k, _, c in rows if kernel in k)
-    n_f32 = sum(c for k, _, c in rows if "gemm_f32_kernel" in k)
-    n_i8 = sum(c for k, _, c in rows if "gemm_i8_kernel" in k)
-    print(f"[profile] deit_t {mode} grouped by 4: {kernel} x{n_group} "
-          f"(expected {groups} groups x 4 micro-batches), gemm_f32_kernel "
-          f"x{n_f32}, gemm_i8_kernel x{n_i8}")
-    check(n_group == groups * 4 and n_f32 == 0
+    name = "vita_layer_group_int8" if mode == "int8" else "vita_layer_group"
+    kernel = name + "_kernel"
+    for _ in range(3):
+        ops.reset_launches()
+        rows = profile_drain(f"deit_t {mode} grouped by 4", server, where)
+        launched = ops.LAUNCHES[name]
+        n_group = sum(c for k, _, c in rows if kernel in k)
+        if n_group == launched:
+            break
+        print(f"[profile] deit_t {mode} grouped by 4: the trace holds "
+              f"{n_group} of the {launched} {kernel} launched; profiled "
+              f"again")
+    per_layer = {nm: sum(c for k, _, c in rows
+                         if k.split("<")[0].split("(")[0].endswith(nm))
+                 for nm in PER_LAYER_KERNELS}
+    n_i8 = sum(c for k, _, c in rows if "mma_gemm_i8_kernel" in k)
+    print(f"[profile] deit_t {mode} grouped by 4: {kernel} x{n_group} in "
+          f"the trace, {launched} launched (expected {groups} groups x 4 "
+          f"micro-batches), per-layer kernels {per_layer}, "
+          f"mma_gemm_i8_kernel x{n_i8}")
+    check(n_group == launched == groups * 4 and not any(per_layer.values())
           and n_i8 == (8 if mode == "int8" else 0),
           f"grouped deit_t {mode}: the drain did not run one layer-group "
-          f"kernel per group per micro-batch and no per-layer GEMM")
+          f"kernel per group per micro-batch and no per-layer kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -1378,6 +1468,91 @@ def launches(fn) -> int:
     finally:
         build.call = real
     return count[0]
+
+
+def group_plan_line(tag: str, x, wq, m: int) -> None:
+    """Print kernel 7's plan for x (B, N, D) against the (L, H, D, Dh)
+    stack: the grid, the shared memory and each stage's tiles and
+    waves."""
+    from repro_torch.kernels import vita_layer_group as vg
+
+    p = vg.plan_for(x, wq, m)
+    print(f"[plan] vita_layer_group {tag}: x {dname(x.dtype)}, weights "
+          f"{dname(wq.dtype)}; grid {p.grid} x {p.threads} threads, "
+          f"{p.smem} bytes of shared memory a block; " + "; ".join(
+              f"{st.name} {st.count} tiles of {st.rows}x{st.cols} in "
+              f"{st.waves} wave{'s' if st.waves > 1 else ''}"
+              for st in p.stages))
+
+
+def i8_plan_line(tag: str, a, w) -> None:
+    """Print kernel 4's plan for a against w: the tile, its k groups, the
+    ring and the copy widths."""
+    from repro_torch.kernels import int8_matmul as im
+
+    p = im.plan_for(a, w)
+    print(f"[plan] int8_matmul {tag}: tile {p.bm}x{p.bn}, {p.kgroups} k "
+          f"group{'s' if p.kgroups > 1 else ''} ({p.threads} threads), "
+          f"{p.stages} stages 128 deep, A in {p.a_chunk}-byte and B in "
+          f"{p.b_chunk}-byte copies, {p.tiles} tiles ({p.waves} an SM at "
+          f"most)")
+
+
+def i8_kgroups_sweep(records: dict, where: str) -> None:
+    """Kernel 4's device time per launch at each timed shape and each
+    k-group count it is built for (`i8_kgroups_ms`), printed beside the
+    count its plan picks."""
+    r = records["int8_matmul"]
+    for x in [r] + r["extra"]:
+        times = i8_kgroups_ms(x["fn"])
+        print(f"[plan] int8_matmul {x['tag']} on {where}: device ms a "
+              f"launch by k groups (one profiler session): " + ", ".join(
+                  f"{kg}: {ms:.4f}" for kg, ms in sorted(times.items())))
+
+
+def i8_kgroups_ms(fn, iters: int = 20) -> dict:
+    """Kernel 4's device time per launch in ``fn`` at each k-group count
+    it is built for (`gemm_i8_plan`'s ``kgroups``), from one
+    torch.profiler session in which each count runs ``iters`` calls,
+    told apart by the kernel's name (a dropped event leaves the mean per
+    launch unchanged): the measurement behind the plan's choice."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import int8_matmul as im
+
+    planned = im.plan_for
+
+    def forced(kg):
+        def plan_for(a, w):
+            k, n, ldb, grp, grp_stride = im.b_layout(w)
+            return im.gemm_i8_plan(
+                a.shape[0], n, k, ldb=ldb, grp=grp, grp_stride=grp_stride,
+                a_align=a.data_ptr() % 16, b_align=w.data_ptr() % 16,
+                kgroups=kg)
+        return plan_for
+
+    try:
+        for kg in im.I8_KGROUPS:
+            im.plan_for = forced(kg)
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for kg in im.I8_KGROUPS:
+                im.plan_for = forced(kg)
+                for _ in range(iters):
+                    fn()
+            torch.cuda.synchronize()
+    finally:
+        im.plan_for = planned
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"mma_gemm_i8_kernel<(\d+)", e.key)
+        if e.device_type == DeviceType.CUDA and m and e.count:
+            out[int(m.group(1))] = e.self_device_time_total / e.count / 1e3
+    return out
 
 
 def layer_plan(tag: str, run, x, wq) -> None:
@@ -2001,12 +2176,15 @@ def main() -> None:
           "of them in a row); vita_msa_batched = "
           "torch.matmul projections + F.scaled_dot_product_attention; "
           "fused_mlp = addmm + tanh-GELU + addmm; int8_matmul = "
-          "torch._int_mm (int32 out, no rescale); flash_attention = "
+          "torch._int_mm (int32 out, no rescale or epilogue; the per-head "
+          "stack merged beforehand; none at the head's 8 rows: it takes "
+          "more than 16); flash_attention = "
           "F.scaled_dot_product_attention (enable_gqa, boolean causal + "
           "window mask); decode_attention = the same with a length mask; "
           "the gated MLP = matmul + activation + multiply + matmul; none "
           "for the int8 layer, the int8 layer group, the int8 MSA and the "
           "RG-LRU scan")
+    i8_kgroups_sweep(records, f"{name} ({card})")
     print(f"[phase] kernels timed at {time.perf_counter() - t_start:.0f} s")
     for lm_name, lm_cfg, lm_params in lm_served:
         lm_times(lm_name, lm_cfg, lm_params, f"{name} ({card})")

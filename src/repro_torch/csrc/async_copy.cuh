@@ -43,10 +43,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // zeros.  With `vec` (ld and the base 16-byte aligned, col0 a multiple of
 // 16 bytes) each 16-byte chunk inside the matrix is a cp.async; a chunk
 // across its right edge, and every chunk without `vec`, is copied by
-// plain loads.
+// plain loads.  `src` carries no __restrict__: the layer-group kernel
+// stages workspace that other blocks wrote earlier in the same launch,
+// which must not be read through the read-only cache.
 template <typename T, int THREADS>
 __device__ __forceinline__ void load_tile(unsigned char* dst, int ds,
-                                          const T* __restrict__ src,
+                                          const T* src,
                                           long long ld, int row0, int rows,
                                           int col0, int cols, int tr, int tc,
                                           bool vec) {

@@ -73,7 +73,9 @@ __host__ __device__ inline size_t attention_smem_floats(int N, int Dh) {
 // (ob, on, oh) the same way and is float, or int8 quantised at *out_scale.
 // bias (H, N, N) and mask (nW, N, N) select the windowed mode (both null:
 // global).  Ends with a block barrier, so a persistent block may take its
-// next item at once.  No pointer carries __restrict__ (see gemm_f32.cuh).
+// next item at once.  No pointer carries __restrict__: in the int8 group
+// kernel q, k, v and out are workspace that other blocks wrote earlier in
+// the same launch, which must not be read through the read-only cache.
 __device__ __forceinline__ void attention_tile(
     float* smem, const float* q, const float* k, const float* v, long long sb,
     long long sn, long long sh, void* out, long long ob, long long on,

@@ -6,7 +6,7 @@
 // vectors VT (float or bf16), each read into fp32, as the TPU kernels'
 // `_ln` upcasts.  out is float (rows, d) when q_scale is null (the TPU
 // kernel's fp32 z scratch), else int8 quantised at *q_scale.  No pointer
-// carries __restrict__ (see gemm_f32.cuh).
+// carries __restrict__ (see attention.cuh).
 #pragma once
 
 #include "common.cuh"

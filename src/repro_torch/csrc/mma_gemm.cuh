@@ -1,10 +1,14 @@
 // One output tile of the layer's GEMMs on the tensor cores, with a fused
 // epilogue: C = [res +] act(A.B [+ bias]).  Used by mma_gemm.cu for
-// kernel 1's concat, up and down products (kernels/vita_layer.py).
+// kernel 1's concat, up and down products (kernels/vita_layer.py), and by
+// the float layer-group kernel (vita_layer_group.cu) for the same three
+// products of each member.
 //
-// Types as gemm_f32.cuh's tile (the old CUDA-core tile, kept for the layer
-// group): A is fp32 (SA, LN2's z, the GELU hidden), B and the bias WT
-// (fp32 or bf16), the residual RT and C OT (fp32 or bf16).  Products are
+// Types: A is fp32 (SA, LN2's z, the GELU hidden), B and the bias WT
+// (fp32 or bf16, bf16 weights used exactly, never rounded), the residual
+// RT and C OT (fp32 or bf16): in the bf16 modes the last product of a
+// layer adds the bf16 input x and writes the layer's output in x's type,
+// every other output stays fp32.  Products are
 // fp32-accurate split TF32 on mma.sync m16n8k8 (tf32_split.cuh): three
 // passes with fp32 B, two with bf16 B (exact in TF32); the sums fp32.
 //
@@ -19,7 +23,12 @@
 // 3-stage one: per stage, barriers and latency, not the loads' depth, set
 // the pace); the four partial tiles are added in k-group order through
 // shared memory before the epilogue.
-// Every edge (M, N, K) is zero filled.
+// Every edge (M, N, K) is zero filled.  The m and n extent of a tile do
+// not enter an output element's sum (its k order is set by BK and the
+// k-groups alone), so a caller may walk the tiles in any order.  A, C and
+// res carry no __restrict__: in the group kernel they are workspace that
+// other blocks wrote earlier in the same launch, which must not be read
+// through the read-only cache.
 #pragma once
 
 #include "tf32_split.cuh"
@@ -43,13 +52,15 @@ struct MgSmem {
 };
 
 // Output tile (mt, nt) of C; every thread of a MG_THREADS block calls it.
-// vecs: bit 0, A's rows are 16-byte aligned; bit 1, B's are.
+// vecs: bit 0, A's rows are 16-byte aligned; bit 1, B's are.  Warps of
+// k-groups 1-3 return before k-group 0 has read their partial sums: a
+// caller that runs another tile in the same shared memory syncs the block
+// first.
 template <typename WT, typename RT, typename OT>
 __device__ __forceinline__ void mma_gemm_tile(
-    unsigned char* smem, int mt, int nt, const float* __restrict__ A,
-    long long lda, const WT* __restrict__ B, long long ldb,
-    OT* __restrict__ C, long long ldc, int M, int N, int K,
-    const WT* __restrict__ bias, const RT* __restrict__ res, long long ldr,
+    unsigned char* smem, int mt, int nt, const float* A, long long lda,
+    const WT* __restrict__ B, long long ldb, OT* C, long long ldc, int M,
+    int N, int K, const WT* __restrict__ bias, const RT* res, long long ldr,
     int gelu, int vecs) {
   using S = MgSmem<WT>;
   constexpr bool EXACT_B = sizeof(WT) == 2;

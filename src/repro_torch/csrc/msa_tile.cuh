@@ -3,6 +3,12 @@
 // callers: kernel 5 (`vita_msa_batched`, SA as (B, H, N, Dh) in z's type)
 // and kernel 1's fused layer (`vita_layer`, SA merged as (B*N, H*Dh) in
 // fp32 from its fp32 LN1 output); the output layout is three strides.
+// Its three steps are device functions of their own: `msa_project` (a
+// block's 64 rows against the head's weights), `msa_gather` (the peers' K
+// and V through distributed shared memory) and `msa_attend` (the block's
+// rows over all N keys).  `msa_tile` runs the three; the layer-group
+// kernel (vita_layer_group.cu) runs the first and the last in stages of
+// their own, with K and V passing through device memory in between.
 //
 // Work split.  Block c of the cluster owns rows [64 c, 64 c + 64) of the N
 // tokens (C = ceil(N / 64) <= 8, kernels/vita_msa.py::msa_plan: 4 at DeiT-T's and
@@ -79,39 +85,28 @@ inline bool msa_layout_ok(const MsaLayout& L, int N, int Dh) {
 
 namespace cg = cooperative_groups;
 
-// The tile for (image b, head h); every thread of a MSA_THREADS block of a
-// cluster of L.cluster blocks along x calls it.  out element (token n,
-// column e) is out[b ob + n on + h oh + e].  vecs: bit 0, z rows are
-// 16-byte aligned; bit 1, the weight rows are.
-template <typename ZT, typename WT, int DP>
-__device__ __forceinline__ void msa_tile(
-    unsigned char* smem, const MsaLayout& L, const ZT* __restrict__ z,
+// Step 1: project rows [row0, row0 + 64) of image b (zero rows past N)
+// against head h's three weight slices; every thread of a MSA_THREADS
+// block calls it.  Each value goes to `put(part, r, col, v)`: part 0 Q,
+// 1 K, 2 V, r the row within the 64, col < DP (qkv_bias added).  The copy
+// ring lies at L.ring_off; every thread is past its last read of it when
+// `put` is called.  vecs: bit 0, z rows are 16-byte aligned; bit 1, the
+// weight rows are.
+template <typename ZT, typename WT, int DP, typename Put>
+__device__ __forceinline__ void msa_project(
+    unsigned char* smem, const MsaLayout& L, const ZT* z,
     const WT* __restrict__ wq, const WT* __restrict__ wk,
-    const WT* __restrict__ wv, const WT* __restrict__ qkv_bias,
-    const float* __restrict__ bias, const float* __restrict__ mask, int nW,
-    ZT* __restrict__ out, long long ob, long long on, long long oh, int N,
-    int D, int H, int Dh, float scale, int vecs, int h, int b) {
-  using VT = ZT;                                  // V in z's type
+    const WT* __restrict__ wv, const WT* __restrict__ qkv_bias, int N,
+    int D, int H, int Dh, int vecs, int h, int b, int row0, Put&& put) {
   constexpr bool TC = sizeof(ZT) == 2;            // bf16 z and weights
   constexpr bool EXACT_W = sizeof(WT) == 2;       // bf16 weights in TF32
   constexpr int KC = TC ? 64 : 32;
   constexpr int LDZ = KC + 8, LDW = 3 * DP + (sizeof(WT) == 4 ? 4 : 8);
-  constexpr int LDK = DP + 8, LDQ = DP + 8, LDV = TC ? DP + 8 : DP + 4;
   constexpr int NBLK = 3 * DP / 16, NB = (NBLK + 3) / 4;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int R = L.rows, C = L.cluster, NK = L.nk, LDS = L.lds;
-  const int LDP = NK + 8;
-  float* Ks = reinterpret_cast<float*>(smem + L.k_off);
-  VT* Vs = reinterpret_cast<VT*>(smem + L.v_off);
-  float* Qs = reinterpret_cast<float*>(smem + L.q_off);
-  float* Ss = reinterpret_cast<float*>(smem + L.s_off);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + L.p_off);
   unsigned char* ring = smem + L.ring_off;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4, wm = warp % 2;
+  const int g = lane / 4, t = lane % 4;
 
-  // 1. Project this block's 64 rows.
   const ZT* zb = z + (long long)b * N * D;
   const long long wo = (long long)h * D * Dh;
   const WT* wsrc[3] = {wq + wo, wk + wo, wv + wo};
@@ -120,7 +115,7 @@ __device__ __forceinline__ void msa_tile(
   // Warp (pm, wn): rows 16 pm.. of the 64 and column blocks wn, wn + 4,
   // wn + 8 of the 3 DP.
   const int pm = warp % 4, wn = warp / 4;
-  const int n0 = rank * R;
+  const int n0 = row0;
   auto issue = [&](int st) {
     unsigned char* stg = ring + (st % S) * L.stage;
     const int k0 = st * KC;
@@ -201,7 +196,7 @@ __device__ __forceinline__ void msa_tile(
     __syncthreads();
   }
   cp_async_wait<0>();
-  // Epilogue: Q to Qs, K and V to their rows of Ks and Vs (+ qkv_bias).
+  // Epilogue: each value (+ qkv_bias) to `put`.
 #pragma unroll
   for (int i = 0; i < NB; ++i) {
     const int cb = wn + 4 * i;
@@ -218,20 +213,26 @@ __device__ __forceinline__ void msa_tile(
         const int r = 16 * pm + g + 8 * (e >> 1);
         float v = TC ? acc[i][half][e] : split_value(sacc[i][half], e);
         if (pb && col < Dh) v += to_f(pb[col]);
-        const int kr = rank * R + r;
-        if (part == 0)
-          Qs[r * LDQ + col] = v;
-        else if (part == 1)
-          Ks[kr * LDK + col] = v;
-        else
-          Vs[kr * LDV + col] = from_f<VT>(v);
+        put(part, r, col, v);
       }
   }
+}
 
-  // 2. Gather every peer's K and V rows through distributed shared memory:
-  // the block's threads walk all peers' rows at once, GATHER 16-byte
-  // remote loads in flight a thread before their stores (a remote load
-  // takes hundreds of cycles).
+// Step 2: copy every cluster peer's K and V rows out of its shared memory
+// (distributed shared memory) into this block's K and V buffers: the
+// block's threads walk all peers' rows at once, GATHER 16-byte remote
+// loads in flight a thread before their stores (a remote load takes
+// hundreds of cycles).  Syncs the cluster before (the peers' rows are
+// written) and after (no block leaves, or reuses its shared memory, while
+// a peer still reads it).  VT is V's type.
+template <typename VT, int DP>
+__device__ __forceinline__ void msa_gather(unsigned char* smem,
+                                           const MsaLayout& L) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int R = L.rows, C = L.cluster, NK = L.nk;
+  constexpr int LDK = DP + 8, LDV = sizeof(VT) == 2 ? DP + 8 : DP + 4;
+  const int tid = threadIdx.x;
   cluster.sync();
   {
     constexpr int CK = DP / 4, CV = DP * (int)sizeof(VT) / 16, GATHER = 8;
@@ -258,13 +259,35 @@ __device__ __forceinline__ void msa_tile(
     }
   }
   cluster.sync();
+}
 
-  // 3. Attend this block's rows, 32 a pass.
+// Step 3: attend rows [row0, row0 + 64) of image b, head h (Q in the Q
+// buffer, K and V of all NK keys in theirs, rows past N zero), 32 a pass;
+// out element (token n, column e) is out[b ob + n on + h oh + e].  Ends
+// with a block barrier.  VT is V's and P's type (z's).
+template <typename VT, int DP>
+__device__ __forceinline__ void msa_attend(
+    unsigned char* smem, const MsaLayout& L, const float* __restrict__ bias,
+    const float* __restrict__ mask, int nW, VT* out, long long ob,
+    long long on, long long oh, int N, int Dh, float scale, int h, int b,
+    int row0) {
+  constexpr bool TC = sizeof(VT) == 2;            // bf16 P and V
+  constexpr int LDK = DP + 8, LDQ = DP + 8, LDV = TC ? DP + 8 : DP + 4;
+  const int R = L.rows, NK = L.nk, LDS = L.lds;
+  const int LDP = NK + 8;
+  float* Ks = reinterpret_cast<float*>(smem + L.k_off);
+  VT* Vs = reinterpret_cast<VT*>(smem + L.v_off);
+  float* Qs = reinterpret_cast<float*>(smem + L.q_off);
+  float* Ss = reinterpret_cast<float*>(smem + L.s_off);
+  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + L.p_off);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4, wm = warp % 2;
+
   const float* bias_h = bias ? bias + (size_t)h * N * N : nullptr;
   const float* mask_w = mask ? mask + (size_t)(b % nW) * N * N : nullptr;
   const float ninf = __int_as_float(0xff800000);
   for (int sub = 0; sub < R; sub += MSA_SUB) {
-    const int n0 = rank * R + sub;     // token of this pass's row 0
+    const int n0 = row0 + sub;         // token of this pass's row 0
     // S: warp (wm, ws) takes rows 16 wm.. and the key tiles (8 keys) ws,
     // ws + 8, ..., two at a time.
     const int ws = warp / 2;
@@ -406,6 +429,45 @@ __device__ __forceinline__ void msa_tile(
     }
     __syncthreads();
   }
+}
+
+// The whole tile for (image b, head h); every thread of a MSA_THREADS
+// block of a cluster of L.cluster blocks along x calls it.  out element
+// (token n, column e) is out[b ob + n on + h oh + e].
+template <typename ZT, typename WT, int DP>
+__device__ __forceinline__ void msa_tile(
+    unsigned char* smem, const MsaLayout& L, const ZT* __restrict__ z,
+    const WT* __restrict__ wq, const WT* __restrict__ wk,
+    const WT* __restrict__ wv, const WT* __restrict__ qkv_bias,
+    const float* __restrict__ bias, const float* __restrict__ mask, int nW,
+    ZT* __restrict__ out, long long ob, long long on, long long oh, int N,
+    int D, int H, int Dh, float scale, int vecs, int h, int b) {
+  using VT = ZT;                                  // V in z's type
+  constexpr int LDK = DP + 8, LDQ = DP + 8;
+  constexpr int LDV = sizeof(VT) == 2 ? DP + 8 : DP + 4;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int R = L.rows;
+  float* Ks = reinterpret_cast<float*>(smem + L.k_off);
+  VT* Vs = reinterpret_cast<VT*>(smem + L.v_off);
+  float* Qs = reinterpret_cast<float*>(smem + L.q_off);
+  // 1. Project this block's 64 rows: Q to Qs, K and V to their rows of Ks
+  // and Vs.
+  msa_project<ZT, WT, DP>(
+      smem, L, z, wq, wk, wv, qkv_bias, N, D, H, Dh, vecs, h, b, rank * R,
+      [&](int part, int r, int col, float v) {
+        const int kr = rank * R + r;
+        if (part == 0)
+          Qs[r * LDQ + col] = v;
+        else if (part == 1)
+          Ks[kr * LDK + col] = v;
+        else
+          Vs[kr * LDV + col] = from_f<VT>(v);
+      });
+  // 2. Every peer's K and V rows.
+  msa_gather<VT, DP>(smem, L);
+  // 3. Attend this block's rows.
+  msa_attend<VT, DP>(smem, L, bias, mask, nW, out, ob, on, oh, N, Dh, scale,
+                     h, b, rank * R);
 }
 
 }  // namespace repro_torch

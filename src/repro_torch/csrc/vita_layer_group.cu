@@ -17,7 +17,7 @@
 //
 //   1. LN1(y) -> z                      (int8: quantised at act[l][0])
 //   2. Q, K, V = z . wq/wk/wv[l]        (the (L, H, D, Dh) stacks read in place)
-//   3. SA = attention per (image, head, 32-query tile)
+//   3. SA = attention per (image, head, query tile)
 //                                       (+ bias[l][h] + mask[i % nW] windowed;
 //                                        int8: quantised at act[l][1])
 //   4. h1 = y + SA . w_msa[l]           (w_msa[l] has H*Dh rows, not D, when
@@ -33,39 +33,58 @@
 // and the last layer's stage 7 writes `out` in x's type: the activation is
 // rounded once, at the end, as the TPU kernel carries y in an fp32 scratch
 // and casts at its last step.  (In bf16 a group is therefore not L calls of
-// the per-layer chain, each of which rounds its output; in fp32 and with
-// fp32 x it is, bit for bit.)  The wrapper allocates the workspace z, q, k,
-// v, sa, h1, hid, carry and the barrier counter in one buffer; at DeiT-T
-// batch 8 it is ~13 MB and stays in L2.
+// the per-layer kernels, each of which rounds its output; with fp32 x it
+// is, bit for bit.)  The wrapper allocates the workspace z, q, k, v, sa,
+// h1, hid, carry and the barrier counter in one buffer; at DeiT-T batch 8
+// it is ~13 MB and stays in L2.
 //
-// Types: x and out are XT (float or bf16); the float kernel's weight
-// stacks, LN vectors and biases WT (float or bf16, read into fp32 as
-// staged), the int8 kernel's LN vectors and biases WT beside int8 weights;
-// every workspace buffer is fp32 (or int8), so all math is fp32 as in the
-// TPU kernel.  The relative-position bias and the mask are fp32.
-// The tiles are the per-layer chain's own device code (gemm_f32.cuh,
-// gemm_i8.cuh, layer_norm.cuh, attention.cuh) at the same tile shapes,
-// which is what makes a group with fp32 x equal to L calls of the chain.
+// The float kernel (kernel 7) runs kernel 1's own tiles in kernel 1's
+// order, on the tensor cores, 512 threads a block: stages 2 and 3 are the
+// MSA tile's projection and attention (msa_tile.cuh) per (image, head,
+// 64-row slice), the projection writing Q, K and V (fp32, as LN1's z) to
+// the workspace and the attention staging K and V of all N rows back by
+// 16-byte cp.async into the buffers the tile's plan lays out (no cluster:
+// each K and V row was projected once, in stage 2, and a cooperative
+// launch with a cluster dimension is not needed); stages 4, 6 and 7 are
+// mma_gemm.cuh's split-TF32 tile at kernel 1's 32 x 64 shape with kernel
+// 1's epilogues.  So with fp32 x a float group equals L calls of
+// `vita_layer` bit for bit.  The stage-2-to-3 round trip of Q, K and V
+// through the workspace (L2-resident) is what the group pays for having no
+// cluster; kernels/vita_layer_group.py::group_plan gives the grid, the
+// shared memory (the MSA tile's layout, which the GEMM ring fits inside)
+// and each stage's tiles and waves.  The weights and LN vectors are WT
+// (float or bf16: bf16 weights enter the products exactly, in two TF32
+// passes); every workspace buffer is fp32.
+//
+// The int8 kernel (kernel 8) keeps the CUDA-core tiles of the int8 chain
+// as it stood when the group was written, 256 threads a block:
+// gemm_i8.cuh's `gemm_i8_tile` (__dp4a) and attention.cuh's
+// `attention_tile`; its epilogue is `i8_epilogue`, which the per-layer
+// int8 chain's tensor-core tile (mma_gemm_i8.cuh) shares, so an int8 group
+// equals L calls of `vita_layer_int8` bit for bit.
 //
 // Barrier: a counter in device memory that each block's thread 0 bumps
 // after a __threadfence and then waits on; valid because the cooperative
 // launch guarantees every block is resident.  Every block reaches every
 // barrier: no thread leaves the kernel early.  The workspace is read with
-// plain loads (no __restrict__, no read-only cache): other blocks wrote it
-// earlier in the same launch.
-// Bound: operations, L x the per-layer bound, on CUDA cores (fp32 FMA and
-// __dp4a); wgmma/TMA are a later PR's work.
+// plain loads or cp.async (no __restrict__, no read-only cache): other
+// blocks wrote it earlier in the same launch.
+// Bound: operations, L x the per-layer bound (split-TF32 mma.sync in the
+// float kernel, __dp4a in the int8 one); wgmma/TMA are a later PR's work.
 #include <algorithm>
+#include <cstring>
 #include <type_traits>
 
 #include "attention.cuh"
-#include "gemm_f32.cuh"
 #include "gemm_i8.cuh"
 #include "layer_norm.cuh"
+#include "mma_gemm.cuh"
+#include "msa_tile.cuh"
 
 namespace repro_torch {
 
-constexpr int LG_THREADS = 256;
+static_assert(MSA_THREADS == MG_THREADS, "the float group's block runs both");
+constexpr int LG_THREADS = MSA_THREADS, LG_I8_THREADS = 256;
 
 struct LayerGroupArgs {
   const void* x;                  // (R, D) in XT
@@ -86,6 +105,24 @@ struct LayerGroupArgs {
   unsigned int* bar;
   int B, N, D, H, Dh, M, L, nW;
   float scale, eps;
+};
+
+// The float kernel's launch plan, field for field
+// kernels/vita_layer_group.py::GroupPlan.launch_ints(): the MSA tile's
+// layout (on fp32 z), the grid and the dynamic shared memory a block.
+struct GroupLayout {
+  MsaLayout msa;
+  int grid, smem;
+};
+static_assert(sizeof(GroupLayout) == 16 * sizeof(int), "plan is 16 ints");
+
+// The float kernel's parameters: the operands, the plan, and per stage
+// whether its operands' rows are 16-byte aligned (`vecs` of msa_project
+// and mma_gemm_tile; `att`: Q, K and V rows in the workspace).
+struct FloatGroupArgs {
+  LayerGroupArgs a;
+  GroupLayout p;
+  int v_proj, v_att, v_concat, v_up, v_down;
 };
 
 __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -111,57 +148,23 @@ __device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
     asm volatile("prefetch.global.L2 [%0];" ::"l"(c + off));
 }
 
-// Stage 4 of layer l, tile t: h1 = y + SA . w_msa[l], with y of type YT
-// (x's type at layer 0, the fp32 carry after it).
-template <bool I8, typename WT, typename W, typename YT>
-__device__ __forceinline__ void concat_tile(const LayerGroupArgs& a,
-                                            unsigned char* smem, int t, int nt,
-                                            const W* wmsa, const YT* y,
-                                            const float* act, int l) {
-  const int R = a.B * a.N, HD = a.H * a.Dh, D = a.D;
-  if constexpr (I8)
-    gemm_i8_tile(*reinterpret_cast<GemmI8Smem*>(smem), t / nt, t % nt,
-                 static_cast<const int8_t*>(a.sa), HD, wmsa, D, D, 0, a.h1, D, 1,
-                 R, D, HD, act + 1, a.wmsa_s + (size_t)l * D,
-                 static_cast<const WT*>(nullptr), y, D, 0, nullptr);
-  else
-    gemm_f32_tile(*reinterpret_cast<GemmF32Smem*>(smem), t / nt, t % nt,
-                  static_cast<const float*>(a.sa), HD, wmsa, D, D, 0, a.h1, D,
-                  R, D, HD, static_cast<const WT*>(nullptr), y, D, 0);
-}
+// ---------------------------------------------------------------------------
+// Kernel 7: the float group on kernel 1's tensor-core tiles
+// ---------------------------------------------------------------------------
 
-// Stage 7 of layer l, tile t: y' = h1 + hid . w_down[l] + b_down[l] into
-// `dst` of type OT (the fp32 carry, or out in x's type at the last layer).
-template <bool I8, typename WT, typename W, typename OT>
-__device__ __forceinline__ void down_tile(const LayerGroupArgs& a,
-                                          unsigned char* smem, int t, int nt,
-                                          const W* wdown, OT* dst,
-                                          const float* act, int l) {
-  const int R = a.B * a.N, D = a.D, M = a.M;
-  const WT* bdown = static_cast<const WT*>(a.bdown) + (size_t)l * D;
-  if constexpr (I8)
-    gemm_i8_tile(*reinterpret_cast<GemmI8Smem*>(smem), t / nt, t % nt,
-                 static_cast<const int8_t*>(a.hid), M, wdown, D, D, 0, dst, D, 1,
-                 R, D, M, act + 3, a.wdown_s + (size_t)l * D, bdown, a.h1, D, 0,
-                 nullptr);
-  else
-    gemm_f32_tile(*reinterpret_cast<GemmF32Smem*>(smem), t / nt, t % nt,
-                  static_cast<const float*>(a.hid), M, wdown, D, D, 0, dst, D,
-                  R, D, M, bdown, a.h1, D, 0);
-}
-
-template <bool I8, typename XT, typename WT>
-__device__ __forceinline__ void layer_group_body(const LayerGroupArgs& a,
+template <typename XT, typename WT, int DP>
+__device__ __forceinline__ void float_group_body(const FloatGroupArgs& f,
                                                  unsigned char* smem) {
-  using W = typename std::conditional<I8, int8_t, WT>::type;
-  GemmF32Smem& gf = *reinterpret_cast<GemmF32Smem*>(smem);
-  GemmI8Smem& gi = *reinterpret_cast<GemmI8Smem*>(smem);
+  const LayerGroupArgs& a = f.a;
+  const MsaLayout& L = f.p.msa;
   const int R = a.B * a.N, HD = a.H * a.Dh, D = a.D, M = a.M, N = a.N;
+  const int H = a.H, Dh = a.Dh;
   const int warps = blockDim.x / 32;
   const int gwarp = blockIdx.x * warps + threadIdx.x / 32;
   const int nwarps = gridDim.x * warps;
-  const int mt = cdiv(R, GF_BM);  // GF_BM == GI_BM
-  const size_t qkv_sz = (size_t)a.H * D * a.Dh, msa_sz = (size_t)HD * D,
+  const int C = L.cluster, slices = a.B * H * C;   // (image, head, 64 rows)
+  const int mt = cdiv(R, MG_BM), ntd = cdiv(D, MG_BN), ntm = cdiv(M, MG_BN);
+  const size_t qkv_sz = (size_t)H * D * Dh, msa_sz = (size_t)HD * D,
                mlp_sz = (size_t)D * M;
   const XT* x = static_cast<const XT*>(a.x);
   const WT* ln1w = static_cast<const WT*>(a.ln1w);
@@ -169,48 +172,184 @@ __device__ __forceinline__ void layer_group_body(const LayerGroupArgs& a,
   const WT* ln2w = static_cast<const WT*>(a.ln2w);
   const WT* ln2b = static_cast<const WT*>(a.ln2b);
   const WT* bup = static_cast<const WT*>(a.bup);
+  const WT* bdown = static_cast<const WT*>(a.bdown);
+  float* z = static_cast<float*>(a.z);
+  float* sa = static_cast<float*>(a.sa);
+  float* hid = static_cast<float*>(a.hid);
+  float* const qkv[3] = {a.q, a.k, a.v};
   unsigned int target = 0;
   for (int l = 0; l < a.L; ++l) {
-    const W* wq = static_cast<const W*>(a.wq) + l * qkv_sz;
-    const W* wk = static_cast<const W*>(a.wk) + l * qkv_sz;
-    const W* wv = static_cast<const W*>(a.wv) + l * qkv_sz;
-    const W* wmsa = static_cast<const W*>(a.wmsa) + l * msa_sz;
-    const W* wup = static_cast<const W*>(a.wup) + l * mlp_sz;
-    const W* wdown = static_cast<const W*>(a.wdown) + l * mlp_sz;
-    const float* act = I8 ? a.act + 4 * l : nullptr;
-    const float* bias = a.bias ? a.bias + (size_t)l * a.H * N * N : nullptr;
+    const WT* wq = static_cast<const WT*>(a.wq) + l * qkv_sz;
+    const WT* wk = static_cast<const WT*>(a.wk) + l * qkv_sz;
+    const WT* wv = static_cast<const WT*>(a.wv) + l * qkv_sz;
+    const WT* wmsa = static_cast<const WT*>(a.wmsa) + l * msa_sz;
+    const WT* wup = static_cast<const WT*>(a.wup) + l * mlp_sz;
+    const WT* wdown = static_cast<const WT*>(a.wdown) + l * mlp_sz;
+    const float* bias = a.bias ? a.bias + (size_t)l * H * N * N : nullptr;
 
     // 1. LN1(y) -> z, y = x at layer 0, else the carry
     for (int r = gwarp; r < R; r += nwarps) {
       if (l == 0)
-        layer_norm_row(x, ln1w + l * D, ln1b + l * D, a.z, r, D, a.eps,
-                       I8 ? act : nullptr);
+        layer_norm_row(x, ln1w + l * D, ln1b + l * D, z, r, D, a.eps,
+                       nullptr);
       else
         layer_norm_row(static_cast<const float*>(a.carry), ln1w + l * D,
-                       ln1b + l * D, a.z, r, D, a.eps, I8 ? act : nullptr);
+                       ln1b + l * D, z, r, D, a.eps, nullptr);
     }
+    grid_barrier(a.bar, target);
+
+    // 2. Q, K, V of each (image, head, 64-row slice): the MSA tile's
+    //    projection, its rows written to the workspace
+    for (int t = blockIdx.x; t < slices; t += gridDim.x) {
+      const int b = t / (H * C), h = (t / C) % H, row0 = (t % C) * MSA_ROWS;
+      msa_project<float, WT, DP>(
+          smem, L, z, wq, wk, wv, static_cast<const WT*>(nullptr), N, D, H,
+          Dh, f.v_proj, h, b, row0, [&](int part, int r, int col, float v) {
+            const int n = row0 + r;
+            if (n < N && col < Dh)
+              qkv[part][((long long)b * N + n) * HD + h * Dh + col] = v;
+          });
+    }
+    grid_barrier(a.bar, target);
+
+    // 3. SA of each (image, head, 64-row slice): Q of the slice and K, V of
+    //    all N rows (zero past N and Dh) into the tile's buffers, then the
+    //    MSA tile's attention
+    for (int t = blockIdx.x; t < slices; t += gridDim.x) {
+      const int b = t / (H * C), h = (t / C) % H, row0 = (t % C) * MSA_ROWS;
+      const long long base = (long long)b * N * HD + (long long)h * Dh;
+      const bool vec = f.v_att;
+      load_tile<float, LG_THREADS>(smem + L.q_off, (DP + 8) * 4, a.q + base,
+                                   HD, row0, N, 0, Dh, MSA_ROWS, DP, vec);
+      load_tile<float, LG_THREADS>(smem + L.k_off, (DP + 8) * 4, a.k + base,
+                                   HD, 0, N, 0, Dh, L.nk, DP, vec);
+      load_tile<float, LG_THREADS>(smem + L.v_off, (DP + 4) * 4, a.v + base,
+                                   HD, 0, N, 0, Dh, L.nk, DP, vec);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      msa_attend<float, DP>(smem, L, bias, a.mask, a.nW, sa,
+                            (long long)N * HD, HD, Dh, N, Dh, a.scale, h, b,
+                            row0);
+    }
+    grid_barrier(a.bar, target);
+
+    // 4. h1 = y + SA . w_msa[l]
+    for (int t = blockIdx.x; t < mt * ntd; t += gridDim.x) {
+      if (l == 0)
+        mma_gemm_tile<WT, XT, float>(smem, t / ntd, t % ntd, sa, HD, wmsa, D,
+                                     a.h1, D, R, D, HD,
+                                     static_cast<const WT*>(nullptr), x, D,
+                                     0, f.v_concat);
+      else
+        mma_gemm_tile<WT, float, float>(
+            smem, t / ntd, t % ntd, sa, HD, wmsa, D, a.h1, D, R, D, HD,
+            static_cast<const WT*>(nullptr), a.carry, D, 0, f.v_concat);
+      __syncthreads();
+    }
+    grid_barrier(a.bar, target);
+
+    // 5. LN2(h1) -> z
+    for (int r = gwarp; r < R; r += nwarps)
+      layer_norm_row(static_cast<const float*>(a.h1), ln2w + l * D,
+                     ln2b + l * D, z, r, D, a.eps, nullptr);
+    grid_barrier(a.bar, target);
+
+    // 6. hid = gelu(z . w_up[l] + b_up[l]), next layer's weights into L2
+    if (l + 1 < a.L) {
+      prefetch_l2(wq + qkv_sz, qkv_sz * sizeof(WT));
+      prefetch_l2(wk + qkv_sz, qkv_sz * sizeof(WT));
+      prefetch_l2(wv + qkv_sz, qkv_sz * sizeof(WT));
+      prefetch_l2(wmsa + msa_sz, msa_sz * sizeof(WT));
+    }
+    for (int t = blockIdx.x; t < mt * ntm; t += gridDim.x) {
+      mma_gemm_tile<WT, float, float>(smem, t / ntm, t % ntm, z, D, wup, M,
+                                      hid, M, R, M, D, bup + (size_t)l * M,
+                                      static_cast<const float*>(nullptr), M,
+                                      1, f.v_up);
+      __syncthreads();
+    }
+    grid_barrier(a.bar, target);
+
+    // 7. y = h1 + hid . w_down[l] + b_down[l]: into the carry, or rounded
+    //    once into out at the last layer
+    for (int t = blockIdx.x; t < mt * ntd; t += gridDim.x) {
+      if (l + 1 < a.L)
+        mma_gemm_tile<WT, float, float>(smem, t / ntd, t % ntd, hid, M, wdown,
+                                        D, a.carry, D, R, D, M,
+                                        bdown + (size_t)l * D, a.h1, D, 0,
+                                        f.v_down);
+      else
+        mma_gemm_tile<WT, float, XT>(smem, t / ntd, t % ntd, hid, M, wdown, D,
+                                     static_cast<XT*>(a.out), D, R, D, M,
+                                     bdown + (size_t)l * D, a.h1, D, 0,
+                                     f.v_down);
+      __syncthreads();
+    }
+    if (l + 1 < a.L) grid_barrier(a.bar, target);
+  }
+}
+
+template <typename XT, typename WT, int DP>
+__global__ void __launch_bounds__(LG_THREADS, 1)
+vita_layer_group_kernel(FloatGroupArgs f) {
+  extern __shared__ __align__(16) unsigned char lg_smem[];
+  float_group_body<XT, WT, DP>(f, lg_smem);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 8: the int8 group on the int8 chain's CUDA-core tiles
+// ---------------------------------------------------------------------------
+
+template <typename VT>
+__device__ __forceinline__ void int8_group_body(const LayerGroupArgs& a,
+                                                unsigned char* smem) {
+  GemmI8Smem& gi = *reinterpret_cast<GemmI8Smem*>(smem);
+  const int R = a.B * a.N, HD = a.H * a.Dh, D = a.D, M = a.M, N = a.N;
+  const int warps = blockDim.x / 32;
+  const int gwarp = blockIdx.x * warps + threadIdx.x / 32;
+  const int nwarps = gridDim.x * warps;
+  const int mt = cdiv(R, GI_BM);
+  const size_t qkv_sz = (size_t)a.H * D * a.Dh, msa_sz = (size_t)HD * D,
+               mlp_sz = (size_t)D * M;
+  const float* x = static_cast<const float*>(a.x);
+  const VT* ln1w = static_cast<const VT*>(a.ln1w);
+  const VT* ln1b = static_cast<const VT*>(a.ln1b);
+  const VT* ln2w = static_cast<const VT*>(a.ln2w);
+  const VT* ln2b = static_cast<const VT*>(a.ln2b);
+  const VT* bup = static_cast<const VT*>(a.bup);
+  const VT* bdown = static_cast<const VT*>(a.bdown);
+  const int8_t* z = static_cast<const int8_t*>(a.z);
+  unsigned int target = 0;
+  for (int l = 0; l < a.L; ++l) {
+    const int8_t* wq = static_cast<const int8_t*>(a.wq) + l * qkv_sz;
+    const int8_t* wk = static_cast<const int8_t*>(a.wk) + l * qkv_sz;
+    const int8_t* wv = static_cast<const int8_t*>(a.wv) + l * qkv_sz;
+    const int8_t* wmsa = static_cast<const int8_t*>(a.wmsa) + l * msa_sz;
+    const int8_t* wup = static_cast<const int8_t*>(a.wup) + l * mlp_sz;
+    const int8_t* wdown = static_cast<const int8_t*>(a.wdown) + l * mlp_sz;
+    const float* act = a.act + 4 * l;
+    const float* bias = a.bias ? a.bias + (size_t)l * a.H * N * N : nullptr;
+
+    // 1. LN1(y) -> z, y = x at layer 0, else the carry
+    for (int r = gwarp; r < R; r += nwarps)
+      layer_norm_row(l == 0 ? x : a.carry, ln1w + l * D, ln1b + l * D, a.z,
+                     r, D, a.eps, act);
     grid_barrier(a.bar, target);
 
     // 2. Q, K, V
     {
-      const int nt = cdiv(HD, GF_BN), per = mt * nt;
+      const int nt = cdiv(HD, GI_BN), per = mt * nt;
       for (int t = blockIdx.x; t < 3 * per; t += gridDim.x) {
         const int which = t / per, r = t % per;
-        const W* w = which == 0 ? wq : which == 1 ? wk : wv;
+        const int8_t* w = which == 0 ? wq : which == 1 ? wk : wv;
         float* o = which == 0 ? a.q : which == 1 ? a.k : a.v;
-        if constexpr (I8) {
-          const float* ws = (which == 0 ? a.wq_s : which == 1 ? a.wk_s : a.wv_s) +
-                            (size_t)l * HD;
-          gemm_i8_tile(gi, r / nt, r % nt, static_cast<const int8_t*>(a.z), D, w,
-                       a.Dh, a.Dh, (long long)D * a.Dh, o, HD, 1, R, HD, D, act,
-                       ws, static_cast<const WT*>(nullptr), nullptr, HD, 0,
-                       nullptr);
-        } else {
-          gemm_f32_tile(gf, r / nt, r % nt, static_cast<const float*>(a.z), D, w,
-                        a.Dh, a.Dh, (long long)D * a.Dh, o, HD, R, HD, D,
-                        static_cast<const WT*>(nullptr),
-                        static_cast<const float*>(nullptr), HD, 0);
-        }
+        const float* ws = (which == 0 ? a.wq_s : which == 1 ? a.wk_s : a.wv_s) +
+                          (size_t)l * HD;
+        gemm_i8_tile(gi, r / nt, r % nt, z, D, w, a.Dh, a.Dh,
+                     (long long)D * a.Dh, o, HD, 1, R, HD, D, act, ws,
+                     static_cast<const VT*>(nullptr), nullptr, HD, 0,
+                     nullptr);
       }
     }
     grid_barrier(a.bar, target);
@@ -222,125 +361,131 @@ __device__ __forceinline__ void layer_group_body(const LayerGroupArgs& a,
       for (int t = blockIdx.x; t < items; t += gridDim.x) {
         const int b = t / (a.H * qt), h = (t / qt) % a.H, qi = t % qt;
         attention_tile(reinterpret_cast<float*>(smem), a.q, a.k, a.v, sb, HD,
-                       a.Dh, a.sa, sb, HD, a.Dh, N, a.Dh, a.scale,
-                       I8 ? act + 1 : nullptr, bias, a.mask, a.nW, qi, h, b);
+                       a.Dh, a.sa, sb, HD, a.Dh, N, a.Dh, a.scale, act + 1,
+                       bias, a.mask, a.nW, qi, h, b);
       }
     }
     grid_barrier(a.bar, target);
 
     // 4. h1 = y + SA . w_msa[l]
     {
-      const int nt = cdiv(D, GF_BN);
-      for (int t = blockIdx.x; t < mt * nt; t += gridDim.x) {
-        if (l == 0)
-          concat_tile<I8, WT>(a, smem, t, nt, wmsa, x, act, l);
-        else
-          concat_tile<I8, WT>(a, smem, t, nt, wmsa,
-                              static_cast<const float*>(a.carry), act, l);
-      }
+      const int nt = cdiv(D, GI_BN);
+      for (int t = blockIdx.x; t < mt * nt; t += gridDim.x)
+        gemm_i8_tile(gi, t / nt, t % nt, static_cast<const int8_t*>(a.sa), HD,
+                     wmsa, D, D, 0, a.h1, D, 1, R, D, HD, act + 1,
+                     a.wmsa_s + (size_t)l * D, static_cast<const VT*>(nullptr),
+                     l == 0 ? x : a.carry, D, 0, nullptr);
     }
     grid_barrier(a.bar, target);
 
     // 5. LN2(h1) -> z
     for (int r = gwarp; r < R; r += nwarps)
       layer_norm_row(static_cast<const float*>(a.h1), ln2w + l * D,
-                     ln2b + l * D, a.z, r, D, a.eps, I8 ? act + 2 : nullptr);
+                     ln2b + l * D, a.z, r, D, a.eps, act + 2);
     grid_barrier(a.bar, target);
 
     // 6. hid = gelu(z . w_up[l] + b_up[l]), next layer's weights into L2
     if (l + 1 < a.L) {
-      prefetch_l2(wq + qkv_sz, qkv_sz * sizeof(W));
-      prefetch_l2(wk + qkv_sz, qkv_sz * sizeof(W));
-      prefetch_l2(wv + qkv_sz, qkv_sz * sizeof(W));
-      prefetch_l2(wmsa + msa_sz, msa_sz * sizeof(W));
+      prefetch_l2(wq + qkv_sz, qkv_sz);
+      prefetch_l2(wk + qkv_sz, qkv_sz);
+      prefetch_l2(wv + qkv_sz, qkv_sz);
+      prefetch_l2(wmsa + msa_sz, msa_sz);
     }
     {
-      const int nt = cdiv(M, GF_BN);
-      for (int t = blockIdx.x; t < mt * nt; t += gridDim.x) {
-        if constexpr (I8)
-          gemm_i8_tile(gi, t / nt, t % nt, static_cast<const int8_t*>(a.z), D,
-                       wup, M, M, 0, a.hid, M, 2, R, M, D, act + 2,
-                       a.wup_s + (size_t)l * M, bup + (size_t)l * M, nullptr, M,
-                       1, act + 3);
-        else
-          gemm_f32_tile(gf, t / nt, t % nt, static_cast<const float*>(a.z), D,
-                        wup, M, M, 0, static_cast<float*>(a.hid), M, R, M, D,
-                        bup + (size_t)l * M, static_cast<const float*>(nullptr),
-                        M, 1);
-      }
+      const int nt = cdiv(M, GI_BN);
+      for (int t = blockIdx.x; t < mt * nt; t += gridDim.x)
+        gemm_i8_tile(gi, t / nt, t % nt, z, D, wup, M, M, 0, a.hid, M, 2, R,
+                     M, D, act + 2, a.wup_s + (size_t)l * M,
+                     bup + (size_t)l * M, nullptr, M, 1, act + 3);
     }
     grid_barrier(a.bar, target);
 
-    // 7. y = h1 + hid . w_down[l] + b_down[l]: into the carry, or rounded
-    //    once into out at the last layer
+    // 7. y = h1 + hid . w_down[l] + b_down[l]: into the carry, or into out
+    //    at the last layer
     {
-      const int nt = cdiv(D, GF_BN);
-      for (int t = blockIdx.x; t < mt * nt; t += gridDim.x) {
-        if (l + 1 < a.L)
-          down_tile<I8, WT>(a, smem, t, nt, wdown, a.carry, act, l);
-        else
-          down_tile<I8, WT>(a, smem, t, nt, wdown, static_cast<XT*>(a.out),
-                            act, l);
-      }
+      const int nt = cdiv(D, GI_BN);
+      float* dst = l + 1 < a.L ? a.carry : static_cast<float*>(a.out);
+      for (int t = blockIdx.x; t < mt * nt; t += gridDim.x)
+        gemm_i8_tile(gi, t / nt, t % nt, static_cast<const int8_t*>(a.hid), M,
+                     wdown, D, D, 0, dst, D, 1, R, D, M, act + 3,
+                     a.wdown_s + (size_t)l * D, bdown + (size_t)l * D, a.h1,
+                     D, 0, nullptr);
     }
     if (l + 1 < a.L) grid_barrier(a.bar, target);
   }
 }
 
-template <typename XT, typename WT>
-__global__ void __launch_bounds__(LG_THREADS)
-vita_layer_group_kernel(LayerGroupArgs a) {
-  extern __shared__ __align__(16) unsigned char lg_smem[];
-  layer_group_body<false, XT, WT>(a, lg_smem);
-}
-
 template <typename VT>
-__global__ void __launch_bounds__(LG_THREADS)
+__global__ void __launch_bounds__(LG_I8_THREADS)
 vita_layer_group_int8_kernel(LayerGroupArgs a) {
   extern __shared__ __align__(16) unsigned char lg_smem[];
-  layer_group_body<true, float, VT>(a, lg_smem);
+  int8_group_body<VT>(a, lg_smem);
 }
 
-// Grid: as many blocks as fit on the card at once with this shared memory,
-// and no more than the widest stage has work items.
-static int launch_group(const void* kernel, LayerGroupArgs& a, bool i8,
-                        cudaStream_t stream) {
-  const size_t tile = i8 ? sizeof(GemmI8Smem) : sizeof(GemmF32Smem);
-  const size_t att = sizeof(float) * attention_smem_floats(a.N, a.Dh);
-  const size_t smem = tile > att ? tile : att;
+// Blocks of `kernel` that fit on one SM at `threads` and `smem` bytes.
+static int blocks_per_sm(const void* kernel, int threads, size_t smem,
+                         int* per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, LG_THREADS,
-                                                      smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int R = a.B * a.N, mt = (R + GF_BM - 1) / GF_BM, HD = a.H * a.Dh;
-  int work = 3 * mt * ((HD + GF_BN - 1) / GF_BN);
-  work = std::max(work, a.B * a.H * ((a.N + ATT_QTILE - 1) / ATT_QTILE));
-  work = std::max(work, mt * ((a.M + GF_BN - 1) / GF_BN));
-  work = std::max(work, mt * ((a.D + GF_BN - 1) / GF_BN));
-  work = std::max(work, (R + LG_THREADS / 32 - 1) / (LG_THREADS / 32));
-  const int blocks = std::min(per_sm * sms, work);
-  err = cudaMemsetAsync(a.bar, 0, sizeof(unsigned int), stream);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(LG_THREADS), args,
-                                    smem, stream);
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                            threads, smem);
+}
+
+// A cooperative launch of `grid` blocks, refused where they do not all fit
+// on the card at once.
+static int launch_cooperative(const void* kernel, void* args, int grid,
+                              int threads, size_t smem, unsigned int* bar,
+                              cudaStream_t stream) {
+  int per_sm = 0, sms = 0;
+  int err = blocks_per_sm(kernel, threads, smem, &per_sm);
+  if (err != 0) return err;
+  if ((err = sm_count(&sms)) != 0) return err;
+  if (grid < 1 || grid > per_sm * sms)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaError_t e = cudaMemsetAsync(bar, 0, sizeof(unsigned int), stream);
+  if (e != cudaSuccess) return (int)e;
+  void* argv[] = {args};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), argv,
+                                  smem, stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The float kernel for (xt, wt) (`dispatch_mode`) and the tile width dp.
+template <typename F>
+int dispatch_float_group(int xt, int wt, int dp, F&& f) {
+  return dispatch_mode(xt, wt, [&](auto xtag, auto wtag) {
+    using XT = typename decltype(xtag)::type;
+    using WT = typename decltype(wtag)::type;
+    if (dp == 32)
+      return f((const void*)vita_layer_group_kernel<XT, WT, 32>, wtag);
+    if (dp == 64)
+      return f((const void*)vita_layer_group_kernel<XT, WT, 64>, wtag);
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace repro_torch
 
+// Blocks of the float group kernel for (xt, wt, dp) that fit on one SM
+// with `smem` bytes of dynamic shared memory, into *per_sm: what
+// kernels/vita_layer_group.py sizes the grid by.
+extern "C" int rt_vita_layer_group_blocks_per_sm(int xt, int wt, int dp,
+                                                 int smem, int* per_sm) {
+  using namespace repro_torch;
+  return dispatch_float_group(xt, wt, dp, [&](const void* kernel, auto) {
+    return blocks_per_sm(kernel, LG_THREADS, (size_t)smem, per_sm);
+  });
+}
+
 // Float group: x and out in xt, the weights (L, ...), LN vectors and
 // biases in wt (ElemCodes; `dispatch_mode`); ws_* are the workspace views
 // z (R, D), q/k/v/sa (R, H*Dh), h1 (R, D), hid (R, M), carry (R, D)
-// float32 with R = B*N, and bar one uint32.
+// float32 with R = B*N, and bar one uint32.  plan: the 16 ints of the
+// wrapper's GroupPlan (kernels/vita_layer_group.py::group_plan), refused
+// where its MSA layout breaks a limit of the tile (`msa_layout_ok`) or its
+// shared memory holds less than the tiles need.
 extern "C" int rt_vita_layer_group(
     const void* x, const void* wq, const void* wk, const void* wv,
     const void* wmsa, const void* ln1w, const void* ln1b, const void* ln2w,
@@ -348,25 +493,47 @@ extern "C" int rt_vita_layer_group(
     const void* bdown, const float* bias, const float* mask, void* out,
     void* z, float* q, float* k, float* v, void* sa, float* h1, void* hid,
     float* carry, unsigned int* bar, int B, int N, int D, int H, int Dh, int M,
-    int L, int nW, float scale, float eps, int xt, int wt, void* stream) {
+    int L, int nW, float scale, float eps, int xt, int wt, const int* plan,
+    void* stream) {
   using namespace repro_torch;
-  LayerGroupArgs a{x, out, wq, wk, wv, wmsa, wup, wdown,
-                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                   ln1w, ln1b, ln2w, ln2b, bup, bdown, bias, mask,
-                   z, q, k, v, sa, h1, hid, carry, bar, B, N, D, H, Dh, M, L, nW,
-                   scale, eps};
-  return dispatch_mode(xt, wt, [&](auto xtag, auto wtag) {
-    using XT = typename decltype(xtag)::type;
+  FloatGroupArgs f;
+  f.a = LayerGroupArgs{x, out, wq, wk, wv, wmsa, wup, wdown,
+                       nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, ln1w, ln1b, ln2w, ln2b, bup, bdown, bias,
+                       mask, z, q, k, v, sa, h1, hid, carry, bar, B, N, D, H,
+                       Dh, M, L, nW, scale, eps};
+  std::memcpy(&f.p, plan, sizeof f.p);
+  if (!msa_layout_ok(f.p.msa, N, Dh) || f.p.smem < f.p.msa.smem ||
+      f.p.smem > MSA_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const int HD = H * Dh;
+  return dispatch_float_group(xt, wt, f.p.msa.dp, [&](const void* kernel,
+                                                      auto wtag) {
     using WT = typename decltype(wtag)::type;
-    return launch_group((const void*)vita_layer_group_kernel<XT, WT>, a, false,
-                        (cudaStream_t)stream);
+    if (f.p.smem < MgSmem<WT>::BYTES) return (int)cudaErrorInvalidValue;
+    constexpr int WV = 16 / (int)sizeof(WT);
+    // Rows of whole 16-byte chunks take the tiles' cp.async fast paths.
+    f.v_proj = (vec_ok<float>(z, D) ? 1 : 0) |
+               (vec_ok<WT>(wq, Dh) && vec_ok<WT>(wk, Dh) && vec_ok<WT>(wv, Dh)
+                    ? 2 : 0);
+    f.v_att = Dh % 4 == 0 && vec_ok<float>(q, HD) && vec_ok<float>(k, HD) &&
+              vec_ok<float>(v, HD);
+    f.v_concat = (vec_ok<float>(sa, HD) && HD % 4 == 0 ? 1 : 0) |
+                 (vec_ok<WT>(wmsa, D) && D % WV == 0 ? 2 : 0);
+    f.v_up = (vec_ok<float>(z, D) && D % 4 == 0 ? 1 : 0) |
+             (vec_ok<WT>(wup, M) && M % WV == 0 ? 2 : 0);
+    f.v_down = (vec_ok<float>(hid, M) && M % 4 == 0 ? 1 : 0) |
+               (vec_ok<WT>(wdown, D) && D % WV == 0 ? 2 : 0);
+    return launch_cooperative(kernel, &f, f.p.grid, LG_THREADS,
+                              (size_t)f.p.smem, bar, (cudaStream_t)stream);
   });
 }
 
 // int8 group: x and out float32; weights (L, ...) int8; act (L, 4); weight
 // scales (L, H*Dh) for Q/K/V, (L, D) for w_msa and w_down, (L, M) for
 // w_up; LN vectors and biases in vt (float32 or bf16).  Workspace as above
-// but z (R, D), sa (R, H*Dh) and hid (R, M) int8.
+// but z (R, D), sa (R, H*Dh) and hid (R, M) int8.  Grid: as many blocks as
+// fit on the card at once, and no more than the widest stage has work.
 extern "C" int rt_vita_layer_group_int8(
     const float* x, const int8_t* wq, const int8_t* wk, const int8_t* wv,
     const int8_t* wmsa, const int8_t* wup, const int8_t* wdown, const float* act,
@@ -385,7 +552,21 @@ extern "C" int rt_vita_layer_group_int8(
                    scale, eps};
   return dispatch_type(vt, [&](auto vtag) {
     using VT = typename decltype(vtag)::type;
-    return launch_group((const void*)vita_layer_group_int8_kernel<VT>, a, true,
-                        (cudaStream_t)stream);
+    const void* kernel = (const void*)vita_layer_group_int8_kernel<VT>;
+    const size_t smem = std::max(sizeof(GemmI8Smem),
+                                 sizeof(float) * attention_smem_floats(N, Dh));
+    int per_sm = 0, sms = 0;
+    int err = blocks_per_sm(kernel, LG_I8_THREADS, smem, &per_sm);
+    if (err != 0) return err;
+    if ((err = sm_count(&sms)) != 0) return err;
+    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    const int R = B * N, mt = (R + GI_BM - 1) / GI_BM, HD = H * Dh;
+    int work = 3 * mt * ((HD + GI_BN - 1) / GI_BN);
+    work = std::max(work, B * H * ((N + ATT_QTILE - 1) / ATT_QTILE));
+    work = std::max(work, mt * ((M + GI_BN - 1) / GI_BN));
+    work = std::max(work, mt * ((D + GI_BN - 1) / GI_BN));
+    work = std::max(work, (R + LG_I8_THREADS / 32 - 1) / (LG_I8_THREADS / 32));
+    return launch_cooperative(kernel, &a, std::min(per_sm * sms, work),
+                              LG_I8_THREADS, smem, bar, (cudaStream_t)stream);
   });
 }

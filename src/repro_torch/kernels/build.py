@@ -33,10 +33,8 @@ F = ctypes.c_float
 # C signature of every entry point: (library, symbol) -> argtypes.
 SIGNATURES = {
     ("layer_norm", "rt_layer_norm"): [P, P, P, P, I, I, F, P, I, I, P],
-    ("gemm_f32", "rt_gemm_f32"): [P, L, P, L, I, L, P, L, I, I, I, P, P, L,
-                                  I, I, I, I, P],
     ("gemm_i8", "rt_gemm_i8"): [P, L, P, L, I, L, P, L, I, I, I, I, P, P, P,
-                                P, L, I, P, I, P],
+                                P, L, I, P, I, P, P],
     ("attention", "rt_attention"): [P, P, P, L, L, L, P, L, L, L, I, I, I,
                                     I, F, P, P, P, I, P],
     ("vita_msa", "rt_vita_msa"): [P] * 7 + [I, P, L, L, L] + [I] * 5
@@ -54,7 +52,8 @@ SIGNATURES = {
     ("decode_attention", "rt_decode_attention_splits"): [I] * 4 + [P],
     ("rglru_scan", "rt_rglru_scan"): [P] * 3 + [I] * 4 + [P],
     ("vita_layer_group", "rt_vita_layer_group"): [P] * 25 + [I] * 8
-    + [F, F, I, I, P],
+    + [F, F, I, I, P, P],
+    ("vita_layer_group", "rt_vita_layer_group_blocks_per_sm"): [I] * 4 + [P],
     ("vita_layer_group", "rt_vita_layer_group_int8"): [P] * 32 + [I] * 8
     + [F, F, I, P],
 }

@@ -25,6 +25,9 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+_gelu = gelu     # for functions whose ``gelu`` argument is a flag
+
+
 def layer_norm_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    eps: float = 1e-5) -> torch.Tensor:
     """fp32 LayerNorm, population variance (returns fp32)."""
@@ -59,6 +62,38 @@ def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
     if w_scale is not None:
         s = s * w_scale.float()
     return (acc.float() * s).to(out_dtype or torch.float32)
+
+
+def gemm_i8_ref(a: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
+                x_scale: Optional[torch.Tensor] = None,
+                w_scale: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None,
+                res: Optional[torch.Tensor] = None, gelu: bool = False,
+                out_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int8 GEMM building block of the int8 layers
+    (`int8_matmul.launch_gemm_i8`): a (M, K) int8 against ``w``, a (K, N)
+    int8 matrix or a per-head (H, K, Dh) stack (column h*Dh + e is w[h, :,
+    e]); ``out_dtype`` int32 gives the exact sum, float32 acc * (x_scale *
+    w_scale) [+ bias] [-> gelu] [res +] with each step rounded on its own,
+    int8 that value quantised at ``out_scale``."""
+    if w.dim() == 3:
+        w = w.permute(1, 0, 2).reshape(w.shape[1], -1)
+    acc = int8_matmul_ref(a, w)
+    if out_dtype == torch.int32:
+        return acc
+    s = torch.ones((), dtype=torch.float32, device=acc.device)
+    if x_scale is not None:
+        s = s * x_scale.float()
+    if w_scale is not None:
+        s = s * w_scale.float()
+    v = acc.float() * s
+    if bias is not None:
+        v = v + bias.float()
+    if gelu:
+        v = _gelu(v)
+    if res is not None:
+        v = res + v
+    return v if out_dtype == torch.float32 else quant(v, out_scale)
 
 
 def _window_extra(s: torch.Tensor, bias: Optional[torch.Tensor],

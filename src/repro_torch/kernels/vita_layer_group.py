@@ -7,50 +7,155 @@ with the activation resident in VMEM across all L layers.  Here each group
 call is ONE cooperative launch of ``csrc/vita_layer_group.cu``: a
 persistent grid walks seven stages per layer (LN1, Q/K/V, attention,
 concat + residual, LN2, up + GELU, down + residual) with a grid-wide
-barrier between stages, reusing the per-layer chain's own tile code.  The
+barrier between stages.  The float kernel runs the float layer's own
+tensor-core tiles (`vita_layer.vita_layer`: the MSA tile's projection and
+attention, the split-TF32 GEMM tile), 512 threads a block, as `group_plan`
+lays them out; the int8 kernel runs the int8 chain's CUDA-core tiles
+(__dp4a and the warp-per-row attention), 256 threads a block.  The
 activation is carried between layers in a float32 buffer and rounded to
 x's dtype once, at the end, as the TPU kernel carries it in fp32 scratch:
-with float32 x a float group equals L calls of `tile_chain` (the float
-layer over the same tiles: csrc/layer_norm.cu, csrc/gemm_f32.cu and
-csrc/attention.cu, the chain `vita_layer.vita_layer` ran before it moved
-onto the tensor cores; kept to hold the group to, run by the tests and
-chip_smoke.py, never on a served path) and an int8 group L calls of
-`vita_layer.vita_layer_int8`; with bf16 x it is not (each call rounds its
-output).  The source note says what bounds it and how its design differs
-from the TPU's.
+with float32 x a float group equals L calls of `vita_layer.vita_layer` and
+an int8 group L calls of `vita_layer.vita_layer_int8`, bit for bit; with
+bf16 x it is not (each call rounds its output).  The source note says what
+bounds it and how its design differs from the TPU's.
 
 Operands carry the layer as their leading axis: wq/wk/wv (L, H, D, Dh);
 w_msa (L, H*Dh, D); w_up (L, D, M); w_down (L, M, D); LN vectors and
 b_down (L, D); b_up (L, M).  Windowed (Swin) groups take ``bias``
 (L, H, n, n) and one shared ``mask`` (nW, n, n): members share window and
 shift.  The float group takes x and the stacks in a mode of
-`ref.PORTED_MODES`; the int8 group float32 x with float32 or bf16 LN
-vectors and biases.  The wrapper allocates the workspace (z, q, k, v, sa,
-h1, hid, the float32 carry and the barrier counter) as one buffer.  These
-functions take CUDA tensors only; the plain versions are
-`ref.vita_layer_group_ref` / `vita_layer_group_int8_ref`, chosen by
-`ops`.
+`ref.PORTED_MODES` and the (N, Dh) the MSA tile's plan fits (as the float
+layer); the int8 group float32 x with float32 or bf16 LN vectors and
+biases.  The wrapper allocates the workspace (z, q, k, v, sa, h1, hid, the
+float32 carry and the barrier counter) as one buffer.  These functions
+take CUDA tensors only; the plain versions are `ref.vita_layer_group_ref` /
+`vita_layer_group_int8_ref`, chosen by `ops`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import build
-from .int8_matmul import (DTYPE_CODES, _stream, b_layout, check, dtype_code,
-                          ptr)
+from .int8_matmul import DTYPE_CODES, _stream, check, ptr, sm_count
 from .ref import check_mode
-from .vita_layer import _attend, launch_layer_norm
-from .vita_msa import SMEM_LIMIT, msa_plan
+from .vita_msa import SMEM_LIMIT, MsaPlan, msa_plan
 
 _ALIGN = 256
 LN_EPS = 1e-5
+# The float kernel's block and its GEMM tile (csrc/mma_gemm.cuh: MG_BM x
+# MG_BN outputs, a 4-stage ring of A [32][BK + 8] fp32 and B [BK][64 + 4
+# (fp32) or + 8 (bf16)], BK = 32 with fp32 and 64 with bf16 weights).
+GROUP_THREADS, _MG_BM, _MG_BN, _MG_STAGES = 512, 32, 64, 4
+_ROWS_A_WARP = GROUP_THREADS // 32     # LN: one row a warp
 
 
-def group_smem_bytes(n: int, dh: int) -> int:
-    """Dynamic shared memory of one group-kernel block: the attention
+class GroupStage(NamedTuple):
+    """One stage of the float group kernel: ``count`` tiles of ``rows`` x
+    ``cols`` outputs each, covering ``out_rows`` x ``out_cols``, walked by
+    the grid in ``waves`` rounds."""
+    name: str
+    rows: int
+    cols: int
+    out_rows: int
+    out_cols: int
+    count: int
+    waves: int
+
+
+class GroupPlan(NamedTuple):
+    """One float csrc/vita_layer_group.cu launch: ``grid`` blocks of
+    ``threads`` with ``smem`` bytes of dynamic shared memory each (the MSA
+    tile's layout ``msa`` on the fp32 LN1 output, which the GEMM tile's
+    ring fits inside), and each stage's tiles."""
+    msa: MsaPlan
+    grid: int
+    threads: int
+    smem: int
+    stages: tuple
+
+    def launch_ints(self):
+        """The 16 ints the C entry takes (csrc/vita_layer_group.cu's
+        GroupLayout): the MSA layout, the grid and the shared memory."""
+        return tuple(self.msa) + (self.grid, self.smem)
+
+
+def _mg_smem(w_size: int) -> int:
+    """Shared memory of the GEMM tile's ring (csrc/mma_gemm.cuh MgSmem)."""
+    bk = 32 if w_size == 4 else 64
+    ldb = _MG_BN + (4 if w_size == 4 else 8)
+    return _MG_STAGES * (_MG_BM * (bk + 8) * 4 + bk * ldb * w_size)
+
+
+@functools.lru_cache(maxsize=None)
+def group_plan(b: int, n: int, d: int, h: int, dh: int, m: int,
+               w_size: int = 4, sms: int = 132,
+               per_sm: int = 1) -> GroupPlan:
+    """The float group kernel's plan for B images of N tokens, width D,
+    H heads of Dh and an MLP of M, weights of ``w_size`` bytes, on ``sms``
+    SMs holding ``per_sm`` blocks each: the grid (as many blocks as fit at
+    once, and no more than the widest stage has tiles), the shared memory,
+    and per stage the tiles: LN1 and LN2 a row a warp; the projection and
+    the attention one (image, head, 64-row slice) each, the MSA tile's;
+    concat, up and down the GEMM tile's 32 x 64 outputs.  Raises
+    ValueError for the shapes `vita_msa.msa_plan` refuses (the float layer
+    refuses the same)."""
+    msa = msa_plan(n, dh, 4, w_size)
+    rows, slices = b * n, b * h * msa.cluster
+
+    def gemm(cols):
+        return -(-rows // _MG_BM) * -(-cols // _MG_BN)
+
+    # (name, tile rows, tile columns, output rows, output columns, tiles);
+    # the MSA stages' outputs are per (image, head).
+    stages = (("ln1", 1, d, rows, d, rows),
+              ("qkv", msa.rows, 3 * dh, n, 3 * dh, slices),
+              ("attention", msa.rows, dh, n, dh, slices),
+              ("concat", _MG_BM, _MG_BN, rows, d, gemm(d)),
+              ("ln2", 1, d, rows, d, rows),
+              ("up", _MG_BM, _MG_BN, rows, m, gemm(m)),
+              ("down", _MG_BM, _MG_BN, rows, d, gemm(d)))
+    # A block takes one tile a round, or, in LN, a row a warp.
+    per_round = [_ROWS_A_WARP if st[1] == 1 else 1 for st in stages]
+    work = max(-(-st[5] // r) for st, r in zip(stages, per_round))
+    grid = max(1, min(per_sm * sms, work))
+    return GroupPlan(msa, grid, GROUP_THREADS,
+                     max(msa.smem, _mg_smem(w_size)),
+                     tuple(GroupStage(*st, -(-st[5] // (grid * r)))
+                           for st, r in zip(stages, per_round)))
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(xt: int, wt: int, dp: int, smem: int) -> int:
+    """Blocks of the float group kernel one SM holds (the card's occupancy
+    calculator, through the library)."""
+    out = ctypes.c_int(0)
+    build.call("vita_layer_group", "rt_vita_layer_group_blocks_per_sm", xt,
+               wt, dp, smem, ctypes.byref(out))
+    if out.value < 1:
+        raise RuntimeError("vita_layer_group: not one block fits on an SM")
+    return out.value
+
+
+def plan_for(x: torch.Tensor, wq: torch.Tensor, m: int) -> GroupPlan:
+    """`group_plan` of x (B, N, D) against the (L, H, D, Dh) stack on
+    their card, sized by the card's occupancy."""
+    b, n, d = x.shape
+    _, h, _, dh = wq.shape
+    w_size = wq.element_size()
+    first = group_plan(b, n, d, h, dh, m, w_size, 1, 1)
+    per_sm = _blocks_per_sm(DTYPE_CODES[x.dtype], DTYPE_CODES[wq.dtype],
+                            first.msa.dp, first.smem)
+    return group_plan(b, n, d, h, dh, m, w_size,
+                      sm_count(x.device.index or 0), per_sm)
+
+
+def int8_group_smem_bytes(n: int, dh: int) -> int:
+    """Dynamic shared memory of one int8 group-kernel block: the attention
     stage's K [N][Dh+1], V [N][Dh] and 8 query and score rows (the GEMM
     tiles need less)."""
     return 4 * (n * (2 * dh + 1) + 8 * (dh + n))
@@ -102,9 +207,6 @@ def _check_common(x, wq, w_msa, w_up, w_down, vecs_d, b_up, bias, mask,
         if tuple(mask.shape) != (n_w, n, n) or n_w == 0 or b % n_w:
             raise ValueError(f"mask has shape {tuple(mask.shape)}; expected "
                              f"(nW, {n}, {n}) with nW dividing the batch {b}")
-    if group_smem_bytes(n, dh) > SMEM_LIMIT:
-        raise ValueError(f"layer group: N={n}, Dh={dh} needs more shared "
-                         f"memory than one block has")
     return b, n, d, n_l, h, dh, m, n_w
 
 
@@ -125,7 +227,7 @@ def vita_layer_group(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
         check(w, nm, wt, (n_l, h, d, dh))
     # The shapes the float layer's MSA tile takes (fp32 LN1 output), so a
     # grouped and a per-layer schedule serve the same models.
-    msa_plan(n, dh, 4, wq.element_size())
+    plan = plan_for(x, wq, m).launch_ints()
     out = torch.empty_like(x)
     ws = _workspace(x.device, b * n, d, h * dh, m, int8=False)
     build.call("vita_layer_group", "rt_vita_layer_group", ptr(x), ptr(wq),
@@ -134,7 +236,7 @@ def vita_layer_group(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
                ptr(b_down), ptr(bias), ptr(mask), ptr(out),
                *(ptr(t) for t in ws[1:]), ptr(ws[0]), b, n, d, h, dh, m, n_l,
                n_w, dh ** -0.5, LN_EPS, DTYPE_CODES[x.dtype],
-               DTYPE_CODES[wt], _stream())
+               DTYPE_CODES[wt], (ctypes.c_int * len(plan))(*plan), _stream())
     return out
 
 
@@ -158,6 +260,9 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
         ((ln1_w, "ln1_w"), (ln1_b, "ln1_b"), (ln2_w, "ln2_w"),
          (ln2_b, "ln2_b"), (b_down, "b_down")), b_up, bias, mask,
         torch.int8, vt)
+    if int8_group_smem_bytes(n, dh) > SMEM_LIMIT:
+        raise ValueError(f"int8 layer group: N={n}, Dh={dh} needs more "
+                         f"shared memory than one block has")
     check(act_scales, "act_scales", torch.float32, (n_l, 4))
     for w, nm in ((wq_q, "wq_q"), (wk_q, "wk_q"), (wv_q, "wv_q")):
         check(w, nm, torch.int8, (n_l, h, d, dh))
@@ -183,62 +288,3 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
                *(ptr(t) for t in ws[1:]), ptr(ws[0]), b, n, d, h, dh, m, n_l,
                n_w, dh ** -0.5, LN_EPS, DTYPE_CODES[vt], _stream())
     return out
-
-
-def launch_gemm_f32(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
-                    bias: Optional[torch.Tensor] = None,
-                    res: Optional[torch.Tensor] = None,
-                    gelu: bool = False) -> torch.Tensor:
-    """out (M, N) = [res +] act(a (M, K) . w [+ bias]) with fp32 FMAs on
-    the current stream (csrc/gemm_f32.cu, the group kernel's GEMM tile);
-    ``w`` is (K, N) or a per-head (H, K, Dh) stack.  ``a`` is float32;
-    ``w`` and ``bias`` float32 or bf16 (one dtype), ``res`` and ``out``
-    float32 or bf16 each."""
-    k, n, ldb, grp, grp_stride = b_layout(w)
-    m = a.shape[0]
-    check(a, "a", torch.float32, (m, k))
-    wt = dtype_code("w", w)
-    check(w, "w", w.dtype)
-    ot = dtype_code("out", out)
-    check(out, "out", out.dtype, (m, n))
-    if bias is not None:
-        check(bias, "bias", w.dtype, (n,))
-    rt = 0
-    if res is not None:
-        rt = dtype_code("res", res)
-        check(res, "res", res.dtype, (m, n))
-    build.call("gemm_f32", "rt_gemm_f32", ptr(a), k, ptr(w), ldb, grp,
-               grp_stride, ptr(out), n, m, n, k, ptr(bias), ptr(res), n,
-               int(gelu), wt, rt, ot, _stream())
-    return out
-
-
-def tile_chain(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
-               w_down, b_down, bias=None, mask=None) -> torch.Tensor:
-    """One float encoder layer as the group kernel's own tiles compute it,
-    one launch each: LN1, Q, K, V (gemm_f32), attention, concat +
-    residual, LN2, up + GELU, down + residual (9 launches); x (B, N, D)
-    -> (B, N, D) in x's dtype, arguments as `vita_layer.vita_layer`.  A
-    float group equals L calls of it within fp32 reassociation of the
-    same sums (the group carries the activation in fp32).  Not counted in
-    `ops.LAUNCHES`: no served path calls it."""
-    b, n, d = x.shape
-    h, _, dh = wq.shape
-    m = w_up.shape[1]
-    check_mode("tile_chain", x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w,
-               ln2_b, w_up, b_up, w_down, b_down)
-    rows = b * n
-    x2 = x.reshape(rows, d)
-
-    def empty(cols):
-        return torch.empty((rows, cols), device=x.device, dtype=torch.float32)
-
-    z = launch_layer_norm(x2, ln1_w, ln1_b, empty(d))
-    qkv = [launch_gemm_f32(z, w, empty(h * dh)) for w in (wq, wk, wv)]
-    sa = _attend(*qkv, empty(h * dh), b, n, h, dh, bias, mask)
-    h1 = launch_gemm_f32(sa, w_msa, empty(d), res=x2)
-    z2 = launch_layer_norm(h1, ln2_w, ln2_b, empty(d))
-    hid = launch_gemm_f32(z2, w_up, empty(m), bias=b_up, gelu=True)
-    y = launch_gemm_f32(hid, w_down, torch.empty_like(x2), bias=b_down,
-                        res=h1)
-    return y.reshape(b, n, d)

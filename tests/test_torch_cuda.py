@@ -9,10 +9,11 @@ whole file runs on a machine with one by
 Tolerances: int8 products are exact; float results differ by fp32
 reassociation (1e-4 of the output scale); an int8 layer may flip a
 requant code by one LSB at a rounding boundary (2% of the output scale).
-A layer group runs the per-layer chain's own tiles, so it equals L calls
-of the chain exactly (int8) or within 1e-6 of the output scale (float:
-`tile_chain`, the float layer over the group's tiles; `vita_layer` itself
-runs the tensor-core tiles, held to the plain version and to that chain).
+A layer group runs the per-layer kernels' own tiles in their order, so
+with float32 x it equals L calls of `vita_layer` (held within 1e-6 of the
+output scale) and L calls of `vita_layer_int8` exactly; the int8 GEMM's
+tensor-core tile (every out_kind, ragged shapes and per-head stacks at
+each copy width and tile) equals its plain version bit for bit.
 The LM kernels (flash and decode attention, the RG-LRU scan, the gated
 and bf16 fused MLP) are held row by row, each output row to 1e-4 of its
 own scale in fp32 and 2e-2 in bf16 (the kernels round P or the hidden
@@ -228,7 +229,7 @@ _ORDER = ("wq", "wk", "wv", "w_msa", "ln1_w", "ln1_b", "ln2_w", "ln2_b",
                                   "one_head"])
 def test_layer_group_kernels_match_plain_and_chain(card, kind):
     """Kernels 7 and 8 at three layers: against their plain versions and
-    against three calls of the per-layer chain.  ``pruned`` keeps 2 of 4
+    against three calls of the per-layer kernel (1 and 2).  ``pruned`` keeps 2 of 4
     heads (H*Dh = 48 < D = 96), ``one_head`` 1 of 4, ``windowed`` folds
     four shifted 4x4 windows."""
     cfg = vision_registry.build_cfg("vit_edge")
@@ -253,9 +254,8 @@ def test_layer_group_kernels_match_plain_and_chain(card, kind):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
     y = x
     for l, bp in enumerate(blocks):
-        y = k_vita_layer_group.tile_chain(y, *[bp[k] for k in _ORDER],
-                                          None if bias is None else bias[l],
-                                          mask)
+        y = k_vita_layer.vita_layer(y, *[bp[k] for k in _ORDER],
+                                    None if bias is None else bias[l], mask)
     assert float((got - y).abs().max()) <= 1e-6 * scale
     qs = [quantize_vision_params(bp) for bp in blocks]
     acts = torch.tensor([[4.0, 2.0, 4.0, 3.0]] * 3, device=card) / 127.0
@@ -392,7 +392,7 @@ def test_fused_mlp_bf16_weights(card, mode):
 def test_layer_group_bf16_modes(card, mode, windowed):
     """Kernel 7 with bf16 stacks against its plain version (fp32 carry,
     one rounding at the end); in mixed mode also equal to three calls of
-    the per-layer chain, as in fp32."""
+    `vita_layer`, as in fp32."""
     cfg, blocks = _bf16_blocks(card, layers=3)
     x = torch.randn((2, 17, cfg.dim), device=card)
     bias = mask = None
@@ -406,7 +406,7 @@ def test_layer_group_bf16_modes(card, mode, windowed):
     if mode == "mixed":
         y = x
         for l, bp in enumerate(blocks):
-            y = k_vita_layer_group.tile_chain(
+            y = k_vita_layer.vita_layer(
                 y, *[bp[k] for k in _ORDER],
                 None if bias is None else bias[l], mask)
         assert float((got - y).abs().max()) <= 1e-6 * float(y.abs().max())
@@ -759,9 +759,9 @@ def test_vita_layer_tensor_core_tiles_match_plain_and_chain(card, mode,
     DeiT-T width (D 192, 3 heads) over 16 tokens (one block a cluster)
     and over DeiT-T's 196 (clusters of 4: the distributed shared memory
     gather and SA written merged by several blocks), and a windowed Swin
-    block (four shifted 4x4 windows, D 96), against its plain version and
-    against the old per-layer chain (`tile_chain`: CUDA-core tiles, the
-    layer group's), each at the mode's bound."""
+    block (four shifted 4x4 windows, D 96), against its plain version at
+    the mode's bound and against a one-layer group (kernel 7, the same
+    tiles in the same order: equal within 1e-6 of the output scale)."""
     xt, wt = _MODES3[mode]
     cfg = dataclasses.replace(vision_registry.build_cfg("deit_t"), layers=1,
                               dtype="float32" if wt == torch.float32
@@ -784,13 +784,17 @@ def test_vita_layer_tensor_core_tiles_match_plain_and_chain(card, mode,
     f_args = (x.to(xt), *[bp[k] for k in _ORDER], bias, mask)
     got = k_vita_layer.vita_layer(*f_args)
     _close(got, ref.vita_layer_ref(*f_args), mode)
-    _close(got, k_vita_layer_group.tile_chain(*f_args), mode)
+    one = k_vita_layer_group.vita_layer_group(
+        f_args[0], *[t[None] for t in f_args[1:13]],
+        None if bias is None else bias[None], mask)
+    assert float((got.float() - one.float()).abs().max()) \
+        <= 1e-6 * float(got.float().abs().max())
 
 
 @pytest.mark.parametrize("wt", [torch.float32, torch.bfloat16])
 def test_float_layer_and_group_accept_the_same_shapes(card, wt):
     """The float layer (kernel 1, the MSA tile) and the float layer group
-    (kernel 7, its CUDA-core tiles) take the same (N, Dh): where the
+    (kernel 7, the same tiles) take the same (N, Dh): where the
     tile's plan fits, both run and agree with the plain layer; where it
     does not (Dh past 64, N past 512, K and V past one block's shared
     memory), both raise ValueError."""
@@ -830,3 +834,90 @@ def test_float_layer_and_group_accept_the_same_shapes(card, wt):
             _close(grouped, want, "fp32" if wt == torch.float32 else "mixed")
     assert (196, 64) in accepted and (49, 32) in accepted
     assert (196, 80) not in accepted and (513, 32) not in accepted
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4 on the int8 tensor cores (csrc/mma_gemm_i8.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _force_kgroups(monkeypatch, kgroups):
+    """Make every kernel 4 launch split its k steps over ``kgroups`` warp
+    groups (its plan otherwise as `gemm_i8_plan` gives it)."""
+    def plan_for(a, w):
+        k, n, ldb, grp, grp_stride = k_int8_matmul.b_layout(w)
+        return k_int8_matmul.gemm_i8_plan(
+            a.shape[0], n, k, ldb=ldb, grp=grp, grp_stride=grp_stride,
+            a_align=a.data_ptr() % 16, b_align=w.data_ptr() % 16,
+            kgroups=kgroups)
+    monkeypatch.setattr(k_int8_matmul, "plan_for", plan_for)
+
+
+@pytest.mark.parametrize("kgroups", k_int8_matmul.I8_KGROUPS)
+@pytest.mark.parametrize("m,k,n", [(37, 53, 29), (130, 96, 70),
+                                   (1, 64, 16), (97, 300, 136)])
+def test_int8_gemm_tile_every_out_kind_ragged(card, monkeypatch, kgroups, m,
+                                              k, n):
+    """Kernel 4's tensor-core tile with one and two k groups, ragged M, N
+    and K (one to three 128-deep stages)
+    (byte-wide copies where K or N is odd, 4-, 8- and 16-byte ones where
+    they divide): int32, rescaled float and requantised int8 outputs, and
+    with a float32 or bf16 bias and a residual, each equal to the plain
+    version bit for bit; with GELU within fp32 rounding of it."""
+    _force_kgroups(monkeypatch, kgroups)
+    g = torch.Generator(device=card).manual_seed(3)
+    a = torch.randint(-127, 128, (m, k), device=card, generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), device=card, generator=g,
+                      dtype=torch.int8)
+    assert k_int8_matmul.plan_for(a, w).kgroups == kgroups
+    xs = torch.tensor([0.02], device=card)
+    ws = torch.rand(n, device=card, generator=g) * 1e-2
+    qs = torch.tensor([0.05], device=card)
+    res = torch.randn((m, n), device=card, generator=g)
+    bias = torch.randn(n, device=card, generator=g)
+    scales = {"x_scale": xs, "w_scale": ws}
+    cases = [(torch.int32, {}), (torch.float32, scales),
+             (torch.int8, dict(scales, out_scale=qs)),
+             (torch.float32, dict(scales, bias=bias, res=res)),
+             (torch.int8, dict(scales, bias=bias.bfloat16(), out_scale=qs))]
+    for out_dtype, kw in cases:
+        out = torch.empty((m, n), device=card, dtype=out_dtype)
+        got = k_int8_matmul.launch_gemm_i8(a, w, out, **kw)
+        assert torch.equal(got, ref.gemm_i8_ref(a, w, out_dtype, **kw)), \
+            (out_dtype, sorted(kw))
+    kw = dict(scales, bias=bias, res=res, gelu=True)
+    got = k_int8_matmul.launch_gemm_i8(a, w, torch.empty((m, n), device=card),
+                                       **kw)
+    want = ref.gemm_i8_ref(a, w, torch.float32, **kw)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("kgroups", k_int8_matmul.I8_KGROUPS)
+@pytest.mark.parametrize("h,dh,chunk", [(4, 24, 8), (3, 64, 16),
+                                        (2, 36, 4), (3, 17, 1)])
+def test_int8_gemm_tile_reads_ragged_head_stacks_in_place(card, monkeypatch,
+                                                          kgroups, h, dh,
+                                                          chunk):
+    """Kernel 4 reading a per-head (H, K, Dh) stack in place: 16-byte
+    chunks only where Dh keeps them inside one head and aligned (Dh 64),
+    8- or 4-byte ones where Dh allows them (24, 36), bytes where it does
+    not (17); the int32 and requantised outputs equal the plain version
+    on the merged (K, H*Dh) matrix, with one and two k groups."""
+    _force_kgroups(monkeypatch, kgroups)
+    g = torch.Generator(device=card).manual_seed(4)
+    k, m = 96, 75
+    a = torch.randint(-127, 128, (m, k), device=card, generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (h, k, dh), device=card, generator=g,
+                      dtype=torch.int8)
+    assert k_int8_matmul.plan_for(a, w).b_chunk == chunk
+    xs = torch.tensor([0.03], device=card)
+    ws = torch.rand(h * dh, device=card, generator=g) * 1e-2
+    out32 = k_int8_matmul.launch_gemm_i8(
+        a, w, torch.empty((m, h * dh), device=card, dtype=torch.int32))
+    assert torch.equal(out32, ref.gemm_i8_ref(a, w, torch.int32))
+    got = k_int8_matmul.launch_gemm_i8(
+        a, w, torch.empty((m, h * dh), device=card), x_scale=xs, w_scale=ws)
+    assert torch.equal(got, ref.gemm_i8_ref(a, w, torch.float32, xs, ws))
