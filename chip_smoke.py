@@ -5,7 +5,7 @@ toolkit:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build every kernel from src/repro_torch/csrc (one nvcc per source, in
-     parallel);
+     parallel; each kernel's registers and spills printed);
   2. hold each kernel against its plain PyTorch version on the card: the
      float and int8 layers at DeiT-T full width (batch 8) and ViT-B/16
      widths (batch 2), and windowed at Swin-T stage 1 (bucket 8, shifted
@@ -19,12 +19,17 @@ Phases (any failure exits non-zero; nothing is caught):
      stage 4 (2 layers, bucket 8, windowed) and a pruned width (DeiT-T,
      2 layers of 2 heads), also against L calls of the per-layer kernel
      (float: `vita_layer`, within 1e-6 of the scale, the measured error
-     printed, 0 where bit for bit; int8: `vita_layer_int8`, exactly);
+     printed, 0 where bit for bit; int8: `vita_layer_int8`, exactly), and
+     that chain of `vita_layer_int8` calls teacher-forced, each layer
+     against the plain version fed the chain's own input to it, at the
+     int8 layer's bound (the worst layer printed);
      each timed shape of the float layer and the float MSA prints its
      plan (`[plan]`: the layer's launches, counted on one call, the
      operand types, and the fields of the MSA tile's plan: cluster, row
      slice, ring stages, shared memory), each float group its plan (grid,
-     shared memory, and per stage the tiles and waves), and each int8
+     shared memory, and per stage the tiles and waves), each int8 group its
+     plan (grid, blocks an SM, and per stage the tiles, k groups and
+     waves), and each int8
      matmul shape its plan (tile, k groups, copy widths), and, after the
      timing phase, its device time at each k-group count the kernel is
      built for;
@@ -37,7 +42,8 @@ Phases (any failure exits non-zero; nothing is caught):
      int8, Swin-T-p fused float.  Each path's launch counts are set to 0
      just before it and read just after, and must equal what its schedule
      launches; its logits are checked against the same server on the CPU;
-  4. time each kernel, its plain version and a library yardstick, the
+  4. time each kernel, its plain version and a library yardstick (and
+     each int8 group beside its L `vita_layer_int8` calls), the
      served throughput of every path (grouped beside per-layer), and the
      device's busy share of a drain for DeiT-T and Swin-T in both modes
      and grouped DeiT-T, whose kernels must be one layer-group launch per
@@ -53,7 +59,9 @@ the scan at T 13 and 4,096, W 2560; the gated MLP at D 2560, M 7680 and
 splits; every activation at a small shape), each output row within a
 bound at its own scale, with each timed shape's launch plan printed
 (`[plan]`: the fused MLP's regime and hidden splits, decode attention's
-key splits); and, after phase 3:
+key splits, flash attention's path, tile, blocks, shared memory and keys
+walked, and after the timing phase each flash shape's device time on
+both tiles its plan chooses between); and, after phase 3:
   * RecurrentGemma-2B at full width and depth (26 layers, bf16, random
     weights from seed 0) served through `SlotServer` (6 requests, batch
     4, prompts of 4-16 tokens, 8 new tokens, cache 128): launch counts
@@ -179,6 +187,9 @@ BF16_CONTROL_REL = 0.01
 MODE_KERNELS = ("vita_layer", "vita_layer_int8", "vita_msa_batched",
                 "fused_mlp", "vita_layer_group", "vita_layer_group_int8")
 MODE_TOTALS: dict = {}
+# The int8 group cases' chains of L `vita_layer_int8` calls, (tag,
+# callable), timed beside kernel 8.
+I8_CHAINS: list = []
 
 KERNELS = (  # name, TPU kernel it replaces, port wrapper
     ("vita_layer", "src/repro/kernels/vita_layer.py:174",
@@ -277,6 +288,32 @@ def device_ms(fn, iters: int = 20, warmup: int = 3):
     return time_ms(fn, iters, warmup), "cuda_events"
 
 
+def ptxas_lines(log: str) -> list:
+    """nvcc's wall time and, per kernel (demangled by c++filt where the
+    machine has it), ptxas's registers and spills."""
+    lines = log.splitlines()
+    names = [ln.split("'")[1] for ln in lines
+             if "Compiling entry function" in ln]
+    try:
+        demangled = subprocess.run(
+            ["c++filt"], input="\n".join(names), capture_output=True,
+            text=True, timeout=60, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        demangled = names
+    short = dict(zip(names, (d.replace("void ", "").replace(
+        "repro_torch::", "").split("(")[0] for d in demangled)))
+    out, current, spill = [lines[0]] if lines else [], None, ""
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            current = short.get(ln.split("'")[1], "?")
+        elif "spill" in ln:
+            spill = ", ".join(x.strip() for x in ln.split(",")[1:])
+        elif "registers" in ln and current:
+            out.append(f"{current}: {ln.split(':', 1)[1].strip()}; {spill}")
+            current, spill = None, ""
+    return out
+
+
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Mean time per call of ``fn`` over ``iters`` calls between two CUDA
     events: device time where the card outruns the host's launches,
@@ -350,6 +387,37 @@ def check_int8_layer(name: str, got, want) -> float:
           f"{got.shape[0] * got.shape[1]} tokens, each a near-tie: {ties}")
     check(err <= 0.02 * scale and ties, f"{name} disagrees")
     return err
+
+
+def check_int8_teacher_forced(name: str, steps) -> float:
+    """The card's chain of `vita_layer_int8` calls held layer by layer:
+    ``steps`` is each layer's (card output, plain version's output on the
+    chain's own input to that layer), each held as `check_int8_layer` holds
+    a layer (max|err| <= 0.02 x scale, a differing argmax only at a
+    near-tie), so requant flips cannot compound from one layer into the
+    next.  Prints every layer's share of its bound and the worst layer;
+    returns the worst max|err|."""
+    torch.cuda.synchronize()
+    worst, worst_ratio, errs = 0, -1.0, []
+    for l, (got, want) in enumerate(steps):
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        n_differ, ties = argmax_check(got.cpu().numpy(), want.cpu().numpy(),
+                                      err)
+        ratio = err / (0.02 * scale)
+        errs.append(err)
+        print(f"[check] {name} teacher-forced layer {l}: max|err| {err:.3e} "
+              f"(scale {scale:.3f}, {ratio:.3f} of the 0.02 x scale bound); "
+              f"argmax differs on {n_differ} tokens, each a near-tie: "
+              f"{ties}")
+        check(err <= 0.02 * scale and ties,
+              f"{name} layer {l} disagrees with its plain version")
+        if ratio > worst_ratio:
+            worst, worst_ratio = l, ratio
+    print(f"[check] {name} teacher-forced: worst layer {worst} of "
+          f"{len(steps)}, max|err| {errs[worst]:.3e} = {worst_ratio:.3f} of "
+          f"its bound")
+    return max(errs)
 
 
 # ---------------------------------------------------------------------------
@@ -592,6 +660,18 @@ def group_bound(f_args, i_args, bias=None, mask=None):
     return (float_layer_bound(f_args, bias, mask),
             bound(ops_i8=n_l * proj, flops_f32=n_l * attn,
                   nbytes=nbytes(*i_args) + nbytes(x) + nbytes(bias, mask)))
+
+
+def int8_chain(i_args, bias=None, mask=None):
+    """L calls of `vita_layer_int8` on the stacked int8 group arguments:
+    what the int8 group equals bit for bit."""
+    from repro_torch.kernels import vita_layer as vl
+
+    y = i_args[0]
+    for l in range(i_args[1].shape[0]):
+        y = vl.vita_layer_int8(y, *[a[l] for a in i_args[1:]],
+                               None if bias is None else bias[l], mask)
+    return y
 
 
 def check_chain(name: str, got, chain, exact: bool) -> float:
@@ -855,14 +935,21 @@ def kernel_phase(deit, vitb, swin_cfg):
             f"vita_layer_group_int8 {tag}",
             vg.vita_layer_group_int8(*i_args, bias, mask),
             ref.vita_layer_group_int8_ref(*i_args, bias, mask))
-        chain = x
+        chain, steps = x, []
         for l in range(n_l):
-            chain = vl.vita_layer_int8(chain, *[a[l] for a in i_args[1:]],
-                                       None if bias is None else bias[l],
-                                       mask)
+            layer = ([a[l] for a in i_args[1:]],
+                     None if bias is None else bias[l])
+            y = vl.vita_layer_int8(chain, *layer[0], layer[1], mask)
+            steps.append((y, ref.vita_layer_int8_ref(chain, *layer[0],
+                                                     layer[1], mask)))
+            chain = y
+        check_int8_teacher_forced(f"vita_layer_int8 chain {tag}", steps)
         check_chain(f"vita_layer_group_int8 {tag}",
                     vg.vita_layer_group_int8(*i_args, bias, mask), chain,
                     True)
+        int8_group_plan_line(tag, i_args)
+        I8_CHAINS.append((tag, lambda a=i_args, bi=bias, ma=mask:
+                          int8_chain(a, bi, ma)))
         fb, ib = group_bound(f_args, i_args, bias, mask)
         rec("vita_layer_group", tag, err,
             lambda a=f_args, bi=bias, ma=mask: vg.vita_layer_group(*a, bi,
@@ -1485,6 +1572,44 @@ def group_plan_line(tag: str, x, wq, m: int) -> None:
               for st in p.stages))
 
 
+def int8_group_plan_line(tag: str, i_args) -> None:
+    """Print kernel 8's plan for its stacked arguments: the grid, the
+    blocks an SM holds, the shared memory, and per stage the tiles, the k
+    groups (2: one tile a block; 1: two a block, one a half) and the
+    waves."""
+    from repro_torch.kernels import vita_layer_group as vg
+    from repro_torch.kernels.int8_matmul import DTYPE_CODES
+
+    vt = DTYPE_CODES[i_args[-1].dtype]
+    p = vg.int8_plan_for(*i_args[:7], vt)
+    per_sm = vg._int8_blocks_per_sm(vt, p.smem)
+    print(f"[plan] vita_layer_group_int8 {tag}: grid {p.grid} x {p.threads} "
+          f"threads, {per_sm} blocks an SM, {p.smem} bytes of shared memory "
+          f"a block; " + "; ".join(
+              f"{st.name} {st.count} tiles of {st.rows}x{st.cols}"
+              + (f", {st.kgroups} k group{'s' if st.kgroups > 1 else ''} "
+                 f"({st.per_block} a block), copies {st.a_chunk}/"
+                 f"{st.b_chunk} B" if st.kgroups else "")
+              + f" in {st.waves} wave{'s' if st.waves > 1 else ''}"
+              for st in p.stages))
+
+
+def flash_plan_line(tag: str, q, k, v, **kw) -> None:
+    """Print kernel 9's plan for a call: the path, the tile rows and key
+    tile, the blocks, the shared memory and the keys walked."""
+    from repro_torch.kernels import head_attention as ha
+
+    p = ha.plan_for(q, k, v, **kw)
+    blocks = p.grid[0] * p.grid[1] * p.grid[2]
+    print(f"[plan] flash_attention {tag}: path {p.path} (Dh {p.dp} padded, "
+          f"kernel for Dh <= {p.dmax}), {p.rows} query rows ({p.rows // 16} "
+          f"row group{'s' if p.rows > 16 else ''} x {p.nw} warp"
+          f"{'s' if p.nw > 1 else ''}) x {p.bk}-key tiles, {blocks} "
+          f"blocks (grid {p.grid}), {p.smem} bytes of shared memory a block, "
+          f"{'cp.async' if p.vec else 'plain-load'} copies; {p.keys_walked()} "
+          f"keys walked per (head, sequence) over {p.grid[1]} query tiles")
+
+
 def i8_plan_line(tag: str, a, w) -> None:
     """Print kernel 4's plan for a against w: the tile, its k groups, the
     ring and the copy widths."""
@@ -1508,6 +1633,93 @@ def i8_kgroups_sweep(records: dict, where: str) -> None:
         print(f"[plan] int8_matmul {x['tag']} on {where}: device ms a "
               f"launch by k groups (one profiler session): " + ", ".join(
                   f"{kg}: {ms:.4f}" for kg, ms in sorted(times.items())))
+
+
+def flash_tiles_sweep(records: dict, where: str) -> None:
+    """Kernel 9's device time per launch at each timed shape on both tiles
+    its plan chooses between (16 query rows shared by four warps, and the
+    wide 64- or 128-row tile; `flash_plan`'s ``few_rows``), from one
+    torch.profiler session per shape, told apart by the kernel's row
+    groups (retried where the profiler lost a tile's events)."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import head_attention as ha
+
+    planned = ha.plan_for
+
+    def forced(few):
+        def plan_for(q, k, v, causal=True, window=None, q_offset=0):
+            b, hq, nq, dh = q.shape
+            return ha.flash_plan(b, hq, nq, k.shape[2], dh, q.element_size(),
+                                 causal, window, q_offset, True, few)
+        return plan_for
+
+    def session(fn):
+        try:
+            for few in (True, False):
+                ha.plan_for = forced(few)
+                fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for few in (True, False):
+                    ha.plan_for = forced(few)
+                    for _ in range(20):
+                        fn()
+                torch.cuda.synchronize()
+        finally:
+            ha.plan_for = planned
+        out = {}
+        for e in prof.key_averages():
+            m = re.search(r"flash_attention_kernel<[^,]+, \d+, \d+, (\d+), "
+                          r"\d+>", e.key)
+            if e.device_type == DeviceType.CUDA and m and e.count:
+                out[16 * int(m.group(1))] = (e.self_device_time_total
+                                             / e.count / 1e3)
+        return out
+
+    r = records["flash_attention"]
+    for x in [r] + r["extra"]:
+        for _ in range(3):  # a session that lost a tile's events, again
+            out = session(x["fn"])
+            if len(out) == 2:
+                break
+        print(f"[plan] flash_attention {x['tag']} on {where}: device ms a "
+              f"launch by query rows a tile (one profiler session): "
+              + ", ".join(f"{rows}: {ms:.4f}" for rows, ms in
+                          sorted(out.items())))
+
+
+def group_chain_ms(group_fn, chain_fn, iters: int = 20):
+    """(group ms, chain ms): the device time per call of an int8 layer
+    group and of its L `vita_layer_int8` calls, from one torch.profiler
+    session in which each runs ``iters`` times, told apart by kernel name
+    (the group's own kernel and its barrier's memset against the chain's
+    kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    group_fn()
+    chain_fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            group_fn()
+        for _ in range(iters):
+            chain_fn()
+        torch.cuda.synchronize()
+    g_us = c_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "vita_layer_group_int8_kernel" in e.key or "emset" in e.key:
+            g_us += e.self_device_time_total
+        else:
+            c_us += e.self_device_time_total
+    return g_us / iters / 1e3, c_us / iters / 1e3
 
 
 def i8_kgroups_ms(fn, iters: int = 20) -> dict:
@@ -1610,6 +1822,7 @@ def lm_kernel_phase(records: dict) -> None:
             err = check_lm(f"flash_attention {tag} {dname(dtype)}",
                            ha.flash_attention(q, k, v, **kw),
                            ref.attention_ref(q, k, v, **kw))
+            flash_plan_line(f"{tag} {dname(dtype)}", q, k, v, **kw)
             pairs, mask = visible_pairs(n, n, True, window)
             add_record(
                 records, "flash_attention", f"{tag} {dname(dtype)}", err,
@@ -1986,10 +2199,7 @@ def main() -> None:
     t_start = t0 = time.perf_counter()
     logs = build.build_all()
     for lib, log in sorted(logs.items()):
-        info = [ln.strip() for ln in log.splitlines()
-                if ln.startswith("nvcc ") or "registers" in ln
-                or "spill" in ln]
-        print(f"[build] {lib}: " + " | ".join(info))
+        print(f"[build] {lib}: " + " | ".join(ptxas_lines(log)))
     print(f"[build] {len(build.LIBRARIES)} libraries ready in "
           f"{build.BUILD_DIR} ({time.perf_counter() - t0:.1f} s)")
 
@@ -2184,7 +2394,15 @@ def main() -> None:
           "the gated MLP = matmul + activation + multiply + matmul; none "
           "for the int8 layer, the int8 layer group, the int8 MSA and the "
           "RG-LRU scan")
+    for tag, chain in I8_CHAINS:
+        r = records["vita_layer_group_int8"]
+        group = next(x for x in [r] + r["extra"] if x["tag"] == tag)
+        g_ms, c_ms = group_chain_ms(group["fn"], chain)
+        print(f"[time] vita_layer_group_int8 {tag} on {name} ({card}): "
+              f"device {g_ms:.4f} ms against its L vita_layer_int8 calls "
+              f"{c_ms:.4f} ms ({g_ms / c_ms:.3f}x; one profiler session)")
     i8_kgroups_sweep(records, f"{name} ({card})")
+    flash_tiles_sweep(records, f"{name} ({card})")
     print(f"[phase] kernels timed at {time.perf_counter() - t_start:.0f} s")
     for lm_name, lm_cfg, lm_params in lm_served:
         lm_times(lm_name, lm_cfg, lm_params, f"{name} ({card})")

@@ -18,8 +18,8 @@
 // splits each tile's k steps over two warp groups where the tiles leave
 // SMs idle, and chooses each operand's copy width; the launch takes the
 // plan as is.  The epilogue (out_kind 0: int32, 1: rescaled float, 2:
-// requantised int8) is `i8_epilogue` (gemm_i8.cuh), the one the int8
-// layer group's CUDA-core tile calls; the bias is float or bf16 (bt).
+// requantised int8) is `i8_epilogue` (gemm_i8.cuh); the int8 layer group
+// runs the same tile and epilogue; the bias is float or bf16 (bt).
 #include <cstring>
 #include <type_traits>
 
@@ -48,13 +48,6 @@ mma_gemm_i8_kernel(const int8_t* __restrict__ A, long long lda,
 struct I8Layout {
   int bm, bn, kgroups, stages, a_w, b_w;
 };
-
-inline bool width_ok(int w, long long a, long long b, long long c,
-                     long long d, const void* p) {
-  return (w == 16 || w == 8 || w == 4 || w == 1) && a % w == 0 &&
-         b % w == 0 && c % w == 0 && d % w == 0 &&
-         reinterpret_cast<uintptr_t>(p) % w == 0;
-}
 
 template <int KG, typename BT>
 int launch_i8(const I8Layout& p, const int8_t* A, long long lda,

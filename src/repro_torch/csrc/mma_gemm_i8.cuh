@@ -1,13 +1,17 @@
 // One output tile of the int8 x int8 -> int32 GEMM on the int8 tensor
 // cores (mma.sync m16n8k32, s8 x s8 + s32), with the requant epilogue of
-// gemm_i8.cuh (`i8_epilogue`, shared with the CUDA-core tile that the int8
-// layer group runs).  Used by gemm_i8.cu, kernel 4 and the products of
-// kernels 2 and 3.
+// gemm_i8.cuh (`i8_epilogue`).  Used by gemm_i8.cu (kernel 4 and the
+// products of kernels 2 and 3) and by the int8 layer group's four GEMM
+// stages (vita_layer_group.cu, kernel 8), so the group's products equal
+// the per-layer chain's bit for bit.
 //
 // Design: a 64 x 64 output tile (2 x 2 warps of 32 x 32: two 16-row by
 // four 8-column mma tiles each; KG warps of each where the k steps are
 // split over KG warp groups), A [64 x 128] and B [128 x 64] staged into a
-// 4-stage ring, one block barrier a step.  The plan
+// ring of STAGES stages (4 in kernel 4), one barrier a step.  The threads
+// that run a tile are a `WholeBlock`, or one `BlockPart` of a larger block
+// that syncs on a named barrier of its own (the layer group runs two KG =
+// 1 tiles a block that way, each on a 2-stage ring).  The plan
 // (kernels/int8_matmul.py::gemm_i8_plan) picks the k groups and each
 // operand's copy width: 16-byte cp.async chunks where a chunk
 // stays inside one row (of A) or one head's columns (of a per-head B
@@ -49,8 +53,9 @@ constexpr int MI_BK = 128, MI_STAGES = 4, MI_LDA = MI_BK + 16;
 
 // The tile: WM x WN warps of 32 x 32 outputs, each KG times (k groups:
 // warp group wk takes the 32-deep steps wk, wk + KG, ... of every stage;
-// their int32 partial tiles are added through shared memory).
-template <int KG>
+// their int32 partial tiles are added through shared memory), on a ring of
+// STAGES stages.
+template <int KG, int STAGES = MI_STAGES>
 struct MiTile {
   static_assert(MI_BK % (32 * KG) == 0, "a stage splits over the k groups");
   static constexpr int WM = 2, WN = 2;
@@ -58,8 +63,36 @@ struct MiTile {
   static constexpr int A_BYTES = BM * MI_LDA;      // [BM][64 + 16]
   static constexpr int STAGE = A_BYTES + MI_BK * BN;
   static constexpr int RED = (KG - 1) * WM * WN * 32 * 32 * 4;
-  static constexpr int SMEM = MI_STAGES * STAGE > RED ? MI_STAGES * STAGE : RED;
+  static constexpr int SMEM = STAGES * STAGE > RED ? STAGES * STAGE : RED;
 };
+
+// The threads that run one tile: the whole block, or part
+// threadIdx.x / THREADS of it, which syncs on named barrier 1 + that part
+// (barrier 0 is __syncthreads').
+struct WholeBlock {
+  static __device__ __forceinline__ int tid() { return threadIdx.x; }
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+};
+template <int THREADS>
+struct BlockPart {
+  static __device__ __forceinline__ int tid() {
+    return threadIdx.x % THREADS;
+  }
+  static __device__ __forceinline__ void sync() {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + (int)threadIdx.x / THREADS),
+                 "n"(THREADS)
+                 : "memory");
+  }
+};
+
+// True where W-byte copies stay inside every row (a, b), head (c) and
+// column range (d) and p is W-byte aligned.
+inline bool width_ok(int w, long long a, long long b, long long c,
+                     long long d, const void* p) {
+  return (w == 16 || w == 8 || w == 4 || w == 1) && a % w == 0 &&
+         b % w == 0 && c % w == 0 && d % w == 0 &&
+         reinterpret_cast<uintptr_t>(p) % w == 0;
+}
 
 // d += a . b for a 16x32 s8 A (row major, 4 registers), a 32x8 s8 B
 // (column major, 2 registers) and a 16x8 s32 accumulator.
@@ -98,13 +131,14 @@ __device__ __forceinline__ int mi_b_offset(int k, int c) {
   return ((k * (BN / 16) + (c >> 4)) ^ (((k >> 2) & 3) << 1)) * 16 + (c & 15);
 }
 
-// A rows [m0, m0 + BM) x k [k0, k0 + MI_BK) into As (rows of MI_LDA bytes).
+// A rows [m0, m0 + BM) x k [k0, k0 + MI_BK) into As (rows of MI_LDA
+// bytes), by THREADS threads of which this is `tid`.
 template <int W, int THREADS, int BM>
 __device__ __forceinline__ void stage_a(unsigned char* As, const int8_t* A,
                                         long long lda, int m0, int M, int k0,
-                                        int K) {
+                                        int K, int tid) {
   constexpr int CPR = MI_BK / W, CHUNKS = BM * CPR;
-  for (int i = threadIdx.x; i < CHUNKS; i += THREADS) {
+  for (int i = tid; i < CHUNKS; i += THREADS) {
     const int r = i / CPR, c = (i % CPR) * W, m = m0 + r, k = k0 + c;
     const bool ok = m < M && k < K;
     copy_chunk<W>(As + r * MI_LDA + c, ok ? A + (long long)m * lda + k : A,
@@ -118,9 +152,9 @@ template <int W, int THREADS, int BN>
 __device__ __forceinline__ void stage_b(unsigned char* Bs, const int8_t* B,
                                         long long ldb, int grp,
                                         long long grp_stride, int k0, int K,
-                                        int n0, int N) {
+                                        int n0, int N, int tid) {
   constexpr int CPR = BN / W, CHUNKS = MI_BK * CPR;
-  for (int i = threadIdx.x; i < CHUNKS; i += THREADS) {
+  for (int i = tid; i < CHUNKS; i += THREADS) {
     const int kr = i / CPR, c = (i % CPR) * W, k = k0 + kr, n = n0 + c;
     const bool ok = k < K && n < N;
     const int8_t* src = ok ? B + (long long)(n / grp) * grp_stride +
@@ -145,45 +179,52 @@ __device__ __forceinline__ void transpose4(const uint32_t (&w)[4],
   b[3] = __byte_perm(t2, t3, 0x7632);
 }
 
-// Output tile (mt, nt) of C; every thread of a MiTile<KG>::THREADS block
-// calls it.  Arguments as `gemm_i8_tile` (gemm_i8.cuh), plus the copy
-// widths a_w and b_w (16, 8, 4 or 1 bytes) of A and B.
-template <int KG, typename BT>
+// Output tile (mt, nt) of C = epilogue(A (M x K) . B (K x N)); every
+// thread of Part (MiTile<KG>::THREADS of them) calls it, with `smem`
+// holding MiTile<KG, STAGES>::SMEM bytes of its own.  B element (k, n) is
+// B[(n / grp) * grp_stride + k * ldb + n % grp] (a per-head (H, K, Dh)
+// stack read in place: grp = ldb = Dh); the epilogue's arguments are
+// `i8_epilogue`'s; a_w and b_w are A's and B's copy widths (16, 8, 4 or 1
+// bytes).  No pointer carries __restrict__: in the layer group A, C and
+// res are workspace that other blocks wrote earlier in the same launch.
+template <int KG, int STAGES = MI_STAGES, typename Part = WholeBlock,
+          typename BT>
 __device__ __forceinline__ void mma_gemm_i8_tile(
     unsigned char* smem, int mt, int nt, const int8_t* A, long long lda,
     const int8_t* B, long long ldb, int grp, long long grp_stride, void* C,
     long long ldc, int out_kind, int M, int N, int K, const float* x_scale,
     const float* w_scale, const BT* bias, const float* res, long long ldr,
     int gelu, const float* out_scale, int a_w, int b_w) {
-  using T = MiTile<KG>;
+  using T = MiTile<KG, STAGES>;
   constexpr int WM = T::WM, WN = T::WN, BN = T::BN, CPR = BN / 16;
   const int m0 = mt * T::BM, n0 = nt * BN;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int tid = Part::tid(), lane = tid % 32, warp = tid / 32;
   const int wt = warp % (WM * WN), wk = warp / (WM * WN);
   const int g = lane / 4, t = lane % 4, wm = wt % WM, wn = wt / WM;
   const int steps = (K + MI_BK - 1) / MI_BK;
   auto issue = [&](int st) {
-    unsigned char* As = smem + (st % MI_STAGES) * T::STAGE;
+    unsigned char* As = smem + (st % STAGES) * T::STAGE;
     unsigned char* Bs = As + T::A_BYTES;
     const int k0 = st * MI_BK;
+    constexpr int TH = T::THREADS, BM = T::BM;
     switch (a_w) {
-      case 16: stage_a<16, T::THREADS, T::BM>(As, A, lda, m0, M, k0, K); break;
-      case 8: stage_a<8, T::THREADS, T::BM>(As, A, lda, m0, M, k0, K); break;
-      case 4: stage_a<4, T::THREADS, T::BM>(As, A, lda, m0, M, k0, K); break;
-      default: stage_a<1, T::THREADS, T::BM>(As, A, lda, m0, M, k0, K);
+      case 16: stage_a<16, TH, BM>(As, A, lda, m0, M, k0, K, tid); break;
+      case 8: stage_a<8, TH, BM>(As, A, lda, m0, M, k0, K, tid); break;
+      case 4: stage_a<4, TH, BM>(As, A, lda, m0, M, k0, K, tid); break;
+      default: stage_a<1, TH, BM>(As, A, lda, m0, M, k0, K, tid);
     }
     switch (b_w) {
       case 16:
-        stage_b<16, T::THREADS, BN>(Bs, B, ldb, grp, grp_stride, k0, K, n0, N);
+        stage_b<16, TH, BN>(Bs, B, ldb, grp, grp_stride, k0, K, n0, N, tid);
         break;
       case 8:
-        stage_b<8, T::THREADS, BN>(Bs, B, ldb, grp, grp_stride, k0, K, n0, N);
+        stage_b<8, TH, BN>(Bs, B, ldb, grp, grp_stride, k0, K, n0, N, tid);
         break;
       case 4:
-        stage_b<4, T::THREADS, BN>(Bs, B, ldb, grp, grp_stride, k0, K, n0, N);
+        stage_b<4, TH, BN>(Bs, B, ldb, grp, grp_stride, k0, K, n0, N, tid);
         break;
       default:
-        stage_b<1, T::THREADS, BN>(Bs, B, ldb, grp, grp_stride, k0, K, n0, N);
+        stage_b<1, TH, BN>(Bs, B, ldb, grp, grp_stride, k0, K, n0, N, tid);
     }
   };
   // This lane's B words: rows 4t + r of each 16-deep half, bytes 4g ..
@@ -196,16 +237,16 @@ __device__ __forceinline__ void mma_gemm_i8_tile(
   int acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i / 16][(i / 4) % 4][i % 4] = 0;
-  for (int st = 0; st < MI_STAGES - 1; ++st) {
+  for (int st = 0; st < STAGES - 1; ++st) {
     if (st < steps) issue(st);
     cp_async_commit();
   }
   for (int st = 0; st < steps; ++st) {
-    cp_async_wait<MI_STAGES - 2>();
-    __syncthreads();                 // stage st is in; st - 1 is read
-    if (st + MI_STAGES - 1 < steps) issue(st + MI_STAGES - 1);
+    cp_async_wait<STAGES - 2>();
+    Part::sync();                    // stage st is in; st - 1 is read
+    if (st + STAGES - 1 < steps) issue(st + STAGES - 1);
     cp_async_commit();
-    const unsigned char* As = smem + (st % MI_STAGES) * T::STAGE;
+    const unsigned char* As = smem + (st % STAGES) * T::STAGE;
     const unsigned char* Bs = As + T::A_BYTES;
 #pragma unroll
     for (int kk = 32 * wk; kk < MI_BK; kk += 32 * KG) {
@@ -234,14 +275,14 @@ __device__ __forceinline__ void mma_gemm_i8_tile(
     // k groups 1.. hand their partial tiles to k group 0 through the ring
     // (int32 sums: exact in any order).
     int* red = reinterpret_cast<int*>(smem);
-    __syncthreads();
+    Part::sync();
     if (wk > 0) {
 #pragma unroll
       for (int e = 0; e < 32; ++e)
         red[(((wk - 1) * WM * WN + wt) * 32 + e) * 32 + lane] =
             acc[e / 16][(e / 4) % 4][e % 4];
     }
-    __syncthreads();
+    Part::sync();
     if (wk > 0) return;
 #pragma unroll
     for (int w = 1; w < KG; ++w)

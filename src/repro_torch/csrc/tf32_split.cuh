@@ -1,6 +1,7 @@
 // fp32-accurate products on the tensor cores: split-precision TF32 on
-// mma.sync m16n8k8, shared by the MSA tile (msa_tile.cuh) and the layer's
-// GEMM tile (mma_gemm.cuh), with the pieces both stage through: a tile
+// mma.sync m16n8k8, shared by the MSA tile (msa_tile.cuh), the layer's
+// GEMM tile (mma_gemm.cuh) and the flash-attention tile
+// (head_attention.cuh), with the pieces the first two stage through: a tile
 // copier for aligned tiles, a run-time cp.async wait and 16-byte loads
 // from a cluster peer's shared memory.
 //
@@ -162,6 +163,23 @@ __device__ __forceinline__ void mma_split(SplitAcc& d, const SplitA& a,
                                           const PairB& b, int half) {
   mma_split<EXACT_B>(d, a, b.hi[half][0], b.hi[half][1], b.lo[half][0],
                      b.lo[half][1]);
+}
+
+// d += a . b for one 8-deep step in one accumulator: the three passes
+// into a fresh zero accumulator, the small terms first, then added to d
+// by an fp32 add rounded to nearest.  SplitAcc's rounded add without its
+// second accumulator, for tiles that hold many (flash attention's O at Dh
+// 256 is 128 accumulators a thread): the step's own truncation stays
+// within an ulp of the step's sum.
+__device__ __forceinline__ void mma_split3(float (&d)[4], const SplitA& a,
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32_1688(t, a.lo, bh0, bh1);
+  mma_tf32_1688(t, a.hi, bl0, bl1);
+  mma_tf32_1688(t, a.hi, bh0, bh1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
 }
 
 // Column of accumulator element e (0-3) of n-tile `half` in a paired

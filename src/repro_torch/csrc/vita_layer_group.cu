@@ -56,12 +56,19 @@
 // (float or bf16: bf16 weights enter the products exactly, in two TF32
 // passes); every workspace buffer is fp32.
 //
-// The int8 kernel (kernel 8) keeps the CUDA-core tiles of the int8 chain
-// as it stood when the group was written, 256 threads a block:
-// gemm_i8.cuh's `gemm_i8_tile` (__dp4a) and attention.cuh's
-// `attention_tile`; its epilogue is `i8_epilogue`, which the per-layer
-// int8 chain's tensor-core tile (mma_gemm_i8.cuh) shares, so an int8 group
-// equals L calls of `vita_layer_int8` bit for bit.
+// The int8 kernel (kernel 8) runs the per-layer int8 chain's tiles, 256
+// threads a block: its four GEMM stages are kernel 4's int8 tensor-core
+// tile (mma_gemm_i8.cuh, `i8_epilogue`), its attention stage attention.cuh's
+// `attention_tile`, as kernels 2 and 3 run them, so an int8 group equals L
+// calls of `vita_layer_int8` bit for bit (the int32 sums are exact in any
+// order).  A GEMM stage runs one KG = 2 tile a block (all eight warps,
+// the 4-stage ring) where its tiles fit the grid in one round, else two KG
+// = 1 tiles a block, one on each half of the warps, each on a 2-stage ring
+// of its own and a named barrier: either way the ring set is 68 KB, so the
+// block's shared memory is the larger of that and the attention stage's
+// buffers (110 KB at DeiT-T: two blocks an SM).
+// kernels/vita_layer_group.py::int8_group_plan gives the grid, the shared
+// memory and each stage's tiles, k groups, copy widths and waves.
 //
 // Barrier: a counter in device memory that each block's thread 0 bumps
 // after a __threadfence and then waits on; valid because the cooperative
@@ -70,15 +77,16 @@
 // plain loads or cp.async (no __restrict__, no read-only cache): other
 // blocks wrote it earlier in the same launch.
 // Bound: operations, L x the per-layer bound (split-TF32 mma.sync in the
-// float kernel, __dp4a in the int8 one); wgmma/TMA are a later PR's work.
+// float kernel, int8 mma.sync and the CUDA-core attention in the int8
+// one); wgmma/TMA are a later PR's work.
 #include <algorithm>
 #include <cstring>
 #include <type_traits>
 
 #include "attention.cuh"
-#include "gemm_i8.cuh"
 #include "layer_norm.cuh"
 #include "mma_gemm.cuh"
+#include "mma_gemm_i8.cuh"
 #include "msa_tile.cuh"
 
 namespace repro_torch {
@@ -298,36 +306,132 @@ vita_layer_group_kernel(FloatGroupArgs f) {
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 8: the int8 group on the int8 chain's CUDA-core tiles
+// Kernel 8: the int8 group on the int8 chain's tiles
 // ---------------------------------------------------------------------------
 
+constexpr int LG_I8_HALF = LG_I8_THREADS / 2, LG_I8_HALF_STAGES = 2;
+static_assert(MiTile<2>::THREADS == LG_I8_THREADS &&
+                  MiTile<1>::THREADS == LG_I8_HALF,
+              "a KG = 2 tile takes the block, a KG = 1 tile half of it");
+constexpr int LG_I8_RING =
+    MiTile<2>::SMEM > 2 * MiTile<1, LG_I8_HALF_STAGES>::SMEM
+        ? MiTile<2>::SMEM
+        : 2 * MiTile<1, LG_I8_HALF_STAGES>::SMEM;
+
+// The int8 kernel's launch plan, field for field
+// kernels/vita_layer_group.py::Int8GroupPlan.launch_ints(): the grid, the
+// dynamic shared memory a block, and per GEMM stage (Q/K/V, concat, up,
+// down) its k groups (2: one KG = 2 tile a block; 1: two KG = 1 tiles a
+// block) and A's and B's copy widths in bytes.
+struct I8GroupLayout {
+  int grid, smem;
+  int st[4][3];
+};
+static_assert(sizeof(I8GroupLayout) == 14 * sizeof(int), "plan is 14 ints");
+
+struct Int8GroupArgs {
+  LayerGroupArgs a;
+  I8GroupLayout p;
+};
+
+// Tile t of GEMM stage GI of layer l (0: Q/K/V, the (L, H, D, Dh) stacks
+// read in place; 1: h1 = y + SA . w_msa[l]; 2: hid = gelu(z . w_up[l] +
+// b_up[l]) in int8; 3: y = h1 + hid . w_down[l] + b_down[l], into the
+// carry, or into out at the last layer) on Part's threads.  One function
+// per (stage, k groups), out of line: each folds its stage's epilogue
+// and reads its operands from the kernel's argument (grid constant) when
+// it needs them, so it holds the registers of one tile, and the kernel is
+// eight such functions rather than one function of eight inlined tiles
+// (a build several minutes long).
+template <int GI, int KG, int STAGES, typename Part, typename VT>
+__device__ __noinline__ void i8_gemm_tile(unsigned char* smem, int t, int l,
+                                          const Int8GroupArgs* ga) {
+  const LayerGroupArgs& a = ga->a;
+  const int R = a.B * a.N, HD = a.H * a.Dh, D = a.D, M = a.M;
+  const int aw = ga->p.st[GI][1], bw = ga->p.st[GI][2];
+  constexpr int BN = MiTile<KG>::BN;
+  const float* act = a.act + 4 * l;
+  const VT* no_bias = nullptr;
+  if constexpr (GI == 0) {
+    const int nt_q = cdiv(HD, BN), per = cdiv(R, MiTile<KG>::BM) * nt_q;
+    const int which = t / per, r = t % per;
+    const void* w = which == 0 ? a.wq : which == 1 ? a.wk : a.wv;
+    const float* ws = which == 0 ? a.wq_s : which == 1 ? a.wk_s : a.wv_s;
+    mma_gemm_i8_tile<KG, STAGES, Part>(
+        smem, r / nt_q, r % nt_q, static_cast<const int8_t*>(a.z), D,
+        static_cast<const int8_t*>(w) + (size_t)l * a.H * D * a.Dh, a.Dh,
+        a.Dh, (long long)D * a.Dh, which == 0 ? a.q : which == 1 ? a.k : a.v,
+        HD, 1, R, HD, D, act, ws + (size_t)l * HD, no_bias, nullptr, HD, 0,
+        nullptr, aw, bw);
+  } else if constexpr (GI == 1) {
+    const int nt_d = cdiv(D, BN);
+    mma_gemm_i8_tile<KG, STAGES, Part>(
+        smem, t / nt_d, t % nt_d, static_cast<const int8_t*>(a.sa), HD,
+        static_cast<const int8_t*>(a.wmsa) + (size_t)l * HD * D, D, D, 0,
+        a.h1, D, 1, R, D, HD, act + 1, a.wmsa_s + (size_t)l * D, no_bias,
+        l == 0 ? static_cast<const float*>(a.x) : a.carry, D, 0, nullptr, aw,
+        bw);
+  } else if constexpr (GI == 2) {
+    const int nt_m = cdiv(M, BN);
+    mma_gemm_i8_tile<KG, STAGES, Part>(
+        smem, t / nt_m, t % nt_m, static_cast<const int8_t*>(a.z), D,
+        static_cast<const int8_t*>(a.wup) + (size_t)l * D * M, M, M, 0,
+        a.hid, M, 2, R, M, D, act + 2, a.wup_s + (size_t)l * M,
+        static_cast<const VT*>(a.bup) + (size_t)l * M,
+        static_cast<const float*>(nullptr), M, 1, act + 3, aw, bw);
+  } else {
+    const int nt_d = cdiv(D, BN);
+    mma_gemm_i8_tile<KG, STAGES, Part>(
+        smem, t / nt_d, t % nt_d, static_cast<const int8_t*>(a.hid), M,
+        static_cast<const int8_t*>(a.wdown) + (size_t)l * M * D, D, D, 0,
+        l + 1 < a.L ? a.carry : static_cast<float*>(a.out), D, 1, R, D, M,
+        act + 3, a.wdown_s + (size_t)l * D,
+        static_cast<const VT*>(a.bdown) + (size_t)l * D, a.h1, D, 0, nullptr,
+        aw, bw);
+  }
+}
+
+// The `count` tiles of GEMM stage GI, walked by the grid: with the plan's
+// k groups 2 one tile a block a round, else one a half-block a round
+// (tiles 2 blockIdx.x and 2 blockIdx.x + 1 first).  The part syncs after
+// each tile, so its ring is free for the next.
+template <int GI, typename VT>
+__device__ __forceinline__ void i8_stage(unsigned char* smem, int count,
+                                         int l, const Int8GroupArgs* ga) {
+  if (ga->p.st[GI][0] == 2) {
+    for (int t = blockIdx.x; t < count; t += gridDim.x) {
+      i8_gemm_tile<GI, 2, MI_STAGES, WholeBlock, VT>(smem, t, l, ga);
+      __syncthreads();
+    }
+  } else {
+    using Half = BlockPart<LG_I8_HALF>;
+    const int half = threadIdx.x / LG_I8_HALF;
+    unsigned char* hs = smem + half * MiTile<1, LG_I8_HALF_STAGES>::SMEM;
+    for (int t = 2 * blockIdx.x + half; t < count; t += 2 * gridDim.x) {
+      i8_gemm_tile<GI, 1, LG_I8_HALF_STAGES, Half, VT>(hs, t, l, ga);
+      Half::sync();
+    }
+  }
+}
+
 template <typename VT>
-__device__ __forceinline__ void int8_group_body(const LayerGroupArgs& a,
+__device__ __forceinline__ void int8_group_body(const Int8GroupArgs* ga,
                                                 unsigned char* smem) {
-  GemmI8Smem& gi = *reinterpret_cast<GemmI8Smem*>(smem);
+  const LayerGroupArgs& a = ga->a;
   const int R = a.B * a.N, HD = a.H * a.Dh, D = a.D, M = a.M, N = a.N;
   const int warps = blockDim.x / 32;
   const int gwarp = blockIdx.x * warps + threadIdx.x / 32;
   const int nwarps = gridDim.x * warps;
-  const int mt = cdiv(R, GI_BM);
-  const size_t qkv_sz = (size_t)a.H * D * a.Dh, msa_sz = (size_t)HD * D,
-               mlp_sz = (size_t)D * M;
+  constexpr int BM = MiTile<1>::BM, BN = MiTile<1>::BN;
+  const int mt_r = cdiv(R, BM), nt_d = cdiv(D, BN);
+  const size_t qkv_sz = (size_t)a.H * D * a.Dh, msa_sz = (size_t)HD * D;
   const float* x = static_cast<const float*>(a.x);
   const VT* ln1w = static_cast<const VT*>(a.ln1w);
   const VT* ln1b = static_cast<const VT*>(a.ln1b);
   const VT* ln2w = static_cast<const VT*>(a.ln2w);
   const VT* ln2b = static_cast<const VT*>(a.ln2b);
-  const VT* bup = static_cast<const VT*>(a.bup);
-  const VT* bdown = static_cast<const VT*>(a.bdown);
-  const int8_t* z = static_cast<const int8_t*>(a.z);
   unsigned int target = 0;
   for (int l = 0; l < a.L; ++l) {
-    const int8_t* wq = static_cast<const int8_t*>(a.wq) + l * qkv_sz;
-    const int8_t* wk = static_cast<const int8_t*>(a.wk) + l * qkv_sz;
-    const int8_t* wv = static_cast<const int8_t*>(a.wv) + l * qkv_sz;
-    const int8_t* wmsa = static_cast<const int8_t*>(a.wmsa) + l * msa_sz;
-    const int8_t* wup = static_cast<const int8_t*>(a.wup) + l * mlp_sz;
-    const int8_t* wdown = static_cast<const int8_t*>(a.wdown) + l * mlp_sz;
     const float* act = a.act + 4 * l;
     const float* bias = a.bias ? a.bias + (size_t)l * a.H * N * N : nullptr;
 
@@ -338,20 +442,7 @@ __device__ __forceinline__ void int8_group_body(const LayerGroupArgs& a,
     grid_barrier(a.bar, target);
 
     // 2. Q, K, V
-    {
-      const int nt = cdiv(HD, GI_BN), per = mt * nt;
-      for (int t = blockIdx.x; t < 3 * per; t += gridDim.x) {
-        const int which = t / per, r = t % per;
-        const int8_t* w = which == 0 ? wq : which == 1 ? wk : wv;
-        float* o = which == 0 ? a.q : which == 1 ? a.k : a.v;
-        const float* ws = (which == 0 ? a.wq_s : which == 1 ? a.wk_s : a.wv_s) +
-                          (size_t)l * HD;
-        gemm_i8_tile(gi, r / nt, r % nt, z, D, w, a.Dh, a.Dh,
-                     (long long)D * a.Dh, o, HD, 1, R, HD, D, act, ws,
-                     static_cast<const VT*>(nullptr), nullptr, HD, 0,
-                     nullptr);
-      }
-    }
+    i8_stage<0, VT>(smem, 3 * mt_r * cdiv(HD, BN), l, ga);
     grid_barrier(a.bar, target);
 
     // 3. attention per (image, head, query tile)
@@ -368,14 +459,7 @@ __device__ __forceinline__ void int8_group_body(const LayerGroupArgs& a,
     grid_barrier(a.bar, target);
 
     // 4. h1 = y + SA . w_msa[l]
-    {
-      const int nt = cdiv(D, GI_BN);
-      for (int t = blockIdx.x; t < mt * nt; t += gridDim.x)
-        gemm_i8_tile(gi, t / nt, t % nt, static_cast<const int8_t*>(a.sa), HD,
-                     wmsa, D, D, 0, a.h1, D, 1, R, D, HD, act + 1,
-                     a.wmsa_s + (size_t)l * D, static_cast<const VT*>(nullptr),
-                     l == 0 ? x : a.carry, D, 0, nullptr);
-    }
+    i8_stage<1, VT>(smem, mt_r * nt_d, l, ga);
     grid_barrier(a.bar, target);
 
     // 5. LN2(h1) -> z
@@ -386,40 +470,28 @@ __device__ __forceinline__ void int8_group_body(const LayerGroupArgs& a,
 
     // 6. hid = gelu(z . w_up[l] + b_up[l]), next layer's weights into L2
     if (l + 1 < a.L) {
-      prefetch_l2(wq + qkv_sz, qkv_sz);
-      prefetch_l2(wk + qkv_sz, qkv_sz);
-      prefetch_l2(wv + qkv_sz, qkv_sz);
-      prefetch_l2(wmsa + msa_sz, msa_sz);
+      const int8_t* const w[4] = {static_cast<const int8_t*>(a.wq),
+                                  static_cast<const int8_t*>(a.wk),
+                                  static_cast<const int8_t*>(a.wv),
+                                  static_cast<const int8_t*>(a.wmsa)};
+      for (int i = 0; i < 3; ++i) prefetch_l2(w[i] + (l + 1) * qkv_sz, qkv_sz);
+      prefetch_l2(w[3] + (l + 1) * msa_sz, msa_sz);
     }
-    {
-      const int nt = cdiv(M, GI_BN);
-      for (int t = blockIdx.x; t < mt * nt; t += gridDim.x)
-        gemm_i8_tile(gi, t / nt, t % nt, z, D, wup, M, M, 0, a.hid, M, 2, R,
-                     M, D, act + 2, a.wup_s + (size_t)l * M,
-                     bup + (size_t)l * M, nullptr, M, 1, act + 3);
-    }
+    i8_stage<2, VT>(smem, mt_r * cdiv(M, BN), l, ga);
     grid_barrier(a.bar, target);
 
-    // 7. y = h1 + hid . w_down[l] + b_down[l]: into the carry, or into out
-    //    at the last layer
-    {
-      const int nt = cdiv(D, GI_BN);
-      float* dst = l + 1 < a.L ? a.carry : static_cast<float*>(a.out);
-      for (int t = blockIdx.x; t < mt * nt; t += gridDim.x)
-        gemm_i8_tile(gi, t / nt, t % nt, static_cast<const int8_t*>(a.hid), M,
-                     wdown, D, D, 0, dst, D, 1, R, D, M, act + 3,
-                     a.wdown_s + (size_t)l * D, bdown + (size_t)l * D, a.h1,
-                     D, 0, nullptr);
-    }
+    // 7. y = h1 + hid . w_down[l] + b_down[l]
+    i8_stage<3, VT>(smem, mt_r * nt_d, l, ga);
     if (l + 1 < a.L) grid_barrier(a.bar, target);
   }
 }
 
+// Two blocks an SM need at most 128 registers a thread.
 template <typename VT>
-__global__ void __launch_bounds__(LG_I8_THREADS)
-vita_layer_group_int8_kernel(LayerGroupArgs a) {
+__global__ void __launch_bounds__(LG_I8_THREADS, 2)
+vita_layer_group_int8_kernel(const __grid_constant__ Int8GroupArgs a) {
   extern __shared__ __align__(16) unsigned char lg_smem[];
-  int8_group_body<VT>(a, lg_smem);
+  int8_group_body<VT>(&a, lg_smem);
 }
 
 // Blocks of `kernel` that fit on one SM at `threads` and `smem` bytes.
@@ -529,11 +601,28 @@ extern "C" int rt_vita_layer_group(
   });
 }
 
+// Blocks of the int8 group kernel with vector type vt (ElemCode) that fit
+// on one SM with `smem` bytes of dynamic shared memory, into *per_sm: what
+// kernels/vita_layer_group.py sizes the int8 grid by.
+extern "C" int rt_vita_layer_group_int8_blocks_per_sm(int vt, int smem,
+                                                      int* per_sm) {
+  using namespace repro_torch;
+  return dispatch_type(vt, [&](auto vtag) {
+    using VT = typename decltype(vtag)::type;
+    return blocks_per_sm((const void*)vita_layer_group_int8_kernel<VT>,
+                         LG_I8_THREADS, (size_t)smem, per_sm);
+  });
+}
+
 // int8 group: x and out float32; weights (L, ...) int8; act (L, 4); weight
 // scales (L, H*Dh) for Q/K/V, (L, D) for w_msa and w_down, (L, M) for
 // w_up; LN vectors and biases in vt (float32 or bf16).  Workspace as above
-// but z (R, D), sa (R, H*Dh) and hid (R, M) int8.  Grid: as many blocks as
-// fit on the card at once, and no more than the widest stage has work.
+// but z (R, D), sa (R, H*Dh) and hid (R, M) int8.  plan: the 14 ints of
+// the wrapper's Int8GroupPlan (kernels/vita_layer_group.py::
+// int8_group_plan), refused where its shared memory holds less than the
+// rings or the attention stage need, a stage's k groups are not built, or
+// a copy width would cross a row, a head, a layer's stack or an
+// alignment.
 extern "C" int rt_vita_layer_group_int8(
     const float* x, const int8_t* wq, const int8_t* wk, const int8_t* wv,
     const int8_t* wmsa, const int8_t* wup, const int8_t* wdown, const float* act,
@@ -543,30 +632,38 @@ extern "C" int rt_vita_layer_group_int8(
     const float* bias, const float* mask, float* out, void* z, float* q, float* k,
     float* v, void* sa, float* h1, void* hid, float* carry, unsigned int* bar,
     int B, int N, int D, int H, int Dh, int M, int L, int nW, float scale,
-    float eps, int vt, void* stream) {
+    float eps, int vt, const int* plan, void* stream) {
   using namespace repro_torch;
-  LayerGroupArgs a{x, out, wq, wk, wv, wmsa, wup, wdown,
-                   act, wq_s, wk_s, wv_s, wmsa_s, wup_s, wdown_s,
-                   ln1w, ln1b, ln2w, ln2b, bup, bdown, bias, mask,
-                   z, q, k, v, sa, h1, hid, carry, bar, B, N, D, H, Dh, M, L, nW,
-                   scale, eps};
+  Int8GroupArgs ga;
+  ga.a = LayerGroupArgs{x, out, wq, wk, wv, wmsa, wup, wdown,
+                        act, wq_s, wk_s, wv_s, wmsa_s, wup_s, wdown_s,
+                        ln1w, ln1b, ln2w, ln2b, bup, bdown, bias, mask,
+                        z, q, k, v, sa, h1, hid, carry, bar, B, N, D, H, Dh,
+                        M, L, nW, scale, eps};
+  std::memcpy(&ga.p, plan, sizeof ga.p);
+  const I8GroupLayout& p = ga.p;
+  const long long HD = (long long)H * Dh;
+  const size_t att = sizeof(float) * attention_smem_floats(N, Dh);
+  bool ok = p.smem >= LG_I8_RING && (size_t)p.smem >= att &&
+            p.smem <= MSA_SMEM_LIMIT;
+  for (int s = 0; s < 4; ++s) ok = ok && (p.st[s][0] == 1 || p.st[s][0] == 2);
+  // A: z (K = D), sa (H*Dh), z, hid (M); B: the per-head stacks, w_msa,
+  // w_up, w_down, each layer's slice at its offset in the (L, ...) stack.
+  ok = ok && width_ok(p.st[0][1], D, D, 0, 0, z) &&
+       width_ok(p.st[0][2], Dh, Dh, (long long)D * Dh, HD, wq) &&
+       width_ok(p.st[0][2], HD * D, 0, 0, 0, wk) &&
+       width_ok(p.st[0][2], 0, 0, 0, 0, wv) &&
+       width_ok(p.st[1][1], HD, HD, 0, 0, sa) &&
+       width_ok(p.st[1][2], D, D, HD * D, 0, wmsa) &&
+       width_ok(p.st[2][1], D, D, 0, 0, z) &&
+       width_ok(p.st[2][2], M, M, (long long)D * M, 0, wup) &&
+       width_ok(p.st[3][1], M, M, 0, 0, hid) &&
+       width_ok(p.st[3][2], D, D, (long long)M * D, 0, wdown);
+  if (!ok) return (int)cudaErrorInvalidValue;
   return dispatch_type(vt, [&](auto vtag) {
     using VT = typename decltype(vtag)::type;
-    const void* kernel = (const void*)vita_layer_group_int8_kernel<VT>;
-    const size_t smem = std::max(sizeof(GemmI8Smem),
-                                 sizeof(float) * attention_smem_floats(N, Dh));
-    int per_sm = 0, sms = 0;
-    int err = blocks_per_sm(kernel, LG_I8_THREADS, smem, &per_sm);
-    if (err != 0) return err;
-    if ((err = sm_count(&sms)) != 0) return err;
-    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    const int R = B * N, mt = (R + GI_BM - 1) / GI_BM, HD = H * Dh;
-    int work = 3 * mt * ((HD + GI_BN - 1) / GI_BN);
-    work = std::max(work, B * H * ((N + ATT_QTILE - 1) / ATT_QTILE));
-    work = std::max(work, mt * ((M + GI_BN - 1) / GI_BN));
-    work = std::max(work, mt * ((D + GI_BN - 1) / GI_BN));
-    work = std::max(work, (R + LG_I8_THREADS / 32 - 1) / (LG_I8_THREADS / 32));
-    return launch_cooperative(kernel, &a, std::min(per_sm * sms, work),
-                              LG_I8_THREADS, smem, bar, (cudaStream_t)stream);
+    return launch_cooperative((const void*)vita_layer_group_int8_kernel<VT>,
+                              &ga, p.grid, LG_I8_THREADS, (size_t)p.smem,
+                              bar, (cudaStream_t)stream);
   });
 }

@@ -46,7 +46,7 @@ SIGNATURES = {
     ("fused_mlp_rows", "rt_fused_mlp_rows"): [P] * 8 + [I] * 8 + [P],
     ("fused_mlp_rows", "rt_fused_mlp_rows_splits"): [I] * 6 + [P],
     ("flash_attention", "rt_flash_attention"): [P] * 4 + [I] * 6 + [F]
-    + [I] * 4 + [P],
+    + [I] * 4 + [P, P],
     ("decode_attention", "rt_decode_attention"): [P] * 6 + [I] * 5
     + [F, I, I, P],
     ("decode_attention", "rt_decode_attention_splits"): [I] * 4 + [P],
@@ -55,7 +55,9 @@ SIGNATURES = {
     + [F, F, I, I, P, P],
     ("vita_layer_group", "rt_vita_layer_group_blocks_per_sm"): [I] * 4 + [P],
     ("vita_layer_group", "rt_vita_layer_group_int8"): [P] * 32 + [I] * 8
-    + [F, F, I, P],
+    + [F, F, I, P, P],
+    ("vita_layer_group", "rt_vita_layer_group_int8_blocks_per_sm"): [I] * 2
+    + [P],
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in SIGNATURES}))
 

@@ -10,8 +10,9 @@ concat + residual, LN2, up + GELU, down + residual) with a grid-wide
 barrier between stages.  The float kernel runs the float layer's own
 tensor-core tiles (`vita_layer.vita_layer`: the MSA tile's projection and
 attention, the split-TF32 GEMM tile), 512 threads a block, as `group_plan`
-lays them out; the int8 kernel runs the int8 chain's CUDA-core tiles
-(__dp4a and the warp-per-row attention), 256 threads a block.  The
+lays them out; the int8 kernel runs the int8 chain's tiles (kernel 4's
+int8 tensor-core GEMM tile and the warp-per-row attention), 256 threads a
+block, as `int8_group_plan` lays them out.  The
 activation is carried between layers in a float32 buffer and rounded to
 x's dtype once, at the end, as the TPU kernel carries it in fp32 scratch:
 with float32 x a float group equals L calls of `vita_layer.vita_layer` and
@@ -36,12 +37,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from . import build
-from .int8_matmul import DTYPE_CODES, _stream, check, ptr, sm_count
+from .int8_matmul import (DTYPE_CODES, I8_STAGES, I8_TILE, _stream, _width,
+                          check, ptr, sm_count)
 from .ref import check_mode
 from .vita_msa import SMEM_LIMIT, MsaPlan, msa_plan
 
@@ -155,10 +158,133 @@ def plan_for(x: torch.Tensor, wq: torch.Tensor, m: int) -> GroupPlan:
 
 
 def int8_group_smem_bytes(n: int, dh: int) -> int:
-    """Dynamic shared memory of one int8 group-kernel block: the attention
-    stage's K [N][Dh+1], V [N][Dh] and 8 query and score rows (the GEMM
-    tiles need less)."""
+    """Dynamic shared memory of the int8 group kernel's attention stage:
+    K [N][Dh+1], V [N][Dh] and 8 query and score rows."""
     return 4 * (n * (2 * dh + 1) + 8 * (dh + n))
+
+
+# The int8 kernel's block and its GEMM tile (csrc/mma_gemm_i8.cuh, 64 x 64
+# outputs): one KG = 2 tile a block on a 4-stage ring, or two KG = 1 tiles
+# a block, one on each half, on 2-stage rings; 64 x (128 + 16) bytes of A
+# and 128 x 64 of B a stage, so either takes the same ring bytes.
+INT8_GROUP_THREADS = 256
+_I8_STAGE_BYTES = I8_TILE[0] * 144 + 128 * I8_TILE[1]
+INT8_GROUP_RING = I8_STAGES * _I8_STAGE_BYTES
+_I8_ROWS_A_WARP = INT8_GROUP_THREADS // 32
+_ATT_QTILE = 32                     # csrc/attention.cuh's query tile
+
+
+class Int8GroupStage(NamedTuple):
+    """One stage of the int8 group kernel: ``count`` tiles of ``rows`` x
+    ``cols`` outputs covering ``out_rows`` x ``out_cols`` (per (image,
+    head) in attention), ``per_block`` of them a block a round, walked in
+    ``waves`` rounds.  GEMM stages: ``kgroups`` 2 runs one tile a block on
+    all its warps, 1 two tiles a block, one a half; A and B copied in
+    ``a_chunk`` / ``b_chunk`` bytes (0 outside the GEMMs)."""
+    name: str
+    rows: int
+    cols: int
+    out_rows: int
+    out_cols: int
+    count: int
+    per_block: int
+    waves: int
+    kgroups: int = 0
+    a_chunk: int = 0
+    b_chunk: int = 0
+
+
+class Int8GroupPlan(NamedTuple):
+    """One int8 csrc/vita_layer_group.cu launch: ``grid`` blocks of
+    ``threads`` with ``smem`` bytes of dynamic shared memory each (the
+    larger of the GEMM rings and the attention stage's buffers), and each
+    stage's tiles."""
+    grid: int
+    threads: int
+    smem: int
+    stages: tuple
+
+    def launch_ints(self):
+        """The 14 ints the C entry takes (csrc/vita_layer_group.cu's
+        I8GroupLayout): the grid, the shared memory, and per GEMM stage
+        its k groups and copy widths."""
+        out = [self.grid, self.smem]
+        for st in self.stages:
+            if st.kgroups:
+                out += [st.kgroups, st.a_chunk, st.b_chunk]
+        return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def int8_group_plan(b: int, n: int, d: int, h: int, dh: int, m: int,
+                    sms: int = 132, per_sm: int = 1,
+                    w_align: tuple = (0, 0, 0, 0)) -> Int8GroupPlan:
+    """The int8 group kernel's plan for B images of N tokens, width D, H
+    heads of Dh and an MLP of M, on ``sms`` SMs holding ``per_sm`` blocks
+    each; ``w_align`` is the weight stacks' addresses modulo 16 for the
+    Q/K/V, w_msa, w_up and w_down stages.  A GEMM stage whose 64 x 64
+    tiles fit the card's blocks in one round runs one KG = 2 tile a block;
+    one with more tiles runs two KG = 1 tiles a block (k groups gain only
+    where the tiles leave SMs idle, as in `int8_matmul.gemm_i8_plan`).  The
+    grid is as many blocks as fit at once, and no more than the widest
+    stage has work.  Copy widths as `gemm_i8_plan`'s, each layer's weights
+    at their offset in the (L, ...) stack."""
+    rows, hd = b * n, h * dh
+    cap = per_sm * sms
+    bm, bn = I8_TILE
+
+    def gemm(name, k, cols, ldb, grp, grp_stride, layer, align, products=1):
+        tiles = products * -(-rows // bm) * -(-cols // bn)
+        kg = 2 if tiles <= cap else 1
+        return [name, bm, bn, rows, cols, tiles, 3 - kg, kg, _width(k),
+                _width(ldb, grp, grp_stride, cols, layer, align)]
+
+    stages = [
+        ["ln1", 1, d, rows, d, rows, _I8_ROWS_A_WARP, 0],
+        gemm("qkv", d, hd, dh, dh, d * dh, h * d * dh, w_align[0], 3),
+        ["attention", _ATT_QTILE, dh, n, dh, b * h * -(-n // _ATT_QTILE), 1,
+         0],
+        gemm("concat", hd, d, d, d, 0, hd * d, w_align[1]),
+        ["ln2", 1, d, rows, d, rows, _I8_ROWS_A_WARP, 0],
+        gemm("up", d, m, m, m, 0, d * m, w_align[2]),
+        gemm("down", m, d, d, d, 0, m * d, w_align[3])]
+    work = max(-(-st[5] // st[6]) for st in stages)
+    grid = max(1, min(cap, work))
+    out = []
+    for st in stages:
+        rounds = -(-st[5] // st[6])
+        out.append(Int8GroupStage(*st[:7], -(-rounds // grid), *st[7:]))
+    return Int8GroupPlan(grid, INT8_GROUP_THREADS,
+                         max(INT8_GROUP_RING, int8_group_smem_bytes(n, dh)),
+                         tuple(out))
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_blocks_per_sm(vt: int, smem: int) -> int:
+    """Blocks of the int8 group kernel one SM holds."""
+    out = ctypes.c_int(0)
+    build.call("vita_layer_group", "rt_vita_layer_group_int8_blocks_per_sm",
+               vt, smem, ctypes.byref(out))
+    if out.value < 1:
+        raise RuntimeError("vita_layer_group_int8: not one block fits on an "
+                           "SM")
+    return out.value
+
+
+def int8_plan_for(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                  wv: torch.Tensor, w_msa: torch.Tensor, w_up: torch.Tensor,
+                  w_down: torch.Tensor, vt: int) -> Int8GroupPlan:
+    """`int8_group_plan` of x (B, N, D) against the int8 stacks on their
+    card, sized by the card's occupancy at LN vectors of type ``vt``."""
+    b, n, d = x.shape
+    _, h, _, dh = wq.shape
+    m = w_up.shape[2]
+    align = (math.gcd(*(t.data_ptr() % 16 for t in (wq, wk, wv))),) + tuple(
+        t.data_ptr() % 16 for t in (w_msa, w_up, w_down))
+    first = int8_group_plan(b, n, d, h, dh, m, 1, 1, align)
+    per_sm = _int8_blocks_per_sm(vt, first.smem)
+    return int8_group_plan(b, n, d, h, dh, m, sm_count(x.device.index or 0),
+                           per_sm, align)
 
 
 def _workspace(device, rows: int, d: int, hd: int, m: int, int8: bool):
@@ -278,6 +404,8 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
             raise ValueError(f"{nm} has {s.numel()} values, expected "
                              f"{n_l} x {numel}")
         scales.append(s)
+    plan = int8_plan_for(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
+                         DTYPE_CODES[vt]).launch_ints()
     out = torch.empty_like(x)
     ws = _workspace(x.device, b * n, d, h * dh, m, int8=True)
     build.call("vita_layer_group", "rt_vita_layer_group_int8", ptr(x),
@@ -286,5 +414,6 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
                ptr(ln1_w), ptr(ln1_b), ptr(ln2_w), ptr(ln2_b), ptr(b_up),
                ptr(b_down), ptr(bias), ptr(mask), ptr(out),
                *(ptr(t) for t in ws[1:]), ptr(ws[0]), b, n, d, h, dh, m, n_l,
-               n_w, dh ** -0.5, LN_EPS, DTYPE_CODES[vt], _stream())
+               n_w, dh ** -0.5, LN_EPS, DTYPE_CODES[vt],
+               (ctypes.c_int * len(plan))(*plan), _stream())
     return out

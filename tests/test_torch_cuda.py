@@ -507,7 +507,13 @@ def _lm_close(got, want):
 @pytest.mark.parametrize("hq,hkv,dh,nq,nk,window,q_offset", [
     (10, 1, 256, 13, 13, None, 0), (4, 4, 80, 37, 37, None, 0),
     (4, 2, 64, 150, 150, 40, 0), (4, 1, 32, 5, 70, 16, 65),
-    (2, 1, 16, 3, 9, None, -4)])
+    (2, 1, 16, 3, 9, None, -4),
+    # many key tiles and the window's edge inside them, at Dh 256 / GQA 10:1
+    (10, 1, 256, 300, 300, 100, 0),
+    # ragged: Dh 80 over 77 queries (two 64-row tiles, the second of 13)
+    (4, 2, 80, 77, 77, 30, 0),
+    # Dh 20: padded to 32; bf16 rows are 40 bytes, staged by plain loads
+    (3, 1, 20, 40, 50, 17, 5)])
 def test_flash_attention_matches_plain(card, dtype, hq, hkv, dh, nq, nk,
                                        window, q_offset):
     g = torch.Generator(device=card).manual_seed(hq + dh)
@@ -518,6 +524,23 @@ def test_flash_attention_matches_plain(card, dtype, hq, hkv, dh, nq, nk,
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         _lm_close(k_head_attention.flash_attention(q, k, v, **kw),
                   ref.attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_unaligned_tensors_take_plain_loads(card, dtype):
+    """q, k and v one element past a 16-byte boundary (contiguous views):
+    the plan stages them by plain loads into the same layout."""
+    def view(shape, g):
+        n = int(np.prod(shape))
+        flat = torch.randn(n + 1, generator=g, device=card).to(dtype)
+        return flat[1:].view(shape)
+
+    g = torch.Generator(device=card).manual_seed(7)
+    q, k, v = (view((1, 4, 70, 64), g), view((1, 2, 70, 64), g),
+               view((1, 2, 70, 64), g))
+    assert k_head_attention.plan_for(q, k, v).vec == 0
+    _lm_close(k_head_attention.flash_attention(q, k, v, window=20),
+              ref.attention_ref(q, k, v, window=20))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
