@@ -793,6 +793,40 @@ def kernel_phase(deit, vitb, swin_cfg):
             lambda a=m_args: ref.vita_msa_int8_ref(*a), None,
             msa_bound(zq, i_args[1], bias, mask, qb, int8=True))
 
+    # The attention launch alone (csrc/attention.cu: the tile of kernels 2,
+    # 3 and 8) at DeiT-T batch 8 and Swin-T stage 1 (shifted windows),
+    # kernel 3's layout: merged fp32 Q, K, V in, (B, H, N, Dh) fp32 out;
+    # SDPA in fp32 with the same additive mask as its yardstick.  These
+    # inputs come from a generator of their own.
+    import torch.nn.functional as F
+    ga = torch.Generator(device="cuda").manual_seed(20)
+    for tag, bp, x, bias, mask in (layer_cases[0], layer_cases[2]):
+        b, n = x.shape[:2]
+        h, _, dh = bp["wq"].shape
+        qkv = [torch.randn((b * n, h * dh), generator=ga, device="cuda")
+               for _ in range(3)]
+        heads = [t.view(b, n, h, dh).transpose(1, 2) for t in qkv]
+        out = torch.empty((b, h, n, dh), device="cuda")
+        am = sdpa_mask(bias, mask, b)
+
+        def alone(a=qkv, o=out, b=b, n=n, h=h, dh=dh, bi=bias, ma=mask):
+            return vm.launch_attention(
+                *a, o, b=b, h=h, n=n, dh=dh,
+                in_strides=(n * h * dh, h * dh, dh),
+                out_strides=(h * n * dh, dh, n * dh), bias=bi, mask=ma)
+
+        def plain(a=heads, dh=dh, bi=bias, ma=mask):
+            return ref.softmax_av(*a, scale=dh ** -0.5, bias=bi, mask=ma)
+
+        err = check_close(f"attention launch alone {tag} B={b} H={h} N={n} "
+                          f"Dh={dh}", alone(), plain())
+        attention_plan_line(f"{tag} B={b} H={h}", b, h, n, dh)
+        rec("vita_msa_int8", f"attention launch alone, {tag}", err, alone,
+            plain, lambda a=heads, m=am: F.scaled_dot_product_attention(
+                *a, attn_mask=m),
+            bound(flops_f32=4 * b * h * n * n * dh,
+                  nbytes=nbytes(*qkv, out, bias, mask)))
+
     # int8 matmul (kernel 4) at the embed and head shapes, exact int32 and
     # rescaled; then the int8 layer's products through the same kernel
     # (`launch_gemm_i8`, as kernels 2 and 3 compose it) at DeiT-T batch 8.
@@ -1521,7 +1555,8 @@ def mlp_plan(tag: str, x, w1, w2) -> None:
 
 
 def plan_fields(p) -> str:
-    """An MSA tile plan (`vita_msa.MsaPlan`) as its fields."""
+    """A tile's plan (`vita_msa.MsaPlan`, `vita_msa.AttentionPlan`) as its
+    fields."""
     return ", ".join(f"{k} {v}" for k, v in p._asdict().items())
 
 
@@ -1536,6 +1571,26 @@ def msa_plan_line(tag: str, z, wq) -> None:
     print(f"[plan] vita_msa_batched {tag}: z {dname(z.dtype)}, weights "
           f"{dname(wq.dtype)}; {b * h} clusters ({b * h * p.cluster} "
           f"blocks); {plan_fields(p)}")
+
+
+def attention_plan_line(tag: str, b: int, h: int, n: int, dh: int) -> None:
+    """Print the attention tile's plan for B images of H heads of N
+    tokens of Dh: the blocks, the blocks an SM holds and the layout."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import vita_msa as vm
+    from repro_torch.kernels.int8_matmul import sm_count
+
+    p = vm.attention_plan(n, dh)
+    per_sm = ctypes.c_int(0)
+    build.call("attention", "rt_attention_blocks_per_sm", p.dp, p.smem,
+               ctypes.byref(per_sm))
+    blocks, sms = b * h * -(-n // p.rows), sm_count(0)
+    print(f"[plan] attention {tag} N={n} Dh={dh}: {blocks} blocks of "
+          f"{vm.ATT_THREADS} threads, {per_sm.value} blocks an SM "
+          f"({blocks / (sms * per_sm.value):.2f} waves on {sms} SMs); "
+          f"{plan_fields(p)}")
 
 
 def launches(fn) -> int:
@@ -1585,7 +1640,7 @@ def int8_group_plan_line(tag: str, i_args) -> None:
     per_sm = vg._int8_blocks_per_sm(vt, p.smem)
     print(f"[plan] vita_layer_group_int8 {tag}: grid {p.grid} x {p.threads} "
           f"threads, {per_sm} blocks an SM, {p.smem} bytes of shared memory "
-          f"a block; " + "; ".join(
+          f"a block; attention tile {plan_fields(p.att)}; " + "; ".join(
               f"{st.name} {st.count} tiles of {st.rows}x{st.cols}"
               + (f", {st.kgroups} k group{'s' if st.kgroups > 1 else ''} "
                  f"({st.per_block} a block), copies {st.a_chunk}/"
@@ -2388,7 +2443,9 @@ def main() -> None:
           "fused_mlp = addmm + tanh-GELU + addmm; int8_matmul = "
           "torch._int_mm (int32 out, no rescale or epilogue; the per-head "
           "stack merged beforehand; none at the head's 8 rows: it takes "
-          "more than 16); flash_attention = "
+          "more than 16); the attention launch alone (a sub-row of "
+          "vita_msa_int8) = F.scaled_dot_product_attention in fp32 with "
+          "the same additive mask; flash_attention = "
           "F.scaled_dot_product_attention (enable_gqa, boolean causal + "
           "window mask); decode_attention = the same with a length mask; "
           "the gated MLP = matmul + activation + multiply + matmul; none "

@@ -1,18 +1,26 @@
-// Exact per-head softmax attention for ViT sequence lengths, global or
-// windowed (Swin).
+// Exact per-head softmax attention on fp32 Q, K and V for ViT sequence
+// lengths, global or windowed (Swin): the attention launch of the int8
+// chains.
 //
-// Replaces: the engine-2 core (repro/kernels/vita_msa.py::softmax_av) as
-// used inside repro/kernels/vita_layer.py::vita_layer / vita_layer_int8 and
-// repro/kernels/vita_msa.py::vita_msa_int8.  The TPU ran one (image, head)
-// per sequential grid step with the whole head's Q/K/V/S in VMEM.  Here
-// each block takes one (image, head, 32-query tile) in parallel and holds
-// that head's K and V (N x Dh fp32 each: 98 KiB at N=196, Dh=64; 128 KiB at
-// N=256) in dynamic shared memory.  The work item is `attention_tile`
-// (attention.cuh), shared with the layer-group kernel; its rows are
-// `attend_row`, shared with vita_msa.cu.
-// Bound: operations at DeiT-T/ViT-B widths (4*N*N*Dh flops per head against
-// 4*N*Dh*4 bytes in and out), on CUDA cores.  K/V are re-read once per
-// query tile (ceil(N/32) times per head), from L2.
+// Replaces: the engine-2 core (repro/kernels/vita_msa.py::softmax_av with
+// an fp32 output) as used inside repro/kernels/vita_layer.py::
+// vita_layer_int8 (kernel 2) and repro/kernels/vita_msa.py::vita_msa_int8
+// (kernel 3).  The TPU ran one (image, head) per sequential grid step with
+// the whole head's Q/K/V/S in VMEM.  Here each block of 8 warps takes one
+// (image, head, 32-query slice) in parallel: `attention_tile`
+// (attention.cuh), which the int8 layer group's attention stage runs too.
+// Bound: operations, 4*N*N*Dh flops per head against 4*N*Dh*4 bytes in
+// and out (at DeiT-T batch 8, 238 MFLOP of fp32-accurate products against
+// 4.8 MB: about 1.5 us at the split-TF32 rate of 165 TFLOP/s).  What the
+// design does about it: both products on the tensor cores in split TF32
+// (fp32-accurate, as the TPU kernel's fp32 dots), Q split into its TF32
+// parts once a slice and each K and V value split once a warp for all 32
+// rows (the splits, not the products, are most of the instructions), and
+// K and V streamed through a ring of 64-key pages by cp.async (V's first
+// pages land while the softmax runs), so a block's shared memory is Q's
+// parts, the slice's score rows and the ring (105 KB at DeiT-T: two
+// blocks an SM).  K and V are re-read once per query slice (ceil(N/32)
+// times per head), from L2.
 //
 // Windowed mode (Swin): the caller folds windows into the batch axis, so
 // "image" b is window b % nW of an image, and passes the relative-position
@@ -23,39 +31,82 @@
 // q/k/v share one stride set: element e of token n, head h, image b is at
 // base[b*sb + n*sn + h*sh + e].  out uses (ob, on, oh) the same way and is
 // float, or int8 quantised at *out_scale when out_scale is not null.
+#include <cstring>
+
 #include "attention.cuh"
 
 namespace repro_torch {
 
-__global__ void __launch_bounds__(ATT_WARPS * 32)
-attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, long long sb, long long sn,
-                 long long sh, void* __restrict__ out, long long ob,
-                 long long on, long long oh, int N, int Dh, float scale,
+// Two blocks an SM at DP 64 (the shared memory of N up to 448), three at
+// DP 32, where Swin's short windows make many small blocks.
+template <int DP>
+__global__ void __launch_bounds__(ATT_THREADS, DP == 32 ? 3 : 2)
+attention_kernel(const __grid_constant__ AttLayout L,
+                 const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 long long sb, long long sn, long long sh, int vec,
+                 void* __restrict__ out, long long ob, long long on,
+                 long long oh, int N, int Dh, float scale,
                  const float* __restrict__ out_scale,
                  const float* __restrict__ bias,
                  const float* __restrict__ mask, int nW) {
-  extern __shared__ float smem[];
-  attention_tile(smem, q, k, v, sb, sn, sh, out, ob, on, oh, N, Dh, scale,
-                 out_scale, bias, mask, nW, blockIdx.x, blockIdx.y, blockIdx.z);
+  extern __shared__ __align__(16) unsigned char att_smem[];
+  attention_tile<DP>(att_smem, L, q, k, v, sb, sn, sh, vec != 0, out, ob, on,
+                     oh, N, Dh, scale, out_scale, bias, mask, nW, blockIdx.x,
+                     blockIdx.y, blockIdx.z);
+}
+
+// The kernel for the layout's DP (32 or 64), or null.
+inline const void* attention_kernel_for(int dp) {
+  if (dp == 32) return (const void*)attention_kernel<32>;
+  if (dp == 64) return (const void*)attention_kernel<64>;
+  return nullptr;
 }
 
 }  // namespace repro_torch
 
+// plan: the 12 ints of kernels/vita_msa.py::attention_plan(N, Dh) (the
+// tile's AttLayout), refused where it breaks a limit of the tile.
 extern "C" int rt_attention(const float* q, const float* k, const float* v,
                             long long sb, long long sn, long long sh, void* out,
                             long long ob, long long on, long long oh, int B,
                             int H, int N, int Dh, float scale,
                             const float* out_scale, const float* bias,
-                            const float* mask, int nW, void* stream) {
+                            const float* mask, int nW, const int* plan,
+                            void* stream) {
   using namespace repro_torch;
-  size_t smem = sizeof(float) * attention_smem_floats(N, Dh);
+  AttLayout L;
+  std::memcpy(&L, plan, sizeof L);
+  if (!att_layout_ok(L, N, Dh) || B < 1 || H < 1 || nW < 1)
+    return (int)cudaErrorInvalidValue;
+  const int vec = Dh % 4 == 0 && sb % 4 == 0 && sh % 4 == 0 &&
+                  vec_ok<float>(q, sn) && vec_ok<float>(k, sn) &&
+                  vec_ok<float>(v, sn);
+  const void* kernel = attention_kernel_for(L.dp);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + ATT_QTILE - 1) / ATT_QTILE, H, B);
-  attention_kernel<<<grid, ATT_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      q, k, v, sb, sn, sh, out, ob, on, oh, N, Dh, scale, out_scale, bias,
-      mask, nW);
+  dim3 grid((N + L.rows - 1) / L.rows, H, B);
+  if (L.dp == 32)
+    attention_kernel<32><<<grid, ATT_THREADS, L.smem, (cudaStream_t)stream>>>(
+        L, q, k, v, sb, sn, sh, vec, out, ob, on, oh, N, Dh, scale, out_scale,
+        bias, mask, nW);
+  else
+    attention_kernel<64><<<grid, ATT_THREADS, L.smem, (cudaStream_t)stream>>>(
+        L, q, k, v, sb, sn, sh, vec, out, ob, on, oh, N, Dh, scale, out_scale,
+        bias, mask, nW);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the attention kernel for DP `dp` that fit on one SM with
+// `smem` bytes of dynamic shared memory, into *per_sm.
+extern "C" int rt_attention_blocks_per_sm(int dp, int smem, int* per_sm) {
+  using namespace repro_torch;
+  const void* kernel = attention_kernel_for(dp);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kernel, ATT_THREADS, smem);
 }

@@ -59,16 +59,19 @@
 // The int8 kernel (kernel 8) runs the per-layer int8 chain's tiles, 256
 // threads a block: its four GEMM stages are kernel 4's int8 tensor-core
 // tile (mma_gemm_i8.cuh, `i8_epilogue`), its attention stage attention.cuh's
-// `attention_tile`, as kernels 2 and 3 run them, so an int8 group equals L
-// calls of `vita_layer_int8` bit for bit (the int32 sums are exact in any
-// order).  A GEMM stage runs one KG = 2 tile a block (all eight warps,
-// the 4-stage ring) where its tiles fit the grid in one round, else two KG
-// = 1 tiles a block, one on each half of the warps, each on a 2-stage ring
-// of its own and a named barrier: either way the ring set is 68 KB, so the
-// block's shared memory is the larger of that and the attention stage's
-// buffers (110 KB at DeiT-T: two blocks an SM).
+// `attention_tile` (split TF32 on the tensor cores) at the same layout, as
+// kernels 2 and 3 run them, so an int8 group equals L calls of
+// `vita_layer_int8` bit for bit (the int32 sums are exact in any order, and
+// the attention tile's order is the tile's own).  A GEMM stage runs one KG
+// = 2 tile a block (all eight warps, the 4-stage ring) where its tiles fit
+// the grid in one round, else two KG = 1 tiles a block, one on each half of
+// the warps, each on a 2-stage ring of its own and a named barrier: either
+// way the ring set is 68 KB, so the block's shared memory is the larger of
+// that and the attention tile's layout (105 KB at DeiT-T: two blocks an
+// SM).
 // kernels/vita_layer_group.py::int8_group_plan gives the grid, the shared
-// memory and each stage's tiles, k groups, copy widths and waves.
+// memory, each stage's tiles, k groups, copy widths and waves, and the
+// attention tile's layout (`vita_msa.attention_plan`).
 //
 // Barrier: a counter in device memory that each block's thread 0 bumps
 // after a __threadfence and then waits on; valid because the cooperative
@@ -77,8 +80,8 @@
 // plain loads or cp.async (no __restrict__, no read-only cache): other
 // blocks wrote it earlier in the same launch.
 // Bound: operations, L x the per-layer bound (split-TF32 mma.sync in the
-// float kernel, int8 mma.sync and the CUDA-core attention in the int8
-// one); wgmma/TMA are a later PR's work.
+// float kernel; int8 mma.sync for the products and split-TF32 mma.sync
+// for the attention in the int8 one); wgmma/TMA are a later PR's work.
 #include <algorithm>
 #include <cstring>
 #include <type_traits>
@@ -320,18 +323,23 @@ constexpr int LG_I8_RING =
 
 // The int8 kernel's launch plan, field for field
 // kernels/vita_layer_group.py::Int8GroupPlan.launch_ints(): the grid, the
-// dynamic shared memory a block, and per GEMM stage (Q/K/V, concat, up,
-// down) its k groups (2: one KG = 2 tile a block; 1: two KG = 1 tiles a
-// block) and A's and B's copy widths in bytes.
+// dynamic shared memory a block, per GEMM stage (Q/K/V, concat, up, down)
+// its k groups (2: one KG = 2 tile a block; 1: two KG = 1 tiles a block)
+// and A's and B's copy widths in bytes.
+// Then the attention tile's layout.
 struct I8GroupLayout {
   int grid, smem;
   int st[4][3];
+  AttLayout att;
 };
-static_assert(sizeof(I8GroupLayout) == 14 * sizeof(int), "plan is 14 ints");
+static_assert(sizeof(I8GroupLayout) == 26 * sizeof(int), "plan is 26 ints");
 
+// The int8 kernel's parameters: the operands, the plan, and whether Q, K
+// and V rows in the workspace take the attention tile's cp.async copies.
 struct Int8GroupArgs {
   LayerGroupArgs a;
   I8GroupLayout p;
+  int v_att;
 };
 
 // Tile t of GEMM stage GI of layer l (0: Q/K/V, the (L, H, D, Dh) stacks
@@ -391,6 +399,23 @@ __device__ __noinline__ void i8_gemm_tile(unsigned char* smem, int t, int l,
   }
 }
 
+// Attention work item t (image, head, 32-query slice) of layer l: the
+// attention tile on Q, K and V of the workspace, SA quantised at
+// act[l][1].  Out of line, as the GEMM tiles.
+template <int DP>
+__device__ __noinline__ void i8_attention_item(unsigned char* smem, int t,
+                                               int l,
+                                               const Int8GroupArgs* ga) {
+  const LayerGroupArgs& a = ga->a;
+  const int N = a.N, HD = a.H * a.Dh, qt = cdiv(N, ATT_ROWS);
+  const long long sb = (long long)N * HD;
+  const float* bias = a.bias ? a.bias + (size_t)l * a.H * N * N : nullptr;
+  attention_tile<DP>(smem, ga->p.att, a.q, a.k, a.v, sb, HD, a.Dh,
+                     ga->v_att != 0, a.sa, sb, HD, a.Dh, N, a.Dh, a.scale,
+                     a.act + 4 * l + 1, bias, a.mask, a.nW, t % qt,
+                     (t / qt) % a.H, t / (a.H * qt));
+}
+
 // The `count` tiles of GEMM stage GI, walked by the grid: with the plan's
 // k groups 2 one tile a block a round, else one a half-block a round
 // (tiles 2 blockIdx.x and 2 blockIdx.x + 1 first).  The part syncs after
@@ -433,7 +458,6 @@ __device__ __forceinline__ void int8_group_body(const Int8GroupArgs* ga,
   unsigned int target = 0;
   for (int l = 0; l < a.L; ++l) {
     const float* act = a.act + 4 * l;
-    const float* bias = a.bias ? a.bias + (size_t)l * a.H * N * N : nullptr;
 
     // 1. LN1(y) -> z, y = x at layer 0, else the carry
     for (int r = gwarp; r < R; r += nwarps)
@@ -445,16 +469,13 @@ __device__ __forceinline__ void int8_group_body(const Int8GroupArgs* ga,
     i8_stage<0, VT>(smem, 3 * mt_r * cdiv(HD, BN), l, ga);
     grid_barrier(a.bar, target);
 
-    // 3. attention per (image, head, query tile)
-    {
-      const int qt = cdiv(N, ATT_QTILE), items = a.B * a.H * qt;
-      const long long sb = (long long)N * HD;
-      for (int t = blockIdx.x; t < items; t += gridDim.x) {
-        const int b = t / (a.H * qt), h = (t / qt) % a.H, qi = t % qt;
-        attention_tile(reinterpret_cast<float*>(smem), a.q, a.k, a.v, sb, HD,
-                       a.Dh, a.sa, sb, HD, a.Dh, N, a.Dh, a.scale, act + 1,
-                       bias, a.mask, a.nW, qi, h, b);
-      }
+    // 3. attention per (image, head, query slice)
+    for (int t = blockIdx.x, items = a.B * a.H * cdiv(N, ATT_ROWS);
+         t < items; t += gridDim.x) {
+      if (ga->p.att.dp == 32)
+        i8_attention_item<32>(smem, t, l, ga);
+      else
+        i8_attention_item<64>(smem, t, l, ga);
     }
     grid_barrier(a.bar, target);
 
@@ -617,12 +638,12 @@ extern "C" int rt_vita_layer_group_int8_blocks_per_sm(int vt, int smem,
 // int8 group: x and out float32; weights (L, ...) int8; act (L, 4); weight
 // scales (L, H*Dh) for Q/K/V, (L, D) for w_msa and w_down, (L, M) for
 // w_up; LN vectors and biases in vt (float32 or bf16).  Workspace as above
-// but z (R, D), sa (R, H*Dh) and hid (R, M) int8.  plan: the 14 ints of
+// but z (R, D), sa (R, H*Dh) and hid (R, M) int8.  plan: the 26 ints of
 // the wrapper's Int8GroupPlan (kernels/vita_layer_group.py::
-// int8_group_plan), refused where its shared memory holds less than the
-// rings or the attention stage need, a stage's k groups are not built, or
-// a copy width would cross a row, a head, a layer's stack or an
-// alignment.
+// int8_group_plan), refused where its attention layout breaks a limit of
+// the tile, its shared memory holds less than the rings or that layout
+// need, a stage's k groups are not built, or a copy width would cross a
+// row, a head, a layer's stack or an alignment.
 extern "C" int rt_vita_layer_group_int8(
     const float* x, const int8_t* wq, const int8_t* wk, const int8_t* wv,
     const int8_t* wmsa, const int8_t* wup, const int8_t* wdown, const float* act,
@@ -643,9 +664,8 @@ extern "C" int rt_vita_layer_group_int8(
   std::memcpy(&ga.p, plan, sizeof ga.p);
   const I8GroupLayout& p = ga.p;
   const long long HD = (long long)H * Dh;
-  const size_t att = sizeof(float) * attention_smem_floats(N, Dh);
-  bool ok = p.smem >= LG_I8_RING && (size_t)p.smem >= att &&
-            p.smem <= MSA_SMEM_LIMIT;
+  bool ok = att_layout_ok(p.att, N, Dh) && p.smem >= LG_I8_RING &&
+            p.smem >= p.att.smem && p.smem <= MSA_SMEM_LIMIT;
   for (int s = 0; s < 4; ++s) ok = ok && (p.st[s][0] == 1 || p.st[s][0] == 2);
   // A: z (K = D), sa (H*Dh), z, hid (M); B: the per-head stacks, w_msa,
   // w_up, w_down, each layer's slice at its offset in the (L, ...) stack.
@@ -660,6 +680,8 @@ extern "C" int rt_vita_layer_group_int8(
        width_ok(p.st[3][1], M, M, 0, 0, hid) &&
        width_ok(p.st[3][2], D, D, (long long)M * D, 0, wdown);
   if (!ok) return (int)cudaErrorInvalidValue;
+  ga.v_att = Dh % 4 == 0 && vec_ok<float>(q, HD) && vec_ok<float>(k, HD) &&
+             vec_ok<float>(v, HD);
   return dispatch_type(vt, [&](auto vtag) {
     using VT = typename decltype(vtag)::type;
     return launch_cooperative((const void*)vita_layer_group_int8_kernel<VT>,

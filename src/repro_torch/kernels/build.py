@@ -36,7 +36,8 @@ SIGNATURES = {
     ("gemm_i8", "rt_gemm_i8"): [P, L, P, L, I, L, P, L, I, I, I, I, P, P, P,
                                 P, L, I, P, I, P, P],
     ("attention", "rt_attention"): [P, P, P, L, L, L, P, L, L, L, I, I, I,
-                                    I, F, P, P, P, I, P],
+                                    I, F, P, P, P, I, P, P],
+    ("attention", "rt_attention_blocks_per_sm"): [I, I, P],
     ("vita_msa", "rt_vita_msa"): [P] * 7 + [I, P, L, L, L] + [I] * 5
     + [F, I, I, P, P],
     ("mma_gemm", "rt_mma_gemm"): [P, L, P, L, P, L, I, I, I, P, P, L, I, I,

@@ -25,7 +25,8 @@ kernel's "nothing leaves the grid" property.
          in fp32, 1.7e-6 of 5.7 with bf16 weights).
   int8:  LN1 quantises to int8 at act_scales[0] -> Q, K, V int8 GEMMs
          (csrc/gemm_i8.cu) whose epilogue applies act_scales[0] * w_scale
-         -> attention (csrc/attention.cu) writes SA quantised at
+         -> attention (csrc/attention.cu, split TF32 on the tensor
+         cores) writes SA quantised at
          act_scales[1] -> concat GEMM + residual -> LN2 quantising at
          act_scales[2] -> up GEMM + bias + GELU quantising at
          act_scales[3] -> down GEMM + bias + residual.        (9 launches)
@@ -33,7 +34,9 @@ kernel's "nothing leaves the grid" property.
 Shapes: the float layer takes the (N, Dh) the MSA tile's plan fits
 (`vita_msa.msa_plan`: Dh <= 64, N <= 512, K and V of all N tokens in one
 block's shared memory: N up to 256 at Dh 64, 512 at Dh 32), and the
-float layer group refuses the rest too; the int8 layer is not limited so.
+float layer group refuses the rest too; the int8 layer takes the (N, Dh)
+its attention tile's plan fits (`vita_msa.attention_plan`: Dh <= 64, N up
+to 1,216 at Dh 64 and 1,472 at Dh 32).
 
 Windowed (Swin) mode: the caller folds windows into the batch axis and
 passes ``bias`` (H, n, n) and ``mask`` (nW, n, n); every step of a chain

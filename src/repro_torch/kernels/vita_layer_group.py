@@ -11,10 +11,11 @@ barrier between stages.  The float kernel runs the float layer's own
 tensor-core tiles (`vita_layer.vita_layer`: the MSA tile's projection and
 attention, the split-TF32 GEMM tile), 512 threads a block, as `group_plan`
 lays them out; the int8 kernel runs the int8 chain's tiles (kernel 4's
-int8 tensor-core GEMM tile and the warp-per-row attention), 256 threads a
-block, as `int8_group_plan` lays them out.  The
-activation is carried between layers in a float32 buffer and rounded to
-x's dtype once, at the end, as the TPU kernel carries it in fp32 scratch:
+int8 tensor-core GEMM tile and the split-TF32 attention tile of
+`vita_msa.attention_plan`), 256 threads a block, as `int8_group_plan` lays
+them out.  The activation is carried between layers in a float32 buffer
+and rounded to x's dtype once, at the end, as the TPU kernel carries it in
+fp32 scratch:
 with float32 x a float group equals L calls of `vita_layer.vita_layer` and
 an int8 group L calls of `vita_layer.vita_layer_int8`, bit for bit; with
 bf16 x it is not (each call rounds its output).  The source note says what
@@ -46,7 +47,8 @@ from . import build
 from .int8_matmul import (DTYPE_CODES, I8_STAGES, I8_TILE, _stream, _width,
                           check, ptr, sm_count)
 from .ref import check_mode
-from .vita_msa import SMEM_LIMIT, MsaPlan, msa_plan
+from .vita_msa import (ATT_THREADS, AttentionPlan, MsaPlan, attention_plan,
+                       msa_plan)
 
 _ALIGN = 256
 LN_EPS = 1e-5
@@ -157,21 +159,15 @@ def plan_for(x: torch.Tensor, wq: torch.Tensor, m: int) -> GroupPlan:
                       sm_count(x.device.index or 0), per_sm)
 
 
-def int8_group_smem_bytes(n: int, dh: int) -> int:
-    """Dynamic shared memory of the int8 group kernel's attention stage:
-    K [N][Dh+1], V [N][Dh] and 8 query and score rows."""
-    return 4 * (n * (2 * dh + 1) + 8 * (dh + n))
-
-
 # The int8 kernel's block and its GEMM tile (csrc/mma_gemm_i8.cuh, 64 x 64
 # outputs): one KG = 2 tile a block on a 4-stage ring, or two KG = 1 tiles
 # a block, one on each half, on 2-stage rings; 64 x (128 + 16) bytes of A
-# and 128 x 64 of B a stage, so either takes the same ring bytes.
-INT8_GROUP_THREADS = 256
+# and 128 x 64 of B a stage, so either takes the same ring bytes.  The
+# block is the attention tile's.
+INT8_GROUP_THREADS = ATT_THREADS
 _I8_STAGE_BYTES = I8_TILE[0] * 144 + 128 * I8_TILE[1]
 INT8_GROUP_RING = I8_STAGES * _I8_STAGE_BYTES
 _I8_ROWS_A_WARP = INT8_GROUP_THREADS // 32
-_ATT_QTILE = 32                     # csrc/attention.cuh's query tile
 
 
 class Int8GroupStage(NamedTuple):
@@ -197,22 +193,23 @@ class Int8GroupStage(NamedTuple):
 class Int8GroupPlan(NamedTuple):
     """One int8 csrc/vita_layer_group.cu launch: ``grid`` blocks of
     ``threads`` with ``smem`` bytes of dynamic shared memory each (the
-    larger of the GEMM rings and the attention stage's buffers), and each
-    stage's tiles."""
+    larger of the GEMM rings and the attention tile's layout ``att``), and
+    each stage's tiles."""
     grid: int
     threads: int
     smem: int
     stages: tuple
+    att: AttentionPlan
 
     def launch_ints(self):
-        """The 14 ints the C entry takes (csrc/vita_layer_group.cu's
-        I8GroupLayout): the grid, the shared memory, and per GEMM stage
-        its k groups and copy widths."""
+        """The 26 ints the C entry takes (csrc/vita_layer_group.cu's
+        I8GroupLayout): the grid, the shared memory, per GEMM stage its k
+        groups and copy widths, and the attention tile's layout."""
         out = [self.grid, self.smem]
         for st in self.stages:
             if st.kgroups:
                 out += [st.kgroups, st.a_chunk, st.b_chunk]
-        return tuple(out)
+        return tuple(out) + tuple(self.att)
 
 
 @functools.lru_cache(maxsize=None)
@@ -222,16 +219,20 @@ def int8_group_plan(b: int, n: int, d: int, h: int, dh: int, m: int,
     """The int8 group kernel's plan for B images of N tokens, width D, H
     heads of Dh and an MLP of M, on ``sms`` SMs holding ``per_sm`` blocks
     each; ``w_align`` is the weight stacks' addresses modulo 16 for the
-    Q/K/V, w_msa, w_up and w_down stages.  A GEMM stage whose 64 x 64
-    tiles fit the card's blocks in one round runs one KG = 2 tile a block;
-    one with more tiles runs two KG = 1 tiles a block (k groups gain only
-    where the tiles leave SMs idle, as in `int8_matmul.gemm_i8_plan`).  The
+    Q/K/V, w_msa, w_up and w_down stages.  The attention stage runs
+    `vita_msa.attention_plan`'s tile per (image, head, 32-query slice),
+    so this plan raises ValueError where that one does.  A GEMM stage
+    whose 64 x 64 tiles fit the card's blocks in one round runs one KG =
+    2 tile a block; one with more tiles runs two KG = 1 tiles a block (k
+    groups gain only where the tiles leave SMs idle, as in
+    `int8_matmul.gemm_i8_plan`).  The
     grid is as many blocks as fit at once, and no more than the widest
     stage has work.  Copy widths as `gemm_i8_plan`'s, each layer's weights
     at their offset in the (L, ...) stack."""
     rows, hd = b * n, h * dh
     cap = per_sm * sms
     bm, bn = I8_TILE
+    att = attention_plan(n, dh)
 
     def gemm(name, k, cols, ldb, grp, grp_stride, layer, align, products=1):
         tiles = products * -(-rows // bm) * -(-cols // bn)
@@ -242,8 +243,7 @@ def int8_group_plan(b: int, n: int, d: int, h: int, dh: int, m: int,
     stages = [
         ["ln1", 1, d, rows, d, rows, _I8_ROWS_A_WARP, 0],
         gemm("qkv", d, hd, dh, dh, d * dh, h * d * dh, w_align[0], 3),
-        ["attention", _ATT_QTILE, dh, n, dh, b * h * -(-n // _ATT_QTILE), 1,
-         0],
+        ["attention", att.rows, dh, n, dh, b * h * -(-n // att.rows), 1, 0],
         gemm("concat", hd, d, d, d, 0, hd * d, w_align[1]),
         ["ln2", 1, d, rows, d, rows, _I8_ROWS_A_WARP, 0],
         gemm("up", d, m, m, m, 0, d * m, w_align[2]),
@@ -255,8 +255,7 @@ def int8_group_plan(b: int, n: int, d: int, h: int, dh: int, m: int,
         rounds = -(-st[5] // st[6])
         out.append(Int8GroupStage(*st[:7], -(-rounds // grid), *st[7:]))
     return Int8GroupPlan(grid, INT8_GROUP_THREADS,
-                         max(INT8_GROUP_RING, int8_group_smem_bytes(n, dh)),
-                         tuple(out))
+                         max(INT8_GROUP_RING, att.smem), tuple(out), att)
 
 
 @functools.lru_cache(maxsize=None)
@@ -386,9 +385,6 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
         ((ln1_w, "ln1_w"), (ln1_b, "ln1_b"), (ln2_w, "ln2_w"),
          (ln2_b, "ln2_b"), (b_down, "b_down")), b_up, bias, mask,
         torch.int8, vt)
-    if int8_group_smem_bytes(n, dh) > SMEM_LIMIT:
-        raise ValueError(f"int8 layer group: N={n}, Dh={dh} needs more "
-                         f"shared memory than one block has")
     check(act_scales, "act_scales", torch.float32, (n_l, 4))
     for w, nm in ((wq_q, "wq_q"), (wk_q, "wk_q"), (wv_q, "wv_q")):
         check(w, nm, torch.int8, (n_l, h, d, dh))

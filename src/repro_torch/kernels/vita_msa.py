@@ -16,7 +16,10 @@ Counterpart of `repro/kernels/vita_msa.py`.
     the unfused int8 executor: three int8 GEMMs (``csrc/gemm_i8.cu``)
     project Q, K and V with the per-(head, channel) requant (and the
     optional ``qkv_bias``) in their epilogue, reading the (H, D, Dh) weight
-    stacks in place, then the attention kernel ``csrc/attention.cu``.
+    stacks in place, then the attention kernel ``csrc/attention.cu``: a
+    block per (image, head, 32-query slice), both products in split TF32
+    on the tensor cores, K and V paged through shared memory as
+    `attention_plan` lays it out.
 
 All of them take the windowed (Swin) mode: the caller folds windows into
 the batch axis and passes ``bias`` (H, N, N) and ``mask`` (nW, N, N).
@@ -37,10 +40,17 @@ from . import build
 from .int8_matmul import DTYPE_CODES, _stream, check, launch_gemm_i8, ptr
 from .ref import check_mode
 
-# Shared memory one block may use on an H100 (bytes).
+# Shared memory one block may use on an H100 (bytes); the most each of
+# two resident blocks may use (an SM's 233,472 bytes, less the 1,024 the
+# card keeps for each block).
 SMEM_LIMIT = 232448
+TWO_BLOCK_SMEM = 233472 // 2 - 1024
 _MSA_ROWS, _MSA_SUB, _MSA_WARPS, _MSA_MAX_CLUSTER = 64, 32, 16, 8
 _MSA_MIN_STAGES, _MSA_MAX_STAGES = 3, 8
+# The int8 chains' attention tile (csrc/attention.cuh): 8 warps, 32 query
+# rows, K and V in pages of 64 keys through a ring of 2 or 3 slots.
+ATT_THREADS, ATT_ROWS, _ATT_WARPS, _ATT_PAGE = 256, 32, 8, 64
+_ATT_STAGES = (3, 2)
 
 
 class MsaPlan(NamedTuple):
@@ -114,6 +124,64 @@ def msa_plan(n: int, dh: int, z_size: int = 4,
                    p_off=qb + kb + vb + sb, ring_off=qb, smem=smem)
 
 
+class AttentionPlan(NamedTuple):
+    """One attention tile's layout, field for field csrc/attention.cuh's
+    `AttLayout`, which the launch takes as is: ``rows`` query rows a
+    block; ``dp`` is Dh padded to the tile's width and ``nk`` N padded to
+    whole 64-key pages; ``lds``, ``ldk`` and ``ldv`` are the row strides
+    (floats) of the scores, of Q and K pages, and of V pages; the ring has
+    ``stages`` slots of ``stage`` bytes; the ``*_off`` are the byte
+    offsets of Q (its TF32 parts, hi then lo, then the rows' maxima and
+    reciprocal sums), the scores and the ring in a block's ``smem``
+    bytes."""
+    dp: int
+    rows: int
+    nk: int
+    lds: int
+    ldk: int
+    ldv: int
+    stage: int
+    stages: int
+    q_off: int
+    s_off: int
+    ring_off: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(n: int, dh: int) -> AttentionPlan:
+    """The attention tile's layout for N tokens of head width Dh: Q of a
+    32-row slice split into its TF32 parts (two [32][DP + 8]) and its
+    rows' maxima and reciprocal sums (two [32]), its scores
+    over all N keys [32][NK + 8] (at least P.V's partial sums of the key
+    groups past the first: 8 / (DP / 16) groups of 16 values a lane of
+    each 16-column block) and a ring of K or V pages ([64][DP + 8] or
+    [64][DP + 4]), fp32, each row padded so that fragment loads hit
+    distinct banks; three ring slots where two blocks of 256 threads still
+    fit an SM, else two, else three at one block an SM.  Raises ValueError
+    where Dh exceeds 64 or the layout exceeds one block's shared memory
+    (N past 1,216 at Dh 64)."""
+    dp = 32 if 1 <= dh <= 32 else 64 if 32 < dh <= 64 else 0
+    if dp == 0 or n < 1:
+        raise ValueError(f"attention tile: no plan for N={n}, Dh={dh} "
+                         f"(1 <= Dh <= 64 and N >= 1 only)")
+    nk = -(-n // _ATT_PAGE) * _ATT_PAGE
+    lds, ldk, ldv = nk + 8, dp + 8, dp + 4
+    col_blocks = dp // 16
+    red = (_ATT_WARPS // col_blocks - 1) * 16 * col_blocks * 32
+    qb, sb = 2 * ATT_ROWS * (ldk + 1) * 4, max(ATT_ROWS * lds, red) * 4
+    stage = _ATT_PAGE * ldk * 4
+    stages = next((s for s in _ATT_STAGES
+                   if qb + sb + s * stage <= TWO_BLOCK_SMEM), _ATT_STAGES[0])
+    smem = qb + sb + stages * stage
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"attention tile: N={n}, Dh={dh} needs {smem} "
+                         f"bytes of shared memory a block, more than one "
+                         f"block has ({SMEM_LIMIT})")
+    return AttentionPlan(dp, ATT_ROWS, nk, lds, ldk, ldv, stage, stages,
+                         q_off=0, s_off=qb, ring_off=qb + sb, smem=smem)
+
+
 def window_operands(bias, mask, *, b: int, h: int, n: int):
     """Check the windowed-mode operands and return (bias, mask, nW);
     (None, None, 1) in global mode."""
@@ -138,21 +206,23 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: Optional[torch.Tensor] = None,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact softmax(q.k^T * Dh**-0.5 [+ bias[h] + mask[i % nW]]).v per
-    (image, head) on the current stream.  ``in_strides``/``out_strides``
-    are the (image, token, head) element strides of q/k/v and of ``out``;
-    element e is contiguous.  ``out`` is float32, or int8 quantised at
-    ``out_scale``."""
+    (image, head) on the current stream, laid out by `attention_plan`.
+    ``in_strides``/``out_strides`` are the (image, token, head) element
+    strides of q/k/v and of ``out``; element e is contiguous.  ``out`` is
+    float32, or int8 quantised at ``out_scale``."""
     for t, nm in ((q, "q"), (k, "k"), (v, "v")):
         check(t, nm, torch.float32)
     check(out, "out", torch.int8 if out_scale is not None else torch.float32)
     if out_scale is not None:
         check(out_scale, "out_scale", torch.float32, (1,))
     bias, mask, n_w = window_operands(bias, mask, b=b, h=h, n=n)
+    plan = attention_plan(n, dh)
     sb, sn, sh = in_strides
     ob, on, oh = out_strides
     build.call("attention", "rt_attention", ptr(q), ptr(k), ptr(v), sb, sn,
                sh, ptr(out), ob, on, oh, b, h, n, dh, dh ** -0.5,
-               ptr(out_scale), ptr(bias), ptr(mask), n_w, _stream())
+               ptr(out_scale), ptr(bias), ptr(mask), n_w,
+               (ctypes.c_int * len(plan))(*plan), _stream())
     return out
 
 

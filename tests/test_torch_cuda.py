@@ -944,3 +944,68 @@ def test_int8_gemm_tile_reads_ragged_head_stacks_in_place(card, monkeypatch,
     got = k_int8_matmul.launch_gemm_i8(
         a, w, torch.empty((m, h * dh), device=card), x_scale=xs, w_scale=ws)
     assert torch.equal(got, ref.gemm_i8_ref(a, w, torch.float32, xs, ws))
+
+
+# The int8 chains' attention tile (csrc/attention.cuh, kernels 2, 3 and 8)
+# launched alone against `ref.softmax_av` on the same fp32 Q, K and V: a
+# float32 output within 1e-4 of its scale (fp32-accurate split TF32 against
+# fp32 dots: reassociation only), an int8 one within one code of the plain
+# output quantised at the same scale, on at most 0.1% of the codes (a flip
+# at a rounding boundary).  Layouts: "merged" (B*N, H*Dh), as kernel 2 and
+# kernel 3's projections give them; "heads" (B, H, N, Dh), kernel 3's
+# output.
+
+
+def _swin_terms(card, h, g):
+    """Swin-T stage 1's window terms: the (H, 49, 49) relative-position
+    bias and the shifted (64, 49, 49) mask of a 56x56 grid of 7x7
+    windows."""
+    ph = sched.Phase(kind="msa", path=(), site="", grid=(56, 56), window=7,
+                     shift=3)
+    bp = {"rel_bias": 0.5 * torch.randn((169, h), generator=g, device=card)}
+    return sched._window_terms(ph, bp, card)
+
+
+def _strides(h, n, dh, layout):
+    """The (image, token, head) element strides of ``layout``."""
+    return (h * n * dh, dh, n * dh) if layout == "heads" else \
+        (n * h * dh, h * dh, dh)
+
+
+@pytest.mark.parametrize("out_kind", ["float32", "int8"])
+@pytest.mark.parametrize("b,h,n,dh,windowed,ins,outs", [
+    (128, 3, 49, 32, True, "merged", "merged"),     # Swin-T stage 1, nW 64
+    (8, 3, 197, 64, False, "merged", "heads"),      # DeiT-T, kernel 3
+    (8, 3, 197, 64, False, "merged", "merged"),     # DeiT-T, kernels 2, 8
+    (2, 4, 50, 64, False, "heads", "heads"),
+    (2, 2, 257, 32, False, "merged", "merged"),
+    (1, 2, 400, 64, False, "merged", "heads"),      # a 2-slot ring
+    (2, 3, 50, 30, False, "merged", "heads"),       # Dh 30: plain loads
+    (1, 1, 1216, 64, False, "heads", "merged")])    # the widest N at Dh 64
+def test_attention_tile_matches_softmax_av(card, b, h, n, dh, windowed, ins,
+                                           outs, out_kind):
+    g = torch.Generator(device=card).manual_seed(n + dh)
+    q, k, v = (torch.randn((b, h, n, dh), generator=g, device=card)
+               for _ in range(3))
+    bias, mask = _swin_terms(card, h, g) if windowed else (None, None)
+    want = ref.softmax_av(q, k, v, scale=dh ** -0.5, bias=bias, mask=mask)
+    qi, ki, vi = (t.contiguous() if ins == "heads"
+                  else t.transpose(1, 2).contiguous() for t in (q, k, v))
+    shape = (b, h, n, dh) if outs == "heads" else (b, n, h, dh)
+    scale = want.abs().max().reshape(1) / 127.0
+    int8 = out_kind == "int8"
+    out = torch.empty(shape, device=card,
+                      dtype=torch.int8 if int8 else torch.float32)
+    k_vita_msa.launch_attention(qi, ki, vi, out, b=b, h=h, n=n, dh=dh,
+                                in_strides=_strides(h, n, dh, ins),
+                                out_strides=_strides(h, n, dh, outs),
+                                out_scale=scale if int8 else None,
+                                bias=bias, mask=mask)
+    got = out if outs == "heads" else out.transpose(1, 2)
+    if int8:
+        diff = (got.int() - ref.quant(want, scale).int()).abs()
+        assert int(diff.max()) <= 1
+        assert int((diff > 0).sum()) <= max(4, diff.numel() // 1000)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * max(
+            1.0, float(want.abs().max())))

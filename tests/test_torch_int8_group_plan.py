@@ -7,7 +7,8 @@ blocks and is no larger than the widest stage's work; each stage's tiles
 cover its output once; a GEMM stage runs one KG = 2 tile a block where
 its tiles fit the grid in one round and two KG = 1 tiles a block
 otherwise; the shared memory is the larger of the GEMM rings and the
-attention stage's buffers and fits one H100 block.  At DeiT-T, Swin-T
+attention tile's layout (`vita_msa.attention_plan`, passed to the kernel
+after the GEMM stages' ints) and fits one H100 block.  At DeiT-T, Swin-T
 stage 4 and the pruned L 2 H 2 shape the tile counts are the GEMM and
 attention work the kernel walks."""
 
@@ -16,9 +17,8 @@ import pytest
 from repro_torch.kernels.int8_matmul import gemm_i8_plan
 from repro_torch.kernels.vita_layer_group import (INT8_GROUP_RING,
                                                   Int8GroupPlan,
-                                                  int8_group_plan,
-                                                  int8_group_smem_bytes)
-from repro_torch.kernels.vita_msa import SMEM_LIMIT
+                                                  int8_group_plan)
+from repro_torch.kernels.vita_msa import SMEM_LIMIT, attention_plan
 
 from test_torch_group_plan import _served_group_shapes
 
@@ -29,7 +29,8 @@ def _check(p, b, n, d, h, dh, m, sms, per_sm):
     rows, hd = b * n, h * dh
     assert isinstance(p, Int8GroupPlan) and p.threads == 256
     assert 1 <= p.grid <= sms * per_sm
-    assert p.smem == max(INT8_GROUP_RING, int8_group_smem_bytes(n, dh))
+    assert p.att == attention_plan(n, dh)
+    assert p.smem == max(INT8_GROUP_RING, p.att.smem)
     assert INT8_GROUP_RING == 4 * (64 * 144 + 128 * 64)
     want = {"ln1": (rows, d), "qkv": (rows, hd), "attention": (n, dh),
             "concat": (rows, d), "ln2": (rows, d), "up": (rows, m),
@@ -57,9 +58,10 @@ def _check(p, b, n, d, h, dh, m, sms, per_sm):
             assert s.per_block == (8 if s.rows == 1 else 1)
     assert p.grid == min(sms * per_sm, work)
     ints = p.launch_ints()
-    assert ints[:2] == (p.grid, p.smem) and len(ints) == 14
-    assert ints[2:] == tuple(v for s in p.stages if s.name in _GEMMS
-                             for v in (s.kgroups, s.a_chunk, s.b_chunk))
+    assert ints[:2] == (p.grid, p.smem) and len(ints) == 26
+    assert ints[2:14] == tuple(v for s in p.stages if s.name in _GEMMS
+                               for v in (s.kgroups, s.a_chunk, s.b_chunk))
+    assert ints[14:] == tuple(p.att)
 
 
 @pytest.mark.parametrize("per_sm", [1, 2])
@@ -96,7 +98,7 @@ def test_int8_group_work_at_the_timed_shapes(case, shape, work):
     assert all(stages[g].a_chunk == stages[g].b_chunk == 16 for g in _GEMMS)
     _check(p, b, n, d, h, dh, m, 132, 2)
     if case == "deit_t":
-        assert p.smem == 109456 and 2 * p.smem <= 228 * 1024
+        assert p.smem == 107776 and 2 * p.smem <= 228 * 1024
         assert p.grid == 225 and stages["qkv"].kgroups == 2
     if case == "swin_t stage 4":
         assert p.smem == INT8_GROUP_RING and p.grid == 264
