@@ -54,9 +54,9 @@ and the gated / bf16 modes of the fused MLP against their plain versions
 in fp32 and bf16 at RecurrentGemma-2B's and stablelm-3b's shapes (flash
 at 13 and 4,096 tokens with the 2048 window; decode over caches of 128
 and 2048 slots with ragged lengths, GQA 10:1 at Dh 256 and MHA at Dh 80;
-the scan at T 13 and 4,096, W 2560; the gated MLP at D 2560, M 7680 and
-6912, N 13 and 4, and at N 4 with the plan asked for its fewest hidden
-splits; every activation at a small shape), each output row within a
+the scan at T 13, 2,100 and 4,096, W 2560; the gated MLP at D 2560, M
+7680 and 6912, N 13 and 4, and at N 4 with the plan asked for its fewest
+hidden splits; every activation at a small shape), each output row within a
 bound at its own scale, with each timed shape's launch plan printed
 (`[plan]`: the fused MLP's regime and hidden splits, decode attention's
 key splits, flash attention's path, tile, blocks, shared memory and keys
@@ -102,6 +102,21 @@ yardsticks; and, after phase 3:
     the bf16 CPU twin (BF16_TWIN_REL) and the fp32 one (the control);
   * the served rates of the bf16 paths beside the fp32 ones, and one
     profiled bf16 drain.
+
+The widened tiles (heads past 64, N past one cluster of the float MSA
+tile) add, to phase 2, kernels 1, 2, 3 and 5 and the attention launch
+alone at a ViT-B geometry of 6 heads of 128 (D 768, N 197) and at
+ViT-B/16 at 384 px (N 576), batch 2, each against its plain version with
+its plan printed (the paged MSA plan, the DP 128 attention tile), and
+kernels 7 and 8 at the 6 x 128 geometry (L 2) against their plain
+versions and, bit for bit, their chains of per-layer calls; and, after
+the bf16 paths, those two configs (2 layers, random weights from seed 0)
+served through a `VisionServer` built by hand in float and int8, each
+against the same server on the CPU, their launches counted with the
+served paths'.  The RG-LRU scan is checked and timed at T 13, 2,100 and
+4,096 with its plan printed (`[plan] rglru_scan`: the walk up to one
+32-step chunk, else the chunked scan's blocks and scratch), and past one
+chunk timed beside the one-thread-per-channel walk it replaced.
 
 The line before the last is one JSON object with a record per kernel
 (each time marked with how it was taken: "profiler" or "cuda_events");
@@ -190,6 +205,9 @@ MODE_TOTALS: dict = {}
 # The int8 group cases' chains of L `vita_layer_int8` calls, (tag,
 # callable), timed beside kernel 8.
 I8_CHAINS: list = []
+# The scan's shapes past one chunk with the walk forced, (tag, callable),
+# timed beside the planned launch.
+SCAN_WALKS: list = []
 
 KERNELS = (  # name, TPU kernel it replaces, port wrapper
     ("vita_layer", "src/repro/kernels/vita_layer.py:174",
@@ -214,6 +232,14 @@ KERNELS = (  # name, TPU kernel it replaces, port wrapper
      "src/repro_torch/kernels/head_attention.py"),
     ("rglru_scan", "src/repro/kernels/rglru_scan.py:75",
      "src/repro_torch/kernels/rglru_scan.py"))
+
+# The widened tiles (heads past 64, N past one cluster of the float MSA
+# tile): (tag, heads of ViT-B/16's D 768, N) of the kernel checks, batch
+# 2: a ViT-B geometry of 6 heads of 128 at 197 tokens, and ViT-B/16 at 384
+# px (576 patches).  The wide groups and the served wide configs take
+# WIDE_LAYERS layers; the served ones WIDE_REQUESTS images.
+WIDE = (("vit_b16 6x128", 6, 197), ("vit_b16 384px", 12, 576))
+WIDE_LAYERS, WIDE_REQUESTS = 2, 3
 
 # The LM paths: RecurrentGemma-2B at full width and depth (bf16), its
 # ring-cache check (fp32, a prompt past the 2048-token window) and
@@ -1001,6 +1027,142 @@ def kernel_phase(deit, vitb, swin_cfg):
 
 
 # ---------------------------------------------------------------------------
+# The widened tiles: heads past 64 and N past one cluster
+# ---------------------------------------------------------------------------
+
+
+def wide_block(vitb, h: int, n: int, seed: int, g):
+    """A ViT-B/16 block (D 768) of ``h`` heads with non-zero LN and MLP
+    biases, and a unit-scale input (2, N, 768)."""
+    from repro_torch.models import vit
+
+    cfg = dataclasses.replace(vitb, heads=h, layers=1)
+    bp = perturbed(vit.init_params(cfg, seed, "cuda")["layers"][0], g)
+    return bp, torch.randn((2, n, cfg.dim), generator=g, device="cuda")
+
+
+def wide_kernel_phase(records: dict, vitb) -> None:
+    """Kernels 1, 2, 3 and 5 and the attention launch alone at the shapes
+    the cluster tile and the DP 64 attention tile did not take (`WIDE`:
+    the paged MSA plan, the DP 128 attention tile), each against its plain
+    version with its plan printed; then kernels 7 and 8 at Dh 128 (L 2)
+    against their plain versions and, bit for bit, their chains of L
+    per-layer calls.  Inputs come from a generator of their own."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, vita_layer as vl, vita_msa as vm
+    from repro_torch.kernels import vita_layer_group as vg
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def rec(*args):
+        add_record(records, *args)
+
+    for tag, h, n in WIDE:
+        bp, x = wide_block(vitb, h, n, 21, g)
+        b, d = x.shape[0], x.shape[2]
+        dh = d // h
+        f_args, i_args = layer_args(bp, x)
+        err = check_close(f"vita_layer {tag} B={b} N={n}",
+                          vl.vita_layer(*f_args), ref.vita_layer_ref(*f_args))
+        err_i = check_int8_layer(f"vita_layer_int8 {tag} B={b} N={n}",
+                                 vl.vita_layer_int8(*i_args),
+                                 ref.vita_layer_int8_ref(*i_args))
+        layer_plan(f"{tag} {tuple(x.shape)}",
+                   lambda a=f_args: vl.vita_layer(*a), x, bp["wq"])
+        fb, ib = layer_bound(f_args, i_args)
+        rec("vita_layer", tag, err, lambda a=f_args: vl.vita_layer(*a),
+            lambda a=f_args: ref.vita_layer_ref(*a),
+            composed_layer(f_args, h, dh), fb)
+        rec("vita_layer_int8", tag, err_i,
+            lambda a=i_args: vl.vita_layer_int8(*a),
+            lambda a=i_args: ref.vita_layer_int8_ref(*a), None, ib)
+        z = ref.layer_norm_ref(x, bp["ln1_w"], bp["ln1_b"])
+        w = (bp["wq"], bp["wk"], bp["wv"])
+        err = check_close(f"vita_msa_batched {tag} {tuple(z.shape)} H={h}",
+                          vm.vita_msa_batched(z, *w),
+                          ref.vita_msa_batched_ref(z, *w))
+        msa_plan_line(f"{tag} {tuple(z.shape)}", z, w[0])
+        rec("vita_msa_batched", tag, err,
+            lambda z=z, w=w: vm.vita_msa_batched(z, *w),
+            lambda z=z, w=w: ref.vita_msa_batched_ref(z, *w),
+            composed_msa(z, *w), msa_bound(z, w[0]))
+        zq = torch.clamp(torch.round(x / 0.02), -127, 127).to(torch.int8)
+        qb = 0.1 * torch.randn((3, h, dh), generator=g, device="cuda")
+        m_args = (zq, *i_args[1:4], torch.tensor(0.02, device="cuda"),
+                  *i_args[8:11], None, None, qb)
+        err = check_close(f"vita_msa_int8 {tag} B={b} qkv_bias",
+                          vm.vita_msa_int8(*m_args),
+                          ref.vita_msa_int8_ref(*m_args))
+        rec("vita_msa_int8", tag, err, lambda a=m_args: vm.vita_msa_int8(*a),
+            lambda a=m_args: ref.vita_msa_int8_ref(*a), None,
+            msa_bound(zq, i_args[1], qkv_bias=qb, int8=True))
+        qkv = [torch.randn((b * n, h * dh), generator=g, device="cuda")
+               for _ in range(3)]
+        heads = [t.view(b, n, h, dh).transpose(1, 2) for t in qkv]
+        out = torch.empty((b, h, n, dh), device="cuda")
+
+        def alone(a=qkv, o=out, b=b, n=n, h=h, dh=dh):
+            return vm.launch_attention(
+                *a, o, b=b, h=h, n=n, dh=dh,
+                in_strides=(n * h * dh, h * dh, dh),
+                out_strides=(h * n * dh, dh, n * dh))
+
+        def plain(a=heads, dh=dh):
+            return ref.softmax_av(*a, scale=dh ** -0.5)
+
+        err = check_close(f"attention launch alone {tag} B={b} H={h} N={n} "
+                          f"Dh={dh}", alone(), plain())
+        attention_plan_line(f"{tag} B={b} H={h}", b, h, n, dh)
+        rec("vita_msa_int8", f"attention launch alone, {tag}", err, alone,
+            plain, lambda a=heads: F.scaled_dot_product_attention(*a),
+            bound(flops_f32=4 * b * h * n * n * dh,
+                  nbytes=nbytes(*qkv, out)))
+
+    tag, h, n = WIDE[0]
+    blocks, x = [], None
+    for l in range(WIDE_LAYERS):
+        bp, x0 = wide_block(vitb, h, n, 22 + l, g)
+        blocks.append(bp)
+        x = x0 if x is None else x
+    tag = f"{tag} L{WIDE_LAYERS}"
+    f_args, i_args, _ = group_args(blocks, x)
+    err = check_close(f"vita_layer_group {tag}", vg.vita_layer_group(*f_args),
+                      ref.vita_layer_group_ref(*f_args))
+    group_plan_line(tag, x, f_args[1], f_args[9].shape[2])
+    chain = x
+    for l in range(WIDE_LAYERS):
+        chain = vl.vita_layer(chain, *[a[l] for a in f_args[1:]])
+    check_chain(f"vita_layer_group {tag}", vg.vita_layer_group(*f_args),
+                chain, True)
+    err_i = check_int8_layer(f"vita_layer_group_int8 {tag}",
+                             vg.vita_layer_group_int8(*i_args),
+                             ref.vita_layer_group_int8_ref(*i_args))
+    check_chain(f"vita_layer_group_int8 {tag}",
+                vg.vita_layer_group_int8(*i_args), int8_chain(i_args), True)
+    int8_group_plan_line(tag, i_args)
+    fb, ib = group_bound(f_args, i_args)
+    rec("vita_layer_group", tag, err,
+        lambda a=f_args: vg.vita_layer_group(*a),
+        lambda a=f_args: ref.vita_layer_group_ref(*a),
+        composed_group(f_args), fb)
+    rec("vita_layer_group_int8", tag, err_i,
+        lambda a=i_args: vg.vita_layer_group_int8(*a),
+        lambda a=i_args: ref.vita_layer_group_int8_ref(*a), None, ib)
+    torch.cuda.synchronize()
+
+
+def wide_configs(vitb) -> dict:
+    """The widened tiles' user configs, which the registry does not build:
+    ViT-B/16 widths with 6 heads of 128 at 224 px (N 196), and ViT-B/16 at
+    384 px (N 576), both cut to `WIDE_LAYERS` layers."""
+    return {"vit_b16 6x128 heads": dataclasses.replace(
+                vitb, name="vit_b16_224_h6", image=224, heads=6,
+                layers=WIDE_LAYERS),
+            "vit_b16 384 px": dataclasses.replace(
+                vitb, name="vit_b16_384", image=384, layers=WIDE_LAYERS)}
+
+
+# ---------------------------------------------------------------------------
 # The bf16 configuration: kernels 1, 5, 6 and 7 in their bf16 modes
 # ---------------------------------------------------------------------------
 
@@ -1272,21 +1434,21 @@ def check_modes(name: str, counts: dict, modes: dict, act: str) -> None:
         MODE_TOTALS[k] = MODE_TOTALS.get(k, 0) + v
 
 
-def serve_bf16_path(model: str, mode: str, fused: bool, group: int, cfg16,
-                    params, images, qparams=None, calibrator=None) -> dict:
-    """A bf16 config (every weight bf16) brought to `VisionServer` on the
-    card, as a user brings a config the registry does not build: float32
-    images, so mixed mode.  int8 quantizes the bf16 params and, without a
-    calibrator, calibrates on the card through `calibrate`.  Launch counts
-    are reset just before (calibration included) and read just after;
-    the logits are checked against the same server on the CPU."""
+def serve_user_path(name: str, model: str, cfg, mode: str, params, images,
+                    qparams=None, calibrator=None, act=None) -> dict:
+    """A config the registry does not build brought to `VisionServer` on
+    the card, as a user brings one, on float32 images.  int8 quantizes the
+    params and, without a calibrator, calibrates on the card through
+    `calibrate`.  Launch counts are reset just before (calibration
+    included) and read just after, and must be what the config's schedule
+    launches; ``act`` (bf16 weights): every launch of a kernel with dtype
+    modes ran its (``act``, bfloat16) instantiation.  The logits are
+    checked against the same server on the CPU."""
     from repro_torch.kernels import ops
     from repro_torch.launch.vision_serve import (ServeConfig, VisionServer,
                                                  calibrate)
     from repro_torch.models import vision_registry, vit
 
-    name = path_name(model, mode, fused, group) + ", bf16 weights"
-    cfg = dataclasses.replace(cfg16, fused=fused, fuse_group=group)
     sc = ServeConfig(mode=mode, buckets=BUCKETS)
     if mode == "int8" and qparams is None:
         qparams = vision_registry.quantize(params)
@@ -1309,7 +1471,8 @@ def serve_bf16_path(model: str, mode: str, fused: bool, group: int, cfg16,
     print(f"[serve] {name}: {len(images)} requests in {mb} micro-batches"
           f"{' + calibration' if calibrates else ''}; launches {counts}")
     check(counts == want, f"{name}: launch counts {counts}, expected {want}")
-    check_modes(name, counts, modes, "float32")
+    if act is not None:
+        check_modes(name, counts, modes, act)
     gpu = np.stack([r.logits for r in reqs])
     twin = VisionServer(cfg, vit.to_device(params, "cpu"),
                         serve_cfg=dataclasses.replace(sc, device="cpu"),
@@ -1560,6 +1723,20 @@ def plan_fields(p) -> str:
     return ", ".join(f"{k} {v}" for k, v in p._asdict().items())
 
 
+def msa_layout(b: int, h: int, n: int, dh: int, p) -> str:
+    """The MSA tile's plan ``p`` for B images of H heads: its clusters
+    and fields, or, paged, the projection's blocks and fields and the
+    attention tile's layout."""
+    from repro_torch.kernels import vita_msa as vm
+
+    if not p.paged:
+        return (f"{b * h} clusters ({b * h * p.cluster} blocks); "
+                f"{plan_fields(p)}")
+    return (f"paged: {b * h * p.cluster} projection blocks "
+            f"({plan_fields(p)}), then the attention tile "
+            f"({plan_fields(vm.attention_plan(n, dh))})")
+
+
 def msa_plan_line(tag: str, z, wq) -> None:
     """Print the MSA tile's plan for z (B, N, D) against the (H, D, Dh)
     stack: the operand types, the clusters and the tile's layout."""
@@ -1569,8 +1746,7 @@ def msa_plan_line(tag: str, z, wq) -> None:
     h, _, dh = wq.shape
     p = vm.msa_plan(n, dh, z.element_size(), wq.element_size())
     print(f"[plan] vita_msa_batched {tag}: z {dname(z.dtype)}, weights "
-          f"{dname(wq.dtype)}; {b * h} clusters ({b * h * p.cluster} "
-          f"blocks); {plan_fields(p)}")
+          f"{dname(wq.dtype)}; {msa_layout(b, h, n, dh, p)}")
 
 
 def attention_plan_line(tag: str, b: int, h: int, n: int, dh: int) -> None:
@@ -1747,6 +1923,22 @@ def flash_tiles_sweep(records: dict, where: str) -> None:
                           sorted(out.items())))
 
 
+def scan_walk_sweep(records: dict, where: str) -> None:
+    """The RG-LRU scan's device time at each shape past one chunk, chunked
+    (its plan) and as the one-thread-per-channel walk the chunked scan
+    replaced (`scan_plan`'s ``walk``), each from `device_ms`, one after
+    the other."""
+    r = records["rglru_scan"]
+    timed = {x["tag"]: x for x in [r] + r["extra"]}
+    for tag, walk in SCAN_WALKS:
+        (ms, by), (walk_ms, walk_by) = (device_ms(timed[tag]["fn"]),
+                                        device_ms(walk))
+        print(f"[time] rglru_scan {tag} on {where}: chunked {ms:.4f} ms "
+              f"[{by}], walk {walk_ms:.4f} ms [{walk_by}] "
+              f"({walk_ms / ms:.2f}x), bound {timed[tag]['bound'][0]:.4f} "
+              f"ms ({timed[tag]['bound'][1]})")
+
+
 def group_chain_ms(group_fn, chain_fn, iters: int = 20):
     """(group ms, chain ms): the device time per call of an int8 layer
     group and of its L `vita_layer_int8` calls, from one torch.profiler
@@ -1832,8 +2024,7 @@ def layer_plan(tag: str, run, x, wq) -> None:
     p = vm.msa_plan(n, dh, 4, wq.element_size())
     print(f"[plan] vita_layer {tag}: {launches(run)} launches; x "
           f"{dname(x.dtype)}, weights {dname(wq.dtype)}; MSA tile on fp32 "
-          f"z, {b * h} clusters ({b * h * p.cluster} blocks); "
-          f"{plan_fields(p)}")
+          f"z, {msa_layout(b, h, n, dh, p)}")
 
 
 def visible_pairs(nq: int, nk: int, causal: bool, window, q_offset=0):
@@ -1925,21 +2116,31 @@ def lm_kernel_phase(records: dict) -> None:
                       + 2 * valid * hkv * dh * q.element_size(),
                       **flops_at(dtype, 4 * valid * hq * dh)))
 
-    # The RG-LRU scan: one sequence, W 2560, T 13 (a prompt) and 4096.
-    for t_len in (13, 4096):
+    # The RG-LRU scan: one sequence, W 2560, T 13 (a prompt), 2,100 (the
+    # ring check's prompt) and 4,096; past one chunk the walk it replaced
+    # is timed beside it (`scan_walk_sweep`).
+    for t_len in (13, RING_PROMPT, 4096):
         for dtype in (f32, bf):
             a = (0.5 + 0.499 * torch.rand((1, t_len, 2560), generator=g,
                                           device="cuda")).to(dtype)
             b = rand(g, (1, t_len, 2560), dtype)
+            tag = f"B 1, T {t_len}, W 2560 {dname(dtype)}"
             err = check_lm(f"rglru_scan T {t_len} W 2560 {dname(dtype)}",
                            rs.rglru_scan(a, b),
                            ref.linear_recurrence_ref(a, b))
-            add_record(records, "rglru_scan",
-                       f"B 1, T {t_len}, W 2560 {dname(dtype)}", err,
+            p = rs.scan_plan(1, t_len, 2560, dtype)
+            print(f"[plan] rglru_scan {tag}: "
+                  f"{'walk' if p.chunks == 1 else 'chunked'}, "
+                  f"{p.chunks * p.runs} blocks of {p.channels} threads; "
+                  f"{plan_fields(p)}")
+            add_record(records, "rglru_scan", tag, err,
                        lambda a=a, b=b: rs.rglru_scan(a, b),
                        lambda a=a, b=b: ref.linear_recurrence_ref(a, b),
                        None, bound(nbytes=3 * nbytes(a),
                                    flops_f32=2 * a.numel()))
+            if p.chunks > 1:
+                SCAN_WALKS.append((tag, lambda a=a, b=b: rs.rglru_scan(
+                    a, b, walk=True)))
 
     # Fused MLP, gated: RecurrentGemma (GELU, D 2560, M 7680) and
     # stablelm-3b (SiLU, M 6912), each at a 13-token prefill and a decode
@@ -2264,6 +2465,10 @@ def main() -> None:
     records = kernel_phase(cfgs["deit_t"], cfgs["vit_edge"], cfgs["swin_t"])
     lm_kernel_phase(records)
     bf16_kernel_phase(records, cfgs["deit_t"], cfgs["swin_t"])
+    t_wide = time.perf_counter()
+    wide_kernel_phase(records, cfgs["vit_edge"])
+    print(f"[phase] wide kernels checked in "
+          f"{time.perf_counter() - t_wide:.1f} s")
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.0f} s")
 
     # 3. Serve every path on the card against its CPU twin.
@@ -2308,9 +2513,12 @@ def main() -> None:
     served16, quant16 = {}, {}
     for model, mode, fused, group, n_req in BF16_PATHS:
         q = quant16.get((model, group), (None, None))
-        out = serve_bf16_path(model, mode, fused, group, cfg16[model],
-                              params16[model], images[model][:n_req],
-                              qparams=q[0], calibrator=q[1])
+        # float32 images on bf16 weights: the mixed mode
+        out = serve_user_path(
+            path_name(model, mode, fused, group) + ", bf16 weights", model,
+            dataclasses.replace(cfg16[model], fused=fused, fuse_group=group),
+            mode, params16[model], images[model][:n_req], qparams=q[0],
+            calibrator=q[1], act="float32")
         if mode == "int8":
             quant16[(model, group)] = (out["server"].qparams,
                                        out["server"].calibrator)
@@ -2334,11 +2542,27 @@ def main() -> None:
           f"{MODE_TOTALS}")
     print(f"[phase] bf16 paths served at "
           f"{time.perf_counter() - t_start:.0f} s")
+    # 3c. The widened tiles' user configs, float and int8, random weights
+    # from seed 0.
+    t_wide = time.perf_counter()
+    served_wide = []
+    for tag, cfg in wide_configs(cfgs["vit_edge"]).items():
+        wide_params = vision_registry.init_params(cfg, seed=0, device="cuda")
+        wide_images = np.random.default_rng(1).standard_normal(
+            (WIDE_REQUESTS, cfg.image, cfg.image, 3)).astype(np.float32)
+        for mode in ("float", "int8"):
+            served_wide.append(serve_user_path(
+                f"{tag} {mode} fused, L{cfg.layers}", cfg.name, cfg, mode,
+                wide_params, wide_images))
+    print(f"[phase] wide configs served in "
+          f"{time.perf_counter() - t_wide:.1f} s, at "
+          f"{time.perf_counter() - t_start:.0f} s")
     lm_counts, lm_served = lm_paths(f"{name} ({card})")
     print(f"[phase] LM paths served at {time.perf_counter() - t_start:.0f} s")
     launches = {k[0]: sum(o["counts"][k[0]] for o in served.values())
                 + sum(o["counts"][k[0]] for o in served16.values())
                 + sum(o["counts"][k[0]] for o in forwards)
+                + sum(o["counts"][k[0]] for o in served_wide)
                 + sum(c[k[0]] for c in lm_counts.values()) for k in KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel was never launched on a served path: {launches}")
@@ -2460,6 +2684,7 @@ def main() -> None:
               f"{c_ms:.4f} ms ({g_ms / c_ms:.3f}x; one profiler session)")
     i8_kgroups_sweep(records, f"{name} ({card})")
     flash_tiles_sweep(records, f"{name} ({card})")
+    scan_walk_sweep(records, f"{name} ({card})")
     print(f"[phase] kernels timed at {time.perf_counter() - t_start:.0f} s")
     for lm_name, lm_cfg, lm_params in lm_served:
         lm_times(lm_name, lm_cfg, lm_params, f"{name} ({card})")

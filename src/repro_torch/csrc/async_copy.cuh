@@ -1,8 +1,8 @@
 // Asynchronous 16-byte copies from device memory into shared memory
 // (cp.async, sm_80 and later) and the 2-D tile loader over them, the bf16
-// tensor-core pieces (ldmatrix, mma.sync m16n8k16 with fp32 accumulation)
-// and the launch helpers shared by decode_attention.cu, fused_mlp*.cu,
-// vita_msa.cu and mma_gemm.cu.
+// tensor-core pieces (ldmatrix, mma.sync m16n8k16 with fp32 accumulation),
+// the parts of a block a tile syncs over, and the launch helpers shared by
+// decode_attention.cu, fused_mlp*.cu, vita_msa.cu and mma_gemm.cu.
 #pragma once
 
 #include <cstdint>
@@ -12,6 +12,25 @@
 #include "common.cuh"
 
 namespace repro_torch {
+
+// The threads that run one tile (kernel 4's int8 GEMM tile, the attention
+// tile): the whole block, or part threadIdx.x / THREADS of it, which syncs
+// on named barrier 1 + that part (barrier 0 is __syncthreads').
+struct WholeBlock {
+  static __device__ __forceinline__ int tid() { return threadIdx.x; }
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+};
+template <int THREADS>
+struct BlockPart {
+  static __device__ __forceinline__ int tid() {
+    return threadIdx.x % THREADS;
+  }
+  static __device__ __forceinline__ void sync() {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + (int)threadIdx.x / THREADS),
+                 "n"(THREADS)
+                 : "memory");
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

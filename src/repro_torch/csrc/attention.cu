@@ -1,6 +1,7 @@
 // Exact per-head softmax attention on fp32 Q, K and V for ViT sequence
 // lengths, global or windowed (Swin): the attention launch of the int8
-// chains.
+// chains, and of the float MSA where its cluster tile cannot hold K and V
+// (Dh past 64 or long N: kernels/vita_msa.py::launch_msa).
 //
 // Replaces: the engine-2 core (repro/kernels/vita_msa.py::softmax_av with
 // an fp32 output) as used inside repro/kernels/vita_layer.py::
@@ -30,17 +31,22 @@
 //
 // q/k/v share one stride set: element e of token n, head h, image b is at
 // base[b*sb + n*sn + h*sh + e].  out uses (ob, on, oh) the same way and is
-// float, or int8 quantised at *out_scale when out_scale is not null.
+// float, or int8 quantised at *out_scale when out_scale is not null, or
+// bf16 (the float MSA's bf16 mode: P rounded to bf16 before P . V).  Dh
+// up to 128 (DP 32, 64 or 128; one block an SM at 128).
 #include <cstring>
+#include <type_traits>
 
 #include "attention.cuh"
 
 namespace repro_torch {
 
 // Two blocks an SM at DP 64 (the shared memory of N up to 448), three at
-// DP 32, where Swin's short windows make many small blocks.
-template <int DP>
-__global__ void __launch_bounds__(ATT_THREADS, DP == 32 ? 3 : 2)
+// DP 32, where Swin's short windows make many small blocks, one at DP 128.
+// BF16: the float MSA's bf16 mode (P rounded, bf16 out).
+template <int DP, bool BF16>
+__global__ void __launch_bounds__(ATT_THREADS,
+                                  DP == 32 ? 3 : DP == 64 ? 2 : 1)
 attention_kernel(const __grid_constant__ AttLayout L,
                  const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
@@ -51,62 +57,68 @@ attention_kernel(const __grid_constant__ AttLayout L,
                  const float* __restrict__ bias,
                  const float* __restrict__ mask, int nW) {
   extern __shared__ __align__(16) unsigned char att_smem[];
-  attention_tile<DP>(att_smem, L, q, k, v, sb, sn, sh, vec != 0, out, ob, on,
-                     oh, N, Dh, scale, out_scale, bias, mask, nW, blockIdx.x,
-                     blockIdx.y, blockIdx.z);
+  attention_tile<DP, BF16>(att_smem, L, q, k, v, sb, sn, sh, vec != 0, out,
+                           ob, on, oh, N, Dh, scale, out_scale, bias, mask,
+                           nW, blockIdx.x, blockIdx.y, blockIdx.z);
 }
 
-// The kernel for the layout's DP (32 or 64), or null.
-inline const void* attention_kernel_for(int dp) {
-  if (dp == 32) return (const void*)attention_kernel<32>;
-  if (dp == 64) return (const void*)attention_kernel<64>;
-  return nullptr;
+// f(kernel) for the kernel of the layout's DP (32, 64 or 128) and output
+// mode; cudaErrorInvalidValue for any other DP.
+template <typename F>
+int with_attention_kernel(int dp, bool bf16, F&& f) {
+  auto pick = [&](auto kernel_dp) {
+    constexpr int DP = decltype(kernel_dp)::value;
+    return bf16 ? f(attention_kernel<DP, true>)
+                : f(attention_kernel<DP, false>);
+  };
+  if (dp == 32) return pick(std::integral_constant<int, 32>{});
+  if (dp == 64) return pick(std::integral_constant<int, 64>{});
+  if (dp == 128) return pick(std::integral_constant<int, 128>{});
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace repro_torch
 
 // plan: the 12 ints of kernels/vita_msa.py::attention_plan(N, Dh) (the
-// tile's AttLayout), refused where it breaks a limit of the tile.
+// tile's AttLayout), refused where it breaks a limit of the tile.  bf16:
+// out is bf16 and P is rounded to bf16 before P . V (out_scale null).
 extern "C" int rt_attention(const float* q, const float* k, const float* v,
                             long long sb, long long sn, long long sh, void* out,
                             long long ob, long long on, long long oh, int B,
                             int H, int N, int Dh, float scale,
                             const float* out_scale, const float* bias,
-                            const float* mask, int nW, const int* plan,
-                            void* stream) {
+                            const float* mask, int nW, int bf16,
+                            const int* plan, void* stream) {
   using namespace repro_torch;
   AttLayout L;
   std::memcpy(&L, plan, sizeof L);
-  if (!att_layout_ok(L, N, Dh) || B < 1 || H < 1 || nW < 1)
+  if (!att_layout_ok(L, N, Dh) || B < 1 || H < 1 || nW < 1 ||
+      (bf16 && out_scale))
     return (int)cudaErrorInvalidValue;
   const int vec = Dh % 4 == 0 && sb % 4 == 0 && sh % 4 == 0 &&
                   vec_ok<float>(q, sn) && vec_ok<float>(k, sn) &&
                   vec_ok<float>(v, sn);
-  const void* kernel = attention_kernel_for(L.dp);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + L.rows - 1) / L.rows, H, B);
-  if (L.dp == 32)
-    attention_kernel<32><<<grid, ATT_THREADS, L.smem, (cudaStream_t)stream>>>(
-        L, q, k, v, sb, sn, sh, vec, out, ob, on, oh, N, Dh, scale, out_scale,
-        bias, mask, nW);
-  else
-    attention_kernel<64><<<grid, ATT_THREADS, L.smem, (cudaStream_t)stream>>>(
-        L, q, k, v, sb, sn, sh, vec, out, ob, on, oh, N, Dh, scale, out_scale,
-        bias, mask, nW);
-  return (int)cudaGetLastError();
+  return with_attention_kernel(L.dp, bf16 != 0, [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((N + L.rows - 1) / L.rows, H, B);
+    kernel<<<grid, ATT_THREADS, L.smem, (cudaStream_t)stream>>>(
+        L, q, k, v, sb, sn, sh, vec, out, ob, on, oh, N, Dh, scale,
+        out_scale, bias, mask, nW);
+    return (int)cudaGetLastError();
+  });
 }
 
 // Blocks of the attention kernel for DP `dp` that fit on one SM with
 // `smem` bytes of dynamic shared memory, into *per_sm.
 extern "C" int rt_attention_blocks_per_sm(int dp, int smem, int* per_sm) {
   using namespace repro_torch;
-  const void* kernel = attention_kernel_for(dp);
-  if (!kernel) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, kernel, ATT_THREADS, smem);
+  return with_attention_kernel(dp, false, [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, kernel, ATT_THREADS, smem);
+  });
 }

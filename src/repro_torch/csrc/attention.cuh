@@ -31,6 +31,16 @@
 //      blocks) over key group w / T: the page's 8-key steps w / T, w / T
 //      + 8 / T, ...; the groups' fp32 sums are added in group order.
 // The order of every sum depends on the tile alone, not on its caller.
+//
+// Widths: DP (Dh padded with zero columns) is 32, 64 or 128.  At DP 128
+// the eight warps are the eight 16-column blocks of P . V, one key group.
+// The float MSA (kernels 1, 5 and 7) runs this tile too where its own
+// cluster tile cannot hold K and V (Dh past 64, N past 512, or K and V
+// past a block's shared memory; kernels/vita_msa.py::msa_plan): with BF16
+// (z in bf16, V rounded to bf16 by the projection) P is rounded to bf16
+// after its normalisation and the output is written in bf16, as the TPU
+// kernel rounds P and V to z's type before the product.  The rounded P
+// and V are exact in TF32, so the split passes add only zeros.
 #pragma once
 
 #include "tf32_split.cuh"
@@ -63,9 +73,10 @@ __host__ __device__ constexpr int att_red_floats(int dp) {
 }
 
 inline bool att_layout_ok(const AttLayout& L, int N, int Dh) {
+  if (L.dp != 32 && L.dp != 64 && L.dp != 128) return false;
   const int sfl = L.rows * L.lds > att_red_floats(L.dp)
                       ? L.rows * L.lds : att_red_floats(L.dp);
-  return (L.dp == 32 || L.dp == 64) && Dh >= 1 && Dh <= L.dp && N >= 1 &&
+  return Dh >= 1 && Dh <= L.dp && N >= 1 &&
          L.rows == ATT_ROWS && L.nk >= N && L.nk % ATT_PAGE == 0 &&
          L.lds >= L.nk && L.lds % 2 == 0 && L.ldk == L.dp + 8 &&
          L.ldv == L.dp + 4 && L.stage >= ATT_PAGE * L.ldk * 4 &&
@@ -111,11 +122,15 @@ __device__ __forceinline__ SplitA load_presplit_a(const uint32_t* hi,
 // 4 (the pages copy by cp.async, else by plain loads).  out uses (ob, on,
 // oh) the same way and is float, or int8 quantised at *out_scale.  bias
 // (H, N, N) and mask (nW, N, N) select the windowed mode (both null:
-// global).  Ends with a block barrier, so a persistent block may take its
-// next item at once.  No pointer carries __restrict__: in the int8 group
-// kernel q, k, v and out are workspace that other blocks wrote earlier in
-// the same launch, which must not be read through the read-only cache.
-template <int DP>
+// global).  BF16: P rounded to bf16 and out bf16 (out_scale null).  Part:
+// the threads that run the tile, the whole block of ATT_THREADS, or the
+// first ATT_THREADS of a larger block (BlockPart<ATT_THREADS>, synced on
+// a named barrier; the float layer group's blocks are twice as wide).
+// Ends with a barrier of Part, so a persistent block may take its next
+// item at once.  No pointer carries __restrict__: in the group kernels q,
+// k, v and out are workspace that other blocks wrote earlier in the same
+// launch, which must not be read through the read-only cache.
+template <int DP, bool BF16 = false, typename Part = WholeBlock>
 __device__ __forceinline__ void attention_tile(
     unsigned char* smem, const AttLayout& L, const float* q, const float* k,
     const float* v, long long sb, long long sn, long long sh, bool vec,
@@ -161,7 +176,7 @@ __device__ __forceinline__ void attention_tile(
     if (i + S - 1 < loads) issue(i + S - 1);
     cp_async_commit();
     cp_async_wait_n(S - 1);
-    __syncthreads();
+    Part::sync();
     return reinterpret_cast<const float*>(ring + (i % S) * L.stage);
   };
   // Q of the slice (fp32, into Q_hi's place) joins the first copy group.
@@ -191,7 +206,7 @@ __device__ __forceinline__ void attention_tile(
         const int o = x / DP * LDK + x % DP;
         split_tf32(Qs[o], Qh[o], Ql[o]);
       }
-      __syncthreads();
+      Part::sync();
     }
     const int j0 = i * PAGE + 8 * warp, j = j0 + 2 * t;
     if (j0 < N) {
@@ -252,7 +267,7 @@ __device__ __forceinline__ void attention_tile(
         if (t == 0) atomicMax(rmax + r, ordered_int(m));
       }
     }
-    __syncthreads();
+    Part::sync();
   }
   // Exact softmax over the keys up to N rounded to 8 (the rest of the
   // last key tile scored -inf, so its P is 0): P = exp(S - max), and the
@@ -280,11 +295,14 @@ __device__ __forceinline__ void attention_tile(
       if (lane == 0) rinv[warp + ATT_WARPS * r] = __frcp_rn(sum[r]);
     }
   }
-  __syncthreads();
+  Part::sync();
   // P . V, a page at a time: warp w the 16 columns 16 (w % CB).. over key
   // group w / CB, the page's 8-key steps w / CB, w / CB + KG, ...; steps
   // past N would add products of zeros and are skipped.
   const int cb = warp % CB, kq = warp / CB;
+  auto p_of = [](float p) {
+    return BF16 ? round_to<__nv_bfloat16>(p) : p;
+  };
   float ri[2][2];                                    // [row group][g, g+8]
 #pragma unroll
   for (int e = 0; e < 4; ++e) ri[e / 2][e % 2] = rinv[8 * e + g];
@@ -305,15 +323,15 @@ __device__ __forceinline__ void attention_tile(
         const float2 u = *reinterpret_cast<const float2*>(pr);
         const float2 w = *reinterpret_cast<const float2*>(pr + 8 * LDS);
         SplitA a;
-        split_tf32(u.x * ri[rg][0], a.hi[0], a.lo[0]);
-        split_tf32(w.x * ri[rg][1], a.hi[1], a.lo[1]);
-        split_tf32(u.y * ri[rg][0], a.hi[2], a.lo[2]);
-        split_tf32(w.y * ri[rg][1], a.hi[3], a.lo[3]);
+        split_tf32(p_of(u.x * ri[rg][0]), a.hi[0], a.lo[0]);
+        split_tf32(p_of(w.x * ri[rg][1]), a.hi[1], a.lo[1]);
+        split_tf32(p_of(u.y * ri[rg][0]), a.hi[2], a.lo[2]);
+        split_tf32(p_of(w.y * ri[rg][1]), a.hi[3], a.lo[3]);
         mma_split<false>(so[rg][0], a, vb, 0);
         mma_split<false>(so[rg][1], a, vb, 1);
       }
     }
-    __syncthreads();
+    Part::sync();
   }
   cp_async_wait<0>();
   // The key groups' sums, added in group order, to out; every read of the
@@ -328,7 +346,7 @@ __device__ __forceinline__ void attention_tile(
       red[((kq - 1) * 16 + e) * (CB * 32) + rt] =
           split_value(so[e / 8][(e / 4) % 2], e % 4);
   }
-  __syncthreads();
+  Part::sync();
   if (kq == 0) {
 #pragma unroll
     for (int e = 0; e < 16; ++e) {
@@ -342,14 +360,16 @@ __device__ __forceinline__ void attention_tile(
       if (n < N && col < Dh) {
         const long long i = (long long)b * ob + (long long)n * on +
                             (long long)h * oh + col;
-        if (out_scale)
+        if constexpr (BF16)
+          static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(o);
+        else if (out_scale)
           static_cast<int8_t*>(out)[i] = quant_i8(o, os);
         else
           static_cast<float*>(out)[i] = o;
       }
     }
   }
-  __syncthreads();
+  Part::sync();
 }
 
 }  // namespace repro_torch

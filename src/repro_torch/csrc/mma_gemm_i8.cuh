@@ -66,25 +66,6 @@ struct MiTile {
   static constexpr int SMEM = STAGES * STAGE > RED ? STAGES * STAGE : RED;
 };
 
-// The threads that run one tile: the whole block, or part
-// threadIdx.x / THREADS of it, which syncs on named barrier 1 + that part
-// (barrier 0 is __syncthreads').
-struct WholeBlock {
-  static __device__ __forceinline__ int tid() { return threadIdx.x; }
-  static __device__ __forceinline__ void sync() { __syncthreads(); }
-};
-template <int THREADS>
-struct BlockPart {
-  static __device__ __forceinline__ int tid() {
-    return threadIdx.x % THREADS;
-  }
-  static __device__ __forceinline__ void sync() {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + (int)threadIdx.x / THREADS),
-                 "n"(THREADS)
-                 : "memory");
-  }
-};
-
 // True where W-byte copies stay inside every row (a, b), head (c) and
 // column range (d) and p is W-byte aligned.
 inline bool width_ok(int w, long long a, long long b, long long c,

@@ -9,6 +9,11 @@
 // rows over all N keys).  `msa_tile` runs the three; the layer-group
 // kernel (vita_layer_group.cu) runs the first and the last in stages of
 // their own, with K and V passing through device memory in between.
+// Where K and V of all N rows do not fit a block (Dh 65-128, more than 8
+// slices, or more than a block's shared memory) the plan is paged: only
+// `msa_project` runs here (vita_msa.cu's projection kernel, or the layer
+// group's stage), at DP 64 or 128, and attention.cuh's tile pages K and V
+// out of device memory.
 //
 // Work split.  Block c of the cluster owns rows [64 c, 64 c + 64) of the N
 // tokens (C = ceil(N / 64) <= 8, kernels/vita_msa.py::msa_plan: 4 at DeiT-T's and
@@ -66,21 +71,36 @@ constexpr int MSA_WARPS = 16, MSA_THREADS = 32 * MSA_WARPS, MSA_ROWS = 64,
 // of every fragment load on distinct banks.  kernels/vita_msa.py::msa_plan
 // computes the layout (the fields in this order) and the launch takes it
 // as is; `msa_layout_ok` checks only the limits the tile's code assumes.
+//
+// Paged plans (`paged` 1): where K and V of all N rows do not fit one
+// block beside Q and the scores (Dh past 64, N past 8 slices of 64, or
+// more than a block's shared memory), the projection runs alone, one
+// block per (image, head, 64-row slice) at DP 64 or 128, its ring at
+// offset 0 (ring_off 0, the buffer offsets unused), and writes Q, K and V
+// to device memory; the attention then pages K and V through the
+// attention tile (attention.cuh) at its own layout.
 struct MsaLayout {
   int dp, rows, cluster, nk, lds, stage, stages;
-  int q_off, k_off, v_off, s_off, p_off, ring_off, smem;
+  int q_off, k_off, v_off, s_off, p_off, ring_off, smem, paged;
 };
-static_assert(sizeof(MsaLayout) == 14 * sizeof(int), "plan is 14 ints");
+static_assert(sizeof(MsaLayout) == 15 * sizeof(int), "plan is 15 ints");
 
 // The limits a plan for N tokens of head width Dh must keep: Dh padded to
-// a DP the tile is built for, blocks of MSA_ROWS rows covering N in at
-// most MSA_MAX_CLUSTER blocks, and one block's shared memory.
+// a DP the tile is built for, blocks of MSA_ROWS rows covering N (in at
+// most MSA_MAX_CLUSTER blocks a cluster), and one block's shared memory.
 inline bool msa_layout_ok(const MsaLayout& L, int N, int Dh) {
-  return (L.dp == 32 || L.dp == 64) && Dh >= 1 && Dh <= L.dp &&
-         L.rows == MSA_ROWS && L.cluster >= 1 &&
-         L.cluster <= MSA_MAX_CLUSTER && N >= 1 &&
-         (long long)L.cluster * L.rows >= N && L.nk >= N &&
-         L.stages >= 1 && L.smem <= MSA_SMEM_LIMIT;
+  const bool dp_ok = L.paged ? L.dp == 64 || L.dp == 128
+                             : L.dp == 32 || L.dp == 64;
+  const bool common = dp_ok && Dh >= 1 && Dh <= L.dp && N >= 1 &&
+                      L.rows == MSA_ROWS && L.cluster >= 1 &&
+                      (long long)L.cluster * L.rows >= N &&
+                      L.stages >= 1 && L.stage > 0 &&
+                      L.smem <= MSA_SMEM_LIMIT;
+  if (L.paged == 1)
+    return common && L.ring_off == 0 && L.stages <= MSA_MAX_STAGES &&
+           (long long)L.stages * L.stage <= L.smem;
+  return common && L.paged == 0 && L.cluster <= MSA_MAX_CLUSTER &&
+         L.nk >= N;
 }
 
 namespace cg = cooperative_groups;
@@ -91,18 +111,26 @@ namespace cg = cooperative_groups;
 // 1 K, 2 V, r the row within the 64, col < DP (qkv_bias added).  The copy
 // ring lies at L.ring_off; every thread is past its last read of it when
 // `put` is called.  vecs: bit 0, z rows are 16-byte aligned; bit 1, the
-// weight rows are.
+// weight rows are.  Up to DP 64 the three slices go side by side in one
+// pass; at DP 128 (paged plans only) one slice a pass, three passes over
+// z, so that a warp holds the accumulators of DP 32's side-by-side pass
+// (each value's sum over D runs in the same order either way), or the
+// passes of slices [p_first, p_last) only.  Between passes `put` has
+// run, so it must not write what the ring overlays: in paged plans it
+// writes device memory.
 template <typename ZT, typename WT, int DP, typename Put>
 __device__ __forceinline__ void msa_project(
     unsigned char* smem, const MsaLayout& L, const ZT* z,
     const WT* __restrict__ wq, const WT* __restrict__ wk,
     const WT* __restrict__ wv, const WT* __restrict__ qkv_bias, int N,
-    int D, int H, int Dh, int vecs, int h, int b, int row0, Put&& put) {
+    int D, int H, int Dh, int vecs, int h, int b, int row0, Put&& put,
+    int p_first = 0, int p_last = 3) {
   constexpr bool TC = sizeof(ZT) == 2;            // bf16 z and weights
   constexpr bool EXACT_W = sizeof(WT) == 2;       // bf16 weights in TF32
   constexpr int KC = TC ? 64 : 32;
-  constexpr int LDZ = KC + 8, LDW = 3 * DP + (sizeof(WT) == 4 ? 4 : 8);
-  constexpr int NBLK = 3 * DP / 16, NB = (NBLK + 3) / 4;
+  constexpr int NP = DP > 64 ? 1 : 3;             // weight slices a pass
+  constexpr int LDZ = KC + 8, LDW = NP * DP + (sizeof(WT) == 4 ? 4 : 8);
+  constexpr int NBLK = NP * DP / 16, NB = (NBLK + 3) / 4;
   unsigned char* ring = smem + L.ring_off;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
@@ -113,108 +141,110 @@ __device__ __forceinline__ void msa_project(
   const bool vz = vecs & 1, vw = vecs & 2;
   const int steps = (D + KC - 1) / KC, S = L.stages;
   // Warp (pm, wn): rows 16 pm.. of the 64 and column blocks wn, wn + 4,
-  // wn + 8 of the 3 DP.
+  // ... of the pass's NP DP columns.
   const int pm = warp % 4, wn = warp / 4;
   const int n0 = row0;
-  auto issue = [&](int st) {
-    unsigned char* stg = ring + (st % S) * L.stage;
-    const int k0 = st * KC;
-    if (vz)
-      load_tile_fast<ZT, MSA_THREADS, MSA_ROWS, KC>(
-          stg, LDZ * (int)sizeof(ZT), zb, D, n0, N, k0, D);
-    else
-      load_tile<ZT, MSA_THREADS>(stg, LDZ * (int)sizeof(ZT), zb, D, n0, N,
-                                 k0, D, MSA_ROWS, KC, false);
-    unsigned char* ws = stg + MSA_ROWS * LDZ * sizeof(ZT);
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      unsigned char* wp = ws + p * DP * sizeof(WT);
-      if (vw)
-        load_tile_fast<WT, MSA_THREADS, KC, DP>(wp, LDW * (int)sizeof(WT),
-                                                wsrc[p], Dh, k0, D, 0, Dh);
+  for (int p0 = p_first; p0 < p_last; p0 += NP) {
+    auto issue = [&](int st) {
+      unsigned char* stg = ring + (st % S) * L.stage;
+      const int k0 = st * KC;
+      if (vz)
+        load_tile_fast<ZT, MSA_THREADS, MSA_ROWS, KC>(
+            stg, LDZ * (int)sizeof(ZT), zb, D, n0, N, k0, D);
       else
-        load_tile<WT, MSA_THREADS>(wp, LDW * (int)sizeof(WT), wsrc[p], Dh,
-                                   k0, D, 0, Dh, KC, DP, false);
+        load_tile<ZT, MSA_THREADS>(stg, LDZ * (int)sizeof(ZT), zb, D, n0, N,
+                                   k0, D, MSA_ROWS, KC, false);
+      unsigned char* ws = stg + MSA_ROWS * LDZ * sizeof(ZT);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        unsigned char* wp = ws + p * DP * sizeof(WT);
+        if (vw)
+          load_tile_fast<WT, MSA_THREADS, KC, DP>(
+              wp, LDW * (int)sizeof(WT), wsrc[p0 + p], Dh, k0, D, 0, Dh);
+        else
+          load_tile<WT, MSA_THREADS>(wp, LDW * (int)sizeof(WT), wsrc[p0 + p],
+                                     Dh, k0, D, 0, Dh, KC, DP, false);
+      }
+    };
+    float acc[NB][2][4];      // bf16 products
+    SplitAcc sacc[NB][2];     // split TF32 products
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        acc[i][e / 4][e % 4] = 0.f;
+        if (e < 2) split_zero(sacc[i][e]);
+      }
+    for (int st = 0; st < S - 1; ++st) {
+      if (st < steps) issue(st);
+      cp_async_commit();
     }
-  };
-  float acc[NB][2][4];      // bf16 products
-  SplitAcc sacc[NB][2];     // split TF32 products
+    for (int st = 0; st < steps; ++st) {
+      if (st + S - 1 < steps) issue(st + S - 1);
+      cp_async_commit();
+      cp_async_wait_n(S - 1);
+      __syncthreads();
+      const unsigned char* stg = ring + (st % S) * L.stage;
+      const ZT* zs = reinterpret_cast<const ZT*>(stg);
+      const WT* ws =
+          reinterpret_cast<const WT*>(stg + MSA_ROWS * LDZ * sizeof(ZT));
+      if constexpr (TC) {
 #pragma unroll
-  for (int i = 0; i < NB; ++i)
+        for (int ks = 0; ks < KC / 16; ++ks) {
+          uint32_t a[4];
+          ldmatrix_x4(a, zs + (16 * pm + lm_row(lane)) * LDZ + 16 * ks +
+                             lm_col(lane));
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      acc[i][e / 4][e % 4] = 0.f;
-      if (e < 2) split_zero(sacc[i][e]);
-    }
-  for (int st = 0; st < S - 1; ++st) {
-    if (st < steps) issue(st);
-    cp_async_commit();
-  }
-  for (int st = 0; st < steps; ++st) {
-    if (st + S - 1 < steps) issue(st + S - 1);
-    cp_async_commit();
-    cp_async_wait_n(S - 1);
-    __syncthreads();
-    const unsigned char* stg = ring + (st % S) * L.stage;
-    const ZT* zs = reinterpret_cast<const ZT*>(stg);
-    const WT* ws =
-        reinterpret_cast<const WT*>(stg + MSA_ROWS * LDZ * sizeof(ZT));
-    if constexpr (TC) {
+          for (int i = 0; i < NB; ++i) {
+            const int cb = wn + 4 * i;
+            if (cb < NBLK) {
+              uint32_t bq[4];
+              ldmatrix_x4_trans(bq, ws + (16 * ks + lm_row(lane)) * LDW +
+                                        16 * cb + lm_col(lane));
+              mma_bf16_16816(acc[i][0], a, bq[0], bq[1]);
+              mma_bf16_16816(acc[i][1], a, bq[2], bq[3]);
+            }
+          }
+        }
+      } else {
 #pragma unroll
-      for (int ks = 0; ks < KC / 16; ++ks) {
-        uint32_t a[4];
-        ldmatrix_x4(a, zs + (16 * pm + lm_row(lane)) * LDZ + 16 * ks +
-                           lm_col(lane));
+        for (int ks = 0; ks < KC / 8; ++ks) {
+          const SplitA a = load_split_a(reinterpret_cast<const float*>(zs),
+                                        LDZ, 16 * pm + g, 8 * ks);
 #pragma unroll
-        for (int i = 0; i < NB; ++i) {
-          const int cb = wn + 4 * i;
-          if (cb < NBLK) {
-            uint32_t bq[4];
-            ldmatrix_x4_trans(bq, ws + (16 * ks + lm_row(lane)) * LDW +
-                                      16 * cb + lm_col(lane));
-            mma_bf16_16816(acc[i][0], a, bq[0], bq[1]);
-            mma_bf16_16816(acc[i][1], a, bq[2], bq[3]);
+          for (int i = 0; i < NB; ++i) {
+            const int cb = wn + 4 * i;
+            if (cb < NBLK) {
+              const PairB bb = load_pair_b(ws, LDW, 8 * ks, 16 * cb);
+              mma_split<EXACT_W>(sacc[i][0], a, bb, 0);
+              mma_split<EXACT_W>(sacc[i][1], a, bb, 1);
+            }
           }
         }
       }
-    } else {
-#pragma unroll
-      for (int ks = 0; ks < KC / 8; ++ks) {
-        const SplitA a = load_split_a(reinterpret_cast<const float*>(zs),
-                                      LDZ, 16 * pm + g, 8 * ks);
-#pragma unroll
-        for (int i = 0; i < NB; ++i) {
-          const int cb = wn + 4 * i;
-          if (cb < NBLK) {
-            const PairB bb = load_pair_b(ws, LDW, 8 * ks, 16 * cb);
-            mma_split<EXACT_W>(sacc[i][0], a, bb, 0);
-            mma_split<EXACT_W>(sacc[i][1], a, bb, 1);
-          }
-        }
-      }
+      __syncthreads();
     }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  // Epilogue: each value (+ qkv_bias) to `put`.
+    cp_async_wait<0>();
+    // Epilogue: each value (+ qkv_bias) to `put`.
 #pragma unroll
-  for (int i = 0; i < NB; ++i) {
-    const int cb = wn + 4 * i;
-    if (cb >= NBLK) continue;
-    const int part = 16 * cb / DP, c0 = 16 * cb - part * DP;
-    const WT* pb = qkv_bias ? qkv_bias + ((size_t)part * H + h) * Dh
-                            : nullptr;
+    for (int i = 0; i < NB; ++i) {
+      const int cb = wn + 4 * i;
+      if (cb >= NBLK) continue;
+      const int part = p0 + 16 * cb / DP, c0 = 16 * cb - (part - p0) * DP;
+      const WT* pb = qkv_bias ? qkv_bias + ((size_t)part * H + h) * Dh
+                              : nullptr;
 #pragma unroll
-    for (int half = 0; half < 2; ++half)
+      for (int half = 0; half < 2; ++half)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = TC ? c0 + 8 * half + 2 * t + (e & 1)
-                           : pair_col(c0, half, e);
-        const int r = 16 * pm + g + 8 * (e >> 1);
-        float v = TC ? acc[i][half][e] : split_value(sacc[i][half], e);
-        if (pb && col < Dh) v += to_f(pb[col]);
-        put(part, r, col, v);
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int col = TC ? c0 + 8 * half + 2 * t + (e & 1)
+                             : pair_col(c0, half, e);
+          const int r = 16 * pm + g + 8 * (e >> 1);
+          float v = TC ? acc[i][half][e] : split_value(sacc[i][half], e);
+          if (pb && col < Dh) v += to_f(pb[col]);
+          put(part, r, col, v);
+        }
+    }
   }
 }
 

@@ -54,7 +54,14 @@
 // shared memory (the MSA tile's layout, which the GEMM ring fits inside)
 // and each stage's tiles and waves.  The weights and LN vectors are WT
 // (float or bf16: bf16 weights enter the products exactly, in two TF32
-// passes); every workspace buffer is fp32.
+// passes); every workspace buffer is fp32.  Where the MSA plan is paged
+// (Dh 65-128, or N whose K and V pass a block's shared memory), kernel 1
+// projects and then runs the attention tile of attention.cuh, and so does
+// stage 3 here: one (image, head, 32-query slice) an item, on the block's
+// first 256 threads (the tile is 8 warps; the other half waits), K and V
+// paged from the workspace.  Every paged plan runs on a kernel of its
+// own (DP = LG_PAGED), with its DP 128 projection and its attention items
+// out of line, so the cluster plans' kernels are what they were.
 //
 // The int8 kernel (kernel 8) runs the per-layer int8 chain's tiles, 256
 // threads a block: its four GEMM stages are kernel 4's int8 tensor-core
@@ -120,12 +127,14 @@ struct LayerGroupArgs {
 
 // The float kernel's launch plan, field for field
 // kernels/vita_layer_group.py::GroupPlan.launch_ints(): the MSA tile's
-// layout (on fp32 z), the grid and the dynamic shared memory a block.
+// layout (on fp32 z), the attention tile's (read where the MSA layout is
+// paged), the grid and the dynamic shared memory a block.
 struct GroupLayout {
   MsaLayout msa;
+  AttLayout att;
   int grid, smem;
 };
-static_assert(sizeof(GroupLayout) == 16 * sizeof(int), "plan is 16 ints");
+static_assert(sizeof(GroupLayout) == 29 * sizeof(int), "plan is 29 ints");
 
 // The float kernel's parameters: the operands, the plan, and per stage
 // whether its operands' rows are 16-byte aligned (`vecs` of msa_project
@@ -163,6 +172,60 @@ __device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
 // Kernel 7: the float group on kernel 1's tensor-core tiles
 // ---------------------------------------------------------------------------
 
+// Stage 2's tile t of layer l: Q, K and V of (image, head, 64-row slice)
+// by the MSA tile's projection, written to the workspace.
+template <typename WT, int DP>
+__device__ __forceinline__ void float_project_slice(
+    unsigned char* smem, int t, int l, const FloatGroupArgs& f) {
+  const LayerGroupArgs& a = f.a;
+  const int N = a.N, D = a.D, H = a.H, Dh = a.Dh, C = f.p.msa.cluster;
+  const long long HD = (long long)H * Dh;
+  const size_t qkv_sz = (size_t)H * D * Dh;
+  const int b = t / (H * C), h = (t / C) % H, row0 = (t % C) * MSA_ROWS;
+  float* const qkv[3] = {a.q, a.k, a.v};
+  msa_project<float, WT, DP>(
+      smem, f.p.msa, static_cast<const float*>(a.z),
+      static_cast<const WT*>(a.wq) + l * qkv_sz,
+      static_cast<const WT*>(a.wk) + l * qkv_sz,
+      static_cast<const WT*>(a.wv) + l * qkv_sz,
+      static_cast<const WT*>(nullptr), N, D, H, Dh, f.v_proj, h, b, row0,
+      [&](int part, int r, int col, float v) {
+        const int n = row0 + r;
+        if (n < N && col < Dh)
+          qkv[part][((long long)b * N + n) * HD + h * Dh + col] = v;
+      });
+}
+
+// The DP 128 projection of a paged plan, out of line.
+template <typename WT>
+__device__ __noinline__ void float_project_wide(unsigned char* smem, int t,
+                                                int l,
+                                                const FloatGroupArgs* f) {
+  float_project_slice<WT, 128>(smem, t, l, *f);
+}
+
+// Stage 3's item t of layer l under a paged plan: the attention tile (as
+// kernel 1's attention launch runs it) per (image, head, 32-query slice)
+// on Q, K and V of the workspace, run by the block's first ATT_THREADS
+// threads.  Out of line, as kernel 8's.
+template <int DP>
+__device__ __noinline__ void float_attention_item(unsigned char* smem, int t,
+                                                  int l,
+                                                  const FloatGroupArgs* f) {
+  const LayerGroupArgs& a = f->a;
+  const int N = a.N, HD = a.H * a.Dh, qt = cdiv(N, ATT_ROWS);
+  const long long sb = (long long)N * HD;
+  const float* bias = a.bias ? a.bias + (size_t)l * a.H * N * N : nullptr;
+  attention_tile<DP, false, BlockPart<ATT_THREADS>>(
+      smem, f->p.att, a.q, a.k, a.v, sb, HD, a.Dh, f->v_att != 0, a.sa, sb,
+      HD, a.Dh, N, a.Dh, a.scale, nullptr, bias, a.mask, a.nW, t % qt,
+      (t / qt) % a.H, t / (a.H * qt));
+}
+
+// The kernel DP that stands for every paged plan (its stages take the
+// plan's DP at run time).
+constexpr int LG_PAGED = 0;
+
 template <typename XT, typename WT, int DP>
 __device__ __forceinline__ void float_group_body(const FloatGroupArgs& f,
                                                  unsigned char* smem) {
@@ -174,6 +237,9 @@ __device__ __forceinline__ void float_group_body(const FloatGroupArgs& f,
   const int gwarp = blockIdx.x * warps + threadIdx.x / 32;
   const int nwarps = gridDim.x * warps;
   const int C = L.cluster, slices = a.B * H * C;   // (image, head, 64 rows)
+  // Paged plans (kernel DP LG_PAGED) run the projection, then the
+  // attention tile, as kernel 1 does for them.
+  constexpr bool PAGED = DP == LG_PAGED;
   const int mt = cdiv(R, MG_BM), ntd = cdiv(D, MG_BN), ntm = cdiv(M, MG_BN);
   const size_t qkv_sz = (size_t)H * D * Dh, msa_sz = (size_t)HD * D,
                mlp_sz = (size_t)D * M;
@@ -187,7 +253,6 @@ __device__ __forceinline__ void float_group_body(const FloatGroupArgs& f,
   float* z = static_cast<float*>(a.z);
   float* sa = static_cast<float*>(a.sa);
   float* hid = static_cast<float*>(a.hid);
-  float* const qkv[3] = {a.q, a.k, a.v};
   unsigned int target = 0;
   for (int l = 0; l < a.L; ++l) {
     const WT* wq = static_cast<const WT*>(a.wq) + l * qkv_sz;
@@ -212,36 +277,57 @@ __device__ __forceinline__ void float_group_body(const FloatGroupArgs& f,
     // 2. Q, K, V of each (image, head, 64-row slice): the MSA tile's
     //    projection, its rows written to the workspace
     for (int t = blockIdx.x; t < slices; t += gridDim.x) {
-      const int b = t / (H * C), h = (t / C) % H, row0 = (t % C) * MSA_ROWS;
-      msa_project<float, WT, DP>(
-          smem, L, z, wq, wk, wv, static_cast<const WT*>(nullptr), N, D, H,
-          Dh, f.v_proj, h, b, row0, [&](int part, int r, int col, float v) {
-            const int n = row0 + r;
-            if (n < N && col < Dh)
-              qkv[part][((long long)b * N + n) * HD + h * Dh + col] = v;
-          });
+      if constexpr (PAGED) {
+        if (L.dp == 128)
+          float_project_wide<WT>(smem, t, l, &f);
+        else
+          float_project_slice<WT, 64>(smem, t, l, f);
+      } else {
+        float_project_slice<WT, DP>(smem, t, l, f);
+      }
     }
     grid_barrier(a.bar, target);
 
-    // 3. SA of each (image, head, 64-row slice): Q of the slice and K, V of
-    //    all N rows (zero past N and Dh) into the tile's buffers, then the
-    //    MSA tile's attention
-    for (int t = blockIdx.x; t < slices; t += gridDim.x) {
-      const int b = t / (H * C), h = (t / C) % H, row0 = (t % C) * MSA_ROWS;
-      const long long base = (long long)b * N * HD + (long long)h * Dh;
-      const bool vec = f.v_att;
-      load_tile<float, LG_THREADS>(smem + L.q_off, (DP + 8) * 4, a.q + base,
-                                   HD, row0, N, 0, Dh, MSA_ROWS, DP, vec);
-      load_tile<float, LG_THREADS>(smem + L.k_off, (DP + 8) * 4, a.k + base,
-                                   HD, 0, N, 0, Dh, L.nk, DP, vec);
-      load_tile<float, LG_THREADS>(smem + L.v_off, (DP + 4) * 4, a.v + base,
-                                   HD, 0, N, 0, Dh, L.nk, DP, vec);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      msa_attend<float, DP>(smem, L, bias, a.mask, a.nW, sa,
-                            (long long)N * HD, HD, Dh, N, Dh, a.scale, h, b,
-                            row0);
+    // 3. SA.  Paged plan: the attention tile per (image, head, 32-query
+    //    slice), paging K and V from the workspace.  Cluster plan: per
+    //    (image, head, 64-row slice), Q of the slice and K, V of all N rows
+    //    (zero past N and Dh) into the tile's buffers, then the MSA tile's
+    //    attention.
+    if constexpr (PAGED) {
+      const int items = a.B * H * cdiv(N, ATT_ROWS), adp = f.p.att.dp;
+      for (int t = blockIdx.x; t < items; t += gridDim.x) {
+        if (threadIdx.x < ATT_THREADS) {
+          if (adp == 32)
+            float_attention_item<32>(smem, t, l, &f);
+          else if (adp == 64)
+            float_attention_item<64>(smem, t, l, &f);
+          else
+            float_attention_item<128>(smem, t, l, &f);
+        }
+        __syncthreads();
+      }
+    } else {
+      for (int t = blockIdx.x; t < slices; t += gridDim.x) {
+        const int b = t / (H * C), h = (t / C) % H,
+                  row0 = (t % C) * MSA_ROWS;
+        const long long base = (long long)b * N * HD + (long long)h * Dh;
+        const bool vec = f.v_att;
+        load_tile<float, LG_THREADS>(smem + L.q_off, (DP + 8) * 4,
+                                     a.q + base, HD, row0, N, 0, Dh,
+                                     MSA_ROWS, DP, vec);
+        load_tile<float, LG_THREADS>(smem + L.k_off, (DP + 8) * 4,
+                                     a.k + base, HD, 0, N, 0, Dh, L.nk, DP,
+                                     vec);
+        load_tile<float, LG_THREADS>(smem + L.v_off, (DP + 4) * 4,
+                                     a.v + base, HD, 0, N, 0, Dh, L.nk, DP,
+                                     vec);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        msa_attend<float, DP>(smem, L, bias, a.mask, a.nW, sa,
+                              (long long)N * HD, HD, Dh, N, Dh, a.scale, h,
+                              b, row0);
+      }
     }
     grid_barrier(a.bar, target);
 
@@ -303,7 +389,7 @@ __device__ __forceinline__ void float_group_body(const FloatGroupArgs& f,
 
 template <typename XT, typename WT, int DP>
 __global__ void __launch_bounds__(LG_THREADS, 1)
-vita_layer_group_kernel(FloatGroupArgs f) {
+vita_layer_group_kernel(const __grid_constant__ FloatGroupArgs f) {
   extern __shared__ __align__(16) unsigned char lg_smem[];
   float_group_body<XT, WT, DP>(f, lg_smem);
 }
@@ -474,8 +560,10 @@ __device__ __forceinline__ void int8_group_body(const Int8GroupArgs* ga,
          t < items; t += gridDim.x) {
       if (ga->p.att.dp == 32)
         i8_attention_item<32>(smem, t, l, ga);
-      else
+      else if (ga->p.att.dp == 64)
         i8_attention_item<64>(smem, t, l, ga);
+      else
+        i8_attention_item<128>(smem, t, l, ga);
     }
     grid_barrier(a.bar, target);
 
@@ -545,7 +633,13 @@ static int launch_cooperative(const void* kernel, void* args, int grid,
   return (int)cudaGetLastError();
 }
 
-// The float kernel for (xt, wt) (`dispatch_mode`) and the tile width dp.
+// The DP of the float kernel that runs MSA layout L: its own for a
+// cluster plan, LG_PAGED for every paged plan.
+inline int group_kernel_dp(const MsaLayout& L) {
+  return L.paged ? LG_PAGED : L.dp;
+}
+
+// The float kernel for (xt, wt) (`dispatch_mode`) and the kernel's DP.
 template <typename F>
 int dispatch_float_group(int xt, int wt, int dp, F&& f) {
   return dispatch_mode(xt, wt, [&](auto xtag, auto wtag) {
@@ -555,6 +649,9 @@ int dispatch_float_group(int xt, int wt, int dp, F&& f) {
       return f((const void*)vita_layer_group_kernel<XT, WT, 32>, wtag);
     if (dp == 64)
       return f((const void*)vita_layer_group_kernel<XT, WT, 64>, wtag);
+    if (dp == LG_PAGED)
+      return f((const void*)vita_layer_group_kernel<XT, WT, LG_PAGED>,
+               wtag);
     return (int)cudaErrorInvalidValue;
   });
 }
@@ -563,7 +660,7 @@ int dispatch_float_group(int xt, int wt, int dp, F&& f) {
 
 // Blocks of the float group kernel for (xt, wt, dp) that fit on one SM
 // with `smem` bytes of dynamic shared memory, into *per_sm: what
-// kernels/vita_layer_group.py sizes the grid by.
+// kernels/vita_layer_group.py sizes the grid by (dp: `group_kernel_dp`).
 extern "C" int rt_vita_layer_group_blocks_per_sm(int xt, int wt, int dp,
                                                  int smem, int* per_sm) {
   using namespace repro_torch;
@@ -575,10 +672,10 @@ extern "C" int rt_vita_layer_group_blocks_per_sm(int xt, int wt, int dp,
 // Float group: x and out in xt, the weights (L, ...), LN vectors and
 // biases in wt (ElemCodes; `dispatch_mode`); ws_* are the workspace views
 // z (R, D), q/k/v/sa (R, H*Dh), h1 (R, D), hid (R, M), carry (R, D)
-// float32 with R = B*N, and bar one uint32.  plan: the 16 ints of the
+// float32 with R = B*N, and bar one uint32.  plan: the 29 ints of the
 // wrapper's GroupPlan (kernels/vita_layer_group.py::group_plan), refused
-// where its MSA layout breaks a limit of the tile (`msa_layout_ok`) or its
-// shared memory holds less than the tiles need.
+// where its MSA layout (or, paged, its attention layout) breaks a limit of
+// the tile or its shared memory holds less than the tiles need.
 extern "C" int rt_vita_layer_group(
     const void* x, const void* wq, const void* wk, const void* wv,
     const void* wmsa, const void* ln1w, const void* ln1b, const void* ln2w,
@@ -596,12 +693,16 @@ extern "C" int rt_vita_layer_group(
                        mask, z, q, k, v, sa, h1, hid, carry, bar, B, N, D, H,
                        Dh, M, L, nW, scale, eps};
   std::memcpy(&f.p, plan, sizeof f.p);
-  if (!msa_layout_ok(f.p.msa, N, Dh) || f.p.smem < f.p.msa.smem ||
-      f.p.smem > MSA_SMEM_LIMIT)
+  const MsaLayout& ml = f.p.msa;
+  if (!msa_layout_ok(ml, N, Dh) || f.p.smem < ml.smem ||
+      f.p.smem > MSA_SMEM_LIMIT ||
+      (ml.paged && (!att_layout_ok(f.p.att, N, Dh) ||
+                    f.p.smem < f.p.att.smem ||
+                    ml.stages * ml.stage > f.p.smem)))
     return (int)cudaErrorInvalidValue;
   const int HD = H * Dh;
-  return dispatch_float_group(xt, wt, f.p.msa.dp, [&](const void* kernel,
-                                                      auto wtag) {
+  return dispatch_float_group(xt, wt, group_kernel_dp(ml), [&](
+                                  const void* kernel, auto wtag) {
     using WT = typename decltype(wtag)::type;
     if (f.p.smem < MgSmem<WT>::BYTES) return (int)cudaErrorInvalidValue;
     constexpr int WV = 16 / (int)sizeof(WT);

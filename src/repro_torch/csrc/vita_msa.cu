@@ -32,6 +32,15 @@
 // mask (nW, N, N) join the scores after the scale, the mask picked by
 // b % nW; qkv_bias (3, H, Dh) is added to the projections.
 //
+// Shapes past the cluster: where K and V of all N rows do not fit a block
+// beside Q and the scores (Dh 65-128, N past 8 slices of 64, or fp32 N
+// past 256 at Dh 64), kernels/vita_msa.py::msa_plan gives a paged plan and
+// the wrapper makes two launches: `rt_msa_project` (below: the same
+// projection, one block per (image, head, 64-row slice), Q, K and V to
+// device memory, V rounded to z's type) and the attention tile of
+// attention.cu, which pages K and V through shared memory.  At DP 128 the
+// projection takes the head's three weight slices one a pass.
+//
 // dtype modes (ref.PORTED_MODES): z ZT with weights WT, fp32 / fp32, fp32 /
 // bf16 or bf16 / bf16; Q, K and the scores fp32; V and P rounded to ZT
 // before the P.V product (softmax_av, out_dtype = z.dtype), the sum fp32,
@@ -56,6 +65,35 @@ vita_msa_kernel(const ZT* __restrict__ z, const WT* __restrict__ wq,
   msa_tile<ZT, WT, DP>(smem, L, z, wq, wk, wv, qkv_bias, bias, mask, nW, out,
                        ob, on, oh, N, D, H, Dh, scale, vecs, blockIdx.y,
                        blockIdx.z);
+}
+
+// The projection of a paged plan: block (slice, head, image) writes Q, K
+// and V of its 64 rows (fp32; V rounded to ZT) to q/k/v (B*N, H*Dh); at
+// DP 128 block (3 slice + p, head, image) writes part p of the three (a
+// wide head has few slices, and a slice a block would leave most SMs
+// idle).
+template <typename ZT, typename WT, int DP>
+__global__ void __launch_bounds__(MSA_THREADS, 1)
+msa_project_kernel(const ZT* __restrict__ z, const WT* __restrict__ wq,
+                   const WT* __restrict__ wk, const WT* __restrict__ wv,
+                   const WT* __restrict__ qkv_bias, float* __restrict__ q,
+                   float* __restrict__ k, float* __restrict__ v, int N, int D,
+                   int H, int Dh, MsaLayout L, int vecs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int PARTS = DP > 64 ? 3 : 1;          // blocks a slice
+  const int slice = blockIdx.x / PARTS, p = blockIdx.x % PARTS;
+  const int row0 = slice * MSA_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const long long HD = (long long)H * Dh;
+  float* const dst[3] = {q, k, v};
+  msa_project<ZT, WT, DP>(
+      smem, L, z, wq, wk, wv, qkv_bias, N, D, H, Dh, vecs, h, b, row0,
+      [&](int part, int r, int col, float val) {
+        const int n = row0 + r;
+        if (n < N && col < Dh)
+          dst[part][((long long)b * N + n) * HD + (long long)h * Dh + col] =
+              part == 2 ? round_to<ZT>(val) : val;
+      },
+      PARTS == 3 ? p : 0, PARTS == 3 ? p + 1 : 3);
 }
 
 template <typename ZT, typename WT, int DP>
@@ -92,9 +130,9 @@ int launch_msa(const MsaLayout& L, const void* z, const void* wq,
 
 // zt / wt: the ElemCode of z (and out) and of the weights and qkv_bias.
 // out element (image b, token n, head h, column e) is out[b ob + n on +
-// h oh + e].  plan: the 14 ints of the wrapper's MsaLayout
-// (kernels/vita_msa.py::msa_plan), refused where it breaks a limit of the
-// tile (`msa_layout_ok`).
+// h oh + e].  plan: the 15 ints of the wrapper's MsaLayout
+// (kernels/vita_msa.py::msa_plan), a cluster plan, refused where it breaks
+// a limit of the tile (`msa_layout_ok`).
 extern "C" int rt_vita_msa(const void* z, const void* wq, const void* wk,
                            const void* wv, const void* qkv_bias,
                            const float* bias, const float* mask, int nW,
@@ -105,7 +143,7 @@ extern "C" int rt_vita_msa(const void* z, const void* wq, const void* wk,
   using namespace repro_torch;
   MsaLayout L;
   std::memcpy(&L, plan, sizeof L);
-  if (!msa_layout_ok(L, N, Dh)) return (int)cudaErrorInvalidValue;
+  if (L.paged || !msa_layout_ok(L, N, Dh)) return (int)cudaErrorInvalidValue;
   return dispatch_mode(zt, wt, [&](auto ztag, auto wtag) {
     using ZT = typename decltype(ztag)::type;
     using WT = typename decltype(wtag)::type;
@@ -122,5 +160,46 @@ extern "C" int rt_vita_msa(const void* z, const void* wq, const void* wk,
     };
     return L.dp == 32 ? go(std::integral_constant<int, 32>{})
                       : go(std::integral_constant<int, 64>{});
+  });
+}
+
+// The projection of a paged plan (the 15 ints of msa_plan with paged 1):
+// Q, K and V of (B, N, H, Dh) into q, k and v, each (B*N, H*Dh) float32,
+// V rounded to z's type.
+extern "C" int rt_msa_project(const void* z, const void* wq, const void* wk,
+                              const void* wv, const void* qkv_bias, float* q,
+                              float* k, float* v, int B, int N, int D, int H,
+                              int Dh, int zt, int wt, const int* plan,
+                              void* stream) {
+  using namespace repro_torch;
+  MsaLayout L;
+  std::memcpy(&L, plan, sizeof L);
+  if (L.paged != 1 || !msa_layout_ok(L, N, Dh) || B < 1 || H < 1)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_mode(zt, wt, [&](auto ztag, auto wtag) {
+    using ZT = typename decltype(ztag)::type;
+    using WT = typename decltype(wtag)::type;
+    const int vecs = (vec_ok<ZT>(z, D) ? 1 : 0) |
+                     (vec_ok<WT>(wq, Dh) && vec_ok<WT>(wk, Dh) &&
+                              vec_ok<WT>(wv, Dh)
+                          ? 2
+                          : 0);
+    auto go = [&](auto kernel_dp) {
+      constexpr int DP = decltype(kernel_dp)::value;
+      auto kernel = msa_project_kernel<ZT, WT, DP>;
+      const int ring = L.stages * L.stage;           // at offset 0
+      const int blocks = L.cluster * (DP > 64 ? 3 : 1);
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ring);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<dim3(blocks, H, B), MSA_THREADS, ring,
+               (cudaStream_t)stream>>>((const ZT*)z, (const WT*)wq,
+                                       (const WT*)wk, (const WT*)wv,
+                                       (const WT*)qkv_bias, q, k, v, N, D, H,
+                                       Dh, L, vecs);
+      return (int)cudaGetLastError();
+    };
+    return L.dp == 64 ? go(std::integral_constant<int, 64>{})
+                      : go(std::integral_constant<int, 128>{});
   });
 }

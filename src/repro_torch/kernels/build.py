@@ -36,10 +36,11 @@ SIGNATURES = {
     ("gemm_i8", "rt_gemm_i8"): [P, L, P, L, I, L, P, L, I, I, I, I, P, P, P,
                                 P, L, I, P, I, P, P],
     ("attention", "rt_attention"): [P, P, P, L, L, L, P, L, L, L, I, I, I,
-                                    I, F, P, P, P, I, P, P],
+                                    I, F, P, P, P, I, I, P, P],
     ("attention", "rt_attention_blocks_per_sm"): [I, I, P],
     ("vita_msa", "rt_vita_msa"): [P] * 7 + [I, P, L, L, L] + [I] * 5
     + [F, I, I, P, P],
+    ("vita_msa", "rt_msa_project"): [P] * 8 + [I] * 7 + [P, P],
     ("mma_gemm", "rt_mma_gemm"): [P, L, P, L, P, L, I, I, I, P, P, L, I, I,
                                   I, I, P],
     ("fused_mlp", "rt_fused_mlp"): [P] * 8 + [I] * 8 + [P],
@@ -51,7 +52,7 @@ SIGNATURES = {
     ("decode_attention", "rt_decode_attention"): [P] * 6 + [I] * 5
     + [F, I, I, P],
     ("decode_attention", "rt_decode_attention_splits"): [I] * 4 + [P],
-    ("rglru_scan", "rt_rglru_scan"): [P] * 3 + [I] * 4 + [P],
+    ("rglru_scan", "rt_rglru_scan"): [P] * 3 + [I] * 4 + [P] * 4,
     ("vita_layer_group", "rt_vita_layer_group"): [P] * 25 + [I] * 8
     + [F, F, I, I, P, P],
     ("vita_layer_group", "rt_vita_layer_group_blocks_per_sm"): [I] * 4 + [P],

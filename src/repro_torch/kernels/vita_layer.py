@@ -32,11 +32,12 @@ kernel's "nothing leaves the grid" property.
          act_scales[3] -> down GEMM + bias + residual.        (9 launches)
 
 Shapes: the float layer takes the (N, Dh) the MSA tile's plan fits
-(`vita_msa.msa_plan`: Dh <= 64, N <= 512, K and V of all N tokens in one
-block's shared memory: N up to 256 at Dh 64, 512 at Dh 32), and the
-float layer group refuses the rest too; the int8 layer takes the (N, Dh)
-its attention tile's plan fits (`vita_msa.attention_plan`: Dh <= 64, N up
-to 1,216 at Dh 64 and 1,472 at Dh 32).
+(`vita_msa.msa_plan`: one cluster where K and V of all N tokens fit a
+block, else the paged plan: the projection, then the attention tile,
+seven launches), and the float layer group refuses the rest too; the
+int8 layer takes the (N, Dh) its attention tile's plan fits
+(`vita_msa.attention_plan`).  Both: Dh <= 128, N up to 704 at Dh 65-128,
+1,216 at Dh 33-64 and 1,472 at Dh 32.
 
 Windowed (Swin) mode: the caller folds windows into the batch axis and
 passes ``bias`` (H, n, n) and ``mask`` (nW, n, n); every step of a chain

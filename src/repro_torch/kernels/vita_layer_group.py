@@ -75,18 +75,27 @@ class GroupStage(NamedTuple):
 class GroupPlan(NamedTuple):
     """One float csrc/vita_layer_group.cu launch: ``grid`` blocks of
     ``threads`` with ``smem`` bytes of dynamic shared memory each (the MSA
-    tile's layout ``msa`` on the fp32 LN1 output, which the GEMM tile's
-    ring fits inside), and each stage's tiles."""
+    tile's layout ``msa`` on the fp32 LN1 output, and where it is paged
+    the attention tile's layout ``att``, which the GEMM tile's ring fits
+    inside), and each stage's tiles."""
     msa: MsaPlan
+    att: AttentionPlan
     grid: int
     threads: int
     smem: int
     stages: tuple
 
     def launch_ints(self):
-        """The 16 ints the C entry takes (csrc/vita_layer_group.cu's
-        GroupLayout): the MSA layout, the grid and the shared memory."""
-        return tuple(self.msa) + (self.grid, self.smem)
+        """The 29 ints the C entry takes (csrc/vita_layer_group.cu's
+        GroupLayout): the MSA layout, the attention layout, the grid and
+        the shared memory."""
+        return tuple(self.msa) + tuple(self.att) + (self.grid, self.smem)
+
+    @property
+    def kernel_dp(self) -> int:
+        """The DP of the kernel that runs the plan: the MSA layout's for a
+        cluster plan, 0 (the paged plans' own kernel) for a paged one."""
+        return 0 if self.msa.paged else self.msa.dp
 
 
 def _mg_smem(w_size: int) -> int:
@@ -104,13 +113,16 @@ def group_plan(b: int, n: int, d: int, h: int, dh: int, m: int,
     H heads of Dh and an MLP of M, weights of ``w_size`` bytes, on ``sms``
     SMs holding ``per_sm`` blocks each: the grid (as many blocks as fit at
     once, and no more than the widest stage has tiles), the shared memory,
-    and per stage the tiles: LN1 and LN2 a row a warp; the projection and
-    the attention one (image, head, 64-row slice) each, the MSA tile's;
-    concat, up and down the GEMM tile's 32 x 64 outputs.  Raises
-    ValueError for the shapes `vita_msa.msa_plan` refuses (the float layer
-    refuses the same)."""
+    and per stage the tiles: LN1 and LN2 a row a warp; the projection one
+    (image, head, 64-row slice) each, the MSA tile's; the attention the
+    same, or under a paged MSA plan one (image, head, 32-query slice)
+    each, the attention tile's; concat, up and down the GEMM tile's 32 x
+    64 outputs.  Raises ValueError for the shapes `vita_msa.msa_plan`
+    refuses (the float layer refuses the same)."""
     msa = msa_plan(n, dh, 4, w_size)
+    att = attention_plan(n, dh)
     rows, slices = b * n, b * h * msa.cluster
+    att_rows = att.rows if msa.paged else msa.rows
 
     def gemm(cols):
         return -(-rows // _MG_BM) * -(-cols // _MG_BN)
@@ -119,7 +131,8 @@ def group_plan(b: int, n: int, d: int, h: int, dh: int, m: int,
     # the MSA stages' outputs are per (image, head).
     stages = (("ln1", 1, d, rows, d, rows),
               ("qkv", msa.rows, 3 * dh, n, 3 * dh, slices),
-              ("attention", msa.rows, dh, n, dh, slices),
+              ("attention", att_rows, dh, n, dh,
+               b * h * -(-n // att_rows)),
               ("concat", _MG_BM, _MG_BN, rows, d, gemm(d)),
               ("ln2", 1, d, rows, d, rows),
               ("up", _MG_BM, _MG_BN, rows, m, gemm(m)),
@@ -128,7 +141,7 @@ def group_plan(b: int, n: int, d: int, h: int, dh: int, m: int,
     per_round = [_ROWS_A_WARP if st[1] == 1 else 1 for st in stages]
     work = max(-(-st[5] // r) for st, r in zip(stages, per_round))
     grid = max(1, min(per_sm * sms, work))
-    return GroupPlan(msa, grid, GROUP_THREADS,
+    return GroupPlan(msa, att, grid, GROUP_THREADS,
                      max(msa.smem, _mg_smem(w_size)),
                      tuple(GroupStage(*st, -(-st[5] // (grid * r)))
                            for st, r in zip(stages, per_round)))
@@ -154,7 +167,7 @@ def plan_for(x: torch.Tensor, wq: torch.Tensor, m: int) -> GroupPlan:
     w_size = wq.element_size()
     first = group_plan(b, n, d, h, dh, m, w_size, 1, 1)
     per_sm = _blocks_per_sm(DTYPE_CODES[x.dtype], DTYPE_CODES[wq.dtype],
-                            first.msa.dp, first.smem)
+                            first.kernel_dp, first.smem)
     return group_plan(b, n, d, h, dh, m, w_size,
                       sm_count(x.device.index or 0), per_sm)
 

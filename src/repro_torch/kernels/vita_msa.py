@@ -7,7 +7,11 @@ Counterpart of `repro/kernels/vita_msa.py`.
     cluster per (image, head), whose blocks each project Q, K and V for
     their own rows on the tensor cores, share K and V through distributed
     shared memory and attend with everything kept on chip, so SA is the
-    only tensor it writes (`msa_plan` sizes the cluster).  z and the
+    only tensor it writes (`msa_plan` sizes the cluster).  Where K and V
+    of all N rows do not fit a block (Dh 65-128, N past 512, or fp32 N
+    past 256 at Dh 64) the plan is paged: the same projection writes Q, K
+    and V to device memory and the attention tile of ``csrc/attention.cu``
+    pages K and V through shared memory (two launches).  z and the
     weights are float32 or bf16 (`ref.PORTED_MODES`); with bf16 z it
     rounds P and V to bf16 before the AV product, as the TPU kernel does,
     and writes SA in z's dtype.  `launch_msa` is the same launch with the
@@ -47,6 +51,8 @@ SMEM_LIMIT = 232448
 TWO_BLOCK_SMEM = 233472 // 2 - 1024
 _MSA_ROWS, _MSA_SUB, _MSA_WARPS, _MSA_MAX_CLUSTER = 64, 32, 16, 8
 _MSA_MIN_STAGES, _MSA_MAX_STAGES = 3, 8
+# The widest head either tile takes (padded to DP 128).
+MAX_DH = 128
 # The int8 chains' attention tile (csrc/attention.cuh): 8 warps, 32 query
 # rows, K and V in pages of 64 keys through a ring of 2 or 3 slots.
 ATT_THREADS, ATT_ROWS, _ATT_WARPS, _ATT_PAGE = 256, 32, 8, 64
@@ -61,7 +67,12 @@ class MsaPlan(NamedTuple):
     and ``lds`` the score rows' stride; the projection's copy ring has
     ``stages`` of ``stage`` bytes; the ``*_off`` are the byte offsets of Q,
     K, V, the scores, bf16 P and the ring in a block's ``smem`` bytes of
-    shared memory."""
+    shared memory.  ``paged`` 1: the projection alone, one block per
+    (image, head, 64-row slice) at DP 64 or 128, its ring at offset 0 (the
+    other offsets, ``nk`` and ``lds`` 0), writing Q, K and V to device
+    memory for the attention tile at `attention_plan`; ``smem`` is then
+    the larger of the ring and that tile's layout (the layer group's block
+    holds both)."""
     dp: int
     rows: int
     cluster: int
@@ -76,52 +87,66 @@ class MsaPlan(NamedTuple):
     p_off: int
     ring_off: int
     smem: int
+    paged: int = 0
 
 
 @functools.lru_cache(maxsize=None)
 def msa_plan(n: int, dh: int, z_size: int = 4,
              w_size: Optional[int] = None) -> MsaPlan:
     """The MSA tile's layout for N tokens of head width Dh, z and the
-    weights of ``z_size`` and ``w_size`` bytes (default: z's): one block
-    per 64-row slice of N, at most 8; Q, then K and V for all N rows
-    (fp32, V in z's type) and the scores of a 32-row pass (with bf16 P in
-    the bf16 mode), each row padded so that fragment loads hit distinct
-    banks; and the projection's ring (z [64][KC + 8], W [KC][3 DP + pad],
-    KC 32 for fp32 z and 64 for bf16) overlaying K, V and the scores, as
-    many stages (3-8) as they hold.  Raises ValueError where Dh exceeds
-    64, N exceeds 512 or the layout exceeds one block's shared memory:
-    the float layer and layer group (kernels 1 and 7) refuse those shapes
-    too, through this plan."""
+    weights of ``z_size`` and ``w_size`` bytes (default: z's).
+
+    A cluster plan where Dh is at most 64, N at most 512 and the layout
+    fits one block: one block per 64-row slice of N, at most 8; Q, then K
+    and V for all N rows (fp32, V in z's type) and the scores of a 32-row
+    pass (with bf16 P in the bf16 mode), each row padded so that fragment
+    loads hit distinct banks; and the projection's ring (z [64][KC + 8],
+    W [KC][3 DP + pad], KC 32 for fp32 z and 64 for bf16) overlaying K, V
+    and the scores, as many stages (3-8) as they hold.
+
+    Otherwise a paged plan (``paged`` 1): the projection at DP 64 (Dh up
+    to 64) or 128 (one weight slice a pass, W [KC][DP + pad]) with as many
+    ring stages (3-8) as the attention tile's layout holds, and the
+    attention tile at `attention_plan` (N, Dh).  Raises ValueError past
+    Dh 128 and where `attention_plan` raises (N past 704 at Dh 65-128,
+    1,216 at Dh 33-64 and 1,472 at Dh 32): the float layer and layer
+    group (kernels 1 and 7) refuse those shapes too, through this plan."""
     w_size = z_size if w_size is None else w_size
-    dp = 32 if dh <= 32 else 64 if dh <= 64 else 0
+    if not 1 <= dh <= MAX_DH or n < 1:
+        raise ValueError(f"MSA tile: no plan for N={n}, Dh={dh} "
+                         f"(1 <= Dh <= {MAX_DH} and N >= 1 only)")
     rows = _MSA_ROWS
     cluster = -(-n // rows)
-    if dp == 0 or n < 1 or cluster > _MSA_MAX_CLUSTER:
-        raise ValueError(f"MSA tile: no cluster plan for N={n}, Dh={dh} "
-                         f"(Dh <= 64 and N <= {rows * _MSA_MAX_CLUSTER} "
-                         f"only)")
     kc = 32 if z_size == 4 else 64
-    nk = -(-n // 16) * 16
-    lds = -(-nk // 32) * 32 + 8
-    ldv = dp + 4 if z_size == 4 else dp + 8
-    ldw = 3 * dp + (4 if w_size == 4 else 8)
-    qb = rows * (dp + 8) * 4
-    kb = cluster * rows * (dp + 8) * 4
-    vb = cluster * rows * ldv * z_size
-    sb = _MSA_SUB * lds * 4
-    pb = _MSA_SUB * (nk + 8) * 2 if z_size == 2 else 0
-    red = (_MSA_WARPS - 2 * (dp // 16)) * 8 * 32 * 4     # P.V's key groups
-    kvs = kb + vb + max(sb + pb, red)
-    stage = rows * (kc + 8) * z_size + kc * ldw * w_size
-    stages = min(_MSA_MAX_STAGES, max(_MSA_MIN_STAGES, kvs // stage))
-    smem = qb + max(kvs, stages * stage)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"MSA tile: N={n}, Dh={dh} needs {smem} bytes of "
-                         f"shared memory a block, more than one block has "
-                         f"({SMEM_LIMIT})")
-    return MsaPlan(dp, rows, cluster, nk, lds, stage, stages, q_off=0,
-                   k_off=qb, v_off=qb + kb, s_off=qb + kb + vb,
-                   p_off=qb + kb + vb + sb, ring_off=qb, smem=smem)
+    pad_w = 4 if w_size == 4 else 8
+    if dh <= 64 and cluster <= _MSA_MAX_CLUSTER:
+        dp = 32 if dh <= 32 else 64
+        nk = -(-n // 16) * 16
+        lds = -(-nk // 32) * 32 + 8
+        ldv = dp + 4 if z_size == 4 else dp + 8
+        qb = rows * (dp + 8) * 4
+        kb = cluster * rows * (dp + 8) * 4
+        vb = cluster * rows * ldv * z_size
+        sb = _MSA_SUB * lds * 4
+        pb = _MSA_SUB * (nk + 8) * 2 if z_size == 2 else 0
+        red = (_MSA_WARPS - 2 * (dp // 16)) * 8 * 32 * 4   # P.V's key groups
+        kvs = kb + vb + max(sb + pb, red)
+        stage = rows * (kc + 8) * z_size + kc * (3 * dp + pad_w) * w_size
+        stages = min(_MSA_MAX_STAGES, max(_MSA_MIN_STAGES, kvs // stage))
+        smem = qb + max(kvs, stages * stage)
+        if smem <= SMEM_LIMIT:
+            return MsaPlan(dp, rows, cluster, nk, lds, stage, stages,
+                           q_off=0, k_off=qb, v_off=qb + kb,
+                           s_off=qb + kb + vb, p_off=qb + kb + vb + sb,
+                           ring_off=qb, smem=smem)
+    att = attention_plan(n, dh)
+    dp = 64 if dh <= 64 else 128
+    parts = 3 if dp == 64 else 1
+    stage = rows * (kc + 8) * z_size + kc * (parts * dp + pad_w) * w_size
+    stages = min(_MSA_MAX_STAGES, max(_MSA_MIN_STAGES, att.smem // stage))
+    return MsaPlan(dp, rows, cluster, 0, 0, stage, stages, q_off=0, k_off=0,
+                   v_off=0, s_off=0, p_off=0, ring_off=0,
+                   smem=max(stages * stage, att.smem), paged=1)
 
 
 class AttentionPlan(NamedTuple):
@@ -150,7 +175,8 @@ class AttentionPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def attention_plan(n: int, dh: int) -> AttentionPlan:
-    """The attention tile's layout for N tokens of head width Dh: Q of a
+    """The attention tile's layout for N tokens of head width Dh (padded
+    to DP 32, 64 or 128): Q of a
     32-row slice split into its TF32 parts (two [32][DP + 8]) and its
     rows' maxima and reciprocal sums (two [32]), its scores
     over all N keys [32][NK + 8] (at least P.V's partial sums of the key
@@ -159,12 +185,12 @@ def attention_plan(n: int, dh: int) -> AttentionPlan:
     [64][DP + 4]), fp32, each row padded so that fragment loads hit
     distinct banks; three ring slots where two blocks of 256 threads still
     fit an SM, else two, else three at one block an SM.  Raises ValueError
-    where Dh exceeds 64 or the layout exceeds one block's shared memory
-    (N past 1,216 at Dh 64)."""
-    dp = 32 if 1 <= dh <= 32 else 64 if 32 < dh <= 64 else 0
+    where Dh exceeds 128 or the layout exceeds one block's shared memory
+    (N past 704 at Dh 65-128, 1,216 at Dh 33-64, 1,472 at Dh 32)."""
+    dp = next((w for w in (32, 64, MAX_DH) if 1 <= dh <= w), 0)
     if dp == 0 or n < 1:
         raise ValueError(f"attention tile: no plan for N={n}, Dh={dh} "
-                         f"(1 <= Dh <= 64 and N >= 1 only)")
+                         f"(1 <= Dh <= {MAX_DH} and N >= 1 only)")
     nk = -(-n // _ATT_PAGE) * _ATT_PAGE
     lds, ldk, ldv = nk + 8, dp + 8, dp + 4
     col_blocks = dp // 16
@@ -209,10 +235,13 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (image, head) on the current stream, laid out by `attention_plan`.
     ``in_strides``/``out_strides`` are the (image, token, head) element
     strides of q/k/v and of ``out``; element e is contiguous.  ``out`` is
-    float32, or int8 quantised at ``out_scale``."""
+    float32, int8 quantised at ``out_scale``, or bf16 (the float MSA's
+    bf16 mode: P rounded to bf16 before the product, v bf16-exact)."""
     for t, nm in ((q, "q"), (k, "k"), (v, "v")):
         check(t, nm, torch.float32)
-    check(out, "out", torch.int8 if out_scale is not None else torch.float32)
+    bf16 = out_scale is None and out.dtype == torch.bfloat16
+    check(out, "out", torch.int8 if out_scale is not None
+          else torch.bfloat16 if bf16 else torch.float32)
     if out_scale is not None:
         check(out_scale, "out_scale", torch.float32, (1,))
     bias, mask, n_w = window_operands(bias, mask, b=b, h=h, n=n)
@@ -221,7 +250,7 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ob, on, oh = out_strides
     build.call("attention", "rt_attention", ptr(q), ptr(k), ptr(v), sb, sn,
                sh, ptr(out), ob, on, oh, b, h, n, dh, dh ** -0.5,
-               ptr(out_scale), ptr(bias), ptr(mask), n_w,
+               ptr(out_scale), ptr(bias), ptr(mask), n_w, int(bf16),
                (ctypes.c_int * len(plan))(*plan), _stream())
     return out
 
@@ -234,7 +263,9 @@ def launch_msa(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     dtype, element e of (image, token, head) at out[b*ob + n*on + h*oh +
     e] for ``out_strides`` (ob, on, oh).  Windowed mode takes ``bias``
     (H, N, N) and ``mask`` (nW, N, N) in float32; ``qkv_bias`` (3, H, Dh),
-    in the weights' dtype, is optional."""
+    in the weights' dtype, is optional.  A paged plan (`msa_plan`) takes
+    two launches: the projection into Q, K, V workspace (fp32, V rounded
+    to z's type), then `launch_attention`."""
     b, n, d = z.shape
     h, _, dh = wq.shape
     wt = check_mode("vita_msa_batched", z, wq, wk, wv, qkv_bias)
@@ -246,11 +277,23 @@ def launch_msa(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     check(out, "out", z.dtype)
     bias, mask, n_w = window_operands(bias, mask, b=b, h=h, n=n)
     plan = msa_plan(n, dh, z.element_size(), wq.element_size())
+    ints = (ctypes.c_int * len(plan))(*plan)
+    if plan.paged:
+        hd = h * dh
+        qkv = torch.empty((3, b * n, hd), device=z.device,
+                          dtype=torch.float32)
+        build.call("vita_msa", "rt_msa_project", ptr(z), ptr(wq), ptr(wk),
+                   ptr(wv), ptr(qkv_bias), ptr(qkv[0]), ptr(qkv[1]),
+                   ptr(qkv[2]), b, n, d, h, dh, DTYPE_CODES[z.dtype],
+                   DTYPE_CODES[wt], ints, _stream())
+        return launch_attention(*qkv, out, b=b, h=h, n=n, dh=dh,
+                                in_strides=(n * hd, hd, dh),
+                                out_strides=out_strides, bias=bias,
+                                mask=mask)
     build.call("vita_msa", "rt_vita_msa", ptr(z), ptr(wq), ptr(wk), ptr(wv),
                ptr(qkv_bias), ptr(bias), ptr(mask), n_w, ptr(out),
                *out_strides, b, n, d, h, dh, dh ** -0.5,
-               DTYPE_CODES[z.dtype], DTYPE_CODES[wt],
-               (ctypes.c_int * len(plan))(*plan), _stream())
+               DTYPE_CODES[z.dtype], DTYPE_CODES[wt], ints, _stream())
     return out
 
 

@@ -560,13 +560,40 @@ def test_decode_attention_matches_plain(card, dtype, hq, hkv, dh, s):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rglru_scan_matches_plain(card, dtype):
+    """The walk (T up to one chunk: 32 steps in fp32, 64 in bf16) and the
+    chunked scan with its look-back: T around either chunk and past 32
+    chunks (a look-back window), ragged T (2,100) and W (100), one and
+    three sequences."""
     g = torch.Generator(device=card).manual_seed(4)
-    for b, t, w in ((1, 13, 2560), (3, 257, 100)):
-        a = (0.5 + 0.499 * torch.rand((b, t, w), generator=g,
-                                      device=card)).to(dtype)
-        x = torch.randn((b, t, w), generator=g, device=card).to(dtype)
-        _lm_close(k_rglru_scan.rglru_scan(a, x),
-                  ref.linear_recurrence_ref(a, x))
+    for t in (1, 13, 32, 33, 63, 64, 65, 257, 2100, 4096):
+        for b in (1, 3):
+            for w in (100, 2560):
+                a = (0.5 + 0.499 * torch.rand((b, t, w), generator=g,
+                                              device=card)).to(dtype)
+                x = torch.randn((b, t, w), generator=g,
+                                device=card).to(dtype)
+                _lm_close(k_rglru_scan.rglru_scan(a, x),
+                          ref.linear_recurrence_ref(a, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_replays_in_a_cuda_graph(card, dtype):
+    """The chunked scan leaves its flags clear for the next launch, so a
+    captured launch replays right, on inputs changed between replays."""
+    g = torch.Generator(device=card).manual_seed(5)
+    shape = (2, 2100, 300)
+    a = (0.5 + 0.499 * torch.rand(shape, generator=g, device=card)).to(dtype)
+    x = torch.randn(shape, generator=g, device=card).to(dtype)
+    k_rglru_scan.rglru_scan(a, x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        h = k_rglru_scan.rglru_scan(a, x)
+    for _ in range(3):
+        a.copy_((0.5 + 0.499 * torch.rand(shape, generator=g,
+                                          device=card)).to(dtype))
+        x.copy_(torch.randn(shape, generator=g, device=card).to(dtype))
+        graph.replay()
+        _lm_close(h, ref.linear_recurrence_ref(a, x))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -732,14 +759,11 @@ def _close(got, want, mode):
 
 
 def _widest(dh, z_size, w_size):
-    """The widest N the plan admits at head width ``dh``."""
+    """The widest N the plan keeps in one cluster at head width ``dh``."""
     n = 64 * k_vita_msa._MSA_MAX_CLUSTER
-    while True:
-        try:
-            k_vita_msa.msa_plan(n, dh, z_size, w_size)
-            return n
-        except ValueError:
-            n -= 1
+    while k_vita_msa.msa_plan(n, dh, z_size, w_size).paged:
+        n -= 1
+    return n
 
 
 @pytest.mark.parametrize("mode", sorted(_MODES3))
@@ -747,15 +771,16 @@ def _widest(dh, z_size, w_size):
                                420, "widest"])
 def test_vita_msa_batched_every_cluster_size(card, mode, n):
     """Kernel 5 at every cluster size the plan chooses (1-8 blocks of 64
-    rows; Dh 64 up to N 256, Dh 32 past it), slices that end ragged,
-    global and windowed, with and without qkv_bias, and a head-pruned
-    stack (H*Dh < D)."""
+    rows; Dh 64 up to N 256, Dh 32 past it, up to the widest N one
+    cluster holds), slices that end ragged, global and windowed, with and
+    without qkv_bias, and a head-pruned stack (H*Dh < D)."""
     zt, wt = _MODES3[mode]
     g = torch.Generator(device=card).manual_seed(7)
     dh = 32 if n == "widest" or n > 256 else 64
     if n == "widest":
         n = _widest(dh, zt.itemsize, wt.itemsize)
     plan = k_vita_msa.msa_plan(n, dh, zt.itemsize, wt.itemsize)
+    assert plan.paged == 0
     assert plan.cluster <= 8 and (plan.cluster - 1) * plan.rows < n \
         <= plan.cluster * plan.rows
     for h, d in ((2, 96), (1, 96)):          # (1, 96): one head kept
@@ -818,12 +843,13 @@ def test_vita_layer_tensor_core_tiles_match_plain_and_chain(card, mode,
 def test_float_layer_and_group_accept_the_same_shapes(card, wt):
     """The float layer (kernel 1, the MSA tile) and the float layer group
     (kernel 7, the same tiles) take the same (N, Dh): where the
-    tile's plan fits, both run and agree with the plain layer; where it
-    does not (Dh past 64, N past 512, K and V past one block's shared
-    memory), both raise ValueError."""
+    tile's plan fits, in one cluster or paged, both run and agree with
+    the plain layer; where it does not (Dh past 128, N past the paged
+    attention's scores: 704 at Dh 128), both raise ValueError."""
     g = torch.Generator(device=card).manual_seed(5)
     shapes = ((49, 32), (196, 64), (256, 64), (300, 64), (420, 64),
-              (196, 80), (40, 128), (480, 32), (513, 32))
+              (196, 80), (40, 128), (480, 32), (513, 32), (196, 129),
+              (705, 128))
     accepted = []
     for n, dh in shapes:
         d, m = 2 * dh, 48
@@ -856,7 +882,8 @@ def test_float_layer_and_group_accept_the_same_shapes(card, wt):
             _close(got, want, "fp32" if wt == torch.float32 else "mixed")
             _close(grouped, want, "fp32" if wt == torch.float32 else "mixed")
     assert (196, 64) in accepted and (49, 32) in accepted
-    assert (196, 80) not in accepted and (513, 32) not in accepted
+    assert (196, 80) in accepted and (513, 32) in accepted
+    assert (196, 129) not in accepted and (705, 128) not in accepted
 
 
 # ---------------------------------------------------------------------------
@@ -1009,3 +1036,141 @@ def test_attention_tile_matches_softmax_av(card, b, h, n, dh, windowed, ins,
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * max(
             1.0, float(want.abs().max())))
+
+
+# ---------------------------------------------------------------------------
+# The widened tiles: heads of 96 and 128 at ViT-B's 197 tokens, and
+# ViT-B/16 at 384 px (576 patches, 577 with the class token) at heads of
+# 64, through every kernel that runs them (1, 2, 3, 5, 7 and 8), in every
+# mode, against the plain versions at the bounds above; the groups against
+# their chains (float within 1e-6 of the scale, equal in practice; int8
+# exactly).
+# ---------------------------------------------------------------------------
+
+_WIDE = [(197, 96), (197, 128), (576, 64), (577, 64)]
+
+
+def _wide_block(card, n, dh, wt, seed, h=2, b=2):
+    """A block of ``h`` heads of ``dh`` (D = h * dh, M = 2 D) with
+    non-zero LN vectors and biases in ``wt``, and x (b, n, D)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    d, m = h * dh, 4 * dh
+
+    def r(*shape, s=1.0):
+        return (s * torch.randn(shape, generator=g, device=card)).to(wt)
+
+    bp = {"wq": r(h, d, dh, s=d ** -0.5), "wk": r(h, d, dh, s=d ** -0.5),
+          "wv": r(h, d, dh, s=d ** -0.5), "w_msa": r(h * dh, d, s=d ** -0.5),
+          "ln1_w": 1 + r(d, s=0.1), "ln1_b": r(d, s=0.1),
+          "ln2_w": 1 + r(d, s=0.1), "ln2_b": r(d, s=0.1),
+          "w_up": r(d, m, s=d ** -0.5), "b_up": r(m, s=0.1),
+          "w_down": r(m, d, s=m ** -0.5), "b_down": r(d, s=0.1)}
+    return bp, torch.randn((b, n, d), generator=g, device=card)
+
+
+def _int8_args(card, x, bp, vt=torch.float32):
+    """The int8 layer's operands from a float block (per-head and
+    per-channel weight scales, fixed activation scales), LN vectors and
+    biases in ``vt``."""
+    h, _, dh = bp["wq"].shape
+    q = quantize_vision_params({k: v.float() for k, v in bp.items()})
+    acts = torch.tensor([4.0, 2.0, 4.0, 3.0], device=card) / 127.0
+    return (x, q["wq"].values, q["wk"].values, q["wv"].values,
+            q["w_msa"].values, q["w_up"].values, q["w_down"].values, acts,
+            *[q[k].scale.reshape(h, dh) for k in ("wq", "wk", "wv")],
+            *[q[k].scale.reshape(-1) for k in ("w_msa", "w_up", "w_down")],
+            *[bp[k].float().to(vt) for k in ("ln1_w", "ln1_b", "ln2_w",
+                                             "ln2_b", "b_up", "b_down")])
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES3))
+@pytest.mark.parametrize("n,dh", _WIDE)
+def test_wide_float_msa_and_layer_match_plain(card, mode, n, dh):
+    """Kernels 5 and 1 under the paged plan (the projection, then the
+    attention tile; bf16 mode: P and V rounded to bf16), global and
+    windowed with qkv_bias, against their plain versions."""
+    zt, wt = _MODES3[mode]
+    assert k_vita_msa.msa_plan(n, dh, zt.itemsize, wt.itemsize).paged
+    bp, x = _wide_block(card, n, dh, wt, seed=n + dh)
+    h = bp["wq"].shape[0]
+    g = torch.Generator(device=card).manual_seed(dh)
+    w = (bp["wq"], bp["wk"], bp["wv"])
+    qb = (0.2 * torch.randn((3, h, dh), generator=g, device=card)).to(wt)
+    bias = 0.5 * torch.randn((h, n, n), generator=g, device=card)
+    mask = torch.where(torch.rand((2, n, n), generator=g, device=card)
+                       > 0.7, -1e30, 0.0)
+    mask.diagonal(dim1=1, dim2=2).zero_()
+    z = x.to(zt)
+    for bi, ma, q in ((None, None, None), (bias, mask, qb)):
+        _close(k_vita_msa.vita_msa_batched(z, *w, bi, ma, q),
+               ref.vita_msa_batched_ref(z, *w, bi, ma, q), mode)
+    f_args = (x.to(zt), *[bp[k] for k in _ORDER])
+    _close(k_vita_layer.vita_layer(*f_args, bias, mask),
+           ref.vita_layer_ref(*f_args, bias, mask), mode)
+
+
+@pytest.mark.parametrize("vt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,dh", _WIDE)
+def test_wide_int8_layer_msa_and_attention_match_plain(card, vt, n, dh):
+    """Kernels 2 and 3 (the attention tile at DP 128, or at N 576/577)
+    with fp32 and bf16 LN vectors, global and windowed with qkv_bias."""
+    bp, x = _wide_block(card, n, dh, torch.float32, seed=2 * n + dh)
+    args = _int8_args(card, x, bp, vt)
+    h = bp["wq"].shape[0]
+    g = torch.Generator(device=card).manual_seed(dh + 1)
+    bias = 0.5 * torch.randn((h, n, n), generator=g, device=card)
+    mask = torch.where(torch.rand((2, n, n), generator=g, device=card)
+                       > 0.7, -1e30, 0.0)
+    mask.diagonal(dim1=1, dim2=2).zero_()
+    for bi, ma in ((None, None), (bias, mask)):
+        want = ref.vita_layer_int8_ref(*args, bi, ma)
+        got = k_vita_layer.vita_layer_int8(*args, bi, ma)
+        assert float((got - want).abs().max()) <= \
+            0.02 * float(want.abs().max())
+    zq = torch.clamp(torch.round(x / 0.03), -127, 127).to(torch.int8)
+    qb = (0.1 * torch.randn((3, h, dh), generator=g, device=card)).to(vt)
+    for bi, ma, q in ((None, None, None), (bias, mask, qb)):
+        m_args = (zq, *args[1:4], torch.tensor(0.03, device=card),
+                  *args[8:11], bi, ma, q)
+        want = ref.vita_msa_int8_ref(*m_args)
+        torch.testing.assert_close(k_vita_msa.vita_msa_int8(*m_args), want,
+                                   rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("wide", ["dh128", "n577"])
+@pytest.mark.parametrize("mode", sorted(_MODES3))
+def test_wide_groups_match_plain_and_chain(card, mode, wide):
+    """Kernels 7 and 8 over two layers at Dh 128 (N 197) and at N 577 (Dh
+    64): against their plain versions, and against two calls of the
+    per-layer kernel, the float group bit for bit with fp32 x (the same
+    projection and attention tile in the same order), the int8 group
+    exactly."""
+    xt, wt = _MODES3[mode]
+    n, dh = (197, 128) if wide == "dh128" else (577, 64)
+    blocks, x = [], None
+    for l in range(2):
+        bp, x0 = _wide_block(card, n, dh, wt, seed=10 * l + dh, b=1)
+        blocks.append(bp)
+        x = x0 if x is None else x
+    sp = {k: torch.stack([bp[k] for bp in blocks]) for k in _ORDER}
+    f_args = [x.to(xt)] + [sp[k] for k in _ORDER]
+    got = k_vita_layer_group.vita_layer_group(*f_args)
+    _close(got, ref.vita_layer_group_ref(*f_args), mode)
+    y = f_args[0]
+    for bp in blocks:
+        y = k_vita_layer.vita_layer(y, *[bp[k] for k in _ORDER])
+    if xt == torch.float32:
+        assert torch.equal(got, y)
+    if mode == "bf16":
+        return
+    per = [_int8_args(card, x, bp) for bp in blocks]
+    i_args = [x] + [torch.stack([p[i] for p in per])
+                    for i in range(1, len(per[0]))]
+    got = k_vita_layer_group.vita_layer_group_int8(*i_args)
+    want = ref.vita_layer_group_int8_ref(*i_args)
+    assert float((got - want).abs().max()) <= 0.02 * float(want.abs().max())
+    y = x
+    for l in range(2):
+        y = k_vita_layer.vita_layer_int8(y, *[a[l] for a in i_args[1:]])
+    assert torch.equal(got, y)

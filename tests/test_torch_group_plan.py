@@ -16,7 +16,7 @@ import pytest
 
 from repro_torch.kernels.int8_matmul import I8_TILE, b_layout, gemm_i8_plan
 from repro_torch.kernels.vita_layer_group import GroupPlan, group_plan
-from repro_torch.kernels.vita_msa import SMEM_LIMIT, msa_plan
+from repro_torch.kernels.vita_msa import SMEM_LIMIT, attention_plan, msa_plan
 from repro_torch.models import vision_registry
 
 # Weight bytes of the three dtype modes (the group's z is fp32 in each):
@@ -124,9 +124,9 @@ def test_group_plan_refuses_exactly_what_the_msa_tile_refuses(mode):
     float layer and the float layer group serve the same shapes."""
     w_size = _MODES[mode]
     accepted = 0
-    for dh in (8, 24, 32, 48, 64, 65, 80, 128):
+    for dh in (8, 24, 32, 48, 64, 65, 80, 128, 129):
         for n in (1, 17, 49, 64, 65, 196, 256, 257, 300, 420, 480, 512,
-                  513):
+                  513, 577, 704, 705, 1217):
             try:
                 msa_plan(n, dh, 4, w_size)
                 msa_ok = True
@@ -195,3 +195,30 @@ def test_b_layout_of_a_stack_is_what_the_plan_reads():
     assert b_layout(w) == (96, 72, 24, 24, 96 * 24)
     with pytest.raises(ValueError):
         gemm_i8_plan(8, 64, 64, ldb=64, grp=64, grp_stride=0, kgroups=4)
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("b,n,d,h,dh,m", [
+    (2, 197, 768, 6, 128, 3072),          # ViT-B geometry, 6 heads of 128
+    (2, 197, 768, 8, 96, 3072),
+    (2, 577, 768, 12, 64, 3072),          # ViT-B/16 at 384 px
+    (1, 300, 128, 2, 64, 256)])           # fp32 K and V past one block
+def test_paged_group_plans_take_the_attention_tile(b, n, d, h, dh, m, mode):
+    """Under a paged MSA plan the group's attention stage is the attention
+    tile per (image, head, 32-query slice), its layout in the plan's ints
+    after the MSA layout (29 ints), the block's shared memory holding the
+    projection's ring, that layout and the GEMM ring; the plan runs on
+    the paged plans' own kernel (kernel DP 0)."""
+    w_size = _MODES[mode]
+    p = group_plan(b, n, d, h, dh, m, w_size)
+    assert p.msa.paged == 1 and p.kernel_dp == 0
+    assert p.att == attention_plan(n, dh)
+    st = {s.name: s for s in p.stages}
+    assert st["attention"].rows == 32
+    assert st["attention"].count == b * h * -(-n // 32)
+    assert st["qkv"].count == b * h * -(-n // 64)
+    assert p.smem == max(p.msa.smem, _ring_bytes(w_size)) <= SMEM_LIMIT
+    assert p.smem >= p.att.smem and p.smem >= p.msa.stages * p.msa.stage
+    ints = p.launch_ints()
+    assert len(ints) == 29 and ints[15:27] == tuple(p.att)
+    assert ints[27:] == (p.grid, p.smem)

@@ -109,6 +109,20 @@ def test_linear_recurrence_matches_pallas_rglru_scan(chunk):
     assert torch.equal(ops.linear_recurrence(_t(a), _t(x)), got)
 
 
+def test_linear_recurrence_matches_pallas_rglru_scan_at_a_ragged_t():
+    """T 2,100 (the ring prompt's length, not a multiple of the port's
+    32-step chunks), W 24: the plain version against the Pallas kernel's
+    chunks of 210 (the largest divisor of T up to 256) and log-depth
+    scan inside each."""
+    rng = np.random.default_rng(2100)
+    b, t, w = 1, 2100, 24
+    a = rng.uniform(0.5, 0.999, size=(b, t, w)).astype(np.float32)
+    x = _f32(rng, b, t, w)
+    want = j_rglru_scan(_j(a), _j(x), chunk=256, interpret=True)
+    got = ref.linear_recurrence_ref(_t(a), _t(x))
+    _close(got.numpy(), want, rel=2e-5)
+
+
 def test_rglru_ref_matches_the_sequential_oracle():
     rng = np.random.default_rng(5)
     b, t, d = 2, 13, 16
