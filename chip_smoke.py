@@ -118,6 +118,17 @@ served paths'.  The RG-LRU scan is checked and timed at T 13, 2,100 and
 32-step chunk, else the chunked scan's blocks and scratch), and past one
 chunk timed beside the one-thread-per-channel walk it replaced.
 
+The TNT slice adds, to phase 2, kernels 1, 2, 3, 5 and 6 at TNT-S's two
+streams at bucket 8 (inner: 1,568 sequences of 16 pixel tokens, D 24, 4
+heads of Dh 6, MLP 96; outer: N 196, D 384, 6 heads of 64, MLP 1,536),
+kernels 1, 5 and 6 there with bf16 weights too, and kernel 4 at the
+pixel-embed, fold and inner MLP products, each against its plain version
+and timed; to phase 3, TNT-S (224 px, 12 layers) fused, unfused, in float
+and int8, and grouped by 2 in float (the fused phase list, no
+layer-group launch), TNT-S-p fused in float and int8, TNT-S with bf16
+weights served fused (mixed mode) and its `forward` on bf16 patches; and
+to phase 4, the profiled TNT-S float and int8 drains.
+
 The line before the last is one JSON object with a record per kernel
 (each time marked with how it was taken: "profiler" or "cuda_events");
 the last line is {"ok": true, "device": {...}}.  Without a card, or without
@@ -157,9 +168,12 @@ BUCKETS = (1, 2, 4, 8)
 N_CAL = 4                        # calibration batches (8 images, 4 x 2)
 
 # Served paths: (model, mode, fused, group size, requests).  19 = 8 + 8 +
-# 3 and 11 = 8 + 3: a ragged tail padded to a bucket of 4.  DeiT-T grouped
-# by 4 is 3 layer groups; Swin-T grouped by 2 is 1 group (stage 4) and 10
-# layers; DeiT-T-p keeps 3, 2 or 1 heads per layer.
+# 3 and 11 = 8 + 3: a ragged tail padded to a bucket of 4; 9 = 8 + 1.
+# DeiT-T grouped by 4 is 3 layer groups; Swin-T grouped by 2 is 1 group
+# (stage 4) and 10 layers; DeiT-T-p keeps 3, 2 or 1 heads per layer; TNT-S
+# grouped by 2 forms no group (a fold sits between every two layers of a
+# stream), so it compiles the fused phase list; TNT-S-p prunes the outer
+# stream only.
 PATHS = (("deit_t", "float", True, 1, 19), ("deit_t", "int8", True, 1, 19),
          ("deit_t", "float", False, 1, 11), ("deit_t", "int8", False, 1, 11),
          ("swin_t", "float", True, 1, 11), ("swin_t", "int8", True, 1, 11),
@@ -167,8 +181,12 @@ PATHS = (("deit_t", "float", True, 1, 19), ("deit_t", "int8", True, 1, 19),
          ("deit_t", "float", True, 4, 19), ("deit_t", "int8", True, 4, 19),
          ("swin_t", "float", True, 2, 11), ("swin_t", "int8", True, 2, 11),
          ("deit_t_p", "float", True, 1, 11), ("deit_t_p", "int8", True, 1, 11),
-         ("swin_t_p", "float", True, 1, 11))
-MODELS = ("deit_t", "swin_t", "deit_t_p", "swin_t_p")
+         ("swin_t_p", "float", True, 1, 11),
+         ("tnt_s", "float", True, 1, 9), ("tnt_s", "int8", True, 1, 9),
+         ("tnt_s", "float", False, 1, 9), ("tnt_s", "int8", False, 1, 9),
+         ("tnt_s", "float", True, 2, 9),
+         ("tnt_s_p", "float", True, 1, 9), ("tnt_s_p", "int8", True, 1, 9))
+MODELS = ("deit_t", "swin_t", "deit_t_p", "swin_t_p", "tnt_s", "tnt_s_p")
 
 # The bf16 configuration (`dataclasses.replace(cfg, dtype="bfloat16")`:
 # every weight bf16), which the registry does not build: served through a
@@ -182,9 +200,10 @@ BF16_PATHS = (
     ("deit_t", "int8", False, 1, 9), ("deit_t", "int8", True, 4, 9),
     ("swin_t", "float", True, 1, 9), ("swin_t", "float", False, 1, 9),
     ("swin_t", "float", True, 2, 9), ("swin_t", "int8", True, 1, 9),
-    ("swin_t", "int8", False, 1, 9), ("swin_t", "int8", True, 2, 9))
+    ("swin_t", "int8", False, 1, 9), ("swin_t", "int8", True, 2, 9),
+    ("tnt_s", "float", True, 1, 9))
 BF16_FORWARDS = (("deit_t", True, 1), ("deit_t", False, 1),
-                 ("deit_t", True, 4), ("swin_t", True, 1))
+                 ("deit_t", True, 4), ("swin_t", True, 1), ("tnt_s", True, 1))
 # Kernel checks in the bf16 modes: mixed mode is fp32 math on exactly
 # upcast weights (the fp32 limit); bf16 a few bf16 ulps of each output
 # row's own scale.
@@ -193,9 +212,10 @@ MIXED_TOL, BF16_TOL = 1e-5, 1e-2
 # share of the logit scale: the bf16 twin within about twice the gap
 # measured on the card (bf16 rounding falls at other places in the kernels
 # and in the plain versions, and compounds with depth: on an H100 80GB HBM3
-# at 700 W, 0.44% at DeiT-T's 12 layers and 0.49% at Swin-T's), the fp32
-# twin (the weights' exact values) as the control (0.26-0.36% there).
-BF16_TWIN_REL = {"deit_t": 0.01, "swin_t": 0.01}
+# at 700 W, 0.44% at DeiT-T's 12 layers, 0.49% at Swin-T's and 0.43% at
+# TNT-S's 24 (12 inner, 12 outer)), the fp32 twin (the weights' exact
+# values) as the control (0.26-0.38% there).
+BF16_TWIN_REL = {"deit_t": 0.01, "swin_t": 0.01, "tnt_s": 0.01}
 BF16_CONTROL_REL = 0.01
 # The kernels whose launches `ops.MODE_LAUNCHES` splits by dtype mode, and
 # those counts summed over the run's bf16 paths.
@@ -240,6 +260,8 @@ KERNELS = (  # name, TPU kernel it replaces, port wrapper
 # WIDE_LAYERS layers; the served ones WIDE_REQUESTS images.
 WIDE = (("vit_b16 6x128", 6, 197), ("vit_b16 384px", 12, 576))
 WIDE_LAYERS, WIDE_REQUESTS = 2, 3
+# The tag of the kernel shapes TNT-S's two streams give (`tnt_kernel_phase`).
+TNT_TAG = "tnt_s"
 
 # The LM paths: RecurrentGemma-2B at full width and depth (bf16), its
 # ring-cache check (fp32, a prompt past the 2048-token window) and
@@ -1041,13 +1063,64 @@ def wide_block(vitb, h: int, n: int, seed: int, g):
     return bp, torch.randn((2, n, cfg.dim), generator=g, device="cuda")
 
 
+def layer_and_msa_checks(records: dict, tag: str, bp: dict, x,
+                         qkv_bias=None):
+    """Kernels 1 and 2 on block ``bp`` at x (B, N, D), and kernels 5 and 3
+    on its LN1 output (3 on x quantised at 0.02, with ``qkv_bias`` where
+    given), each against its plain version with its plan printed and
+    recorded under ``tag``.  Returns the LN1 output."""
+    from repro_torch.kernels import ref, vita_layer as vl, vita_msa as vm
+
+    b, n, _ = x.shape
+    h, _, dh = bp["wq"].shape
+    f_args, i_args = layer_args(bp, x)
+    err = check_close(f"vita_layer {tag}", vl.vita_layer(*f_args),
+                      ref.vita_layer_ref(*f_args))
+    err_i = check_int8_layer(f"vita_layer_int8 {tag}",
+                             vl.vita_layer_int8(*i_args),
+                             ref.vita_layer_int8_ref(*i_args))
+    layer_plan(tag, lambda a=f_args: vl.vita_layer(*a), x, bp["wq"])
+    fb, ib = layer_bound(f_args, i_args)
+    add_record(records, "vita_layer", tag, err,
+               lambda a=f_args: vl.vita_layer(*a),
+               lambda a=f_args: ref.vita_layer_ref(*a),
+               composed_layer(f_args, h, dh), fb)
+    add_record(records, "vita_layer_int8", tag, err_i,
+               lambda a=i_args: vl.vita_layer_int8(*a),
+               lambda a=i_args: ref.vita_layer_int8_ref(*a), None, ib)
+    z = ref.layer_norm_ref(x, bp["ln1_w"], bp["ln1_b"])
+    w = (bp["wq"], bp["wk"], bp["wv"])
+    err = check_close(f"vita_msa_batched {tag} H={h}",
+                      vm.vita_msa_batched(z, *w),
+                      ref.vita_msa_batched_ref(z, *w))
+    msa_plan_line(tag, z, w[0])
+    add_record(records, "vita_msa_batched", tag, err,
+               lambda z=z, w=w: vm.vita_msa_batched(z, *w),
+               lambda z=z, w=w: ref.vita_msa_batched_ref(z, *w),
+               composed_msa(z, *w), msa_bound(z, w[0]))
+    zq = torch.clamp(torch.round(x / 0.02), -127, 127).to(torch.int8)
+    m_args = (zq, *i_args[1:4], torch.tensor(0.02, device="cuda"),
+              *i_args[8:11], None, None, qkv_bias)
+    err = check_close(f"vita_msa_int8 {tag}"
+                      + (" qkv_bias" if qkv_bias is not None else ""),
+                      vm.vita_msa_int8(*m_args),
+                      ref.vita_msa_int8_ref(*m_args))
+    attention_plan_line(tag, b, h, n, dh)
+    add_record(records, "vita_msa_int8", tag, err,
+               lambda a=m_args: vm.vita_msa_int8(*a),
+               lambda a=m_args: ref.vita_msa_int8_ref(*a), None,
+               msa_bound(zq, i_args[1], qkv_bias=qkv_bias, int8=True))
+    return z
+
+
 def wide_kernel_phase(records: dict, vitb) -> None:
     """Kernels 1, 2, 3 and 5 and the attention launch alone at the shapes
     the cluster tile and the DP 64 attention tile did not take (`WIDE`:
     the paged MSA plan, the DP 128 attention tile), each against its plain
-    version with its plan printed; then kernels 7 and 8 at Dh 128 (L 2)
-    against their plain versions and, bit for bit, their chains of L
-    per-layer calls.  Inputs come from a generator of their own."""
+    version with its plan printed (`layer_and_msa_checks`); then kernels 7
+    and 8 at Dh 128 (L 2) against their plain versions and, bit for bit,
+    their chains of L per-layer calls.  Inputs come from a generator of
+    their own."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref, vita_layer as vl, vita_msa as vm
     from repro_torch.kernels import vita_layer_group as vg
@@ -1061,41 +1134,8 @@ def wide_kernel_phase(records: dict, vitb) -> None:
         bp, x = wide_block(vitb, h, n, 21, g)
         b, d = x.shape[0], x.shape[2]
         dh = d // h
-        f_args, i_args = layer_args(bp, x)
-        err = check_close(f"vita_layer {tag} B={b} N={n}",
-                          vl.vita_layer(*f_args), ref.vita_layer_ref(*f_args))
-        err_i = check_int8_layer(f"vita_layer_int8 {tag} B={b} N={n}",
-                                 vl.vita_layer_int8(*i_args),
-                                 ref.vita_layer_int8_ref(*i_args))
-        layer_plan(f"{tag} {tuple(x.shape)}",
-                   lambda a=f_args: vl.vita_layer(*a), x, bp["wq"])
-        fb, ib = layer_bound(f_args, i_args)
-        rec("vita_layer", tag, err, lambda a=f_args: vl.vita_layer(*a),
-            lambda a=f_args: ref.vita_layer_ref(*a),
-            composed_layer(f_args, h, dh), fb)
-        rec("vita_layer_int8", tag, err_i,
-            lambda a=i_args: vl.vita_layer_int8(*a),
-            lambda a=i_args: ref.vita_layer_int8_ref(*a), None, ib)
-        z = ref.layer_norm_ref(x, bp["ln1_w"], bp["ln1_b"])
-        w = (bp["wq"], bp["wk"], bp["wv"])
-        err = check_close(f"vita_msa_batched {tag} {tuple(z.shape)} H={h}",
-                          vm.vita_msa_batched(z, *w),
-                          ref.vita_msa_batched_ref(z, *w))
-        msa_plan_line(f"{tag} {tuple(z.shape)}", z, w[0])
-        rec("vita_msa_batched", tag, err,
-            lambda z=z, w=w: vm.vita_msa_batched(z, *w),
-            lambda z=z, w=w: ref.vita_msa_batched_ref(z, *w),
-            composed_msa(z, *w), msa_bound(z, w[0]))
-        zq = torch.clamp(torch.round(x / 0.02), -127, 127).to(torch.int8)
         qb = 0.1 * torch.randn((3, h, dh), generator=g, device="cuda")
-        m_args = (zq, *i_args[1:4], torch.tensor(0.02, device="cuda"),
-                  *i_args[8:11], None, None, qb)
-        err = check_close(f"vita_msa_int8 {tag} B={b} qkv_bias",
-                          vm.vita_msa_int8(*m_args),
-                          ref.vita_msa_int8_ref(*m_args))
-        rec("vita_msa_int8", tag, err, lambda a=m_args: vm.vita_msa_int8(*a),
-            lambda a=m_args: ref.vita_msa_int8_ref(*a), None,
-            msa_bound(zq, i_args[1], qkv_bias=qb, int8=True))
+        layer_and_msa_checks(records, tag, bp, x, qb)
         qkv = [torch.randn((b * n, h * dh), generator=g, device="cuda")
                for _ in range(3)]
         heads = [t.view(b, n, h, dh).transpose(1, 2) for t in qkv]
@@ -1112,7 +1152,6 @@ def wide_kernel_phase(records: dict, vitb) -> None:
 
         err = check_close(f"attention launch alone {tag} B={b} H={h} N={n} "
                           f"Dh={dh}", alone(), plain())
-        attention_plan_line(f"{tag} B={b} H={h}", b, h, n, dh)
         rec("vita_msa_int8", f"attention launch alone, {tag}", err, alone,
             plain, lambda a=heads: F.scaled_dot_product_attention(*a),
             bound(flops_f32=4 * b * h * n * n * dh,
@@ -1148,6 +1187,101 @@ def wide_kernel_phase(records: dict, vitb) -> None:
     rec("vita_layer_group_int8", tag, err_i,
         lambda a=i_args: vg.vita_layer_group_int8(*a),
         lambda a=i_args: ref.vita_layer_group_int8_ref(*a), None, ib)
+    torch.cuda.synchronize()
+
+
+def tnt_kernel_phase(records: dict, tnt_cfg) -> None:
+    """Kernels 1, 2, 3, 5 and 6 at TNT-S's two streams, bucket 8: the inner
+    stream (1,568 sequences of 16 pixel tokens, D 24, 4 heads of Dh 6, MLP
+    96: the scalar loads, partial k steps and masked output slices no
+    other served shape reaches) and the outer one (8 images, N 196, D 384,
+    6 heads of 64, MLP 1,536), each against its plain version with its
+    plan printed; kernels 1, 5 and 6 with bf16 weights too (mixed and bf16
+    activations, untimed); kernel 4 at the pixel-embed (25,088 x 48 x 24),
+    fold (1,568 x 384 x 384) and inner MLP products.  All timed with the
+    other shapes, their times printed on ``[kernel]`` lines (`TNT_TAG`
+    marks them).  Inputs come from a generator of their own, the blocks
+    from TNT-S's init (seed 1), LN and MLP biases perturbed."""
+    from repro_torch.kernels import fused_mlp as fm
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import ops, ref, vita_layer as vl
+    from repro_torch.kernels import vita_msa as vm
+    from repro_torch.models import tnt
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def rec(*args):
+        add_record(records, *args)
+
+    one = tnt.init_params(dataclasses.replace(tnt_cfg, layers=1), 1,
+                          "cuda")["layers"][0]
+    n_seq = B_MAIN * tnt_cfg.tokens
+    streams = (
+        ("inner", one["inner"], (n_seq, tnt_cfg.inner_tokens,
+                                 tnt_cfg.inner_dim)),
+        ("outer", one["outer"], (B_MAIN, tnt_cfg.tokens, tnt_cfg.dim)))
+    for stream, bp, shape in streams:
+        bp = perturbed(bp, g)
+        x = torch.randn(shape, generator=g, device="cuda")
+        tag = f"{TNT_TAG} {stream} {tuple(x.shape)}"
+        z = layer_and_msa_checks(records, tag, bp, x)
+        mlp = (bp["w_up"], bp["b_up"], bp["w_down"], bp["b_down"])
+        err = check_close(f"fused_mlp {tag} M={mlp[0].shape[1]}",
+                          fm.fused_mlp(z, mlp[0], mlp[2], mlp[1], mlp[3]),
+                          ref.fused_mlp_ref(z, *mlp))
+        mlp_plan(f"{tag} fp32", z, mlp[0], mlp[2])
+        rec("fused_mlp", tag, err,
+            lambda z=z, p=mlp: fm.fused_mlp(z, p[0], p[2], p[1], p[3]),
+            lambda z=z, p=mlp: ref.fused_mlp_ref(z, *p),
+            composed_mlp(z, *mlp), mlp_bound(z, *mlp))
+        b16 = {k: v.to(torch.bfloat16) for k, v in bp.items()}
+        for mode, act in (("mixed", torch.float32), ("bf16", torch.bfloat16)):
+            xa = x.to(act)
+            fa = (xa,) + tuple(b16[k] for k in (
+                "wq", "wk", "wv", "w_msa", "ln1_w", "ln1_b", "ln2_w",
+                "ln2_b", "w_up", "b_up", "w_down", "b_down"))
+            label = f"{tag} bf16 weights"
+            check_bf16_mode(f"vita_layer {label}", vl.vita_layer(*fa),
+                            ref.vita_layer_ref(*fa), mode)
+            za = ops.layer_norm(xa, b16["ln1_w"], b16["ln1_b"])
+            wa = (b16["wq"], b16["wk"], b16["wv"])
+            check_bf16_mode(f"vita_msa_batched {label}",
+                            vm.vita_msa_batched(za, *wa),
+                            ref.vita_msa_batched_ref(za, *wa), mode)
+            ma = (b16["w_up"], b16["b_up"], b16["w_down"], b16["b_down"])
+            check_bf16_mode(f"fused_mlp {label}",
+                            fm.fused_mlp(za, ma[0], ma[2], ma[1], ma[3]),
+                            ref.fused_mlp_ref(za, *ma), mode)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, device="cuda", generator=g,
+                             dtype=torch.int8)
+
+    n_pix = n_seq * tnt_cfg.inner_tokens
+    c, m_in = tnt_cfg.inner_dim, tnt_cfg.inner_mlp_hidden
+    for (mm, kk, nn), what in (
+            ((n_pix, tnt_cfg.inner_patch_dim, c), "pixel embed"),
+            ((n_seq, tnt_cfg.fold_dim, tnt_cfg.dim), "fold"),
+            ((n_pix, c, m_in), "inner up"), ((n_pix, m_in, c), "inner down")):
+        a, w = i8(mm, kk), i8(kk, nn)
+        ws = torch.rand(nn, device="cuda", generator=g) * 1e-2
+        xs = torch.tensor(0.02, device="cuda")
+        exact = torch.equal(im.int8_matmul(a, w), ref.int8_matmul_ref(a, w))
+        got = im.int8_matmul(a, w, xs, ws)
+        want = ref.int8_matmul_ref(a, w, xs, ws)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tag = f"{TNT_TAG} {what} ({mm}x{kk})x({kk}x{nn})"
+        print(f"[check] int8_matmul {tag}: int32 equal {exact}; rescaled "
+              f"max|err| {err:.3e} (bound 0)")
+        check(exact and err == 0.0, f"int8_matmul {tag} disagrees")
+        i8_plan_line(tag, a, w)
+        rec("int8_matmul", tag, err,
+            lambda a=a, w=w, xs=xs, ws=ws: im.int8_matmul(a, w, xs, ws),
+            lambda a=a, w=w, xs=xs, ws=ws: ref.int8_matmul_ref(a, w, xs, ws),
+            lambda a=a, w=w: torch._int_mm(a, w),
+            bound(ops_i8=2 * mm * kk * nn,
+                  nbytes=nbytes(a, w, xs, ws) + mm * nn * 4))
     torch.cuda.synchronize()
 
 
@@ -1326,26 +1460,31 @@ def bf16_kernel_phase(records: dict, deit, swin_cfg) -> None:
 def expected_launches(sched, mode: str, mb: int, n_cal: int) -> dict:
     """Kernel launches of ``mb`` micro-batches (plus ``n_cal`` calibration
     batches) of schedule ``sched`` on one served path: one launch per
-    ``layer`` or ``layer_group`` phase (msa + mlp unfused), embed, head and
-    Swin's patch merges as int8 matmuls in int8.  Calibration runs every
-    block unfused (a group member by member)."""
+    ``layer`` or ``layer_group`` phase of either stream (msa + mlp
+    unfused; TNT's inner phases as its outer ones), and in int8 the embed
+    (TNT's pixel and patch embeds), the head, Swin's patch merges and
+    TNT's folds as int8 matmuls.  Calibration runs every block unfused (a
+    group member by member)."""
     c = sched.counts()
+
+    def both(kind):
+        return c.get(kind, 0) + c.get("inner_" + kind, 0)
     groups = sum(len(p.members) for p in sched.phases
-                 if p.kind == "layer_group")
-    blocks = c.get("layer", 0) + c.get("msa", 0) + groups
-    merges = c.get("merge", 0)
+                 if p.kind.endswith("layer_group"))
+    blocks = both("layer") + both("msa") + groups
+    embeds = 2 if sched.phases[0].inner_tokens else 1
+    outside = embeds + 1 + c.get("merge", 0) + c.get("fold", 0)
     out = {k[0]: 0 for k in KERNELS}
     if mode == "float":
-        out["vita_layer"] = c.get("layer", 0) * mb
-        out["vita_layer_group"] = c.get("layer_group", 0) * mb
-        out["vita_msa_batched"] = out["fused_mlp"] = c.get("msa", 0) * mb
+        out["vita_layer"] = both("layer") * mb
+        out["vita_layer_group"] = both("layer_group") * mb
+        out["vita_msa_batched"] = out["fused_mlp"] = both("msa") * mb
         return out
-    unfused_mm = 2 + 3 * blocks + merges      # + w_msa, w_up, w_down
-    out["vita_msa_int8"] = blocks * n_cal + c.get("msa", 0) * mb
-    out["int8_matmul"] = unfused_mm * n_cal \
-        + (2 + merges + 3 * c.get("msa", 0)) * mb
-    out["vita_layer_int8"] = c.get("layer", 0) * mb
-    out["vita_layer_group_int8"] = c.get("layer_group", 0) * mb
+    out["vita_msa_int8"] = blocks * n_cal + both("msa") * mb
+    out["int8_matmul"] = (outside + 3 * blocks) * n_cal \
+        + (outside + 3 * both("msa")) * mb       # + w_msa, w_up, w_down
+    out["vita_layer_int8"] = both("layer") * mb
+    out["vita_layer_group_int8"] = both("layer_group") * mb
     return out
 
 
@@ -2469,6 +2608,10 @@ def main() -> None:
     wide_kernel_phase(records, cfgs["vit_edge"])
     print(f"[phase] wide kernels checked in "
           f"{time.perf_counter() - t_wide:.1f} s")
+    t_tnt = time.perf_counter()
+    tnt_kernel_phase(records, cfgs["tnt_s"])
+    print(f"[phase] TNT-S kernel shapes checked in "
+          f"{time.perf_counter() - t_tnt:.1f} s")
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.0f} s")
 
     # 3. Serve every path on the card against its CPU twin.
@@ -2489,6 +2632,15 @@ def main() -> None:
             quant[(model, group)] = (out["server"].qparams,
                                      out["server"].calibrator)
         served[(model, mode, fused, group)] = out
+    # TNT-S grouped by 2: the fused phase list, no layer-group launch.
+    tnt_grouped = served[("tnt_s", "float", True, 2)]
+    same = (vision_registry.make_schedule(tnt_grouped["server"].cfg).phases
+            == vision_registry.make_schedule(
+                served[("tnt_s", "float", True, 1)]["server"].cfg).phases)
+    print(f"[serve] tnt_s float grouped by 2: the fused phase list {same}, "
+          f"layer-group launches {tnt_grouped['counts']['vita_layer_group']}")
+    check(same and tnt_grouped["counts"]["vita_layer_group"] == 0,
+          "tnt_s grouped by 2 formed a layer group")
     for model, mode, fused, group, _ in PATHS:
         if mode != "int8" or not fused \
                 or (model, "float", True, group) not in served:
@@ -2507,7 +2659,7 @@ def main() -> None:
     # 3b. The bf16 configuration: served (mixed mode) and `forward` on bf16
     # patches, every weight bf16, random from seed 0.
     cfg16 = {m: dataclasses.replace(cfgs[m], dtype="bfloat16")
-             for m in ("deit_t", "swin_t")}
+             for m in ("deit_t", "swin_t", "tnt_s")}
     params16 = {m: vision_registry.init_params(c, seed=0, device="cuda")
                 for m, c in cfg16.items()}
     served16, quant16 = {}, {}
@@ -2598,7 +2750,7 @@ def main() -> None:
                   f"{v:.1f} img/s beside per-layer "
                   f"{img_s[(model, mode, True, 1)]:.1f} img/s (one run; "
                   f"the host's share varies between machines)")
-    for model in ("deit_t", "swin_t"):
+    for model in ("deit_t", "swin_t", "tnt_s"):
         for mode in ("float", "int8"):
             profile_drain(f"{model} {mode}",
                           served[(model, mode, True, 1)]["server"],
@@ -2648,7 +2800,8 @@ def main() -> None:
                 "bound_ms": x["bound"][0], "bound_by": x["bound"][1],
                 "timed_by": {"ms": by, "plain_ms": plain_by,
                              "library_ms": lib_by}})
-            print(f"[time] {kname} {x['tag']} on {name} ({card}): device "
+            line = "[kernel]" if x["tag"].startswith(TNT_TAG) else "[time]"
+            print(f"{line} {kname} {x['tag']} on {name} ({card}): device "
                   f"{xms:.4f} ms [{by}], plain {xplain:.4f} ms [{plain_by}], "
                   f"library "
                   f"{'n/a' if xlib is None else f'{xlib:.4f} ms [{lib_by}]'}"

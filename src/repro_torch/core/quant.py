@@ -54,16 +54,18 @@ def quantize_per_channel(w: torch.Tensor) -> QTensor:
 
 _PER_HEAD_KEYS = frozenset({"wq", "wk", "wv"})
 _PER_CHANNEL_KEYS = frozenset({"patch_embed", "head", "w_msa", "w_up",
-                               "w_down", "merge_w"})
+                               "w_down", "merge_w", "pixel_embed", "fold_w"})
 
 
 def quantize_vision_params(params: Any) -> Any:
-    """int8 PTQ of a ViT or Swin param tree: per-head ``wq/wk/wv`` stacks
-    reduce over the contraction dim D only (scale (H, 1, Dh));
-    ``patch_embed``, ``head``, ``w_msa``, ``w_up``, ``w_down`` and Swin's
-    ``merge_w`` are per output channel (scale (1, N)); norms, biases, the
-    relative-position bias tables and the positional embedding stay
-    float."""
+    """int8 PTQ of a ViT, Swin or TNT param tree: per-head ``wq/wk/wv``
+    stacks reduce over the contraction dim D only (scale (H, 1, Dh));
+    ``patch_embed``, ``head``, ``w_msa``, ``w_up``, ``w_down``, Swin's
+    ``merge_w`` and TNT's ``pixel_embed`` and ``fold_w`` are per output
+    channel (scale (1, N)); norms, biases, the relative-position bias
+    tables and the positional embeddings (outer and inner) stay float.
+    TNT nests its inner and outer blocks as subtrees with the same key
+    names, so the recursion covers both streams' stacks."""
 
     def _q(node):
         if isinstance(node, dict):

@@ -4,25 +4,39 @@
 executor replays; `fuse_schedule` collapses each msa + mlp pair of one
 encoder block into a fused ``layer`` phase and, with ``group_size > 1``,
 runs of compatible fused layers into ``layer_group`` phases;
-`run_schedule` replays a schedule over the port's kernels.  Two layouts:
+`run_schedule` replays a schedule over the port's kernels.  Three layouts:
 
   * columnar (ViT / DeiT): ``embed`` (+ positional embedding), msa/mlp per
     block at ``layers[i]`` / site ``l{i}``, ``head``;
   * hierarchical (Swin): ``embed`` (+ LayerNorm), windowed msa/mlp per
     block at ``stages[s].blocks[b]`` / site ``s{s}.b{b}``, shifted by half
     a window on odd blocks where a stage has more than one window, a
-    ``merge`` phase after every stage but the last, ``head``.
+    ``merge`` phase after every stage but the last, ``head``;
+  * dual-stream (TNT): the columnar layout whose ``embed`` also seeds the
+    inner (pixel) stream (`pixel_partition`, ``pixel_embed``, LN, then
+    ``patch_embed`` into the outer stream), and per block ``inner_msa`` /
+    ``inner_mlp`` at ``layers[i].inner`` / site ``l{i}.inner`` on the
+    inner stream, a ``fold`` at ``layers[i]`` / site ``l{i}.fold`` (LN of
+    each patch's flattened pixel tokens, linear, residual into the outer
+    stream), then msa/mlp at ``layers[i].outer`` / site ``l{i}``.
 
 Windowed attention runs the same kernels as global attention, with the
 windows folded into the batch axis and the relative-position bias plus
-the shifted-window mask passed along.  Float msa/mlp phases run the
-per-head MSA and fused MLP kernels; fused float layers the float layer
-kernel.  int8 layers run the fused int8 kernel at the frozen calibration
-scales and fall back to the unfused int8 MSA and MLP while the calibrator
-is still recording, so it sees every intermediate activation.  A
-``layer_group`` phase runs its L members as one layer-group kernel launch
-(float or int8; int8 calibration falls back to each member's layer
-phase), with the window fold done once for the whole group.
+the shifted-window mask passed along; TNT's inner blocks run them too,
+their batch axis carrying images x patches.  The executor's state is the
+(outer stream, inner stream) pair; the inner stream is None outside TNT.
+Float msa/mlp phases run the per-head MSA and fused MLP kernels; fused
+float layers the float layer kernel.  int8 layers run the fused int8
+kernel at the frozen calibration scales and fall back to the unfused
+int8 MSA and MLP while the calibrator is still recording, so it sees
+every intermediate activation.  A ``layer_group`` phase runs its L
+members as one layer-group kernel launch (float or int8; int8
+calibration falls back to each member's layer phase), with the window
+fold done once for the whole group.  The fusion pass fuses
+``inner_msa`` + ``inner_mlp`` into ``inner_layer`` (the same float or
+int8 layer kernel) and would group runs of ``inner_layer`` into
+``inner_layer_group``; compiled TNT schedules never group, since a
+``fold`` sits between every two blocks.
 `FusionPolicy` decides per served batch whether the fused schedule runs,
 and at which group size.
 
@@ -43,8 +57,7 @@ served on float32 images keeps a float32 residual stream and float32
 logits, and `forward` on bf16 patches runs bf16 throughout; the kernels
 take each (activation, weight) dtype pair of `ref.PORTED_MODES`.
 
-TNT phases (and so ``inner_layer_group``) and sharding come with later
-slices.
+Sharding comes with a later slice.
 """
 
 from __future__ import annotations
@@ -74,9 +87,12 @@ class Phase:
 
     kind: str                      # embed | msa | mlp | layer
                                    # | layer_group | merge | head
+                                   # | inner_msa | inner_mlp | inner_layer
+                                   # | inner_layer_group | fold (TNT)
     path: Tuple[Any, ...]
     site: str
     grid: Tuple[int, int]          # (h, w) token grid at phase input
+                                   # (inner phases: the pixel sub-grid)
     heads: int = 0                 # surviving heads of this layer; the
                                    # grouping pass compares it, so ragged
                                    # pruning splits groups
@@ -84,6 +100,8 @@ class Phase:
     shift: int = 0                 # shifted-window offset (odd Swin blocks)
     pos_embed: bool = False        # embed: add the positional embedding
     norm: bool = False             # embed: LayerNorm after the projection
+    inner_tokens: int = 0          # embed: pixel tokens per patch (TNT; 0:
+                                   # a single-stream frontend)
     members: Tuple["Phase", ...] = ()  # layer_group: the grouped layer
                                    # phases in execution order (else empty)
 
@@ -109,9 +127,8 @@ def compile_schedule(spec: VisionModelSpec, *, n_classes: int,
 
     ``hierarchical`` selects the Swin layout (windowed MSA, ``stages/
     blocks`` paths, patch merging); by default it is inferred from the spec
-    (several stages, windowed stages or patch merging)."""
-    if any(s.inner_tokens for s in spec.stages):
-        raise NotImplementedError("TNT inner blocks are not ported yet")
+    (several stages, windowed stages or patch merging).  A first stage
+    with ``inner_tokens`` compiles TNT's dual-stream layout."""
     if hierarchical is None:
         hierarchical = (len(spec.stages) > 1
                         or any(s.n_windows > 1 for s in spec.stages)
@@ -120,9 +137,14 @@ def compile_schedule(spec: VisionModelSpec, *, n_classes: int,
     if img_h != img_w:
         raise ValueError("the control program assumes square images")
     side = img_h // spec.patch
+    inner_embed = spec.stages[0].inner_tokens if spec.stages else 0
+    if inner_embed and hierarchical:
+        raise ValueError("TNT inner blocks assume the columnar "
+                         "(single-stage) layout")
     phases = [Phase(kind="embed", path=(), site="patch_embed",
                     grid=(side, side), pos_embed=not hierarchical,
-                    norm=hierarchical)]
+                    norm=hierarchical or bool(inner_embed),
+                    inner_tokens=inner_embed)]
     flat_layer = 0
     for s_i, st in enumerate(spec.stages):
         if int(math.isqrt(st.tokens * st.n_windows)) != side:
@@ -132,21 +154,44 @@ def compile_schedule(spec: VisionModelSpec, *, n_classes: int,
         if window and side % window:
             raise ValueError(f"stage {s_i}: side {side} not divisible by "
                              f"window {window}")
+        if st.inner_tokens:
+            # The embed phase seeds the inner stream once, so inner blocks
+            # can only live in the first (columnar) stage.
+            if s_i != 0 or hierarchical:
+                raise ValueError(f"stage {s_i}: inner blocks require the "
+                                 f"columnar single-stage layout (TNT)")
+            mi = int(math.isqrt(st.inner_tokens))
+            if mi * mi != st.inner_tokens:
+                raise ValueError(f"stage {s_i}: inner tokens "
+                                 f"{st.inner_tokens} not square")
         for b_i in range(st.layers):
             if hierarchical:
                 path, site = ("stages", s_i, "blocks", b_i), f"s{s_i}.b{b_i}"
             else:
                 path, site = ("layers", flat_layer), f"l{flat_layer}"
                 flat_layer += 1
+            if st.inner_tokens:
+                # TNT: the pixel-level block runs first on the inner stream
+                # (batch axis images x patches), then folds back into the
+                # outer token.
+                inner = path + ("inner",)
+                phases.append(Phase(kind="inner_msa", path=inner,
+                                    site=f"{site}.inner", grid=(mi, mi),
+                                    heads=st.inner_heads))
+                phases.append(Phase(kind="inner_mlp", path=inner,
+                                    site=f"{site}.inner", grid=(mi, mi)))
+                phases.append(Phase(kind="fold", path=path,
+                                    site=f"{site}.fold", grid=(side, side)))
+            block = path + ("outer",) if st.inner_tokens else path
             # Swin alternates plain and shifted windows; with a single
             # window the shift is a no-op and is elided.
             shift = (window // 2 if window and b_i % 2 == 1
                      and st.n_windows > 1 else 0)
-            phases.append(Phase(kind="msa", path=path, site=site,
+            phases.append(Phase(kind="msa", path=block, site=site,
                                 grid=(side, side),
                                 heads=st.layer_heads(b_i), window=window,
                                 shift=shift))
-            phases.append(Phase(kind="mlp", path=path, site=site,
+            phases.append(Phase(kind="mlp", path=block, site=site,
                                 grid=(side, side)))
         if st.patch_merging:
             phases.append(Phase(kind="merge", path=("stages", s_i),
@@ -157,11 +202,14 @@ def compile_schedule(spec: VisionModelSpec, *, n_classes: int,
                     n_classes=n_classes, phases=tuple(phases))
 
 
-FUSABLE_PAIRS = {("msa", "mlp"): "layer"}
+FUSABLE_PAIRS = {("msa", "mlp"): "layer",
+                 ("inner_msa", "inner_mlp"): "inner_layer"}
 
-# Fused kinds the grouping pass may collapse into layer-group phases
-# (TNT's inner_layer -> inner_layer_group comes with TNT).
-GROUPABLE_KINDS = {"layer": "layer_group"}
+# Fused kinds the grouping pass may collapse into layer-group phases.
+# Compiled TNT schedules interleave a fold between every two inner layers,
+# so ``inner_layer_group`` forms only in hand-edited ones.
+GROUPABLE_KINDS = {"layer": "layer_group",
+                   "inner_layer": "inner_layer_group"}
 
 
 def _groupable(p: Phase, q: Phase) -> bool:
@@ -206,12 +254,13 @@ def _group_layers(phases, group_size: int):
 
 
 def fuse_schedule(sched: Schedule, *, group_size: int = 1) -> Schedule:
-    """Collapse adjacent msa -> mlp phases of one block (same path, site
-    and grid) into fused ``layer`` phases, which keep the msa half's
-    window, shift and heads.  With ``group_size > 1`` a second sweep
-    collapses runs of compatible fused layers (same stage and geometry,
-    `_groupable`) into ``layer_group`` phases of at most ``group_size``
-    members.  ``group_size <= 1`` gives the per-layer fused schedule; the
+    """Collapse adjacent msa -> mlp (and inner_msa -> inner_mlp) phases
+    of one block (same path, site and grid) into fused ``layer`` (and
+    ``inner_layer``) phases, which keep the msa half's window, shift and
+    heads.  With ``group_size > 1`` a second sweep collapses runs of
+    compatible fused layers (same kind, stage and geometry, `_groupable`)
+    into ``layer_group`` (``inner_layer_group``) phases of at most
+    ``group_size`` members.  ``group_size <= 1`` gives the per-layer fused schedule; the
     pass is idempotent at any size."""
     fused = []
     i = 0
@@ -251,6 +300,28 @@ def window_reverse(xw: torch.Tensor, win: int, h: int, w: int
     b = xw.shape[0] // ((h // win) * (w // win))
     x = xw.reshape(b, h // win, w // win, win, win, -1)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, -1)
+
+
+def pixel_partition(patches: torch.Tensor, m: int) -> torch.Tensor:
+    """(B, N, P*P*3) patch pixel vectors -> (B*N, m, P*P*3/m) sub-patches,
+    contiguous: TNT's counterpart of `window_partition`.  Each patch's
+    P x P pixel block splits into an ms x ms grid (ms = sqrt(m)) of
+    (P/ms)-pixel-square sub-patches and the patches fold into the batch
+    axis: inner row r holds patch r % N of image r // N, inner token t the
+    sub-patch at (t // ms, t % ms), in the (row, col, channel) flattening
+    of `models.vit.extract_patches`."""
+    b, n, pd = patches.shape
+    ms = int(math.isqrt(m))
+    if ms * ms != m:
+        raise ValueError(f"inner token count {m} must be a square")
+    p = int(math.isqrt(pd // 3))
+    if p * p * 3 != pd:
+        raise ValueError(f"patch dim {pd} is not P*P*3")
+    if p % ms:
+        raise ValueError(f"patch side {p} not divisible by sub-grid {ms}")
+    ip = p // ms
+    x = patches.reshape(b * n, ms, ip, ms, ip, 3)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b * n, m, ip * ip * 3)
 
 
 @functools.lru_cache(maxsize=None)
@@ -542,6 +613,16 @@ def _layer_group_phase(ph: Phase, params: Any, x: torch.Tensor, obs,
     return _unfold(ph, yw, x.shape[0])
 
 
+def _fold_phase(ph: Phase, bp: Any, x: torch.Tensor, inner: torch.Tensor,
+                obs) -> torch.Tensor:
+    """TNT re-entry: LN over each patch's flattened pixel tokens ->
+    linear to the outer width -> residual into the outer stream."""
+    b, t, _ = x.shape
+    flat = ops.layer_norm(inner.reshape(b, t, -1), bp["fold_ln_w"],
+                          bp["fold_ln_b"])
+    return x + _matmul(flat, bp["fold_w"], obs, ph.site) + bp["fold_b"]
+
+
 def _merge_phase(ph: Phase, sp: Any, x: torch.Tensor, obs) -> torch.Tensor:
     """Swin patch merging: 2x2 neighbourhood concat -> LN -> linear."""
     b, _, c = x.shape
@@ -553,35 +634,73 @@ def _merge_phase(ph: Phase, sp: Any, x: torch.Tensor, obs) -> torch.Tensor:
     return xs.reshape(b, (gh // 2) * (gw // 2), xs.shape[-1])
 
 
-def _apply_phase(sched: Schedule, ph: Phase, params: Any, x: torch.Tensor,
-                 obs, quantized: bool) -> torch.Tensor:
-    """Execute one phase of the control program.  LayerNorms, folds and
-    the float embed / merge / head products outside the kernels are plain
-    PyTorch, as they were plain jnp in the reference."""
-    if ph.kind == "embed":
+def _embed_phase(ph: Phase, params: Any, x: torch.Tensor, obs
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Patch embedding -> (outer stream, inner stream).  TNT's dual-stream
+    frontend (``inner_tokens``): the sub-patches embed into the inner
+    stream (+ its positional embedding), whose flattened LayerNorm seeds
+    the outer stream through ``patch_embed``."""
+    inner = None
+    if ph.inner_tokens:
+        b, t, _ = x.shape
+        sub = pixel_partition(x, ph.inner_tokens)
+        inner = _matmul(sub, params["pixel_embed"], obs, "pixel_embed") \
+            + params["inner_pos_embed"][None]
+        flat = ops.layer_norm(inner.reshape(b, t, -1), params["pe_ln_w"],
+                              params["pe_ln_b"])
+        x = _matmul(flat, params["patch_embed"], obs, ph.site)
+    else:
         x = _matmul(x, params["patch_embed"], obs, ph.site)
         if ph.norm:
             x = ops.layer_norm(x, params["pe_ln_w"], params["pe_ln_b"])
-        if ph.pos_embed:
-            x = x + params["pos_embed"][None]
-    elif ph.kind == "msa":
-        x = _msa_phase(ph, _subtree(params, ph.path), x, obs, quantized)
-    elif ph.kind == "mlp":
-        x = _mlp_phase(ph, _subtree(params, ph.path), x, obs, quantized)
-    elif ph.kind == "layer":
-        x = _layer_phase(ph, _subtree(params, ph.path), x, obs, quantized)
-    elif ph.kind == "layer_group":
-        # Members carry their own paths: the phase takes the whole tree.
-        x = _layer_group_phase(ph, params, x, obs, quantized)
-    elif ph.kind == "merge":
+    if ph.pos_embed:
+        x = x + params["pos_embed"][None]
+    return x, inner
+
+
+# The phase executors of one stream, by kind: (executor, whether it takes
+# the whole param tree rather than the phase's subtree).
+_STREAM_PHASES = {"msa": (_msa_phase, False), "mlp": (_mlp_phase, False),
+                  "layer": (_layer_phase, False),
+                  "layer_group": (_layer_group_phase, True)}
+
+
+def _apply_phase(sched: Schedule, ph: Phase, params: Any, x: torch.Tensor,
+                 inner: Optional[torch.Tensor], obs, quantized: bool
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Execute one phase of the control program on the executor's state,
+    the (outer stream, inner stream) pair, and return the next pair.  An
+    ``inner_*`` phase runs its outer twin's executor on the inner stream
+    (batch axis images x patches), so the same kernels serve both streams.
+    LayerNorms, folds and the float embed / fold / merge / head products
+    outside the kernels are plain PyTorch, as they were plain jnp in the
+    reference."""
+    kind = ph.kind
+    on_inner = kind.startswith("inner_")
+    if on_inner:
+        kind = kind[len("inner_"):]
+    if kind in _STREAM_PHASES:
+        run, whole_tree = _STREAM_PHASES[kind]
+        tree = params if whole_tree else _subtree(params, ph.path)
+        if on_inner:
+            inner = run(ph, tree, inner, obs, quantized)
+        else:
+            x = run(ph, tree, x, obs, quantized)
+    elif on_inner:
+        raise NotImplementedError(f"phase kind {ph.kind!r} is not ported")
+    elif kind == "embed":
+        x, inner = _embed_phase(ph, params, x, obs)
+    elif kind == "fold":
+        x = _fold_phase(ph, _subtree(params, ph.path), x, inner, obs)
+    elif kind == "merge":
         x = _merge_phase(ph, _subtree(params, ph.path), x, obs)
-    elif ph.kind == "head":
+    elif kind == "head":
         x = ops.layer_norm(x, params["ln_f_w"], params["ln_f_b"])
         x = _matmul(x.mean(dim=1), params["head"], obs, ph.site)
     else:
         raise NotImplementedError(
             f"phase kind {ph.kind!r} is not ported yet")
-    return x
+    return x, inner
 
 
 def run_schedule(sched: Schedule, params: Any, patches: torch.Tensor,
@@ -592,9 +711,10 @@ def run_schedule(sched: Schedule, params: Any, patches: torch.Tensor,
     `core.quant.Calibrator` observer run the int8 PTQ path (recording
     activation amax while calibrating, frozen scales at inference)."""
     quantized = isinstance(params["patch_embed"], QTensor)
-    x = patches
+    x, inner = patches, None          # inner: TNT's pixel stream (B*N, m, c)
     for ph in sched.phases:
-        x = _apply_phase(sched, ph, params, x, observer, quantized)
+        x, inner = _apply_phase(sched, ph, params, x, inner, observer,
+                                quantized)
     return x
 
 

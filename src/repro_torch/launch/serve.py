@@ -13,6 +13,8 @@ with every other flag passed through.  The server runs on the card unless
       --reduced --device cpu --requests 2 --batch 2 --max-new 4 --cache-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --vision --model swin_t \
       --full --mode both --no-fuse
+  PYTHONPATH=src python -m repro_torch.launch.serve --vision --model tnt_s \
+      --mode both --device cpu
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
 
 Requests queue up; the server drains them in micro-batches, pads each
 micro-batch up to the nearest batch bucket and runs the whole bucket
-through one batched forward of the registered model (ViT/DeiT or Swin):
-its compiled schedule, fused (one ``layer`` phase per encoder block, the
-default) or unfused (``msa`` + ``mlp`` phases, ``--no-fuse``).
+through one batched forward of the registered model (ViT/DeiT, Swin or
+TNT): its compiled schedule, fused (one ``layer`` phase per encoder
+block, and one ``inner_layer`` per TNT pixel block; the default) or
+unfused (``msa`` + ``mlp`` phases, ``--no-fuse``).
 ``--fuse-group-size N`` (``ServeConfig.fuse_group``) also collapses runs
 of up to N fused layers into ``layer_group`` phases, one kernel launch
 each.  A `FusionPolicy` may decide fusion and group size per bucket
@@ -31,6 +32,8 @@ Usage (on a machine with a card; ``--device cpu`` runs the plain path):
       --full --mode both
   PYTHONPATH=src python -m repro_torch.launch.serve --vision --model swin_t \
       --full --mode both --no-fuse
+  PYTHONPATH=src python -m repro_torch.launch.serve --vision --model tnt_s \
+      --full --mode both
   PYTHONPATH=src python -m repro_torch.launch.serve --vision --model deit_t \
       --full --mode both --fuse-group-size 4
 """
@@ -143,7 +146,7 @@ class InFlight:
 
 class VisionServer:
     """Queue + pad-to-bucket micro-batching over a registered vision
-    config (ViT/DeiT or Swin)."""
+    config (ViT/DeiT, Swin or TNT)."""
 
     def __init__(self, cfg, params, *,
                  serve_cfg: Optional[ServeConfig] = None, qparams=None,
@@ -328,7 +331,9 @@ def calibrate(qparams, cfg, images: np.ndarray, *,
               device, n_batches: int = 4) -> Calibrator:
     """Run calibration forwards on ``device`` and freeze the activation
     scales there.  The forward is the config family's, so Swin calibrates
-    through the windowed int8 path it serves with."""
+    through the windowed int8 path it serves with, and TNT records the
+    sites of both streams (``pixel_embed``, ``l{i}.inner.*``,
+    ``l{i}.fold``) under the reference's names."""
     fwd = vision_registry.forward_fn(cfg)
     cal = Calibrator()
     with torch.inference_mode():

@@ -1,13 +1,13 @@
 """Registry of the vision models the port serves (counterpart of
 `repro/models/vision_registry.py`): the ViT family (`vit_edge`, `deit_t`),
-Swin-T (`swin_t`) and their head-pruned variants (`vit_edge_p`,
-`deit_t_p`, `swin_t_p`).
+Swin-T (`swin_t`), TNT-S (`tnt_s`) and their head-pruned variants
+(`vit_edge_p`, `deit_t_p`, `swin_t_p`, `tnt_s_p`) — the paper's whole
+workload table.
 
 Each entry has a ``reduced`` geometry (what the CPU tests run) and the
 paper's ``full`` one (what runs on the card).  The family-generic helpers
 (`forward_fn`, `init_params`, `make_schedule`, `quantize`) dispatch on the
-config type, so the server stays model-agnostic.  TNT (and `tnt_s_p`)
-come with a later slice.
+config type, so the server stays model-agnostic.
 """
 
 from __future__ import annotations
@@ -17,15 +17,15 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 from repro_torch.core import schedule as sched_lib
 from repro_torch.core.quant import quantize_vision_params
-from repro_torch.models import swin, vit
+from repro_torch.models import swin, tnt, vit
 
 
 @dataclasses.dataclass(frozen=True)
 class VisionModel:
     name: str
-    family: str                       # "vit" | "swin"
+    family: str                       # "vit" | "swin" | "tnt"
     description: str
-    reduced: Callable[[], Any]        # -> ViTConfig | SwinConfig
+    reduced: Callable[[], Any]        # -> ViTConfig | SwinConfig | TNTConfig
     full: Callable[[], Any]
 
 
@@ -53,6 +53,13 @@ _REGISTRY: Dict[str, VisionModel] = {
                         "windows + merging",
             reduced=lambda: swin.swin_edge(),
             full=lambda: swin.swin_t()),
+        VisionModel(
+            name="tnt_s", family="tnt",
+            description="TNT-S inner/outer dual stream; pixel blocks "
+                        "batch-folded onto the same kernels; reduced = "
+                        "32px 2-layer",
+            reduced=lambda: tnt.tnt_edge(),
+            full=lambda: tnt.tnt_s()),
     )
 }
 
@@ -72,12 +79,15 @@ _PRUNED_MASKS: Dict[str, Any] = {
     # stage 0 counts 2, 3 (of 3); stage 1 counts 4, 3 (of 6)
     "swin_t": (((1, 0, 1), (1, 1, 1)),
                ((1, 1, 0, 1, 1, 0), (0, 1, 1, 0, 1, 0))),
+    # outer-stream counts per layer: 3, 2 (of 4); the inner stream stays
+    # dense
+    "tnt_s": ((1, 1, 1, 0), (0, 1, 0, 1)),
 }
 
 
 def uniform_head_mask(cfg: Any, k: int) -> Any:
     """A mask keeping the first ``min(k, heads)`` heads of every layer
-    (per stage for Swin)."""
+    (per stage for Swin; TNT's outer stream only, ViT-shaped)."""
     def row(h: int) -> Tuple[int, ...]:
         keep = max(1, min(int(k), h))
         return (1,) * keep + (0,) * (h - keep)
@@ -90,7 +100,8 @@ def uniform_head_mask(cfg: Any, k: int) -> Any:
 def ragged_head_mask(cfg: Any) -> Any:
     """Deterministic ragged mask for any registered config: layer ``li``
     drops ``li % min(heads, 3)`` heads at rotating positions (at least one
-    head always survives).  The full-geometry pruned variants use it."""
+    head always survives; TNT's outer stream only, ViT-shaped).  The
+    full-geometry pruned variants use it."""
     def row(h: int, li: int) -> Tuple[int, ...]:
         drop = li % min(h, 3)
         dead = {(li + j) % h for j in range(drop)}
@@ -124,7 +135,7 @@ def _pruned_entry(base: str) -> VisionModel:
         reduced=reduced, full=full)
 
 
-for _base in ("vit_edge", "deit_t", "swin_t"):
+for _base in ("vit_edge", "deit_t", "swin_t", "tnt_s"):
     _REGISTRY[_base + "_p"] = _pruned_entry(_base)
 del _base
 
@@ -145,8 +156,8 @@ def build_cfg(name: str, *, full: bool = False,
               fuse_group: Optional[int] = None,
               head_mask: Optional[Any] = None) -> Any:
     """The registered config, reduced or full; ``fused``, ``fuse_group``
-    and ``head_mask`` (family-shaped: per stage for Swin) override the
-    config's own fields when given."""
+    and ``head_mask`` (family-shaped: per stage for Swin, the outer
+    stream's for TNT) override the config's own fields when given."""
     entry = get(name)
     cfg = (entry.full if full else entry.reduced)()
     if fused is not None:
@@ -166,6 +177,8 @@ def build_cfg(name: str, *, full: bool = False,
 def _family_mod(cfg: Any):
     if isinstance(cfg, swin.SwinConfig):
         return swin
+    if isinstance(cfg, tnt.TNTConfig):
+        return tnt
     if isinstance(cfg, vit.ViTConfig):
         return vit
     raise TypeError(f"not a registered vision config: {type(cfg)!r}")

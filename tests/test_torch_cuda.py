@@ -42,7 +42,7 @@ from repro_torch.kernels import vita_msa as k_vita_msa
 from repro_torch import configs
 from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import vision_serve
-from repro_torch.models import transformer, vision_registry, vit
+from repro_torch.models import transformer, tnt, vision_registry, vit
 
 pytestmark = pytest.mark.cuda
 
@@ -1174,3 +1174,109 @@ def test_wide_groups_match_plain_and_chain(card, mode, wide):
     for l in range(2):
         y = k_vita_layer.vita_layer_int8(y, *[a[l] for a in i_args[1:]])
     assert torch.equal(got, y)
+
+
+# TNT-S's two streams at bucket 8: inner 1,568 sequences (8 images x 196
+# patches) of 16 pixel tokens, D 24, 4 heads of Dh 6, M 96; outer 8 images
+# of N 196, D 384, 6 heads of 64, M 1,536.  (B, N) of each.
+_TNT = {"inner": (1568, 16), "outer": (8, 196)}
+
+
+def _tnt_block(card, stream, wt, seed=3):
+    """A TNT-S block of ``stream`` from the model's init (seed ``seed``)
+    with non-zero LN vectors and biases, in ``wt``, and x (B, N, D)."""
+    cfg = vision_registry.build_cfg("tnt_s", full=True)
+    bp = dict(tnt.init_params(dataclasses.replace(cfg, layers=1), seed,
+                              card)["layers"][0][stream])
+    g = torch.Generator(device=card).manual_seed(seed)
+    for k in ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "b_up", "b_down"):
+        bp[k] = bp[k] + 0.1 * torch.randn(bp[k].shape, generator=g,
+                                          device=card)
+    b, n = _TNT[stream]
+    x = torch.randn((b, n, bp["wq"].shape[1]), generator=g, device=card)
+    return {k: v.to(wt) for k, v in bp.items()}, x
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES3))
+@pytest.mark.parametrize("stream", sorted(_TNT))
+def test_tnt_float_kernels_match_plain(card, stream, mode):
+    """Kernels 1, 5 and 6 at TNT-S's inner stream (Dh 6 padded to the
+    tile's 32, D 24 a partial k step, 16 of 64 rows valid) and outer
+    stream, in each dtype mode, against their plain versions."""
+    xt, wt = _MODES3[mode]
+    bp, x = _tnt_block(card, stream, wt)
+    x = x.to(xt)
+    f_args = [x] + [bp[k] for k in _ORDER]
+    _close(k_vita_layer.vita_layer(*f_args), ref.vita_layer_ref(*f_args),
+           mode)
+    z = ops.layer_norm(x, bp["ln1_w"], bp["ln1_b"])
+    w = (bp["wq"], bp["wk"], bp["wv"])
+    _close(k_vita_msa.vita_msa_batched(z, *w),
+           ref.vita_msa_batched_ref(z, *w), mode)
+    mlp = (bp["w_up"], bp["b_up"], bp["w_down"], bp["b_down"])
+    _close(k_fused_mlp.fused_mlp(z, mlp[0], mlp[2], mlp[1], mlp[3]),
+           ref.fused_mlp_ref(z, *mlp), mode)
+
+
+@pytest.mark.parametrize("vt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stream", sorted(_TNT))
+def test_tnt_int8_kernels_match_plain(card, stream, vt):
+    """Kernels 2 and 3 at TNT-S's two streams (LN vectors and biases in
+    ``vt``) against their plain versions, and kernel 4 exactly at the
+    stream's products outside them: the pixel embed (25,088 x 48 x 24)
+    and the inner MLP's (K 24 and 96), or the fold (1,568 x 384 x 384)."""
+    bp, x = _tnt_block(card, stream, torch.float32)
+    i_args = _int8_args(card, x, bp, vt)
+    want = ref.vita_layer_int8_ref(*i_args)
+    got = k_vita_layer.vita_layer_int8(*i_args)
+    assert float((got - want).abs().max()) <= 0.02 * float(want.abs().max())
+    zq = torch.clamp(torch.round(x / 0.03), -127, 127).to(torch.int8)
+    m_args = (zq, *i_args[1:4], torch.tensor(0.03, device=card),
+              *i_args[8:11])
+    want = ref.vita_msa_int8_ref(*m_args)
+    torch.testing.assert_close(k_vita_msa.vita_msa_int8(*m_args), want,
+                               rtol=0, atol=1e-4 * float(want.abs().max()))
+    g = torch.Generator(device=card).manual_seed(4)
+    shapes = ([(25088, 48, 24), (25088, 24, 96), (25088, 96, 24)]
+              if stream == "inner" else [(1568, 384, 384)])
+    for m, k, n in shapes:
+        a = torch.randint(-127, 128, (m, k), device=card, generator=g,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), device=card, generator=g,
+                          dtype=torch.int8)
+        assert torch.equal(k_int8_matmul.int8_matmul(a, w),
+                           ref.int8_matmul_ref(a, w))
+        xs, ws = torch.tensor(0.03, device=card), torch.rand(n, device=card)
+        assert torch.equal(k_int8_matmul.int8_matmul(a, w, xs, ws),
+                           ref.int8_matmul_ref(a, w, xs, ws))
+
+
+@pytest.mark.parametrize("name,mode", [("tnt_s", "float"), ("tnt_s", "int8"),
+                                       ("tnt_s_p", "float")])
+def test_tnt_server_on_the_card_matches_the_cpu(card, name, mode):
+    """Full-size TNT-S (and TNT-S-p) served fused through `VisionServer`
+    on the card, launch counts as the schedule says, logits against the
+    same server on the CPU (float 1e-3, int8 2% of the logit scale)."""
+    sc = vision_serve.ServeConfig(mode=mode, buckets=(1, 4), calib_images=4,
+                                  full=True)
+    server = vision_serve.make_server(name, sc)
+    images = np.random.default_rng(0).standard_normal(
+        (5, 224, 224, 3)).astype(np.float32)
+    twin = vision_serve.make_server(
+        name, dataclasses.replace(sc, device="cpu"),
+        params=vit.to_device(server.params, "cpu"),
+        qparams=None if server.qparams is None
+        else vit.to_device(server.qparams, "cpu"),
+        calibrator=server.calibrator)
+    ops.reset_launches()
+    got = server.submit_many(images)
+    server.run()
+    kernel = "vita_layer" if mode == "float" else "vita_layer_int8"
+    assert ops.LAUNCHES[kernel] == 2 * 24          # 2 micro-batches
+    want = twin.submit_many(images)
+    twin.run()
+    g = np.stack([r.logits for r in got])
+    w = np.stack([r.logits for r in want])
+    assert g.shape == (5, 1000) and np.isfinite(g).all()
+    tol = (1e-3 if mode == "float" else 2e-2) * np.abs(w).max()
+    assert np.abs(g - w).max() <= tol

@@ -27,8 +27,9 @@ _MODES = {"fp32": 4, "mixed": 2, "bf16": 2}
 def _served_group_shapes():
     """(model, B, N, D, H, Dh, M) of every layer the registry's models
     serve at buckets 1 and 8, at full and reduced size: a ViT's tokens, a
-    Swin stage's windows folded into the batch; H every surviving head
-    count of a pruned variant."""
+    Swin stage's windows folded into the batch, TNT's pixel tokens with
+    the patches folded into the batch; H every surviving head count of a
+    pruned variant."""
     out = set()
     for name in vision_registry.list_models():
         for full in (True, False):
@@ -49,6 +50,11 @@ def _served_group_shapes():
                     for row in mask:
                         out.add((name, bucket, cfg.tokens, cfg.dim, sum(row),
                                  cfg.head_dim, int(cfg.dim * cfg.mlp_ratio)))
+            if hasattr(cfg, "inner_tokens"):
+                for bucket in (1, 8):
+                    out.add((name, bucket * cfg.tokens, cfg.inner_tokens,
+                             cfg.inner_dim, cfg.inner_heads,
+                             cfg.inner_head_dim, cfg.inner_mlp_hidden))
     return sorted(out)
 
 
@@ -59,6 +65,7 @@ def test_served_group_shapes_cover_the_registry():
     assert ("deit_t", 8, 196, 192, 3, 64, 768) in shapes
     assert ("deit_t_p", 8, 196, 192, 1, 64, 768) in shapes
     assert ("swin_t", 8, 49, 768, 24, 32, 3072) in shapes
+    assert ("tnt_s", 1568, 16, 24, 4, 6, 96) in shapes
 
 
 def _ring_bytes(w_size):

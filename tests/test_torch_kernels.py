@@ -29,6 +29,9 @@ from repro_torch.kernels import vita_msa as t_vita_msa
 # Non-power-of-two token count and vit_edge's head width (Dh = 24).
 B, N, D, H, M = 2, 17, 96, 4, 384
 DH = D // H
+# TNT-S's inner stream: 16 pixel tokens of c 24, 4 heads of 6, MLP 96, on
+# a batch of images x patches.
+TNT_INNER = dict(b=12, n=16, d=24, h=4, m=96)
 
 
 def _rng(seed):
@@ -47,17 +50,18 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _layer_params(rng):
+def _layer_params(rng, d=D, h=H, m=M):
+    dh = d // h
     return dict(
-        wq=_f32(rng, H, D, DH, scale=D ** -0.5),
-        wk=_f32(rng, H, D, DH, scale=D ** -0.5),
-        wv=_f32(rng, H, D, DH, scale=D ** -0.5),
-        w_msa=_f32(rng, D, D, scale=D ** -0.5),
-        ln1_w=1 + _f32(rng, D, scale=0.1), ln1_b=_f32(rng, D, scale=0.1),
-        ln2_w=1 + _f32(rng, D, scale=0.1), ln2_b=_f32(rng, D, scale=0.1),
-        w_up=_f32(rng, D, M, scale=D ** -0.5), b_up=_f32(rng, M, scale=0.1),
-        w_down=_f32(rng, M, D, scale=M ** -0.5),
-        b_down=_f32(rng, D, scale=0.1))
+        wq=_f32(rng, h, d, dh, scale=d ** -0.5),
+        wk=_f32(rng, h, d, dh, scale=d ** -0.5),
+        wv=_f32(rng, h, d, dh, scale=d ** -0.5),
+        w_msa=_f32(rng, d, d, scale=d ** -0.5),
+        ln1_w=1 + _f32(rng, d, scale=0.1), ln1_b=_f32(rng, d, scale=0.1),
+        ln2_w=1 + _f32(rng, d, scale=0.1), ln2_b=_f32(rng, d, scale=0.1),
+        w_up=_f32(rng, d, m, scale=d ** -0.5), b_up=_f32(rng, m, scale=0.1),
+        w_down=_f32(rng, m, d, scale=m ** -0.5),
+        b_down=_f32(rng, d, scale=0.1))
 
 
 _ORDER = ("wq", "wk", "wv", "w_msa", "ln1_w", "ln1_b", "ln2_w", "ln2_b",
@@ -65,7 +69,9 @@ _ORDER = ("wq", "wk", "wv", "w_msa", "ln1_w", "ln1_b", "ln2_w", "ln2_b",
 
 
 @pytest.mark.parametrize("scaled", [False, True])
-@pytest.mark.parametrize("m,k,n", [(64, 96, 48), (16, 40, 24)])
+@pytest.mark.parametrize("m,k,n", [(64, 96, 48), (16, 40, 24),
+                                   (64, 48, 24), (64, 24, 96),
+                                   (48, 384, 96)])
 def test_int8_matmul_matches_pallas(m, k, n, scaled):
     rng = _rng(0)
     x, w = _i8(rng, m, k), _i8(rng, k, n)
@@ -136,8 +142,9 @@ def _int8_layer_operands(p):
     heads = [per_head(p[k]) for k in ("wq", "wk", "wv")]
     mats = [per_channel(p[k]) for k in ("w_msa", "w_up", "w_down")]
     acts = np.array([3.0, 1.5, 3.0, 2.5], np.float32) / 127.0
-    return ([h[0] for h in heads] + [m_[0] for m_ in mats] + [acts]
-            + [h[1].reshape(H, DH) for h in heads] + [m_[1] for m_ in mats]
+    h, _, dh = p["wq"].shape
+    return ([h_[0] for h_ in heads] + [m_[0] for m_ in mats] + [acts]
+            + [h_[1].reshape(h, dh) for h_ in heads] + [m_[1] for m_ in mats]
             + [p["ln1_w"], p["ln1_b"], p["ln2_w"], p["ln2_b"], p["b_up"],
                p["b_down"]])
 
@@ -169,6 +176,63 @@ def test_vita_layer_int8_matches_pallas():
     np.testing.assert_allclose(got, want, rtol=1e-5,
                                atol=2e-2 * np.abs(want).max())
     assert np.mean(np.abs(got - want) <= 1e-4) > 0.99
+
+
+@pytest.mark.parametrize("kernel", ["vita_layer", "vita_layer_int8",
+                                    "vita_msa_int8", "vita_msa_batched",
+                                    "fused_mlp"])
+def test_kernels_at_tnt_inner_shape_match_pallas(kernel):
+    """Kernels 1, 2, 3, 5 and 6 at TNT-S's inner shape (N 16, D 24, H 4,
+    Dh 6, M 96), the plain versions against the Pallas kernels; kernel 4's
+    inner and embed shapes are cases of `test_int8_matmul_matches_pallas`.
+    Tolerances as above (1e-5; the int8 layer 2% of the output scale at
+    an LSB flip, on under 1% of the outputs)."""
+    from repro.kernels.fused_mlp import fused_mlp as j_fused_mlp
+    from repro.kernels.vita_msa import vita_msa_batched as j_msa_batched
+    b, n, d, h, m = (TNT_INNER[k] for k in "bndhm")
+    dh = d // h
+    rng = _rng(20)
+    x = _f32(rng, b, n, d)
+    p = _layer_params(rng, d, h, m)
+    if kernel == "vita_layer":
+        want = j_vita_layer(jnp.asarray(x),
+                            *(jnp.asarray(p[k]) for k in _ORDER),
+                            interpret=True)
+        got = ops.vita_layer_fused(_t(x), *(_t(p[k]) for k in _ORDER))
+    elif kernel == "vita_layer_int8":
+        ops_ = _int8_layer_operands(p)
+        want = np.asarray(j_vita_layer_int8(jnp.asarray(x),
+                                            *map(jnp.asarray, ops_),
+                                            interpret=True))
+        got = ops.vita_layer_int8(_t(x), *map(_t, ops_)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=2e-2 * np.abs(want).max())
+        assert np.mean(np.abs(got - want) <= 1e-4) > 0.99
+        return
+    elif kernel == "vita_msa_int8":
+        z = _i8(rng, b, n, d)
+        ws = [_i8(rng, h, d, dh) for _ in range(3)]
+        sc = [rng.uniform(2e-3, 1e-2, size=(h, dh)).astype(np.float32)
+              for _ in range(3)]
+        xs = np.float32(0.021)
+        want = j_vita_msa_int8(jnp.asarray(z), *map(jnp.asarray, ws),
+                               jnp.asarray(xs), *map(jnp.asarray, sc),
+                               interpret=True)
+        got = ops.vita_msa_int8(_t(z), *map(_t, ws), torch.tensor(xs),
+                                *map(_t, sc))
+    elif kernel == "vita_msa_batched":
+        w = [p[k] for k in ("wq", "wk", "wv")]
+        want = j_msa_batched(jnp.asarray(x), *map(jnp.asarray, w),
+                             interpret=True)
+        got = ops.vita_msa_batched(_t(x), *map(_t, w))
+        assert got.shape == (b, h, n, dh)
+    else:
+        w = [p[k] for k in ("w_up", "w_down", "b_up", "b_down")]
+        want = j_fused_mlp(jnp.asarray(x), *map(jnp.asarray, w),
+                           interpret=True)
+        got = ops.mlp(*map(_t, [x] + w), activation="gelu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_gelu_is_jax_tanh_gelu():

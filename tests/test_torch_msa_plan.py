@@ -17,7 +17,8 @@ _SIZES = ((4, 4), (4, 2), (2, 2))
 
 def _served_shapes():
     """(model, N, Dh) of every MSA call the registry's models make, at
-    full and reduced size: a ViT's tokens, a Swin stage's window."""
+    full and reduced size: a ViT's tokens, a Swin stage's window, TNT's
+    outer tokens and its pixel tokens."""
     out = set()
     for name in vision_registry.list_models():
         for full in (True, False):
@@ -28,6 +29,8 @@ def _served_shapes():
                              cfg.stage_dim(s) // cfg.heads[s]))
             else:
                 out.add((name, cfg.tokens, cfg.head_dim))
+            if hasattr(cfg, "inner_tokens"):
+                out.add((name, cfg.inner_tokens, cfg.inner_head_dim))
     return sorted(out)
 
 
@@ -38,6 +41,7 @@ def test_served_shapes_cover_the_registry():
     assert ("deit_t", 196, 64) in _served_shapes()
     assert ("vit_edge", 256, 64) in _served_shapes()      # ViT-B/16 widths
     assert ("swin_t", 49, 32) in _served_shapes()
+    assert {("tnt_s", 196, 64), ("tnt_s", 16, 6)} <= set(_served_shapes())
 
 
 @pytest.mark.parametrize("z_size,w_size", _SIZES)

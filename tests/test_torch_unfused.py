@@ -304,21 +304,35 @@ def test_schedule_matches_jax(name, full, fused):
 
 
 def test_tnt_and_layer_groups_raise():
+    """TNT's inner blocks are ported: the spec compiles into JAX's
+    dual-stream phases, and an ``inner_layer_group`` phase runs.  What
+    still raises: inner blocks under the hierarchical layout (JAX
+    asserts; the port raises ValueError) and an inner phase kind that has
+    no outer twin."""
+    from repro.core import schedule as j_sched
+    from repro.core.perfmodel import StageSpec as JStageSpec
+    from repro.core.perfmodel import VisionModelSpec as JVisionModelSpec
     from repro_torch.core.perfmodel import StageSpec, VisionModelSpec
+    stage = dict(layers=1, dim=32, heads=2, tokens=16, inner_tokens=4,
+                 inner_dim=8, inner_heads=2)
     spec = VisionModelSpec(name="t", image=(32, 32, 3), patch=8,
-                           stages=(StageSpec(layers=1, dim=32, heads=2,
-                                             tokens=16, inner_tokens=4,
-                                             inner_dim=8, inner_heads=2),),
-                           embed_dim=32)
-    with pytest.raises(NotImplementedError):
-        t_sched.compile_schedule(spec, n_classes=10)
-    # Layer groups are ported; TNT's inner layer groups are not.
+                           stages=(StageSpec(**stage),), embed_dim=32)
+    j_spec = JVisionModelSpec(name="t", image=(32, 32, 3), patch=8,
+                              stages=(JStageSpec(**stage),), embed_dim=32)
+    got = t_sched.compile_schedule(spec, n_classes=10)
+    want = j_sched.compile_schedule(j_spec, n_classes=10)
+    assert [(p.kind, p.path, p.site, p.grid, p.heads, p.inner_tokens)
+            for p in got.phases] == [
+        (p.kind, p.path, p.site, p.grid, p.heads, p.inner_tokens)
+        for p in want.phases]
+    with pytest.raises(ValueError):
+        t_sched.compile_schedule(spec, n_classes=10, hierarchical=True)
     grouped = t_sched.fuse_schedule(
         t_reg.make_schedule(t_reg.build_cfg("swin_t")), group_size=2)
     assert grouped.counts()["layer_group"] == 1
     inner = dataclasses.replace(
         [p for p in grouped.phases if p.kind == "layer_group"][0],
-        kind="inner_layer_group")
+        kind="inner_merge")
     with pytest.raises(NotImplementedError):
         t_sched.run_schedule(dataclasses.replace(grouped, phases=(inner,)),
                              {"patch_embed": None}, torch.zeros(1, 49, 96))
