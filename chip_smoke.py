@@ -129,6 +129,33 @@ layer-group launch), TNT-S-p fused in float and int8, TNT-S with bf16
 weights served fused (mixed mode) and its `forward` on bf16 patches; and
 to phase 4, the profiled TNT-S float and int8 drains.
 
+The open-stream and HUE slice adds phase 5, after phase 4's served
+throughputs (whose closed-drain img/s sets the offered load):
+  5a. DeiT-T fused at full width, float and int8 (phase 3's servers and
+      frozen scales): `measure_bucket_latencies` for buckets 1-8, then one
+      `poisson_trace` of 128 arrivals over the first 8 images of phase 3
+      (seed 0) at 0.5x and 0.9x of the path's closed-drain img/s, SLA 3x
+      the bucket-8 latency, through `run_open_stream` (ring of 2) and the
+      same trace through `run_drain_stream`: every arrival served, no
+      request on an infeasible bucket, launches = micro-batches x the
+      schedule's, each request's logits against the CPU twin of its bank
+      image (`check_twin`), every `dispatch` of a continuous run under
+      ``torch.cuda.set_sync_debug_mode("error")`` (`strict_dispatch`: a
+      host sync in it fails the run); each stats row printed, and the
+      device's busy share of the 0.9x int8 stream, continuous beside drain
+      (`profile_run`);
+  5b. DeiT-T and Swin-T in float as two lanes of one admission layer, 64
+      arrivals: ``per_model`` equal to the trace's counts, logits against
+      the twins;
+  5c. the live HUE profile (`VisionServer.profile_stats`) of DeiT-T float
+      and int8 fused at buckets 1 and 8, unfused and grouped by 4 in both
+      modes at bucket 8, Swin-T and TNT-S float fused at bucket 8: each
+      table printed (HUEmeas% is a ViTA-clock equivalent), the replay's
+      records the schedule's phases in order, every kind but the head
+      modelled, its logits equal to `run_schedule`'s within 1e-6 of the
+      logit scale, launches counted.
+  Their launches join each kernel's count in the JSON line.
+
 The line before the last is one JSON object with a record per kernel
 (each time marked with how it was taken: "profiler" or "cuda_events");
 the last line is {"ok": true, "device": {...}}.  Without a card, or without
@@ -137,6 +164,7 @@ the repository's sources beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -284,6 +312,25 @@ LM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LM_FP32_REL = 1e-3
 LM_TWIN_REL = {"recurrentgemma-2b": 0.07, "stablelm-3b": 0.02}
 LM_CONTROL_REL = 0.1
+# Phase 5: open streams on the card.  Each DeiT-T stream replays
+# STREAM_ARRIVALS Poisson arrivals (seed 0) over the first STREAM_BANK
+# images of phase 3, offered at each of STREAM_LOADS times the same path's
+# closed-drain img/s from phase 4, with a latency budget of SLA_FACTOR
+# times the measured bucket-8 latency, through the admission layer (ring
+# of MAX_INFLIGHT) and, the same trace, through the drain baseline.  The
+# two-lane stream (DeiT-T and Swin-T in float) offers LANE_ARRIVALS at
+# LANE_LOAD times the slower lane's closed-drain rate.
+STREAM_ARRIVALS, STREAM_BANK, LANE_ARRIVALS = 128, 8, 64
+STREAM_LOADS, LANE_LOAD, SLA_FACTOR, MAX_INFLIGHT = (0.5, 0.9), 0.5, 3.0, 2
+# The live HUE profiles: (model, mode, fused, group size, bucket), from
+# phase 3's servers; a profile replays its schedule HUE_REPLAYS times (one
+# warm-up, two timed).
+HUE_CASES = (("deit_t", "float", True, 1, 1), ("deit_t", "float", True, 1, 8),
+             ("deit_t", "int8", True, 1, 1), ("deit_t", "int8", True, 1, 8),
+             ("deit_t", "float", False, 1, 8), ("deit_t", "int8", False, 1, 8),
+             ("deit_t", "float", True, 4, 8), ("deit_t", "int8", True, 4, 8),
+             ("swin_t", "float", True, 1, 8), ("tnt_s", "float", True, 1, 8))
+HUE_REPLAYS = 3
 
 
 def fail(msg: str) -> None:
@@ -1529,9 +1576,9 @@ def serve_path(model: str, mode: str, fused: bool, group: int, params,
         calibrator=server.calibrator)
     twin_reqs = twin.submit_many(images)
     twin.run()
-    check_twin(name, mode, gpu, np.stack([r.logits for r in twin_reqs]),
-               server.cfg.n_classes)
-    return dict(logits=gpu, counts=counts, server=server)
+    cpu = np.stack([r.logits for r in twin_reqs])
+    check_twin(name, mode, gpu, cpu, server.cfg.n_classes)
+    return dict(logits=gpu, counts=counts, server=server, twin=cpu)
 
 
 def check_twin(name: str, mode: str, gpu, cpu, n_classes: int) -> None:
@@ -1765,6 +1812,262 @@ def check_grouped_drain(mode: str, server, where: str) -> None:
           and n_i8 == (8 if mode == "int8" else 0),
           f"grouped deit_t {mode}: the drain did not run one layer-group "
           f"kernel per group per micro-batch and no per-layer kernel")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: open-stream serving and the live HUE profile
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def strict_dispatch(servers):
+    """Every `dispatch` of ``servers`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host sync inside it
+    (the staging, the copy, the forward's launches) raises and fails the
+    run.  Yields a list whose length counts the dispatches completed so."""
+    calls = []
+
+    def strict(inner):
+        def dispatch(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = inner(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            calls.append(1)
+            return out
+        return dispatch
+    for server in servers:
+        server.dispatch = strict(server.dispatch)
+    try:
+        yield calls
+    finally:
+        for server in servers:
+            del server.dispatch                  # the method again
+
+
+def run_stream(name: str, servers: dict, serving: str, trace, banks: dict,
+               tables: dict, twins: dict, mode: str, where: str,
+               profiled: bool = False) -> dict:
+    """Replay ``trace`` on the card through the admission layer
+    (``serving`` "continuous", every dispatch under `strict_dispatch`) or
+    the drain baseline ("drain", one server), launch counts reset just
+    before and read just after.  Checks that every arrival was served,
+    that the launches are the micro-batches times each schedule's, that
+    no request rode an infeasible bucket, and each request's logits
+    against the CPU twin of its bank image (`check_twin`).  ``profiled``
+    runs it under `profile_run` (the device's busy share).  Returns the
+    stats row and the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import admission as adm
+    from repro_torch.models import vision_registry
+
+    batches0 = {m: s.n_batches for m, s in servers.items()}
+    out = {}
+    if serving == "continuous":
+        ctl = adm.AdmissionController(servers, latencies=tables,
+                                      max_inflight=MAX_INFLIGHT)
+
+        def go():
+            with strict_dispatch(servers.values()) as calls:
+                out["stats"] = adm.run_open_stream(ctl, trace, banks)
+            out["calls"] = len(calls)
+            out["reqs"] = sorted(ctl.completed, key=lambda r: r.rid)
+    else:
+        (server,) = servers.values()
+        done0 = len(server.done)
+
+        def go():
+            out["stats"] = adm.run_drain_stream(server, trace, banks)
+            out["reqs"] = sorted(server.done[done0:], key=lambda r: r.rid)
+    ops.reset_launches()
+    if profiled:
+        profile_run(name, go, where, f"{len(trace)} arrivals")
+    else:
+        go()
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    stats, reqs = out["stats"], out["reqs"]
+    mbs = {m: s.n_batches - batches0[m] for m, s in servers.items()}
+    want = {k[0]: 0 for k in KERNELS}
+    for m, s in servers.items():
+        for k, v in expected_launches(vision_registry.make_schedule(s.cfg),
+                                      mode, mbs[m], 0).items():
+            want[k] += v
+    check(counts == want, f"{name}: launch counts {counts}, expected {want}"
+          f" for {mbs} micro-batches")
+    check(len(reqs) == len(trace) == stats["requests"],
+          f"{name}: {len(reqs)} of {len(trace)} arrivals served")
+    if serving == "continuous":
+        check(out["calls"] == sum(mbs.values()),
+              f"{name}: {out['calls']} dispatches under sync debug mode "
+              f"'error' for {sum(mbs.values())} micro-batches")
+        check(stats["infeasible_served"] == 0,
+              f"{name}: {stats['infeasible_served']} requests rode an "
+              f"infeasible bucket")
+        served = {m: sum(1 for a in trace if a.model == m) for m in servers}
+        check(stats["per_model"] == served,
+              f"{name}: per_model {stats['per_model']}, trace {served}")
+    for m, s in servers.items():
+        mine = [(a, r) for a, r in zip(trace, reqs) if a.model == m]
+        check_twin(f"{name}, {m}", mode,
+                   np.stack([r.logits for _, r in mine]),
+                   twins[m][[a.image_idx for a, _ in mine]], s.cfg.n_classes)
+    if not profiled:
+        print(f"[stream] {name} on {where}: {stats['requests']} requests in "
+              f"{stats['wall_s']:.3f} s, {sum(mbs.values())} micro-batches "
+              f"{mbs}: sustained {stats['throughput_img_s']:.1f} img/s, "
+              f"latency p50 {stats['latency_p50_ms']:.3f} / p95 "
+              f"{stats['latency_p95_ms']:.3f} / p99 "
+              f"{stats['latency_p99_ms']:.3f} ms, queue delay p50 "
+              f"{stats['queue_delay_p50_ms']:.3f} ms, service p50 "
+              f"{stats['service_p50_ms']:.3f} ms, SLA misses "
+              f"{stats['sla_misses']}/{stats['requests']}"
+              + (f", held partials {stats['held_partials']}"
+                 if serving == "continuous" else "")
+              + (f", dispatches under sync debug mode 'error' "
+                 f"{out['calls']}" if serving == "continuous" else ""))
+    return dict(stats=stats, counts=counts)
+
+
+def latency_table(name: str, server, where: str) -> dict:
+    """`measure_bucket_latencies` on the card, printed."""
+    from repro_torch.launch import admission as adm
+
+    table = adm.measure_bucket_latencies(server, repeats=3)
+    print(f"[stream] {name} bucket latencies on {where} (dispatch + "
+          f"complete, best of 3): " + ", ".join(
+              f"{b}: {ms:.3f} ms" for b, ms in sorted(table.items())))
+    return table
+
+
+def stream_phase(served: dict, img_s: dict, images: dict, where: str,
+                 t_start: float) -> dict:
+    """5a: DeiT-T fused, float and int8, open streams at each load of
+    STREAM_LOADS through the admission layer and the drain baseline, and
+    the busy share of the int8 stream at the highest load, continuous
+    beside drain; 5b: DeiT-T and Swin-T in float as two lanes of one
+    admission layer.  Returns the launch counts summed over the runs."""
+    from repro_torch.launch import admission as adm
+
+    totals = {k[0]: 0 for k in KERNELS}
+
+    def add(run):
+        for k, v in run["counts"].items():
+            totals[k] += v
+    tables = {}
+    for mode in ("float", "int8"):
+        o = served[("deit_t", mode, True, 1)]
+        server = o["server"]
+        table = latency_table(f"deit_t {mode} fused", server, where)
+        tables[("deit_t", mode)] = table
+        sla = SLA_FACTOR * table[BUCKETS[-1]]
+        bank = {"deit_t": images["deit_t"][:STREAM_BANK]}
+        twin = {"deit_t": o["twin"][:STREAM_BANK]}
+        closed = img_s[("deit_t", mode, True, 1)]
+        for load in STREAM_LOADS:
+            trace = adm.poisson_trace(load * closed, STREAM_ARRIVALS,
+                                      "deit_t", sla_ms=sla, seed=0,
+                                      n_images=STREAM_BANK)
+            for serving in ("continuous", "drain"):
+                name = (f"deit_t {mode} fused, {serving}, {load}x of "
+                        f"{closed:.1f} img/s offered "
+                        f"({load * closed:.1f}/s), SLA {sla:.3f} ms")
+                add(run_stream(name, {"deit_t": server}, serving, trace,
+                               bank, {"deit_t": table}, twin, mode, where))
+            if mode == "int8" and load == STREAM_LOADS[-1]:
+                for serving in ("continuous", "drain"):
+                    add(run_stream(
+                        f"deit_t int8 {serving} stream at {load}x",
+                        {"deit_t": server}, serving, trace, bank,
+                        {"deit_t": table}, twin, mode, where,
+                        profiled=True))
+    print(f"[phase] open streams served at "
+          f"{time.perf_counter() - t_start:.0f} s")
+    lanes = {m: served[(m, "float", True, 1)] for m in ("deit_t", "swin_t")}
+    tables = {"deit_t": tables[("deit_t", "float")],
+              "swin_t": latency_table("swin_t float fused",
+                                      lanes["swin_t"]["server"], where)}
+    rate = LANE_LOAD * min(img_s[(m, "float", True, 1)] for m in lanes)
+    sla = SLA_FACTOR * max(t[BUCKETS[-1]] for t in tables.values())
+    trace = adm.poisson_trace(rate, LANE_ARRIVALS, tuple(lanes), sla_ms=sla,
+                              seed=0, n_images=STREAM_BANK)
+    add(run_stream(f"deit_t + swin_t float fused, two lanes, "
+                   f"{rate:.1f}/s offered, SLA {sla:.3f} ms",
+                   {m: o["server"] for m, o in lanes.items()}, "continuous",
+                   trace, {m: images[m][:STREAM_BANK] for m in lanes},
+                   tables, {m: o["twin"][:STREAM_BANK]
+                            for m, o in lanes.items()}, "float", where))
+    print(f"[phase] two lanes served at "
+          f"{time.perf_counter() - t_start:.0f} s")
+    return totals
+
+
+def hue_phase(served: dict, images: dict, where: str, t_start: float
+              ) -> dict:
+    """5c: `profile_stats` of each HUE_CASES server, its HUE table
+    printed; then `profile_schedule` on the bucket's first images of
+    phase 3, whose records must be the schedule's phases in order and
+    whose logits must equal `run_schedule`'s within 1e-6 of the logit
+    scale.  Every kind but the head must have a modelled row.  Launch
+    counts are reset before each case and read after: 2 x HUE_REPLAYS
+    replays of the schedule.  Returns their sum."""
+    from repro_torch.core import schedule as sched_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch.vision_serve import hue_table
+    from repro_torch.models import vision_registry, vit
+
+    totals = {k[0]: 0 for k in KERNELS}
+    for model, mode, fused, group, bucket in HUE_CASES:
+        server = served[(model, mode, fused, group)]["server"]
+        name = f"{path_name(model, mode, fused, group)} bucket {bucket}"
+        cfg = server._bucket_cfg[bucket]
+        sched = vision_registry.make_schedule(cfg)
+        int8 = mode == "int8"
+        params = server.qparams if int8 else server.params
+        obs = server.calibrator if int8 else None
+        ops.reset_launches()
+        report = server.profile_stats(bucket, warmup=1,
+                                      repeats=HUE_REPLAYS - 1)
+        x = vit.extract_patches(
+            torch.from_numpy(images[model][:bucket]).to(server.device),
+            cfg.patch)
+        logits, records = sched_lib.profile_schedule(
+            sched, params, x, observer=obs, warmup=1,
+            repeats=HUE_REPLAYS - 1)
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        want = expected_launches(sched, mode, 2 * HUE_REPLAYS, 0)
+        check(counts == want,
+              f"{name} profile: launch counts {counts}, expected {want}")
+        for k, v in counts.items():
+            totals[k] += v
+        print(hue_table(report, f"{name} on {where}"))
+        got = [(r["index"], r["kind"], r["site"]) for r in records]
+        check(got == [(i, p.kind, p.site)
+                      for i, p in enumerate(sched.phases)],
+              f"{name}: the profile's records are not the schedule's phases")
+        kinds = list(dict.fromkeys(p.kind for p in sched.phases))
+        rows = [(r["phase"], r["modelled_cycles"]) for r in report["rows"]]
+        check([k for k, _ in rows] == kinds
+              and all(c is not None for k, c in rows if k != "head"),
+              f"{name}: a phase kind lacks a modelled row: {rows}")
+        with torch.inference_mode():
+            ref = sched_lib.run_schedule(sched, params, x, observer=obs)
+        scale = float(ref.abs().max())
+        err = float((logits - ref).abs().max())
+        print(f"[hue] {name}: the replay's logits against run_schedule's: "
+              f"max|err| {err:.3e} (logit scale {scale:.3f}, bound 1e-6 x "
+              f"scale); measured / modelled share: " + "; ".join(
+                  f"{r['phase']} {100 * r['measured_share']:.1f}% / "
+                  + ("-" if r["modelled_share"] is None
+                     else f"{100 * r['modelled_share']:.1f}%")
+                  for r in report["rows"]))
+        check(err <= 1e-6 * scale, f"{name}: the profile's logits disagree "
+                                   f"with run_schedule's")
+    print(f"[phase] live HUE profiled at "
+          f"{time.perf_counter() - t_start:.0f} s")
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -2750,6 +3053,13 @@ def main() -> None:
                   f"{v:.1f} img/s beside per-layer "
                   f"{img_s[(model, mode, True, 1)]:.1f} img/s (one run; "
                   f"the host's share varies between machines)")
+    # 5. Open streams at loads set by the closed-drain rates above, two
+    # lanes on one card, and the live HUE profiles.
+    where = f"{name} ({card})"
+    for counts in (stream_phase(served, img_s, images, where, t_start),
+                   hue_phase(served, images, where, t_start)):
+        for k, v in counts.items():
+            launches[k] += v
     for model in ("deit_t", "swin_t", "tnt_s"):
         for mode in ("float", "int8"):
             profile_drain(f"{model} {mode}",

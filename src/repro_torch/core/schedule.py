@@ -38,7 +38,8 @@ int8 layer kernel) and would group runs of ``inner_layer`` into
 ``inner_layer_group``; compiled TNT schedules never group, since a
 ``fold`` sits between every two blocks.
 `FusionPolicy` decides per served batch whether the fused schedule runs,
-and at which group size.
+and at which group size.  `profile_schedule` replays a schedule one phase
+at a time and times each phase (the live HUE profile, `core.hue`).
 
 Where the stacking is held: the group kernel reads (L, ...) operands.
 The reference stacks the member subtrees inside its jitted forward; here
@@ -66,6 +67,7 @@ import dataclasses
 import functools
 import json
 import math
+import time
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -716,6 +718,57 @@ def run_schedule(sched: Schedule, params: Any, patches: torch.Tensor,
         x, inner = _apply_phase(sched, ph, params, x, inner, observer,
                                 quantized)
     return x
+
+
+def _phase_ms(run, device: torch.device) -> Tuple[Any, float]:
+    """(result of ``run()``, its time in ms): on the card a CUDA event pair
+    around the phase and a wait on the second (the device has finished
+    the phase, as `block_until_ready` makes sure in the reference); on
+    the CPU the host clock around it."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = run()
+        return out, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = run()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def profile_schedule(sched: Schedule, params: Any, patches: torch.Tensor,
+                     observer=None, *, warmup: int = 1, repeats: int = 3
+                     ) -> Tuple[torch.Tensor, list]:
+    """Replay a schedule one phase at a time, timing each phase: logits +
+    one ``{"index", "kind", "site", "ms"}`` record per phase, in schedule
+    order.  ``warmup`` full replays run first (the kernels' first-call
+    builds and plans), then ``repeats`` timed replays, and each phase
+    keeps its best time.  The logits are the last replay's, the same
+    computation as `run_schedule`.  Feed the records to
+    `core.hue.live_hue_report`.
+
+    int8 profiling needs a frozen calibrator: a recording one would
+    change its scales between the replays."""
+    if observer is not None and observer.frozen is None:
+        raise ValueError("profiling needs frozen calibration scales "
+                         "(or float mode)")
+    quantized = isinstance(params["patch_embed"], QTensor)
+    best = [float("inf")] * len(sched.phases)
+    with torch.inference_mode():
+        for it in range(max(warmup, 0) + max(repeats, 1)):
+            x, inner = patches, None
+            for i, ph in enumerate(sched.phases):
+                (x, inner), ms = _phase_ms(
+                    lambda: _apply_phase(sched, ph, params, x, inner,
+                                         observer, quantized),
+                    patches.device)
+                if it >= warmup:
+                    best[i] = min(best[i], ms)
+    records = [{"index": i, "kind": ph.kind, "site": ph.site, "ms": best[i]}
+               for i, ph in enumerate(sched.phases)]
+    return x, records
 
 
 # ---------------------------------------------------------------------------

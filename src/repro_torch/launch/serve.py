@@ -5,7 +5,9 @@ A fixed pool of B decode slots runs lock-step decode steps (one
 `decode_step` over the whole batch); an empty slot is refilled from the
 queue by a per-request prefill whose caches are spliced into the slot.
 ``--vision`` routes to the vision micro-batcher, `vision_serve.main`,
-with every other flag passed through.  The server runs on the card unless
+with every other flag passed through (the open stream's
+``--arrival-rate`` / ``--trace`` / ``--sla-ms`` / ``--serving`` and
+``--profile`` too).  The server runs on the card unless
 ``--device cpu`` asks for the CPU (the plain versions of the kernels).
 
   python -m repro_torch.launch.serve --arch recurrentgemma-2b
@@ -15,6 +17,9 @@ with every other flag passed through.  The server runs on the card unless
       --full --mode both --no-fuse
   PYTHONPATH=src python -m repro_torch.launch.serve --vision --model tnt_s \
       --mode both --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --vision \
+      --model deit_t,swin_t --arrival-rate 200 --sla-ms 500 --requests 16 \
+      --device cpu
 """
 
 from __future__ import annotations

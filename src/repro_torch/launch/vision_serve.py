@@ -20,12 +20,22 @@ instead.
 
 `dispatch` stamps each request's ``t_start`` just before it issues the
 forward (as the JAX server stamps it at its asynchronous jitted call), so
-``service_s`` spans the host's launches and the device's work; on the
-card it records a CUDA event before and after the forward without
-waiting, and `complete` waits on the second and keeps the device time
-between them (``device_p50_ms`` of `run`).  On the CPU the forward
-completes inside `dispatch`.  The server runs on the card
-unless ``ServeConfig(device="cpu")`` asks otherwise.
+``service_s`` spans the host's launches and the device's work.  On the
+card it never waits for the device: it stacks and pads the micro-batch
+into a fresh pinned host tensor, copies it with ``non_blocking=True``
+(PyTorch's caching host allocator keeps the block until that copy's event
+completes, so no later micro-batch overwrites it), launches the forward
+and records a CUDA event before and after it.  `complete` waits on the
+second event and keeps the device time between them (``device_p50_ms``
+of `run`).  So the next micro-batch can be assembled and launched while
+one runs: the in-flight ring of `launch.admission`.  On the CPU the
+forward completes inside `dispatch`.  The server runs on the card unless
+``ServeConfig(device="cpu")`` asks otherwise.
+
+Open-stream serving (`serve_stream`, ``--arrival-rate`` / ``--trace``)
+replays an arrival trace through `launch.admission`'s continuous-batching
+controller or its drain baseline; ``--profile`` (`profile_stats`) prints
+the live HUE table (`core.hue`) after each mode's drain.
 
 Usage (on a machine with a card; ``--device cpu`` runs the plain path):
   PYTHONPATH=src python -m repro_torch.launch.serve --vision --model deit_t \
@@ -36,18 +46,27 @@ Usage (on a machine with a card; ``--device cpu`` runs the plain path):
       --full --mode both
   PYTHONPATH=src python -m repro_torch.launch.serve --vision --model deit_t \
       --full --mode both --fuse-group-size 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --vision \
+      --model deit_t,swin_t --full --arrival-rate 500 --sla-ms 40 \
+      --requests 128 --mode float
+  PYTHONPATH=src python -m repro_torch.launch.serve --vision --model deit_t \
+      --full --mode both --profile
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import hue as hue_lib
+from repro_torch.core import schedule as sched_lib
 from repro_torch.core.quant import Calibrator
 from repro_torch.core.schedule import FusionPolicy
 from repro_torch.models import vision_registry, vit
@@ -100,11 +119,16 @@ class ServeConfig:
 
 
 class VisionRequest:
-    """One queued request, stamped at submit, dispatch and completion."""
+    """One queued request, stamped at submit, dispatch and completion, so
+    queue delay and service time are reported apart.  ``sla_ms`` is its
+    latency budget (None: no deadline), which the admission layer's
+    bucket selection (`launch.admission.select_bucket`) reads."""
 
-    def __init__(self, rid: int, image: np.ndarray):
+    def __init__(self, rid: int, image: np.ndarray,
+                 sla_ms: Optional[float] = None):
         self.rid = rid
         self.image = image
+        self.sla_ms = sla_ms
         self.t_submit = time.perf_counter()
         self.t_start: Optional[float] = None
         self.t_done: Optional[float] = None
@@ -127,26 +151,40 @@ class VisionRequest:
     def service_s(self) -> float:
         return self.latency_s - self.queue_delay_s
 
+    def remaining_budget_ms(self, now: Optional[float] = None) -> float:
+        """SLA budget left at ``now`` (inf when the request has none)."""
+        if self.sla_ms is None:
+            return float("inf")
+        now = time.perf_counter() if now is None else now
+        return self.sla_ms - (now - self.t_submit) * 1e3
+
 
 class InFlight:
-    """A dispatched micro-batch: its logits tensor and, on the card, the
-    CUDA events recorded before (``start``) and after (``event``) its
-    forward."""
+    """A dispatched micro-batch: its logits tensor, the host time it was
+    dispatched at and, on the card, the CUDA events recorded before
+    (``start``) and after (``event``) its forward."""
 
-    __slots__ = ("requests", "bucket", "out", "event", "start")
+    __slots__ = ("requests", "bucket", "out", "event", "start",
+                 "t_dispatch")
 
     def __init__(self, requests: List[VisionRequest], bucket: int,
-                 out: torch.Tensor, event, start=None):
+                 out: torch.Tensor, event, start=None,
+                 t_dispatch: Optional[float] = None):
         self.requests = requests
         self.bucket = bucket
         self.out = out
         self.event = event
         self.start = start
+        self.t_dispatch = t_dispatch
 
 
 class VisionServer:
     """Queue + pad-to-bucket micro-batching over a registered vision
     config (ViT/DeiT, Swin or TNT)."""
+
+    # One device and no mesh: the join keys the JAX server's rows carry.
+    n_devices = 1
+    mesh_shape = "1x1"
 
     def __init__(self, cfg, params, *,
                  serve_cfg: Optional[ServeConfig] = None, qparams=None,
@@ -224,11 +262,28 @@ class VisionServer:
                 return b
         return self.buckets[-1]
 
+    def _stage(self, requests: List[VisionRequest],
+               bucket: int) -> torch.Tensor:
+        """The micro-batch's images, padded with zeros to ``bucket``, in a
+        fresh host tensor (pinned for the card: its copy then runs
+        asynchronously, and the caching host allocator hands the block out
+        again only once that copy has completed)."""
+        first = requests[0].image
+        host = torch.empty((bucket,) + first.shape, dtype=torch.float32,
+                           pin_memory=self.device.type == "cuda")
+        buf = host.numpy()
+        np.stack([r.image for r in requests], out=buf[:len(requests)])
+        buf[len(requests):] = 0.0
+        return host
+
     def dispatch(self, requests: Optional[List[VisionRequest]] = None,
                  bucket: Optional[int] = None) -> Optional[InFlight]:
         """Assemble one micro-batch (default: up to ``buckets[-1]`` from the
         queue), pad it to its bucket and launch the forward without
-        waiting for it."""
+        waiting for it: on the card nothing here waits for the device, so
+        the caller may dispatch the next micro-batch while this one runs.
+        ``bucket`` defaults to the smallest bucket that fits; the
+        admission layer passes its own pick."""
         if requests is None:
             if not self.queue:
                 return None
@@ -241,12 +296,8 @@ class VisionServer:
         if len(requests) > bucket:
             raise ValueError(
                 f"{len(requests)} requests cannot ride a {bucket}-bucket")
-        images = np.stack([r.image for r in requests])
-        if bucket > len(requests):
-            pad = np.zeros((bucket - len(requests),) + images.shape[1:],
-                           images.dtype)
-            images = np.concatenate([images, pad])
-            self.n_padded += bucket - len(requests)
+        host = self._stage(requests, bucket)
+        self.n_padded += bucket - len(requests)
         on_card = self.device.type == "cuda"
         start = event = None
         t = time.perf_counter()
@@ -256,12 +307,12 @@ class VisionServer:
             start = torch.cuda.Event(enable_timing=True)
             start.record()
         with torch.inference_mode():
-            out = self.forward(torch.from_numpy(images).to(self.device))
+            out = self.forward(host.to(self.device, non_blocking=on_card))
         if on_card:
             event = torch.cuda.Event(enable_timing=True)
             event.record()
         self.n_batches += 1
-        return InFlight(requests, bucket, out, event, start)
+        return InFlight(requests, bucket, out, event, start, t)
 
     def complete(self, inflight: Optional[InFlight]) -> int:
         """Wait for an in-flight micro-batch and stamp its requests done;
@@ -283,6 +334,54 @@ class VisionServer:
     def step(self) -> int:
         return self.complete(self.dispatch())
 
+    def profile_stats(self, batch: Optional[int] = None, *,
+                      warmup: int = 1, repeats: int = 2) -> Dict:
+        """Profile one micro-batch of zeros through the per-phase replay
+        (`core.schedule.profile_schedule`) and return the live HUE report
+        of this server's (model, mode): measured ms per phase kind beside
+        the analytic `perfmodel` attribution.  ``batch`` defaults to the
+        smallest bucket; the schedule profiled (fused, unfused or grouped)
+        is the one this server serves that bucket with.  The queue and the
+        stats counters are left alone."""
+        bucket = int(batch) if batch else self.buckets[0]
+        cfg = self._bucket_cfg.get(bucket)
+        if cfg is None:
+            pol = self.fusion_policy
+            fused = (pol.decide(self.model_name, self.mode, bucket) if pol
+                     else bool(self.cfg.fused))
+            group = (pol.decide_group(self.model_name, self.mode, bucket)
+                     if pol else int(self.cfg.fuse_group))
+            cfg = dataclasses.replace(self.cfg, fused=fused,
+                                      fuse_group=group if fused else 1)
+        int8 = self.mode == "int8"
+        images = torch.zeros((bucket, cfg.image, cfg.image, 3),
+                             device=self.device)
+        _, records = sched_lib.profile_schedule(
+            vision_registry.make_schedule(cfg),
+            self.qparams if int8 else self.params,
+            vit.extract_patches(images, cfg.patch),
+            observer=self.calibrator if int8 else None,
+            warmup=warmup, repeats=repeats)
+        report = hue_lib.live_hue_report(
+            vision_registry.make_spec(cfg), records, fused=bool(cfg.fused),
+            group_size=int(cfg.fuse_group))
+        report.update({"model": self.model_name, "config": cfg.name,
+                       "mode": self.mode, "batch": bucket,
+                       "fused": bool(cfg.fused),
+                       "group_size": int(cfg.fuse_group),
+                       "devices": self.n_devices,
+                       "mesh_shape": self.mesh_shape,
+                       "device": str(self.device)})
+        return report
+
+    def restamp_queued(self) -> None:
+        """Reset queued requests' submit clocks (after a warm-up drain, so
+        reported latencies are steady-state).  Drain mode only: the open
+        stream stamps queue delay and service time apart."""
+        t = time.perf_counter()
+        for r in self.queue:
+            r.t_submit = t
+
     def run(self) -> Dict[str, float]:
         """Drain the whole queue and return this run's serving statistics."""
         batches0, padded0, done0 = self.n_batches, self.n_padded, \
@@ -295,6 +394,7 @@ class VisionServer:
         dt = time.perf_counter() - t0
         reqs = self.done[done0:]
         lat_ms = np.array([r.latency_s for r in reqs]) * 1e3
+        queue_ms = np.array([r.queue_delay_s for r in reqs]) * 1e3
         service_ms = np.array([r.service_s for r in reqs]) * 1e3
 
         def pct(a, q):
@@ -303,12 +403,17 @@ class VisionServer:
         return {
             "mode": self.mode,
             "device": str(self.device),
+            "devices": self.n_devices,
+            "mesh_shape": self.mesh_shape,
             "requests": served,
             "batches": self.n_batches - batches0,
             "padded": self.n_padded - padded0,
             "wall_s": dt,
             "throughput_img_s": served / dt if dt > 0 else 0.0,
             "latency_p50_ms": pct(lat_ms, 50),
+            "latency_p99_ms": pct(lat_ms, 99),
+            "latency_mean_ms": float(lat_ms.mean()) if served else 0.0,
+            "queue_delay_p50_ms": pct(queue_ms, 50),
             "service_p50_ms": pct(service_ms, 50),
             "device_p50_ms": (float(np.percentile(self.device_ms[device0:],
                                                   50))
@@ -380,16 +485,35 @@ def make_server(cfg_name: str, serve_cfg: Optional[ServeConfig] = None, *,
                         calibrator=calibrator, model_name=cfg_name)
 
 
+def build_edge_vit(image: int = 32, patch: int = 8, dim: int = 96,
+                   heads: int = 4, layers: int = 4,
+                   n_classes: int = 10) -> vit.ViTConfig:
+    """A custom edge ViT (the registry's ``vit_edge`` covers the default
+    geometry; this one is for tests and ad-hoc configs)."""
+    return vit.ViTConfig(name=f"vit_edge_{image}", image=image, patch=patch,
+                         dim=dim, heads=heads, layers=layers,
+                         n_classes=n_classes)
+
+
+def hue_table(report: Dict, title: str) -> str:
+    """`core.hue.render_hue_table` with the note on what its HUEmeas%
+    column means on a device faster than ViTA."""
+    return (hue_lib.render_hue_table(report, title=title) + "\n"
+            + hue_lib.HUE_MEASURED_NOTE)
+
+
 def serve_model(name: str, *, requests: int, buckets, modes, full: bool,
                 seed: int = 0, calib_images: int = 8, device=None,
                 fused: Optional[bool] = None, fuse_group: int = 1,
-                fusion_policy: Optional[FusionPolicy] = None
-                ) -> List[Dict[str, float]]:
+                fusion_policy: Optional[FusionPolicy] = None,
+                profile: bool = False) -> List[Dict[str, float]]:
     """Init params once, (for int8) quantize and calibrate on the first
     ``calib_images`` request images, and drain ``requests`` random images
     through a server per mode.  ``fused`` overrides the config's fusion
     and ``fuse_group`` its group size; ``fusion_policy`` decides both per
-    bucket.  One stats row per mode."""
+    bucket.  ``profile`` also runs `VisionServer.profile_stats` after each
+    mode's drain, prints its HUE table and attaches the report to the row
+    (``hue_profile``).  One stats row per mode."""
     dev = resolve_device(device)
     cfg = vision_registry.build_cfg(name, full=full, fused=fused,
                                     fuse_group=fuse_group)
@@ -420,7 +544,107 @@ def serve_model(name: str, *, requests: int, buckets, modes, full: bool,
               f"({stats['batches']} batches, {stats['padded']} padded; "
               f"fused buckets {stats['fused_buckets']}, group sizes "
               f"{stats['group_buckets']})")
+        if profile:
+            report = server.profile_stats()
+            stats["hue_profile"] = report
+            print(hue_table(report, f"{name} ({cfg.name}) mode={mode} "
+                                    f"fused={report['fused']} "
+                                    f"batch={report['batch']} on "
+                                    f"{report['device']}"))
     return rows
+
+
+def serve_stream(model_names: Sequence[str], *, modes: Sequence[str],
+                 buckets: Sequence[int], trace, serving: str = "continuous",
+                 seed: int = 0, calib_images: int = 8, devices: int = 1,
+                 mesh_shape=None, latency_mesh=None,
+                 fusion_policy: Optional[FusionPolicy] = None,
+                 bench_data=None, full: bool = False,
+                 max_inflight: int = 2, device=None
+                 ) -> List[Dict[str, float]]:
+    """Open-stream serving: replay an arrival ``trace``
+    (`launch.admission.Arrival` list) through the continuous-batching
+    admission layer (``serving="continuous"``) or the fixed-bucket drain
+    baseline (``serving="drain"``, a single model).  One `VisionServer`
+    per model of ``model_names`` shares the device; the SLA bucket tables
+    come from ``bench_data`` (a bench record or its path) when the caller
+    passes one, else from a live measurement on the device.  One stats
+    row per mode.  Only one device is served: ``devices``,
+    ``mesh_shape`` and ``latency_mesh`` are the JAX server's mesh options
+    and raise (sharding is not ported yet, ROADMAP.md queue 5)."""
+    from repro_torch.launch import admission as adm
+    if devices != 1 or mesh_shape not in (None, "1x1") \
+            or latency_mesh is not None:
+        raise NotImplementedError(
+            "multi-device serving (devices, mesh_shape, latency_mesh) is "
+            "not ported yet (ROADMAP.md queue 5: sharding)")
+    if serving not in ("continuous", "drain"):
+        raise ValueError(f"serving must be 'continuous' or 'drain', got "
+                         f"{serving!r}")
+    dev = resolve_device(device)
+    rows = []
+    for mode in modes:
+        servers, banks, tables = {}, {}, {}
+        for nm in model_names:
+            cfg = vision_registry.build_cfg(nm, full=full)
+            params = vision_registry.init_params(cfg, seed, dev)
+            banks[nm] = np.random.default_rng(seed).standard_normal(
+                (calib_images, cfg.image, cfg.image, 3)).astype(np.float32)
+            qparams = cal = None
+            if mode == "int8":
+                qparams = vision_registry.quantize(params)
+                cal = calibrate(qparams, cfg, banks[nm], device=dev)
+            sc = ServeConfig(mode=mode, buckets=tuple(buckets),
+                             fusion_policy=fusion_policy, device=str(dev))
+            servers[nm] = VisionServer(cfg, params, serve_cfg=sc,
+                                       qparams=qparams, calibrator=cal,
+                                       model_name=nm)
+            if bench_data is not None:
+                table = adm.latency_table_from_bench(bench_data, nm, mode)
+                if table:
+                    tables[nm] = table
+        if serving == "drain":
+            if len(servers) != 1:
+                raise ValueError("the drain baseline serves a single model")
+            (nm, server), = servers.items()
+            adm.measure_bucket_latencies(server)       # warm every bucket
+            stats = adm.run_drain_stream(server, trace, banks)
+            stats["model"] = nm
+        else:
+            controller = adm.AdmissionController(
+                servers, latencies=tables or None, max_inflight=max_inflight)
+            stats = adm.run_open_stream(controller, trace, banks)
+            stats["model"] = ",".join(model_names)
+        server = next(iter(servers.values()))
+        stats.update({"mode": mode, "serving": serving,
+                      "device": str(server.device),
+                      "devices": server.n_devices,
+                      "mesh_shape": server.mesh_shape,
+                      "offered": len(trace)})
+        rows.append(stats)
+        print(f"[vision-serve] stream {stats['model']} mode={mode} "
+              f"serving={serving} on {stats['device']}: "
+              f"{stats['requests']} reqs in {stats['wall_s']:.2f}s -> "
+              f"{stats['throughput_img_s']:.1f} img/s sustained, "
+              f"p50 {stats['latency_p50_ms']:.1f}ms "
+              f"p95 {stats['latency_p95_ms']:.1f}ms "
+              f"p99 {stats['latency_p99_ms']:.1f}ms "
+              f"(queue p50 {stats['queue_delay_p50_ms']:.1f}ms, "
+              f"sla misses {stats['sla_misses']})")
+    return rows
+
+
+def _device_name(device) -> str:
+    """The card's name, or ``cpu``: what a written record says it ran on."""
+    dev = resolve_device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _write_json(path: str, record: Dict) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(record, f, indent=2)
+    print(f"[vision-serve] wrote {path}")
 
 
 def main(argv=None):
@@ -428,7 +652,10 @@ def main(argv=None):
         prog="vision_serve",
         description="Serve a registered vision model through the port's "
                     "batched ViTA pipeline.")
-    ap.add_argument("--model", default="vit_edge")
+    ap.add_argument("--model", default="vit_edge",
+                    help="registered model (see --list-models); open-stream "
+                         "runs (--arrival-rate / --trace) take a "
+                         "comma-separated list, one lane per model")
     ap.add_argument("--list-models", action="store_true")
     ap.add_argument("--full", action="store_true",
                     help="the paper-scale geometry instead of the reduced one")
@@ -457,16 +684,41 @@ def main(argv=None):
                          "many fused layers into one layer_group kernel "
                          "launch (1 = the per-layer chain; groups form only "
                          "where members share stage, geometry and heads)")
+    ap.add_argument("--profile", action="store_true",
+                    help="after each mode's drain, profile one micro-batch "
+                         "phase by phase and print the live HUE table "
+                         "(measured against the ViTA cycle model)")
+    ap.add_argument("--arrival-rate", type=float, default=None,
+                    help="open-stream serving: Poisson arrivals a second "
+                         "through the continuous-batching admission layer "
+                         "(launch/admission.py) instead of the closed drain")
+    ap.add_argument("--sla-ms", type=float, default=None,
+                    help="open stream: each request's latency budget (ms); "
+                         "the scheduler picks each micro-batch's bucket from "
+                         "measured per-batch latencies so the budget holds")
+    ap.add_argument("--trace", default=None,
+                    help="open stream: replay an arrival trace JSON "
+                         "({'arrivals': [{'t': s, 'model'?: name, "
+                         "'sla_ms'?: ms}]}) instead of Poisson arrivals")
+    ap.add_argument("--serving", choices=("continuous", "drain"),
+                    default="continuous",
+                    help="open-stream scheduler: the admission layer "
+                         "(default) or the fixed-bucket drain baseline")
+    ap.add_argument("--json-out", default=None,
+                    help="write the stats rows as a JSON record")
     args = ap.parse_args(argv)
     if args.list_models:
         for name in vision_registry.list_models():
             entry = vision_registry.get(name)
             print(f"{name:10s} [{entry.family}] {entry.description}")
         return []
-    if args.model not in vision_registry.list_models():
+    stream = args.arrival_rate is not None or args.trace is not None
+    if not stream and args.model not in vision_registry.list_models():
         raise SystemExit(f"[vision-serve] unknown model {args.model!r}; "
                          f"registered: "
-                         f"{', '.join(vision_registry.list_models())}")
+                         f"{', '.join(vision_registry.list_models())} "
+                         f"(comma-separated lists need --arrival-rate or "
+                         f"--trace)")
     if args.no_fuse and args.fusion_policy:
         raise SystemExit("[vision-serve] --no-fuse and --fusion-policy "
                          "conflict; --no-fuse is shorthand for "
@@ -488,12 +740,53 @@ def main(argv=None):
                               default_group=args.fuse_group_size)
     modes = ("float", "int8") if args.mode == "both" else (args.mode,)
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    return serve_model(args.model, requests=args.requests, buckets=buckets,
+    if stream:
+        return _main_stream(args, modes, buckets, policy)
+    rows = serve_model(args.model, requests=args.requests, buckets=buckets,
                        modes=modes, full=args.full, seed=args.seed,
                        device=args.device,
                        fused=False if args.no_fuse else None,
                        fuse_group=args.fuse_group_size,
-                       fusion_policy=policy)
+                       fusion_policy=policy, profile=args.profile)
+    if args.json_out:
+        _write_json(args.json_out, {
+            "bench": "vision_serve", "model": args.model,
+            "config": rows[0]["config"], "buckets": list(buckets),
+            "device": _device_name(args.device), "runs": rows})
+    return rows
+
+
+def _main_stream(args, modes, buckets, policy) -> List[Dict[str, float]]:
+    """The open-stream half of the CLI: a Poisson or file trace over one
+    or several models through `serve_stream`."""
+    from repro_torch.launch import admission as adm
+    model_arg = [m for m in args.model.split(",") if m]
+    if args.trace is not None:
+        trace = adm.load_trace(args.trace, model_arg[0], args.sla_ms)
+    else:
+        if args.arrival_rate <= 0:
+            raise SystemExit("[vision-serve] --arrival-rate must be > 0")
+        trace = adm.poisson_trace(
+            args.arrival_rate, args.requests,
+            model_arg if len(model_arg) > 1 else model_arg[0],
+            sla_ms=args.sla_ms, seed=args.seed)
+    names = sorted({a.model for a in trace})
+    unknown = sorted(set(names) - set(vision_registry.list_models()))
+    if unknown:
+        raise SystemExit(f"[vision-serve] trace names unregistered "
+                         f"model(s): {', '.join(unknown)}")
+    rows = serve_stream(names, modes=modes, buckets=buckets, trace=trace,
+                        serving=args.serving, seed=args.seed,
+                        fusion_policy=policy, bench_data=args.fusion_data,
+                        full=args.full, device=args.device)
+    if args.json_out:
+        _write_json(args.json_out, {
+            "bench": "vision_serve_stream", "models": names,
+            "serving": args.serving, "arrival_rate": args.arrival_rate,
+            "sla_ms": args.sla_ms, "trace": args.trace,
+            "buckets": list(buckets), "device": _device_name(args.device),
+            "runs": rows})
+    return rows
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ workload table.
 Each entry has a ``reduced`` geometry (what the CPU tests run) and the
 paper's ``full`` one (what runs on the card).  The family-generic helpers
 (`forward_fn`, `init_params`, `make_schedule`, `quantize`) dispatch on the
-config type, so the server stays model-agnostic.
+config type, so the server stays model-agnostic; `make_spec` gives the
+analytic model's description of a config.
 """
 
 from __future__ import annotations
@@ -195,6 +196,12 @@ def init_params(cfg: Any, seed: int = 0, device="cpu") -> Any:
 
 def make_schedule(cfg: Any) -> sched_lib.Schedule:
     return _family_mod(cfg).schedule(cfg)
+
+
+def make_spec(cfg: Any):
+    """The perfmodel `VisionModelSpec` for this config (the same stage
+    description the schedule compiler and the analytic model read)."""
+    return _family_mod(cfg).to_spec(cfg)
 
 
 def quantize(params: Any) -> Any:

@@ -1280,3 +1280,42 @@ def test_tnt_server_on_the_card_matches_the_cpu(card, name, mode):
     assert g.shape == (5, 1000) and np.isfinite(g).all()
     tol = (1e-3 if mode == "float" else 2e-2) * np.abs(w).max()
     assert np.abs(g - w).max() <= tol
+
+
+@pytest.mark.parametrize("mode,group", [("float", 1), ("int8", 1),
+                                        ("float", 4), ("int8", 4)])
+def test_full_ring_matches_one_micro_batch_at_a_time(card, mode, group):
+    """Three micro-batches dispatched back to back, none completed, each
+    `dispatch` under ``set_sync_debug_mode("error")`` (a host sync in the
+    staging, the copy or the forward raises), give the logits of the same
+    micro-batches dispatched and completed one at a time, bit for bit (the
+    same kernels on the same inputs); padding counts in ``n_padded``."""
+    sc = vision_serve.ServeConfig(mode=mode, buckets=(2, 4), calib_images=4,
+                                  fuse_group=group)
+    server = vision_serve.make_server("deit_t", sc)
+    images = np.random.default_rng(0).standard_normal(
+        (10, 64, 64, 3)).astype(np.float32)
+    groups = [images[:4], images[4:8], images[8:]]
+
+    def reqs(ims):
+        return [vision_serve.VisionRequest(i, im) for i, im in enumerate(ims)]
+    one_at_a_time = []
+    for ims in groups:                 # also warms every bucket up
+        inflight = server.dispatch(reqs(ims))
+        server.complete(inflight)
+        one_at_a_time.append(np.stack([r.logits for r in inflight.requests]))
+    padded0 = server.n_padded
+    ring = []
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for ims in groups:
+            ring.append(server.dispatch(reqs(ims)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert server.n_padded - padded0 == 0 and ring[2].bucket == 2
+    for inflight, want in zip(ring, one_at_a_time):
+        server.complete(inflight)
+        got = np.stack([r.logits for r in inflight.requests])
+        np.testing.assert_array_equal(got, want)
+    server.complete(server.dispatch(reqs(images[:3])))
+    assert server.n_padded - padded0 == 1
