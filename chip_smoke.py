@@ -156,6 +156,32 @@ throughputs (whose closed-drain img/s sets the offered load):
       logit scale, launches counted.
   Their launches join each kernel's count in the JSON line.
 
+The sharding slice adds phase 6, the mesh on the card, last (after the
+kernel and LM times, whose profiler sessions it would disturb):
+ranks spawned on this one card (`launch.mesh.start_world`; gloo, since
+they share the card, or NCCL with one rank per card; the `[mesh]` line
+names the backend, ranks and cards):
+  6a. `run_schedule_sharded` of a bucket of 8 at full width and depth,
+      each against the single-device `run_schedule` on the card (float
+      within 1e-4 of the logit scale, int8 within 0.02 with a differing
+      argmax only at a near-tie): DeiT-T on "1x3" float and int8, fused
+      and unfused, and float grouped by 4 (the split per-layer chain);
+      Swin-T on "1x2" float and int8 fused (stage 1's 3 heads replicate,
+      stages 2-4 split); TNT-S on "1x2" float; DeiT-T on "2x1" float, and
+      grouped by 4 in float and int8 (the group kernels on a data mesh).
+      Each rank's launch counts must be one micro-batch of the schedule's;
+      then kernels 1-6 at one local DeiT-T shape of each rank of "1x3"
+      against their plain versions on the same shards;
+  6b. DeiT-T servers on "1x3" (11 requests) and "2x1" (5) in float and
+      int8 against phase 3's single-device servers' logits, then img/s,
+      p50 and the card's busy share (the ranks' kernel time summed) over
+      32 requests;
+  6c. `serve_stream(["deit_t"], latency_mesh="1x3")` at an SLA below the
+      single-device bucket-1 latency: every arrival served, some routed to
+      the latency mesh.
+  A rank that fails or times out fails the script.  The phase's launches,
+  summed over the ranks, join each kernel's count in the JSON line.
+
 The line before the last is one JSON object with a record per kernel
 (each time marked with how it was taken: "profiler" or "cuda_events");
 the last line is {"ok": true, "device": {...}}.  Without a card, or without
@@ -2868,6 +2894,359 @@ def lm_paths(where: str):
                     ("stablelm-3b (4 layers) bf16", sl, sl_params)]
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the mesh on the card
+# ---------------------------------------------------------------------------
+
+
+def rank_kernel_checks(mesh) -> dict:
+    """On every rank of a (1, 3) mesh: kernels 1-6 at this rank's local
+    DeiT-T shapes (1 of 3 heads, concat 64, 256 of 768 MLP columns, batch
+    8), each against its plain version on the same shards (the layers
+    with their all-reduces over the model group): {kernel: (max|err|,
+    scale)}."""
+    from repro_torch.core.quant import amax_scale, quantize
+    from repro_torch.kernels import ops, ref
+
+    b, n, d, h, dh, m = B_MAIN, 197, 192, 3, 64, 768
+    c, dev, axis = mesh.coord("model"), mesh.device, mesh.model_group
+    g = torch.Generator().manual_seed(11)
+
+    def r(*shape, s=0.05):
+        return torch.randn(shape, generator=g) * s
+
+    x = r(b, n, d, s=1.0)
+    wq, wk, wv, w_msa = r(h, d, dh), r(h, d, dh), r(h, d, dh), r(h * dh, d)
+    ln = [1.0 + r(d), r(d), 1.0 + r(d), r(d)]
+    w_up, b_up, w_down, b_down = r(d, m), r(m), r(m, d), r(d)
+    heads, rows = slice(c, c + 1), slice(c * dh, (c + 1) * dh)
+    cols = slice(c * m // 3, (c + 1) * m // 3)
+
+    def on(*ts):
+        return [t.contiguous().to(dev) for t in ts]
+    # Whole-matrix int8 quantisation, then this rank's slices: the
+    # per-head and up scales split with their columns, the concat and
+    # down scales (per output channel of the full width) replicate.
+    q = {k: quantize(w, amax_scale(w, dim=(1,)))
+         for k, w in (("wq", wq), ("wk", wk), ("wv", wv))}
+    q.update({k: quantize(w, amax_scale(w, dim=(0,)))
+              for k, w in (("w_msa", w_msa), ("w_up", w_up),
+                           ("w_down", w_down))})
+    xl, = on(x)
+    f_args = on(wq[heads], wk[heads], wv[heads], w_msa[rows], *ln,
+                w_up[:, cols], b_up[cols], w_down[cols], b_down)
+    acts = torch.tensor([0.03, 0.05, 0.04, 0.02], device=dev)
+    i_args = on(q["wq"].values[heads], q["wk"].values[heads],
+                q["wv"].values[heads], q["w_msa"].values[rows],
+                q["w_up"].values[:, cols], q["w_down"].values[cols]) \
+        + [acts] + on(*(q[k].scale[heads].reshape(1, dh)
+                        for k in ("wq", "wk", "wv")),
+                      q["w_msa"].scale.reshape(d),
+                      q["w_up"].scale.reshape(m)[cols],
+                      q["w_down"].scale.reshape(d), *ln, b_up[cols], b_down)
+    axes = {"msa_axis": axis, "mlp_axis": axis}
+    out = {}
+
+    def rec(name, got, want):
+        torch.cuda.synchronize()
+        out[name] = (float((got.float() - want.float()).abs().max()),
+                     float(want.float().abs().max()))
+    with torch.no_grad():          # gloo writes all-reduce results back
+        rec("vita_layer", ops.vita_layer_fused(xl, *f_args, **axes),
+            ref.vita_layer_ref(xl, *f_args, **axes))
+        rec("vita_layer_int8", ops.vita_layer_int8(xl, *i_args, **axes),
+            ref.vita_layer_int8_ref(xl, *i_args, **axes))
+        z = ref.layer_norm_ref(xl, f_args[4], f_args[5])
+        zq = ref.quant(z, acts[0])
+        m_args = (zq, *i_args[:3], acts[0], *i_args[7:10])
+        rec("vita_msa_int8", ops.vita_msa_int8(*m_args),
+            ref.vita_msa_int8_ref(*m_args))
+        saq = ref.quant(r(b * n, dh, s=1.0).to(dev), acts[1])
+        rec("int8_matmul", ops.int8_matmul(saq, i_args[3]),
+            ref.int8_matmul_ref(saq, i_args[3]))
+        rec("vita_msa_batched", ops.vita_msa_batched(z, *f_args[:3]),
+            ref.vita_msa_batched_ref(z, *f_args[:3]))
+        mlp = (z, f_args[8], f_args[10], f_args[9], None)
+        rec("fused_mlp", ops.mlp(*mlp),
+            ref.fused_mlp_ref(z, f_args[8], f_args[9], f_args[10], None))
+    return out
+
+
+def local_shapes(tree, mesh) -> dict:
+    """The shapes a rank of ``mesh`` holds of the first encoder block of
+    ``tree`` (its heads, concat rows and MLP columns), from the spec
+    tree."""
+    from repro_torch.core.quant import QTensor
+    from repro_torch.distributed import sharding as shd
+    bp, sp = tree, shd.vision_param_specs(tree, mesh)
+    while "wq" not in bp:
+        key = next(k for k in ("layers", "stages", "blocks", "outer")
+                   if k in bp)
+        bp, sp = bp[key], sp[key]
+        if isinstance(bp, list):
+            bp, sp = bp[0], sp[0]
+    out = {}
+    for k in ("wq", "w_msa", "w_up"):
+        leaf, spec = bp[k], sp[k]
+        if isinstance(leaf, QTensor):
+            leaf, spec = leaf.values, spec.values
+        out[k] = tuple(n // shd.axis_size(mesh, a) if a else n
+                       for n, a in zip(leaf.shape, spec))
+    return out
+
+
+def mesh_check(name: str, mode: str, got: np.ndarray,
+               want: np.ndarray) -> None:
+    """Mesh logits against the single device's on the card: float within
+    1e-4 of the logit scale (the partial sums reassociate), int8 within
+    0.02 of it with a differing argmax only at a near-tie."""
+    err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    if mode == "float":
+        ok, txt = err <= 1e-4 * max(1.0, scale), "1e-4 x max(1, scale)"
+    else:
+        n_differ, ties = argmax_check(got, want, err)
+        ok = err <= 0.02 * scale and ties
+        txt = (f"0.02 x scale; argmax differs on {n_differ}/{len(want)}, "
+               f"each a near-tie: {ties}")
+    print(f"[mesh] {name} against the single device on the card: max|err| "
+          f"{err:.3e} (scale {scale:.3f}, bound {txt})")
+    check(got.shape == want.shape and bool(np.isfinite(got).all()) and ok,
+          f"{name}: logits disagree with the single device")
+
+
+_RANK_PROFILES: list = []
+
+
+def rank_profile_start() -> None:
+    """Start a CUDA profiler session in this rank's process."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.__enter__()
+    _RANK_PROFILES.append(prof)
+
+
+def rank_profile_stop() -> float:
+    """Stop this rank's session: its kernels' device time in ms."""
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    prof = _RANK_PROFILES.pop()
+    prof.__exit__(None, None, None)
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+# 6a: (model, mesh shape, mode, fused, group size) replays of a bucket of
+# 8 images at full width and depth, each against the single-device
+# `run_schedule` on the card.  DeiT-T's 3 heads split 1 a rank at model
+# 3; Swin-T's stage 1 (3 heads) replicates its heads at model 2 and
+# splits its MLP, stages 2-4 split both; TNT-S splits its 4-head inner
+# and 6-head outer blocks; grouped by 4 under a model axis runs the split
+# per-layer chain, on a data mesh the group kernels.
+MESH_REPLAYS = (("deit_t", "1x3", "float", True, 1),
+                ("deit_t", "1x3", "int8", True, 1),
+                ("deit_t", "1x3", "float", False, 1),
+                ("deit_t", "1x3", "int8", False, 1),
+                ("deit_t", "1x3", "float", True, 4),
+                ("swin_t", "1x2", "float", True, 1),
+                ("swin_t", "1x2", "int8", True, 1),
+                ("tnt_s", "1x2", "float", True, 1),
+                ("deit_t", "2x1", "float", True, 1),
+                ("deit_t", "2x1", "float", True, 4),
+                ("deit_t", "2x1", "int8", True, 4))
+# 6b: VisionServer drains, (mesh shape, requests); then MESH_TIMED
+# requests of zeros timed after a warm drain.
+MESH_DRAINS = (("1x3", 11), ("2x1", 5))
+MESH_TIMED = 32
+# 6c: the latency-mesh stream: arrivals, rate, and the SLA as a share of
+# the single-device server's measured bucket-1 latency (below it, so no
+# throughput bucket meets it and singles route to the latency mesh).
+LAT_ARRIVALS, LAT_RATE, LAT_SLA_SHARE = 32, 50.0, 0.9
+
+
+def mesh_expected(sched, mode: str, split: bool) -> dict:
+    """One rank's launches for one micro-batch: `expected_launches`, with
+    a layer group under a model axis run as its members' split layers."""
+    want = expected_launches(sched, mode, 1, 0)
+    if split:
+        for g, one in (("vita_layer_group", "vita_layer"),
+                       ("vita_layer_group_int8", "vita_layer_int8")):
+            if want[g]:
+                want[one] += sum(len(p.members) for p in sched.phases
+                                 if p.kind == "layer_group")
+                want[g] = 0
+    return want
+
+
+def mesh_phase(served: dict, params: dict, quant: dict, images: dict,
+               where: str, t_start: float, replays=MESH_REPLAYS,
+               drains=MESH_DRAINS, latency_mesh: str = "1x3") -> dict:
+    """Phase 6 (module docstring): ``replays`` (6a), ``drains`` (6b) and
+    the stream on ``latency_mesh`` (6c) on a world of as many ranks as
+    the largest mesh needs.  Returns the launches of its main paths
+    summed over the ranks."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import admission as adm
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.vision_serve import serve_stream
+
+    totals = {k[0]: 0 for k in KERNELS}
+    shapes = [r[1] for r in replays] + [d[0] for d in drains] \
+        + [latency_mesh, "1x3"]
+    ranks = max(int(np.prod(mesh_lib.parse_mesh_shape(s))) for s in shapes)
+    t0 = time.perf_counter()
+    world = mesh_lib.start_world(ranks, "cuda")
+    print(f"[mesh] backend={world.backend} ranks={world.size} cards="
+          f"{torch.cuda.device_count()} on {where}: ranks started in "
+          f"{time.perf_counter() - t0:.1f} s")
+    try:
+        _mesh_replays(replays, params, quant, images, totals, where)
+        _mesh_drains(drains, served, images, totals, where)
+        # 6c: singles under a tight SLA route to the latency mesh.
+        solo = served[("deit_t", "float", True, 1)]["server"]
+        b1 = adm.measure_bucket_latencies(solo, repeats=3)[1]
+        sla = LAT_SLA_SHARE * b1
+        trace = adm.poisson_trace(LAT_RATE, LAT_ARRIVALS, "deit_t",
+                                  sla_ms=sla, seed=0, n_images=B_MAIN)
+        lat_mesh = mesh_lib.make_vision_mesh(
+            *mesh_lib.parse_mesh_shape(latency_mesh), "cuda")
+        mesh_lib.per_rank(lat_mesh, ops.reset_launches)
+        (row,) = serve_stream(["deit_t"], modes=("float",), buckets=BUCKETS,
+                              trace=trace, latency_mesh=latency_mesh,
+                              full=True)
+        counts = mesh_lib.per_rank(lat_mesh, ops.launch_counts)
+        for c in counts:
+            for k, v in c.items():
+                totals[k] += v
+        print(f"[mesh] deit_t float stream, latency mesh {latency_mesh}, SLA "
+              f"{sla:.3f} ms (0.9 x the single-device bucket-1 latency "
+              f"{b1:.3f} ms), {LAT_RATE}/s offered on {where}: "
+              f"{row['requests']}/{row['offered']} served, "
+              f"{row['routed_latency_path']} routed to the latency mesh, "
+              f"p50 {row['latency_p50_ms']:.3f} ms, p99 "
+              f"{row['latency_p99_ms']:.3f} ms; launches by rank "
+              f"{[{k: v for k, v in c.items() if v} for c in counts]}")
+        check(row["requests"] == row["offered"] == LAT_ARRIVALS
+              and row["routed_latency_path"] > 0,
+              "the latency-mesh stream did not serve every arrival or "
+              "routed none")
+    finally:
+        world.close()
+    print(f"[phase] mesh served in {time.perf_counter() - t0:.1f} s, at "
+          f"{time.perf_counter() - t_start:.0f} s")
+    return totals
+
+
+def _mesh_replays(replays, params, quant, images, totals, where) -> None:
+    """6a, and each kernel at one local shape on each rank of (1, 3)."""
+    from repro_torch.core import schedule as sched_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import vision_registry, vit
+
+    for model, shape, mode, fused, group in replays:
+        d, m = mesh_lib.parse_mesh_shape(shape)
+        mesh = mesh_lib.make_vision_mesh(d, m, "cuda")
+        cfg = vision_registry.build_cfg(model, full=True, fused=fused,
+                                        fuse_group=group)
+        sched = vision_registry.make_schedule(cfg)
+        x = vit.extract_patches(torch.from_numpy(images[model][:B_MAIN])
+                                .cuda(), cfg.patch)
+        if mode == "int8":
+            tree, obs = quant[(model, 1)]
+        else:
+            tree, obs = params[model], None
+        with torch.inference_mode():
+            want = sched_lib.run_schedule(sched, tree, x, observer=obs)
+        mesh_lib.per_rank(mesh, ops.reset_launches)
+        t0 = time.perf_counter()
+        got = sched_lib.run_schedule_sharded(sched, tree, x, mesh,
+                                             observer=obs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = mesh_lib.per_rank(mesh, ops.launch_counts)
+        for c in counts:
+            for k, v in c.items():
+                totals[k] += v
+        split = m > 1 and group > 1
+        want_counts = mesh_expected(sched, mode, split)
+        name = f"{path_name(model, mode, fused, group)} on {shape}"
+        print(f"[mesh] {name}: launches by rank "
+              f"{[{k: v for k, v in c.items() if v} for c in counts]}; "
+              f"a rank's first block {local_shapes(tree, mesh)}; one "
+              f"replay {ms:.1f} ms on {where} (host clock, the whole batch "
+              f"and tree sent to the ranks)")
+        check(all(c == want_counts for c in counts),
+              f"{name}: launches {counts}, expected {want_counts} a rank")
+        mesh_check(f"{name}, run_schedule_sharded", mode,
+                   got.float().cpu().numpy(), want.float().cpu().numpy())
+    mesh = mesh_lib.make_vision_mesh(1, 3, "cuda")
+    for rank, errs in enumerate(mesh_lib.per_rank(mesh, rank_kernel_checks,
+                                                  mesh)):
+        for kname, (err, scale) in errs.items():
+            tol = (0.0 if kname == "int8_matmul" else
+                   0.02 * scale if kname == "vita_layer_int8" else
+                   1e-4 * max(1.0, scale))
+            print(f"[mesh] rank {rank} {kname} at its local DeiT-T shape "
+                  f"against its plain version: max|err| {err:.3e} (scale "
+                  f"{scale:.3f}, bound {tol:.3e})")
+            check(err <= tol, f"rank {rank}: {kname} disagrees at its local "
+                              f"shape")
+
+
+def _mesh_drains(drains, served, images, totals, where) -> None:
+    """6b: DeiT-T servers on "1x3" and "2x1" against phase 3's single-
+    device servers, then their img/s, p50 and the card's busy share."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.vision_serve import ServeConfig, VisionServer
+
+    for shape, n in drains:
+        d, m = mesh_lib.parse_mesh_shape(shape)
+        mesh = mesh_lib.make_vision_mesh(d, m, "cuda")
+        for mode in ("float", "int8"):
+            o = served[("deit_t", mode, True, 1)]
+            solo = o["server"]
+            server = VisionServer(
+                solo.cfg, solo.params, qparams=solo.qparams,
+                calibrator=solo.calibrator, model_name="deit_t",
+                serve_cfg=ServeConfig(mode=mode, buckets=BUCKETS,
+                                      mesh_shape=shape))
+            mesh_lib.per_rank(mesh, ops.reset_launches)
+            reqs = server.submit_many(images["deit_t"][:n])
+            stats = server.run()
+            counts = mesh_lib.per_rank(mesh, ops.launch_counts)
+            for c in counts:
+                for k, v in c.items():
+                    totals[k] += v
+            name = f"deit_t {mode} fused server on {shape}"
+            check(stats["requests"] == n and stats["mesh_shape"] == shape,
+                  f"{name}: stats {stats}")
+            mesh_check(f"{name}, {n} requests in {stats['batches']} "
+                       f"micro-batches ({stats['padded']} padded)", mode,
+                       np.stack([r.logits for r in reqs]), o["logits"][:n])
+            zeros = np.zeros((MESH_TIMED, 224, 224, 3), np.float32)
+            server.submit_many(zeros[:16])
+            server.run()                                    # warm
+            mesh_lib.per_rank(mesh, rank_profile_start)
+            server.submit_many(zeros)
+            stats = server.run()
+            busy = mesh_lib.per_rank(mesh, rank_profile_stop)
+            share = sum(busy) / (stats["wall_s"] * 1e3)
+            cards = len({mesh_lib.rank_device(r, "cuda")
+                         for r in range(mesh.size)})
+            print(f"[time] mesh {shape} deit_t {mode} fused on {where}, "
+                  f"{cards} card(s) through {mesh.backend}: "
+                  f"{stats['requests']} requests in {stats['batches']} "
+                  f"micro-batches of {BUCKETS[-1]}: "
+                  f"{stats['throughput_img_s']:.1f} img/s, p50 latency "
+                  f"{stats['latency_p50_ms']:.3f} ms (drain: queue "
+                  f"included), p50 service {stats['service_p50_ms']:.3f} "
+                  f"ms; kernel time by rank {[round(b, 3) for b in busy]} "
+                  f"ms over {stats['wall_s'] * 1e3:.1f} ms of wall: busy "
+                  f"{100 * share:.1f}% (the ranks' kernel time summed over "
+                  f"the wall; on one card their contexts time-slice it)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device is available", file=sys.stderr)
@@ -3151,6 +3530,13 @@ def main() -> None:
     print(f"[phase] kernels timed at {time.perf_counter() - t_start:.0f} s")
     for lm_name, lm_cfg, lm_params in lm_served:
         lm_times(lm_name, lm_cfg, lm_params, f"{name} ({card})")
+    # 6. The mesh on the card: ranks on this one card through gloo (NCCL
+    # where every rank has a card of its own).  It runs last: after the
+    # ranks' profiler sessions this process's profiler drops device
+    # events, which would move every kernel time above onto CUDA events.
+    mesh_counts = mesh_phase(served, params, quant, images, where, t_start)
+    for entry in out:
+        entry["launches"] += mesh_counts[entry["name"]]
     print(f"[phase] done at {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {

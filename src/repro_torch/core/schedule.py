@@ -58,7 +58,19 @@ served on float32 images keeps a float32 residual stream and float32
 logits, and `forward` on bf16 patches runs bf16 throughout; the kernels
 take each (activation, weight) dtype pair of `ref.PORTED_MODES`.
 
-Sharding comes with a later slice.
+Sharding (the reference's `shard_map` bodies, on torch.distributed): on a
+model-axis mesh every rank replays the schedule on its local shards (its
+heads with their concat rows, its MLP columns with their down rows;
+`distributed.sharding`) and a `ShardCtx` says where the two row-parallel
+products of each encoder block are all-reduced over the model axis.
+Fused layers run the layer kernels' chains split at those reductions
+(`kernels.vita_layer`); a layer group whose members reduce runs its L
+layers through that split per-layer chain, since the group kernels
+cannot all-reduce mid-kernel (the reference's group oracle is layer by
+layer too); on a data-only mesh groups keep their group kernels.  The
+embed, fold, merge and head weights replicate and compute full width on
+every rank.  `run_schedule_sharded` is the entry point: every rank of the
+mesh replays its rows (`build_sharded_fn`) and the logits are gathered.
 """
 
 from __future__ import annotations
@@ -76,8 +88,10 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.perfmodel import VisionModelSpec
 from repro_torch.core.quant import INT8_MAX, QTensor, stack_qtensors
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import gelu
+from repro_torch.kernels.ref import gelu, psum
+from repro_torch.models.layers import to_device
 
 NEG_INF = -1e30
 
@@ -415,6 +429,37 @@ def _subtree(params: Any, path: Tuple[Any, ...]) -> Any:
     return node
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Model-axis collective context for a sharded replay.
+
+    Every weight of the replay is the rank's LOCAL shard, and the two
+    row-parallel contractions of each encoder block (the MSA concat
+    projection and the MLP down projection) give partial products that
+    are all-reduced over the model axis before their residual re-entries.
+
+    ``specs`` is `distributed.sharding.vision_param_specs` of the WHOLE
+    param tree: `reduce_axis` reads the block's weight spec back, so the
+    placement rule and the collective cannot disagree, and a block whose
+    heads replicated (H not divisible) fires no all-reduce.  ``group`` is
+    the rank's model-axis process group.  None in place of a ShardCtx is
+    the single-device and data-parallel replay: no collectives."""
+
+    group: Any
+    specs: Any
+
+    def reduce_axis(self, path: Tuple[Any, ...], key: str):
+        """The process group to all-reduce over after contracting with
+        weight ``key`` of the block at ``path``, or None (replicated)."""
+        node = _subtree(self.specs, path)[key]
+        if isinstance(node, QTensor):
+            node = node.values
+        return self.group if node and node[0] == "model" else None
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return psum(x, self.group)
+
+
 def _quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x / scale), -INT8_MAX, INT8_MAX
                        ).to(torch.int8)
@@ -458,9 +503,12 @@ def _per_head_msa(bp: Any, z: torch.Tensor, obs, site: str,
 
 
 def _msa_phase(ph: Phase, bp: Any, x: torch.Tensor, obs,
-               quantized: bool) -> torch.Tensor:
+               quantized: bool, shard: Optional[ShardCtx] = None
+               ) -> torch.Tensor:
     """Unfused MSA phase: LN -> per-head MSA (windowed: folded into the
-    batch axis) -> concat projection -> residual."""
+    batch axis) -> concat projection -> residual.  Head-sharded: ``sa``
+    holds the local heads' concat columns and w_msa their rows, so the
+    partials are summed over the model axis before the residual."""
     z = ops.layer_norm(x, bp["ln1_w"], bp["ln1_b"])
     if ph.window:
         bias, mask = _window_terms(ph, bp, x.device)
@@ -469,19 +517,32 @@ def _msa_phase(ph: Phase, bp: Any, x: torch.Tensor, obs,
         sa = _unfold(ph, sa, x.shape[0])
     else:
         sa = _per_head_msa(bp, z, obs, ph.site, quantized, None, None)
-    return x + _matmul(sa, bp["w_msa"], obs, f"{ph.site}.w_msa")
+    proj = _matmul(sa, bp["w_msa"], obs, f"{ph.site}.w_msa")
+    if shard is not None and shard.reduce_axis(ph.path, "w_msa"):
+        proj = shard.psum(proj)
+    return x + proj
 
 
 def _mlp_phase(ph: Phase, bp: Any, x: torch.Tensor, obs,
-               quantized: bool) -> torch.Tensor:
+               quantized: bool, shard: Optional[ShardCtx] = None
+               ) -> torch.Tensor:
     """Unfused MLP phase: LN -> up -> GELU -> down -> residual; float
-    through the fused MLP kernel, int8 through two int8 matmuls."""
+    through the fused MLP kernel, int8 through two int8 matmuls.
+    Column-sharded: w_up / b_up hold the local hidden columns and w_down
+    the matching rows, so the down partial is summed over the model axis
+    and b_down added once, after the sum."""
     h = ops.layer_norm(x, bp["ln2_w"], bp["ln2_b"])
+    reduce = shard is not None and shard.reduce_axis(ph.path, "w_down")
     if quantized:
         hid = gelu(_matmul(h, bp["w_up"], obs, f"{ph.site}.w_up")
                    + bp["b_up"])
-        y = _matmul(hid, bp["w_down"], obs, f"{ph.site}.w_down") \
-            + bp["b_down"]
+        y = _matmul(hid, bp["w_down"], obs, f"{ph.site}.w_down")
+        if reduce:
+            y = shard.psum(y)
+        y = y + bp["b_down"]
+    elif reduce:
+        y = shard.psum(ops.mlp(h, bp["w_up"], bp["w_down"], bp["b_up"],
+                               None, activation="gelu")) + bp["b_down"]
     else:
         y = ops.mlp(h, bp["w_up"], bp["w_down"], bp["b_up"], bp["b_down"],
                     activation="gelu")
@@ -489,9 +550,14 @@ def _mlp_phase(ph: Phase, bp: Any, x: torch.Tensor, obs,
 
 
 def _fused_layer_call(ph: Phase, bp: Any, x: torch.Tensor, obs,
-                      quantized: bool, bias, mask) -> torch.Tensor:
+                      quantized: bool, bias, mask,
+                      shard: Optional[ShardCtx] = None) -> torch.Tensor:
     """One fused encoder layer over (B', N, C); B' is images, or images *
     windows in windowed mode (the fold happens in `_layer_phase`)."""
+    axes = {"msa_axis": shard.reduce_axis(ph.path, "w_msa") if shard
+            else None,
+            "mlp_axis": shard.reduce_axis(ph.path, "w_down") if shard
+            else None}
     if quantized:
         # The four frozen per-site scales the calibration pass recorded
         # feed the kernel's requant chain.
@@ -506,27 +572,31 @@ def _fused_layer_call(ph: Phase, bp: Any, x: torch.Tensor, obs,
             act_scales, _head_scale(bp["wq"]), _head_scale(bp["wk"]),
             _head_scale(bp["wv"]), bp["w_msa"].scale, bp["w_up"].scale,
             bp["w_down"].scale, bp["ln1_w"], bp["ln1_b"], bp["ln2_w"],
-            bp["ln2_b"], bp["b_up"], bp["b_down"], bias, mask).to(x.dtype)
+            bp["ln2_b"], bp["b_up"], bp["b_down"], bias, mask,
+            **axes).to(x.dtype)
     return ops.vita_layer_fused(
         x, bp["wq"], bp["wk"], bp["wv"], bp["w_msa"], bp["ln1_w"],
         bp["ln1_b"], bp["ln2_w"], bp["ln2_b"], bp["w_up"], bp["b_up"],
-        bp["w_down"], bp["b_down"], bias, mask)
+        bp["w_down"], bp["b_down"], bias, mask, **axes)
 
 
 def _layer_phase(ph: Phase, bp: Any, x: torch.Tensor, obs,
-                 quantized: bool) -> torch.Tensor:
+                 quantized: bool, shard: Optional[ShardCtx] = None
+                 ) -> torch.Tensor:
     """Fused encoder layer.  int8 calibration (observer not yet frozen)
     falls back to the unfused executors so the observer sees every
     intermediate activation at the sites the fused kernel later reads.
     Windowed: every step but attention is per token, so the whole layer
     runs on the window fold."""
     if quantized and (obs is None or obs.frozen is None):
-        x = _msa_phase(ph, bp, x, obs, quantized)
-        return _mlp_phase(ph, bp, x, obs, quantized)
+        x = _msa_phase(ph, bp, x, obs, quantized, shard)
+        return _mlp_phase(ph, bp, x, obs, quantized, shard)
     if not ph.window:
-        return _fused_layer_call(ph, bp, x, obs, quantized, None, None)
+        return _fused_layer_call(ph, bp, x, obs, quantized, None, None,
+                                 shard)
     bias, mask = _window_terms(ph, bp, x.device)
-    yw = _fused_layer_call(ph, bp, _fold(ph, x), obs, quantized, bias, mask)
+    yw = _fused_layer_call(ph, bp, _fold(ph, x), obs, quantized, bias, mask,
+                           shard)
     return _unfold(ph, yw, x.shape[0])
 
 
@@ -595,15 +665,23 @@ def _grouped_layer_call(ph: Phase, sp: Dict[str, Any], x: torch.Tensor,
 
 
 def _layer_group_phase(ph: Phase, params: Any, x: torch.Tensor, obs,
-                       quantized: bool) -> torch.Tensor:
+                       quantized: bool, shard: Optional[ShardCtx] = None
+                       ) -> torch.Tensor:
     """L encoder blocks as one layer-group kernel call.  int8 calibration
     (observer not yet frozen) falls back to each member's `_layer_phase`,
     which itself runs unfused, so the observer sees every member's sites.
-    Members share window and shift, so the window fold happens once for
-    the whole group."""
-    if quantized and (obs is None or obs.frozen is None):
+    Under a reducing model axis the members run one by one through the
+    per-layer chain split at its all-reduces (the group kernels cannot
+    all-reduce mid-kernel); members share their specs (same shapes), so
+    the lead member decides.  Members share window and shift, so the
+    window fold happens once for the whole group."""
+    lead = ph.members[0].path
+    split = shard is not None and (shard.reduce_axis(lead, "w_msa")
+                                   or shard.reduce_axis(lead, "w_down"))
+    if split or (quantized and (obs is None or obs.frozen is None)):
         for m in ph.members:
-            x = _layer_phase(m, _subtree(params, m.path), x, obs, quantized)
+            x = _layer_phase(m, _subtree(params, m.path), x, obs, quantized,
+                             shard)
         return x
     sp = _group_operands(ph, params)
     if not ph.window:
@@ -668,7 +746,8 @@ _STREAM_PHASES = {"msa": (_msa_phase, False), "mlp": (_mlp_phase, False),
 
 
 def _apply_phase(sched: Schedule, ph: Phase, params: Any, x: torch.Tensor,
-                 inner: Optional[torch.Tensor], obs, quantized: bool
+                 inner: Optional[torch.Tensor], obs, quantized: bool,
+                 shard: Optional[ShardCtx] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Execute one phase of the control program on the executor's state,
     the (outer stream, inner stream) pair, and return the next pair.  An
@@ -676,7 +755,9 @@ def _apply_phase(sched: Schedule, ph: Phase, params: Any, x: torch.Tensor,
     (batch axis images x patches), so the same kernels serve both streams.
     LayerNorms, folds and the float embed / fold / merge / head products
     outside the kernels are plain PyTorch, as they were plain jnp in the
-    reference."""
+    reference.  ``shard``: only the msa / mlp / layer phases hold
+    model-axis shards; the embed, fold, merge and head weights replicate
+    and compute full width locally."""
     kind = ph.kind
     on_inner = kind.startswith("inner_")
     if on_inner:
@@ -685,9 +766,9 @@ def _apply_phase(sched: Schedule, ph: Phase, params: Any, x: torch.Tensor,
         run, whole_tree = _STREAM_PHASES[kind]
         tree = params if whole_tree else _subtree(params, ph.path)
         if on_inner:
-            inner = run(ph, tree, inner, obs, quantized)
+            inner = run(ph, tree, inner, obs, quantized, shard)
         else:
-            x = run(ph, tree, x, obs, quantized)
+            x = run(ph, tree, x, obs, quantized, shard)
     elif on_inner:
         raise NotImplementedError(f"phase kind {ph.kind!r} is not ported")
     elif kind == "embed":
@@ -706,17 +787,20 @@ def _apply_phase(sched: Schedule, ph: Phase, params: Any, x: torch.Tensor,
 
 
 def run_schedule(sched: Schedule, params: Any, patches: torch.Tensor,
-                 observer=None) -> torch.Tensor:
+                 observer=None, *,
+                 shard: Optional[ShardCtx] = None) -> torch.Tensor:
     """Replay a compiled schedule: patches (B, N, P*P*3) -> logits.
 
     Float params run the float kernels; `QTensor` params plus a
     `core.quant.Calibrator` observer run the int8 PTQ path (recording
-    activation amax while calibrating, frozen scales at inference)."""
+    activation amax while calibrating, frozen scales at inference).
+    ``shard``: a `ShardCtx` when ``params`` are one rank's shards on a
+    model-axis mesh (`build_sharded_fn`); None otherwise."""
     quantized = isinstance(params["patch_embed"], QTensor)
     x, inner = patches, None          # inner: TNT's pixel stream (B*N, m, c)
     for ph in sched.phases:
         x, inner = _apply_phase(sched, ph, params, x, inner, observer,
-                                quantized)
+                                quantized, shard)
     return x
 
 
@@ -887,3 +971,84 @@ class FusionPolicy:
     def group_decisions(self, model: str, mode: str,
                         batches: Sequence[int]) -> Dict[int, int]:
         return {int(b): self.decide_group(model, mode, b) for b in batches}
+
+
+# ---------------------------------------------------------------------------
+# Mesh entry (data-parallel batch grid, 2-D latency mesh)
+# ---------------------------------------------------------------------------
+
+
+def place_schedule_inputs(params: Any, patches: torch.Tensor, mesh):
+    """This rank's executor inputs on a serving mesh: its shard of the
+    param tree (float or int8; replicated over the data axis, heads and
+    MLP columns split over ``model``, `vision_param_specs`) and its rows
+    of the batch (its data shard when the data axis divides the batch,
+    else every row), both on the rank's device."""
+    return (shd.shard_vision_params(params, mesh),
+            shd.shard_vision_batch(patches, mesh))
+
+
+def build_sharded_fn(sched: Schedule, params: Any, mesh, *, batch: int,
+                     observer=None, preprocess=None):
+    """This rank's replay body on ``mesh``: ``fn(local_params, x)`` runs
+    the schedule on the rank's shards (``x`` its rows of a ``batch``-row
+    micro-batch, `place_schedule_inputs`) with a `ShardCtx` on a
+    model-axis mesh, then gathers the whole batch's logits on every rank
+    (`distributed.sharding.gather_batch`).
+
+    ``params`` is the WHOLE tree (its shapes fix the specs the
+    `ShardCtx` reads back; the body never touches its values).  The
+    batch rides ``data`` when ``batch`` divides the axis and replicates
+    otherwise (the batch-1 latency case: every data row computes the
+    same logits while the model axis still splits the heads), fixed here
+    as the reference fixes its batch spec at trace time.  ``preprocess``
+    runs on the rank's rows first (the server passes patch extraction).
+    int8 needs a frozen calibrator; its scales move to the rank's
+    device."""
+    shard = None
+    if shd.axis_size(mesh, "model") > 1:
+        shard = ShardCtx(mesh.model_group,
+                         shd.vision_param_specs(params, mesh))
+    sharded = shd.vision_batch_spec(int(batch), mesh)[0] is not None
+    obs = None if observer is None else observer.to(mesh.device)
+
+    def fn(p: Any, x: torch.Tensor) -> torch.Tensor:
+        # no_grad, not inference mode: gloo copies a CUDA all-reduce's
+        # result back into the tensor on its own thread, where an
+        # inference tensor may not be written.
+        with torch.inference_mode(False), torch.no_grad():
+            if preprocess is not None:
+                x = preprocess(x)
+            out = run_schedule(sched, p, x, observer=obs, shard=shard)
+            return shd.gather_batch(out, mesh, sharded)
+
+    return fn
+
+
+def _sharded_replay(mesh, sched: Schedule, params: Any, patches, observer):
+    """One rank's part of `run_schedule_sharded`."""
+    if mesh.rank is None:
+        return None
+    local, x = place_schedule_inputs(params, patches, mesh)
+    fn = build_sharded_fn(sched, params, mesh, batch=patches.shape[0],
+                          observer=observer)
+    return fn(local, x)
+
+
+def run_schedule_sharded(sched: Schedule, params: Any,
+                         patches: torch.Tensor, mesh,
+                         observer=None) -> torch.Tensor:
+    """`run_schedule` distributed over a `launch.mesh.VisionMesh`: every
+    rank of the mesh replays its rows on its shards of ``params`` (on a
+    1-D data mesh the whole tree, with no collective until the gather;
+    on a model-axis mesh the split heads and MLP columns, with the
+    all-reduces of `ShardCtx`), and the logits land on rank 0's device.
+    Rank 0 issues the command; the whole tree and batch travel to the
+    ranks through the host.  int8 needs a frozen calibrator
+    (calibration is a host-side amax loop and stays on one device)."""
+    if observer is not None and observer.frozen is None:
+        raise ValueError("sharded execution needs frozen calibration "
+                         "scales (or float mode)")
+    return mesh.call(_sharded_replay, mesh, sched, to_device(params, "cpu"),
+                     patches.cpu(),
+                     None if observer is None else observer.to("cpu"))

@@ -42,6 +42,11 @@ def reset_launches() -> None:
     MODE_LAUNCHES.clear()
 
 
+def launch_counts() -> Dict[str, int]:
+    """A copy of this process's `LAUNCHES` (what a mesh rank reports)."""
+    return dict(LAUNCHES)
+
+
 def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).replace("torch.", "")
 
@@ -114,28 +119,34 @@ def mlp(x, w1, w2, b1=None, b2=None, w_gate=None, *, activation="gelu"):
 
 
 def vita_layer_fused(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
-                     w_up, b_up, w_down, b_down, bias=None, mask=None):
-    """One fused float encoder layer: (B, N, D) -> (B, N, D)."""
+                     w_up, b_up, w_down, b_down, bias=None, mask=None, *,
+                     msa_axis=None, mlp_axis=None):
+    """One fused float encoder layer: (B, N, D) -> (B, N, D).  On local
+    shards ``msa_axis`` / ``mlp_axis`` (process groups) all-reduce the
+    concat and down partials; on the card the kernel chain splits there."""
+    args = (x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
+            w_down, b_down, bias, mask)
+    axes = {"msa_axis": msa_axis, "mlp_axis": mlp_axis}
     if _on_card("vita_layer", x, wq):
-        return _vita_layer.vita_layer(x, wq, wk, wv, w_msa, ln1_w, ln1_b,
-                                      ln2_w, ln2_b, w_up, b_up, w_down,
-                                      b_down, bias, mask)
-    return ref.vita_layer_ref(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w,
-                              ln2_b, w_up, b_up, w_down, b_down, bias, mask)
+        return _vita_layer.vita_layer(*args, **axes)
+    return ref.vita_layer_ref(*args, **axes)
 
 
 def vita_layer_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
                     act_scales, wq_scale, wk_scale, wv_scale, wmsa_scale,
                     wup_scale, wdown_scale, ln1_w, ln1_b, ln2_w, ln2_b,
-                    b_up, b_down, bias=None, mask=None):
+                    b_up, b_down, bias=None, mask=None, *, msa_axis=None,
+                    mlp_axis=None):
     """Fused int8 encoder layer with the requant chain at the frozen
-    ``act_scales`` = [qkv_in, w_msa, w_up, w_down]."""
+    ``act_scales`` = [qkv_in, w_msa, w_up, w_down]; axes as in
+    `vita_layer_fused`."""
     args = (x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q, act_scales,
             wq_scale, wk_scale, wv_scale, wmsa_scale, wup_scale, wdown_scale,
             ln1_w, ln1_b, ln2_w, ln2_b, b_up, b_down, bias, mask)
+    axes = {"msa_axis": msa_axis, "mlp_axis": mlp_axis}
     if _on_card("vita_layer_int8", x, ln1_w):
-        return _vita_layer.vita_layer_int8(*args)
-    return ref.vita_layer_int8_ref(*args)
+        return _vita_layer.vita_layer_int8(*args, **axes)
+    return ref.vita_layer_int8_ref(*args, **axes)
 
 
 def vita_layer_group(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,

@@ -5,6 +5,12 @@ Each function repeats the arithmetic of the JAX oracle of the same name.
 They are the CPU path of `ops`, and `chip_smoke.py` runs them on the card
 as the yardstick the CUDA kernels are held against.  Nothing on the main
 path calls them when a card is present.
+
+The layers' ``msa_axis`` / ``mlp_axis`` are the reference's mesh axes: on
+a model-axis mesh each rank holds its local shards (its heads and their
+concat rows, its MLP columns and down rows) and the axis is the process
+group to all-reduce the row-parallel partial over (`psum`), where the
+reference names a `shard_map` axis.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 INT8_MAX = 127.0
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
@@ -94,6 +101,17 @@ def gemm_i8_ref(a: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
     if res is not None:
         v = res + v
     return v if out_dtype == torch.float32 else quant(v, out_scale)
+
+
+def psum(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` summed over the ranks of process group ``axis`` (an
+    all-reduce, in place on a contiguous ``x``); ``x`` itself when
+    ``axis`` is None."""
+    if axis is None:
+        return x
+    x = x.contiguous()
+    dist.all_reduce(x, group=axis)
+    return x
 
 
 def _window_extra(s: torch.Tensor, bias: Optional[torch.Tensor],
@@ -361,41 +379,53 @@ def _attend_heads(q, k, v, dh: int, bias=None, mask=None) -> torch.Tensor:
 
 
 def _layer_f32(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up,
-               b_up, w_down, b_down, bias=None, mask=None) -> torch.Tensor:
+               b_up, w_down, b_down, bias=None, mask=None, msa_axis=None,
+               mlp_axis=None) -> torch.Tensor:
     """One float encoder layer in float32 math on upcast inputs; returns
-    float32 (the TPU kernel's fp32 scratch, before its output cast)."""
+    float32 (the TPU kernel's fp32 scratch, before its output cast).  With
+    an axis the row-parallel partial is all-reduced before its residual,
+    and ``b_down`` joins once, after the sum."""
     h, d, dh = wq.shape
     z = layer_norm_ref(x, ln1_w, ln1_b)
     qkv = torch.matmul(z, _merge_qkv(wq, wk, wv).float())
     q, k, v = _split_qkv(qkv, h, dh)
     merged = _attend_heads(q, k, v, dh, bias, mask)
-    h1 = x.float() + torch.matmul(merged, w_msa.float())
+    h1 = x.float() + psum(torch.matmul(merged, w_msa.float()), msa_axis)
     z2 = layer_norm_ref(h1, ln2_w, ln2_b)
     hid = gelu(torch.matmul(z2, w_up.float()) + b_up.float())
+    if mlp_axis is not None:
+        return h1 + psum(torch.matmul(hid, w_down.float()), mlp_axis) \
+            + b_down.float()
     return h1 + (torch.matmul(hid, w_down.float()) + b_down.float())
 
 
 def vita_layer_ref(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
-                   w_up, b_up, w_down, b_down, bias=None, mask=None):
+                   w_up, b_up, w_down, b_down, bias=None, mask=None, *,
+                   msa_axis=None, mlp_axis=None):
     """Fused encoder layer: x (B, N, D) -> (B, N, D).
 
     LN1 -> merged-QKV -> per-head softmax.V [+ window bias/mask] ->
     concat projection -> residual -> LN2 -> GELU MLP -> residual, every
     intermediate in float32, the output cast once to x's dtype
-    (`PORTED_MODES`)."""
+    (`PORTED_MODES`).  On local shards ``msa_axis`` / ``mlp_axis`` all-
+    reduce the concat and down partials (module docstring)."""
     check_mode("vita_layer", x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w,
                ln2_b, w_up, b_up, w_down, b_down)
     return _layer_f32(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up,
-                      b_up, w_down, b_down, bias, mask).to(x.dtype)
+                      b_up, w_down, b_down, bias, mask, msa_axis,
+                      mlp_axis).to(x.dtype)
 
 
 def vita_layer_int8_ref(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
                         act_scales, wq_scale, wk_scale, wv_scale,
                         wmsa_scale, wup_scale, wdown_scale, ln1_w, ln1_b,
-                        ln2_w, ln2_b, b_up, b_down, bias=None, mask=None):
+                        ln2_w, ln2_b, b_up, b_down, bias=None, mask=None, *,
+                        msa_axis=None, mlp_axis=None):
     """int8 fused encoder layer: every matmul input requantized at the
     frozen ``act_scales`` = [qkv_in, w_msa, w_up, w_down]; x float32 ->
-    float32."""
+    float32.  ``msa_axis`` / ``mlp_axis`` as in `vita_layer_ref`: the sum
+    after the requant is exact because the contraction-side scales
+    (wmsa_scale, wdown_scale) span the full output width and replicate."""
     b, n, d = x.shape
     h, _, dh = wq_q.shape
     m = wup_q.shape[1]
@@ -412,28 +442,32 @@ def vita_layer_int8_ref(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
         * (s[0] * scale_vec)
     q, k, v = _split_qkv(qkv, h, dh)
     merged = _attend_heads(q, k, v, dh, bias, mask)
-    h1 = x.float() + requant_mm(merged, s[1], wmsa_q, wmsa_scale, d)
+    h1 = x.float() + psum(requant_mm(merged, s[1], wmsa_q, wmsa_scale, d),
+                          msa_axis)
     z2 = layer_norm_ref(h1, ln2_w, ln2_b)
     hid = gelu(requant_mm(z2, s[2], wup_q, wup_scale, m) + b_up.float())
-    down = requant_mm(hid, s[3], wdown_q, wdown_scale, d)
+    down = psum(requant_mm(hid, s[3], wdown_q, wdown_scale, d), mlp_axis)
     return h1 + down + b_down.float()
 
 
 def vita_layer_group_ref(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
-                         w_up, b_up, w_down, b_down, bias=None, mask=None):
+                         w_up, b_up, w_down, b_down, bias=None, mask=None, *,
+                         msa_axis=None, mlp_axis=None):
     """Layer group: L stacked encoder layers one after the other, the
     activation carried in float32 between them and cast to x's dtype
     once at the end, as the TPU kernel carries it in its fp32 scratch (so
     in bf16 a group is not L bf16 layer calls).  Every weight operand
     carries the layer as its leading axis; ``bias`` is (L, H, n, n) and
-    ``mask`` (nW, n, n) is shared by the members."""
+    ``mask`` (nW, n, n) is shared by the members.  ``msa_axis`` /
+    ``mlp_axis`` forward to every member (members share their specs)."""
     stacks = (wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
               w_down, b_down)
     check_mode("vita_layer_group", x, *stacks)
     y = x
     for l in range(wq.shape[0]):
         y = _layer_f32(y, *(t[l] for t in stacks),
-                       None if bias is None else bias[l], mask)
+                       None if bias is None else bias[l], mask, msa_axis,
+                       mlp_axis)
     return y.to(x.dtype)
 
 
@@ -441,10 +475,10 @@ def vita_layer_group_int8_ref(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
                               act_scales, wq_scale, wk_scale, wv_scale,
                               wmsa_scale, wup_scale, wdown_scale, ln1_w,
                               ln1_b, ln2_w, ln2_b, b_up, b_down, bias=None,
-                              mask=None):
+                              mask=None, *, msa_axis=None, mlp_axis=None):
     """int8 layer group: `vita_layer_int8_ref` per member, each at its own
     frozen scales (``act_scales`` (L, 4), weight scales stacked on the
-    layer axis)."""
+    layer axis); ``msa_axis`` / ``mlp_axis`` forward to every member."""
     y = x.float()
     for l in range(wq_q.shape[0]):
         y = vita_layer_int8_ref(
@@ -452,5 +486,6 @@ def vita_layer_group_int8_ref(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
             act_scales[l], wq_scale[l], wk_scale[l], wv_scale[l],
             wmsa_scale[l], wup_scale[l], wdown_scale[l], ln1_w[l], ln1_b[l],
             ln2_w[l], ln2_b[l], b_up[l], b_down[l],
-            None if bias is None else bias[l], mask)
+            None if bias is None else bias[l], mask, msa_axis=msa_axis,
+            mlp_axis=mlp_axis)
     return y

@@ -39,6 +39,17 @@ int8 layer takes the (N, Dh) its attention tile's plan fits
 (`vita_msa.attention_plan`).  Both: Dh <= 128, N up to 704 at Dh 65-128,
 1,216 at Dh 33-64 and 1,472 at Dh 32.
 
+On a model-axis mesh (``msa_axis`` / ``mlp_axis``, process groups) each
+rank holds its heads with their concat rows and its MLP columns with
+their down rows, and the chain splits at the two row-parallel products:
+the concat GEMM and the down GEMM run without their ``res`` / ``bias``
+epilogue terms, their partials are all-reduced over the axis, and x,
+``b_down`` and h1 are added once, after the sum (an addend left in an
+epilogue would be counted once per rank).  In the int8 chain the
+epilogue's x_scale * w_scale still applies per rank: those scales span
+the full output width, so the scaled partials sum exactly.  Without an
+axis the chain is unchanged, launch for launch.
+
 Windowed (Swin) mode: the caller folds windows into the batch axis and
 passes ``bias`` (H, n, n) and ``mask`` (nW, n, n); every step of a chain
 but attention is per token, so only the attention launch takes them.
@@ -62,7 +73,7 @@ import torch
 from . import build
 from .int8_matmul import (DTYPE_CODES, _stream, check, dtype_code,
                           launch_gemm_i8, ptr)
-from .ref import check_mode
+from .ref import check_mode, psum
 from .vita_msa import launch_attention, launch_msa
 
 
@@ -123,13 +134,15 @@ def _attend(q, k, v, out, b, n, h, dh, bias, mask, out_scale=None):
 
 
 def vita_layer(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
-               w_down, b_down, bias=None, mask=None) -> torch.Tensor:
+               w_down, b_down, bias=None, mask=None, *, msa_axis=None,
+               mlp_axis=None) -> torch.Tensor:
     """One float encoder layer on the card: x (B, N, D) -> (B, N, D) in
     x's dtype.
 
-    wq/wk/wv (H, D, Dh); w_msa (D, D) with head-major rows; w_up (D, M);
-    w_down (M, D); LN vectors and b_down (D,); b_up (M,); all of one
-    dtype, which with x's is a mode of `ref.PORTED_MODES`."""
+    wq/wk/wv (H, D, Dh); w_msa (H*Dh, D) with head-major rows; w_up (D,
+    M); w_down (M, D); LN vectors and b_down (D,); b_up (M,); all of one
+    dtype, which with x's is a mode of `ref.PORTED_MODES`.  Axes: the
+    split chain of the module docstring."""
     b, n, d = x.shape
     h, _, dh = wq.shape
     m = w_up.shape[1]
@@ -148,19 +161,28 @@ def vita_layer(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
     z = launch_layer_norm(x2, ln1_w, ln1_b, empty(d))
     sa = launch_msa(z.view(b, n, d), wq, wk, wv, empty(h * dh),
                     (n * h * dh, h * dh, dh), bias=bias, mask=mask)
-    h1 = launch_mma_gemm(sa, w_msa, empty(d), res=x2)
+    if msa_axis is None:
+        h1 = launch_mma_gemm(sa, w_msa, empty(d), res=x2)
+    else:
+        h1 = psum(launch_mma_gemm(sa, w_msa, empty(d)), msa_axis) + x2
     z2 = launch_layer_norm(h1, ln2_w, ln2_b, empty(d))
     hid = launch_mma_gemm(z2, w_up, empty(m), bias=b_up, gelu=True)
-    y = launch_mma_gemm(hid, w_down, torch.empty_like(x2), bias=b_down,
-                        res=h1)
+    if mlp_axis is None:
+        y = launch_mma_gemm(hid, w_down, torch.empty_like(x2), bias=b_down,
+                            res=h1)
+    else:
+        y = (h1 + psum(launch_mma_gemm(hid, w_down, empty(d)), mlp_axis)
+             + b_down.float()).to(x.dtype)
     return y.reshape(b, n, d)
 
 
 def vita_layer_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q, act_scales,
                     wq_scale, wk_scale, wv_scale, wmsa_scale, wup_scale,
                     wdown_scale, ln1_w, ln1_b, ln2_w, ln2_b, b_up, b_down,
-                    bias=None, mask=None) -> torch.Tensor:
-    """One int8 encoder layer on the card: x (B, N, D) float32 -> float32.
+                    bias=None, mask=None, *, msa_axis=None,
+                    mlp_axis=None) -> torch.Tensor:
+    """One int8 encoder layer on the card: x (B, N, D) float32 -> float32
+    (axes: the split chain of the module docstring).
 
     w*_q int8; ``act_scales`` (4,) = frozen [qkv_in, w_msa, w_up, w_down]
     activation scales; w*_scale per-(head, channel) (H, Dh) for QKV and
@@ -192,13 +214,24 @@ def vita_layer_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q, act_scales,
                                   w_scale=ws.reshape(h * dh)))
     saq = _attend(*qkv, empty(h * dh, torch.int8), b, n, h, dh, bias, mask,
                   out_scale=s[1])
-    h1 = launch_gemm_i8(saq, wmsa_q, empty(d), x_scale=s[1],
-                        w_scale=wmsa_scale.reshape(d), res=x2)
+    if msa_axis is None:
+        h1 = launch_gemm_i8(saq, wmsa_q, empty(d), x_scale=s[1],
+                            w_scale=wmsa_scale.reshape(d), res=x2)
+    else:
+        h1 = x2 + psum(launch_gemm_i8(saq, wmsa_q, empty(d), x_scale=s[1],
+                                      w_scale=wmsa_scale.reshape(d)),
+                       msa_axis)
     z2q = launch_layer_norm(h1, ln2_w, ln2_b, empty(d, torch.int8),
                             q_scale=s[2])
     hidq = launch_gemm_i8(z2q, wup_q, empty(m, torch.int8), x_scale=s[2],
                           w_scale=wup_scale.reshape(m), bias=b_up, gelu=True,
                           out_scale=s[3])
-    y = launch_gemm_i8(hidq, wdown_q, empty(d), x_scale=s[3],
-                       w_scale=wdown_scale.reshape(d), bias=b_down, res=h1)
+    if mlp_axis is None:
+        y = launch_gemm_i8(hidq, wdown_q, empty(d), x_scale=s[3],
+                           w_scale=wdown_scale.reshape(d), bias=b_down,
+                           res=h1)
+    else:
+        y = h1 + psum(launch_gemm_i8(hidq, wdown_q, empty(d), x_scale=s[3],
+                                     w_scale=wdown_scale.reshape(d)),
+                      mlp_axis) + b_down.float()
     return y.reshape(b, n, d)

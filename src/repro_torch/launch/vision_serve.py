@@ -37,6 +37,20 @@ replays an arrival trace through `launch.admission`'s continuous-batching
 controller or its drain baseline; ``--profile`` (`profile_stats`) prints
 the live HUE table (`core.hue`) after each mode's drain.
 
+On a mesh (``ServeConfig.mesh``, ``data_parallel`` or ``mesh_shape``;
+``--devices N`` / ``--mesh DxM`` / ``--latency-mesh DxM``) the server
+runs in rank 0 of a `launch.mesh` world and keeps the request plane
+there; every rank holds a `MeshReplica`, its shard of the served tree,
+and each micro-batch is one mesh command: rank 0 sends the images, every
+rank replays its rows on its shards (the batch on ``data``, the heads
+and MLP columns on ``model``) and the logits are gathered on rank 0.
+Buckets round up to the data-axis size, and a requested bucket 1
+survives on a model-axis mesh (the batch-1 latency path).  Calibration
+stays on rank 0's single device; only the frozen scales reach the
+ranks.  A mesh dispatch waits for the device (the ranks meet in
+collectives, which gloo stages through the host), so ``device_p50_ms``
+is measured on single-device servers only.
+
 Usage (on a machine with a card; ``--device cpu`` runs the plain path):
   PYTHONPATH=src python -m repro_torch.launch.serve --vision --model deit_t \
       --full --mode both
@@ -51,15 +65,21 @@ Usage (on a machine with a card; ``--device cpu`` runs the plain path):
       --requests 128 --mode float
   PYTHONPATH=src python -m repro_torch.launch.serve --vision --model deit_t \
       --full --mode both --profile
+  PYTHONPATH=src python -m repro_torch.launch.serve --vision --model deit_t \
+      --full --mode both --mesh 1x3
+  PYTHONPATH=src python -m repro_torch.launch.serve --vision --model deit_t \
+      --device cpu --mesh 1x2 --requests 6
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -69,7 +89,10 @@ from repro_torch.core import hue as hue_lib
 from repro_torch.core import schedule as sched_lib
 from repro_torch.core.quant import Calibrator
 from repro_torch.core.schedule import FusionPolicy
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import vision_registry, vit
+from repro_torch.models.layers import to_device
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,9 +106,21 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def round_buckets(buckets: Sequence[int],
+                  data_parallel: int) -> Tuple[int, ...]:
+    """Each batch bucket rounded up to a multiple of the DATA-axis size
+    (deduplicated), so every padded micro-batch divides the mesh's batch
+    axis.  ``data_parallel`` is the data axis alone, not the rank count:
+    on a (2, 4) mesh only ``data`` carries rows, so buckets round to 2."""
+    dp = max(int(data_parallel), 1)
+    return tuple(sorted({-(-int(b) // dp) * dp for b in buckets}))
+
+
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """How a model is served: mode, batch buckets, an optional per-bucket
+    """How a model is served: mode, batch buckets, the mesh (``mesh``, a
+    `launch.mesh.VisionMesh`; or ``data_parallel`` ranks on a 1-D data
+    mesh; or ``mesh_shape`` "DxM", which wins), an optional per-bucket
     `FusionPolicy`, the build fields `make_server` reads (``full``,
     ``fused``, ``fuse_group``, ``head_mask``, ``seed``, ``calib_images``)
     and the device (None = the card).  ``fused``, ``fuse_group`` and
@@ -94,6 +129,9 @@ class ServeConfig:
 
     mode: str = "float"
     buckets: Tuple[int, ...] = (1, 2, 4, 8)
+    mesh: Optional[Any] = dataclasses.field(default=None, compare=False)
+    data_parallel: Optional[int] = None
+    mesh_shape: Optional[Any] = None
     fusion_policy: Optional[FusionPolicy] = dataclasses.field(
         default=None, compare=False)
     full: bool = False
@@ -178,13 +216,42 @@ class InFlight:
         self.t_dispatch = t_dispatch
 
 
+class MeshReplica:
+    """One rank's part of a `VisionServer` on a mesh: its shard of the
+    served tree on its device, the frozen scales, and one replay body
+    (`core.schedule.build_sharded_fn`) per (fused, group size, batch
+    divisibility), the reference's per-variant key on a model mesh (the
+    divisibility fixes the batch spec: sharded over ``data``, or every
+    data row computing the whole micro-batch)."""
+
+    def __init__(self, tree, calibrator, mesh):
+        self.mesh = mesh
+        self.shapes = shd.meta_tree(tree)
+        self.params = shd.shard_vision_params(tree, mesh)
+        self.calibrator = calibrator
+        self._fns: Dict[Tuple[bool, int, bool], Any] = {}
+
+    def forward(self, cfg, images: torch.Tensor) -> torch.Tensor:
+        """Whole (B, H, W, 3) images -> the whole batch's logits, on every
+        rank of the mesh, through the schedule ``cfg`` serves."""
+        b = images.shape[0]
+        div = shd.vision_batch_spec(b, self.mesh)[0] is not None
+        key = (bool(cfg.fused), int(cfg.fuse_group), div)
+        fn = self._fns.get(key)
+        if fn is None:
+            fn = sched_lib.build_sharded_fn(
+                vision_registry.make_schedule(cfg), self.shapes, self.mesh,
+                batch=b, observer=self.calibrator,
+                preprocess=functools.partial(vit.extract_patches,
+                                             patch=cfg.patch))
+            self._fns[key] = fn
+        return fn(self.params, shd.shard_vision_batch(images, self.mesh))
+
+
 class VisionServer:
     """Queue + pad-to-bucket micro-batching over a registered vision
-    config (ViT/DeiT, Swin or TNT)."""
-
-    # One device and no mesh: the join keys the JAX server's rows carry.
-    n_devices = 1
-    mesh_shape = "1x1"
+    config (ViT/DeiT, Swin or TNT), on one device or on a mesh (module
+    docstring)."""
 
     def __init__(self, cfg, params, *,
                  serve_cfg: Optional[ServeConfig] = None, qparams=None,
@@ -204,12 +271,39 @@ class VisionServer:
             calibrator = calibrator.to(self.device)
         else:
             params = vit.to_device(params, self.device)
+        mesh = sc.mesh
+        if mesh is None and sc.mesh_shape is not None:
+            d, m = mesh_lib.parse_mesh_shape(sc.mesh_shape)
+            if d * m > 1:
+                mesh = mesh_lib.make_vision_mesh(d, m, self.device)
+        if mesh is None and sc.data_parallel is not None \
+                and sc.data_parallel > 1:
+            mesh = mesh_lib.make_vision_mesh(sc.data_parallel, 1, self.device)
+        self.mesh = mesh
+        # The batch (data) axis size rounds the buckets and places the
+        # rows; the model axis splits the heads; n_devices is every rank.
+        self.dp = shd.axis_size(mesh, "data") if mesh else 1
+        self.mp = shd.axis_size(mesh, "model") if mesh else 1
+        self.n_devices = mesh.size if mesh else 1
+        self._replica_id = None
+        if mesh is not None:
+            # Only the tree this mode serves goes to the ranks.
+            tree = qparams if self.mode == "int8" else params
+            self._replica_id, _ = mesh_lib.create(
+                mesh, MeshReplica, to_device(tree, "cpu"),
+                calibrator.to("cpu") if calibrator is not None else None,
+                mesh)
+            weakref.finalize(self, mesh.world.release, self._replica_id)
         self.cfg = cfg
         self.params = params
         self.qparams = qparams
         self.calibrator = calibrator
         self.model_name = model_name or cfg.name
-        self.buckets = sc.buckets
+        self.buckets = round_buckets(sc.buckets, self.dp)
+        if self.mp > 1 and 1 in sc.buckets and self.buckets[0] != 1:
+            # The batch-1 latency path: the single image replicates over
+            # ``data`` while the model axis still splits the heads.
+            self.buckets = (1,) + self.buckets
         # Fused or per-phase schedule, and the group size, per bucket: the
         # config's own fields, or the policy's decisions from measured
         # (model, mode, batch) data.  An unfused bucket has group size 1.
@@ -233,10 +327,20 @@ class VisionServer:
         self.device_ms: List[float] = []   # per micro-batch, on the card
         self._rid = 0
 
+    @property
+    def mesh_shape(self) -> str:
+        """``"DxM"``: data-axis by model-axis size (``"1x1"``: no mesh),
+        the join key the rows carry."""
+        return f"{self.dp}x{self.mp}"
+
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) images on the server's device -> (B, classes),
-        through the schedule the bucket of size B is served with."""
+        """(B, H, W, 3) images on the server's device (on a mesh: any
+        device) -> (B, classes) on the server's device, through the
+        schedule the bucket of size B is served with."""
         cfg = self._bucket_cfg.get(images.shape[0], self.cfg)
+        if self.mesh is not None:
+            return mesh_lib.invoke(self.mesh, self._replica_id, "forward",
+                                   cfg, images.cpu())
         patches = vit.extract_patches(images, cfg.patch)
         fwd = vision_registry.forward_fn(cfg)
         if self.mode == "int8":
@@ -298,7 +402,9 @@ class VisionServer:
                 f"{len(requests)} requests cannot ride a {bucket}-bucket")
         host = self._stage(requests, bucket)
         self.n_padded += bucket - len(requests)
-        on_card = self.device.type == "cuda"
+        # Events time single-device forwards; a mesh forward has waited
+        # for its ranks by the time it returns.
+        on_card = self.device.type == "cuda" and self.mesh is None
         start = event = None
         t = time.perf_counter()
         for req in requests:
@@ -307,7 +413,8 @@ class VisionServer:
             start = torch.cuda.Event(enable_timing=True)
             start.record()
         with torch.inference_mode():
-            out = self.forward(host.to(self.device, non_blocking=on_card))
+            out = self.forward(host if self.mesh is not None else
+                               host.to(self.device, non_blocking=on_card))
         if on_card:
             event = torch.cuda.Event(enable_timing=True)
             event.record()
@@ -342,7 +449,9 @@ class VisionServer:
         the analytic `perfmodel` attribution.  ``batch`` defaults to the
         smallest bucket; the schedule profiled (fused, unfused or grouped)
         is the one this server serves that bucket with.  The queue and the
-        stats counters are left alone."""
+        stats counters are left alone.  On a mesh it profiles rank 0's
+        single-device replay of the whole tree (per-phase attribution,
+        not mesh latency: the drain stats carry that)."""
         bucket = int(batch) if batch else self.buckets[0]
         cfg = self._bucket_cfg.get(bucket)
         if cfg is None:
@@ -502,8 +611,18 @@ def hue_table(report: Dict, title: str) -> str:
             + hue_lib.HUE_MEASURED_NOTE)
 
 
+def _mesh_ranks(devices: int = 1, mesh_shape=None) -> int:
+    """Ranks a (``devices``, ``mesh_shape``) request needs; ``mesh_shape``
+    wins, as in `VisionServer`."""
+    if mesh_shape is not None:
+        d, m = mesh_lib.parse_mesh_shape(mesh_shape)
+        return d * m
+    return max(int(devices), 1)
+
+
 def serve_model(name: str, *, requests: int, buckets, modes, full: bool,
                 seed: int = 0, calib_images: int = 8, device=None,
+                devices: int = 1, mesh_shape=None,
                 fused: Optional[bool] = None, fuse_group: int = 1,
                 fusion_policy: Optional[FusionPolicy] = None,
                 profile: bool = False) -> List[Dict[str, float]]:
@@ -511,47 +630,60 @@ def serve_model(name: str, *, requests: int, buckets, modes, full: bool,
     ``calib_images`` request images, and drain ``requests`` random images
     through a server per mode.  ``fused`` overrides the config's fusion
     and ``fuse_group`` its group size; ``fusion_policy`` decides both per
-    bucket.  ``profile`` also runs `VisionServer.profile_stats` after each
-    mode's drain, prints its HUE table and attaches the report to the row
-    (``hue_profile``).  One stats row per mode."""
+    bucket.  ``devices`` > 1 shards each drain's batch over that many
+    ranks, ``mesh_shape`` ("DxM") builds the 2-D latency mesh instead
+    (`launch.mesh.launch_mesh` starts the ranks unless a world exists;
+    calibration stays on rank 0's device).  ``profile`` also runs
+    `VisionServer.profile_stats` after each mode's drain, prints its HUE
+    table and attaches the report to the row (``hue_profile``).  One
+    stats row per mode (None on the other ranks under torchrun)."""
     dev = resolve_device(device)
-    cfg = vision_registry.build_cfg(name, full=full, fused=fused,
-                                    fuse_group=fuse_group)
-    params = vision_registry.init_params(cfg, seed, dev)
-    rng = np.random.default_rng(seed)
-    images = rng.standard_normal(
-        (requests, cfg.image, cfg.image, 3)).astype(np.float32)
-    qparams = cal = None
-    if "int8" in modes:
-        qparams = vision_registry.quantize(params)
-        cal = calibrate(qparams, cfg, images[:calib_images], device=dev)
-    rows = []
-    for mode in modes:
-        sc = ServeConfig(mode=mode, buckets=tuple(buckets),
-                         fusion_policy=fusion_policy, full=full,
-                         fused=fused, fuse_group=fuse_group, seed=seed,
-                         calib_images=calib_images, device=str(dev))
-        server = VisionServer(cfg, params, serve_cfg=sc, qparams=qparams,
-                              calibrator=cal, model_name=name)
-        server.submit_many(images)
-        stats = server.run()
-        stats.update({"model": name, "config": cfg.name})
-        rows.append(stats)
-        print(f"[vision-serve] {cfg.name} mode={mode} on {stats['device']}: "
-              f"{stats['requests']} reqs in {stats['wall_s']:.3f}s -> "
-              f"{stats['throughput_img_s']:.1f} img/s, "
-              f"p50 {stats['latency_p50_ms']:.2f}ms "
-              f"({stats['batches']} batches, {stats['padded']} padded; "
-              f"fused buckets {stats['fused_buckets']}, group sizes "
-              f"{stats['group_buckets']})")
-        if profile:
-            report = server.profile_stats()
-            stats["hue_profile"] = report
-            print(hue_table(report, f"{name} ({cfg.name}) mode={mode} "
-                                    f"fused={report['fused']} "
-                                    f"batch={report['batch']} on "
-                                    f"{report['device']}"))
-    return rows
+
+    def body():
+        cfg = vision_registry.build_cfg(name, full=full, fused=fused,
+                                        fuse_group=fuse_group)
+        params = vision_registry.init_params(cfg, seed, dev)
+        rng = np.random.default_rng(seed)
+        images = rng.standard_normal(
+            (requests, cfg.image, cfg.image, 3)).astype(np.float32)
+        qparams = cal = None
+        if "int8" in modes:
+            qparams = vision_registry.quantize(params)
+            cal = calibrate(qparams, cfg, images[:calib_images], device=dev)
+        rows = []
+        for mode in modes:
+            sc = ServeConfig(mode=mode, buckets=tuple(buckets),
+                             data_parallel=devices, mesh_shape=mesh_shape,
+                             fusion_policy=fusion_policy, full=full,
+                             fused=fused, fuse_group=fuse_group, seed=seed,
+                             calib_images=calib_images, device=str(dev))
+            server = VisionServer(cfg, params, serve_cfg=sc, qparams=qparams,
+                                  calibrator=cal, model_name=name)
+            server.submit_many(images)
+            stats = server.run()
+            stats.update({"model": name, "config": cfg.name})
+            rows.append(stats)
+            print(f"[vision-serve] {cfg.name} mode={mode} on "
+                  f"{stats['device']} mesh={stats['mesh_shape']} "
+                  f"devices={stats['devices']}: {stats['requests']} reqs in "
+                  f"{stats['wall_s']:.3f}s -> "
+                  f"{stats['throughput_img_s']:.1f} img/s, "
+                  f"p50 {stats['latency_p50_ms']:.2f}ms "
+                  f"({stats['batches']} batches, {stats['padded']} padded; "
+                  f"fused buckets {stats['fused_buckets']}, group sizes "
+                  f"{stats['group_buckets']})")
+            if profile:
+                report = server.profile_stats()
+                stats["hue_profile"] = report
+                print(hue_table(report, f"{name} ({cfg.name}) mode={mode} "
+                                        f"fused={report['fused']} "
+                                        f"batch={report['batch']} on "
+                                        f"{report['device']}"))
+        return rows
+
+    ranks = _mesh_ranks(devices, mesh_shape)
+    return body() if ranks == 1 else \
+        mesh_lib.launch_mesh(body, ranks, 1, dev)
 
 
 def serve_stream(model_names: Sequence[str], *, modes: Sequence[str],
@@ -566,72 +698,99 @@ def serve_stream(model_names: Sequence[str], *, modes: Sequence[str],
     (`launch.admission.Arrival` list) through the continuous-batching
     admission layer (``serving="continuous"``) or the fixed-bucket drain
     baseline (``serving="drain"``, a single model).  One `VisionServer`
-    per model of ``model_names`` shares the device; the SLA bucket tables
-    come from ``bench_data`` (a bench record or its path) when the caller
-    passes one, else from a live measurement on the device.  One stats
-    row per mode.  Only one device is served: ``devices``,
-    ``mesh_shape`` and ``latency_mesh`` are the JAX server's mesh options
-    and raise (sharding is not ported yet, ROADMAP.md queue 5)."""
+    per model of ``model_names`` shares the devices, on the ``devices``
+    / ``mesh_shape`` mesh as in `serve_model`; ``latency_mesh`` ("DxM")
+    also builds a batch-1 server per model on that mesh, which
+    tight-deadline singles route to (the controller's
+    ``routed_latency_path``).  The SLA bucket tables come from
+    ``bench_data`` (a bench record or its path, rows of the server's
+    ``mesh_shape``) when the caller passes one, else from a live
+    measurement.  One stats row per mode (None on the other ranks under
+    torchrun)."""
     from repro_torch.launch import admission as adm
-    if devices != 1 or mesh_shape not in (None, "1x1") \
-            or latency_mesh is not None:
-        raise NotImplementedError(
-            "multi-device serving (devices, mesh_shape, latency_mesh) is "
-            "not ported yet (ROADMAP.md queue 5: sharding)")
     if serving not in ("continuous", "drain"):
         raise ValueError(f"serving must be 'continuous' or 'drain', got "
                          f"{serving!r}")
     dev = resolve_device(device)
-    rows = []
-    for mode in modes:
-        servers, banks, tables = {}, {}, {}
-        for nm in model_names:
-            cfg = vision_registry.build_cfg(nm, full=full)
-            params = vision_registry.init_params(cfg, seed, dev)
-            banks[nm] = np.random.default_rng(seed).standard_normal(
-                (calib_images, cfg.image, cfg.image, 3)).astype(np.float32)
-            qparams = cal = None
-            if mode == "int8":
-                qparams = vision_registry.quantize(params)
-                cal = calibrate(qparams, cfg, banks[nm], device=dev)
-            sc = ServeConfig(mode=mode, buckets=tuple(buckets),
-                             fusion_policy=fusion_policy, device=str(dev))
-            servers[nm] = VisionServer(cfg, params, serve_cfg=sc,
-                                       qparams=qparams, calibrator=cal,
-                                       model_name=nm)
-            if bench_data is not None:
-                table = adm.latency_table_from_bench(bench_data, nm, mode)
-                if table:
-                    tables[nm] = table
-        if serving == "drain":
-            if len(servers) != 1:
-                raise ValueError("the drain baseline serves a single model")
-            (nm, server), = servers.items()
-            adm.measure_bucket_latencies(server)       # warm every bucket
-            stats = adm.run_drain_stream(server, trace, banks)
-            stats["model"] = nm
-        else:
-            controller = adm.AdmissionController(
-                servers, latencies=tables or None, max_inflight=max_inflight)
-            stats = adm.run_open_stream(controller, trace, banks)
-            stats["model"] = ",".join(model_names)
-        server = next(iter(servers.values()))
-        stats.update({"mode": mode, "serving": serving,
-                      "device": str(server.device),
-                      "devices": server.n_devices,
-                      "mesh_shape": server.mesh_shape,
-                      "offered": len(trace)})
-        rows.append(stats)
-        print(f"[vision-serve] stream {stats['model']} mode={mode} "
-              f"serving={serving} on {stats['device']}: "
-              f"{stats['requests']} reqs in {stats['wall_s']:.2f}s -> "
-              f"{stats['throughput_img_s']:.1f} img/s sustained, "
-              f"p50 {stats['latency_p50_ms']:.1f}ms "
-              f"p95 {stats['latency_p95_ms']:.1f}ms "
-              f"p99 {stats['latency_p99_ms']:.1f}ms "
-              f"(queue p50 {stats['queue_delay_p50_ms']:.1f}ms, "
-              f"sla misses {stats['sla_misses']})")
-    return rows
+
+    def body():
+        rows = []
+        for mode in modes:
+            servers, lat_servers, banks, tables = {}, {}, {}, {}
+            for nm in model_names:
+                cfg = vision_registry.build_cfg(nm, full=full)
+                params = vision_registry.init_params(cfg, seed, dev)
+                banks[nm] = np.random.default_rng(seed).standard_normal(
+                    (calib_images, cfg.image, cfg.image, 3)
+                ).astype(np.float32)
+                qparams = cal = None
+                if mode == "int8":
+                    qparams = vision_registry.quantize(params)
+                    cal = calibrate(qparams, cfg, banks[nm], device=dev)
+                sc = ServeConfig(mode=mode, buckets=tuple(buckets),
+                                 data_parallel=devices,
+                                 mesh_shape=mesh_shape,
+                                 fusion_policy=fusion_policy,
+                                 device=str(dev))
+                servers[nm] = VisionServer(cfg, params, serve_cfg=sc,
+                                           qparams=qparams, calibrator=cal,
+                                           model_name=nm)
+                if latency_mesh is not None:
+                    lat_sc = dataclasses.replace(
+                        sc, buckets=(1,), data_parallel=None,
+                        mesh_shape=latency_mesh)
+                    lat_servers[nm] = VisionServer(
+                        cfg, params, serve_cfg=lat_sc, qparams=qparams,
+                        calibrator=cal, model_name=nm)
+                if bench_data is not None:
+                    table = adm.latency_table_from_bench(
+                        bench_data, nm, mode,
+                        mesh_shape=servers[nm].mesh_shape)
+                    if table:
+                        tables[nm] = table
+            if serving == "drain":
+                if len(servers) != 1:
+                    raise ValueError("the drain baseline serves a single "
+                                     "model")
+                (nm, server), = servers.items()
+                adm.measure_bucket_latencies(server)   # warm every bucket
+                stats = adm.run_drain_stream(server, trace, banks)
+                stats["model"] = nm
+            else:
+                controller = adm.AdmissionController(
+                    servers, latencies=tables or None,
+                    latency_servers=lat_servers or None,
+                    max_inflight=max_inflight)
+                stats = adm.run_open_stream(controller, trace, banks)
+                stats["model"] = ",".join(model_names)
+            server = next(iter(servers.values()))
+            stats.update({"mode": mode, "serving": serving,
+                          "device": str(server.device),
+                          "devices": server.n_devices,
+                          "mesh_shape": server.mesh_shape,
+                          "latency_mesh": (lat_servers[model_names[0]]
+                                           .mesh_shape if lat_servers
+                                           else None),
+                          "offered": len(trace)})
+            rows.append(stats)
+            print(f"[vision-serve] stream {stats['model']} mode={mode} "
+                  f"serving={serving} on {stats['device']} "
+                  f"mesh={stats['mesh_shape']} latency mesh="
+                  f"{stats['latency_mesh']}: "
+                  f"{stats['requests']} reqs in {stats['wall_s']:.2f}s -> "
+                  f"{stats['throughput_img_s']:.1f} img/s sustained, "
+                  f"p50 {stats['latency_p50_ms']:.1f}ms "
+                  f"p95 {stats['latency_p95_ms']:.1f}ms "
+                  f"p99 {stats['latency_p99_ms']:.1f}ms "
+                  f"(queue p50 {stats['queue_delay_p50_ms']:.1f}ms, "
+                  f"sla misses {stats['sla_misses']}, routed to the latency "
+                  f"path {stats.get('routed_latency_path', 0)})")
+        return rows
+
+    ranks = max(_mesh_ranks(devices, mesh_shape),
+                _mesh_ranks(1, latency_mesh))
+    return body() if ranks == 1 else \
+        mesh_lib.launch_mesh(body, ranks, 1, dev)
 
 
 def _device_name(device) -> str:
@@ -704,6 +863,19 @@ def main(argv=None):
                     default="continuous",
                     help="open-stream scheduler: the admission layer "
                          "(default) or the fixed-bucket drain baseline")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="data-parallel ranks: shard each micro-batch's "
+                         "batch over this many ranks (params replicated; "
+                         "buckets round up to a multiple)")
+    ap.add_argument("--mesh", default=None,
+                    help="2-D mesh 'DxM' (data x model), e.g. 1x3: the "
+                         "batch on the data axis, the heads and MLP "
+                         "columns split over the model axis; wins over "
+                         "--devices")
+    ap.add_argument("--latency-mesh", default=None,
+                    help="open stream only: also build a batch-1 server "
+                         "per model on this 'DxM' mesh; tight-deadline "
+                         "singles route to it")
     ap.add_argument("--json-out", default=None,
                     help="write the stats rows as a JSON record")
     args = ap.parse_args(argv)
@@ -728,6 +900,18 @@ def main(argv=None):
                          "--fusion-policy auto")
     if args.fuse_group_size < 1:
         raise SystemExit("[vision-serve] --fuse-group-size must be >= 1")
+    if args.devices < 1:
+        raise SystemExit("[vision-serve] --devices must be >= 1")
+    for flag, shape in (("--mesh", args.mesh),
+                        ("--latency-mesh", args.latency_mesh)):
+        if shape is not None:
+            try:
+                mesh_lib.parse_mesh_shape(shape)
+            except ValueError as e:
+                raise SystemExit(f"[vision-serve] {flag}: {e}")
+    if args.latency_mesh is not None and not stream:
+        raise SystemExit("[vision-serve] --latency-mesh serves open streams "
+                         "only (--arrival-rate or --trace)")
     policy = None
     if args.fusion_policy == "auto" and args.fusion_data:
         policy = FusionPolicy.from_bench(
@@ -744,14 +928,16 @@ def main(argv=None):
         return _main_stream(args, modes, buckets, policy)
     rows = serve_model(args.model, requests=args.requests, buckets=buckets,
                        modes=modes, full=args.full, seed=args.seed,
-                       device=args.device,
+                       device=args.device, devices=args.devices,
+                       mesh_shape=args.mesh,
                        fused=False if args.no_fuse else None,
                        fuse_group=args.fuse_group_size,
                        fusion_policy=policy, profile=args.profile)
-    if args.json_out:
+    if args.json_out and rows is not None:
         _write_json(args.json_out, {
             "bench": "vision_serve", "model": args.model,
             "config": rows[0]["config"], "buckets": list(buckets),
+            "devices": args.devices, "mesh": args.mesh,
             "device": _device_name(args.device), "runs": rows})
     return rows
 
@@ -777,15 +963,18 @@ def _main_stream(args, modes, buckets, policy) -> List[Dict[str, float]]:
                          f"model(s): {', '.join(unknown)}")
     rows = serve_stream(names, modes=modes, buckets=buckets, trace=trace,
                         serving=args.serving, seed=args.seed,
+                        devices=args.devices, mesh_shape=args.mesh,
+                        latency_mesh=args.latency_mesh,
                         fusion_policy=policy, bench_data=args.fusion_data,
                         full=args.full, device=args.device)
-    if args.json_out:
+    if args.json_out and rows is not None:
         _write_json(args.json_out, {
             "bench": "vision_serve_stream", "models": names,
             "serving": args.serving, "arrival_rate": args.arrival_rate,
             "sla_ms": args.sla_ms, "trace": args.trace,
-            "buckets": list(buckets), "device": _device_name(args.device),
-            "runs": rows})
+            "buckets": list(buckets), "devices": args.devices,
+            "mesh": args.mesh, "latency_mesh": args.latency_mesh,
+            "device": _device_name(args.device), "runs": rows})
     return rows
 
 

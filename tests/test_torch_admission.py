@@ -517,9 +517,10 @@ def test_serve_stream_rows_and_refusals():
                                     buckets=(1, 2), trace=one,
                                     serving="drain", device="cpu")
     assert drain["requests"] == len(one) and drain["serving"] == "drain"
-    for kw in (dict(devices=2), dict(mesh_shape="2x2"),
-               dict(latency_mesh="1x2")):
-        with pytest.raises(NotImplementedError, match="queue 5"):
+    # Meshes are served (tests/test_torch_mesh_serve.py); a malformed
+    # mesh shape is refused before any rank starts.
+    for kw in (dict(mesh_shape="0x2"), dict(latency_mesh="1x2x3")):
+        with pytest.raises(ValueError, match="mesh shape"):
             t_serve.serve_stream(["vit_edge"], modes=("float",),
                                  buckets=(1,), trace=one, device="cpu",
                                  **kw)

@@ -179,3 +179,35 @@ def test_dp_128_weight_rows_hit_distinct_banks(w_size):
     else:
         row_words = (128 + 8) * 2 // 4
         assert len({(r * row_words) % 32 // 4 for r in range(8)}) == 8
+
+
+@pytest.mark.parametrize("model_axis", [2, 3, 4])
+def test_local_shard_shapes_have_plans(model_axis):
+    """On a model-axis mesh every rank runs the layer's kernels on its
+    shards (`distributed.sharding`'s rules: heads split where they divide,
+    the concat rows with them, the MLP columns where the hidden width
+    divides): every served layer's local MSA and attention tiles, and its
+    four int8 GEMMs (QKV per-head stacks, concat, up, down) at their
+    local widths, get plans."""
+    from repro_torch.kernels.int8_matmul import I8_KGROUPS, gemm_i8_plan
+
+    from test_torch_group_plan import _served_group_shapes
+
+    for model, b, n, d, h, dh, m in _served_group_shapes():
+        h_l = h // model_axis if h % model_axis == 0 else h
+        m_l = m // model_axis if m % model_axis == 0 else m
+        for z_size, w_size in _SIZES:
+            assert msa_plan(n, dh, z_size, w_size).smem <= SMEM_LIMIT
+        assert attention_plan(n, dh).smem <= SMEM_LIMIT
+        rows = b * n
+        for cols, k, ldb, grp, stride in (
+                (h_l * dh, d, dh, dh, d * dh),       # Q / K / V stacks
+                (d, h_l * dh, d, d, 0),              # concat
+                (m_l, d, m_l, m_l, 0),               # up
+                (d, m_l, d, d, 0)):                  # down
+            plan = gemm_i8_plan(rows, cols, k, ldb=ldb, grp=grp,
+                                grp_stride=stride)
+            assert plan.kgroups in I8_KGROUPS, (model, cols, k)
+            assert plan.a_chunk in (16, 8, 4, 1)
+            assert plan.b_chunk in (16, 8, 4, 1)
+            assert plan.tiles == -(-rows // 64) * -(-cols // 64)
