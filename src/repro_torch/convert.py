@@ -74,7 +74,12 @@ def _unstack_layers(stacked: Any, device) -> list:
 def lm_params_from_numpy(tree: Mapping[str, Any], device="cpu") -> dict:
     """The JAX LM parameter tree (leaves array-likes; ``layers`` a tuple
     with one stacked tree per pattern position, leading axis
-    n_superblocks) -> the port's tree, ``layers`` a flat per-layer list."""
+    n_superblocks) -> the port's tree, ``layers`` a flat per-layer list.
+    Every leaf keeps its dtype and its shape past the stacking axis: an
+    MoE layer's float32 ``router`` and (E, D, F) expert stacks, xLSTM's
+    (H, dh, dh) block-diagonal weights and float32 ``r`` / ``b_if`` /
+    ``b_in``; ``embed``, ``in_proj`` and the rest of the top level as they
+    are."""
     out = {k: params_from_numpy(v, device) for k, v in tree.items()
            if k != "layers"}
     out["layers"] = _unstack_layers(tree["layers"], device)
@@ -82,6 +87,7 @@ def lm_params_from_numpy(tree: Mapping[str, Any], device="cpu") -> dict:
 
 
 def lm_caches_from_numpy(caches: Any, device="cpu") -> list:
-    """The JAX LM caches (a tuple of stacked per-position cache trees) ->
-    the port's per-layer cache list."""
+    """The JAX LM caches (a tuple of stacked per-position cache trees:
+    attention k/v, RG-LRU, mLSTM C/n/m, sLSTM c/n/h/m) -> the port's
+    per-layer cache list."""
     return _unstack_layers(caches, device)

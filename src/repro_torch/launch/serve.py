@@ -11,6 +11,9 @@ with every other flag passed through (the open stream's
 ``--device cpu`` asks for the CPU (the plain versions of the kernels).
 
   python -m repro_torch.launch.serve --arch recurrentgemma-2b
+  python -m repro_torch.launch.serve --arch olmoe-1b-7b --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+      --reduced --device cpu --requests 2 --batch 2 --max-new 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
       --reduced --device cpu --requests 2 --batch 2 --max-new 4 --cache-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --vision --model swin_t \
@@ -51,16 +54,29 @@ class Request:
 
 class SlotServer:
     """Lock-step continuous batching over B slots, on the device of
-    ``params``.  With ``keep_logits`` each request also keeps the
-    (vocab,) float32 logits each of its tokens was chosen from."""
+    ``params``, for every decoder fed tokens (any block kind, dense or
+    MoE).  With ``keep_logits`` each request also keeps the (vocab,)
+    float32 logits each of its tokens was chosen from.  An encoder-only
+    config raises, as the JAX server's assert does; so does the
+    ``tokens+image`` mode, whose prompts the slots cannot carry (the JAX
+    server feeds tokens only): prefill and decode it through
+    `launch.steps` with ``patch_embeds``."""
 
     def __init__(self, cfg, params, batch: int, cache_len: int, *,
                  keep_logits: bool = False):
+        if not cfg.supports_decode:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode "
+                             f"(run it through steps.make_forward_step)")
+        if cfg.input_mode != "tokens":
+            raise ValueError(
+                f"{cfg.name}: the slot server feeds tokens only, not the "
+                f"{cfg.input_mode!r} input mode; prefill and decode it "
+                f"through launch.steps")
         self.cfg = cfg
         self.params = params
         self.b = batch
         self.cache_len = cache_len
-        self.device = params["embed"].device
+        self.device = tr.param_device(params)
         self.keep_logits = keep_logits
         self.caches = tr.init_caches(cfg, batch, cache_len, self.device)
         self.pos = torch.zeros((batch,), dtype=torch.int32, device=self.device)
@@ -169,6 +185,9 @@ def main(argv=None):
         cfg = cfg.reduced()
     if not cfg.supports_decode:
         raise SystemExit(f"[serve] {cfg.name} is encoder-only: no decode")
+    if cfg.input_mode != "tokens":
+        raise SystemExit(f"[serve] {cfg.name}: the slot server feeds tokens "
+                         f"only, not the {cfg.input_mode!r} input mode")
     tr.check_supported(cfg)
     device = resolve_device(args.device)
     print(f"[serve] {cfg.name} reduced={args.reduced} on {device}")

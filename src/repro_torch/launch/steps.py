@@ -2,9 +2,13 @@
 `repro/launch/steps.py`): prefill, decode and forward.
 
 Each factory closes over the config and returns a plain function; PyTorch
-runs eagerly, so there is no jit.  With ``with_logits`` the prefill and
-decode steps also return the logits they chose from (the server keeps
-them to compare devices).  The train step comes with the training port.
+runs eagerly, so there is no jit.  A batch is the model's input dict:
+``tokens``; ``tokens`` and ``patch_embeds`` (``tokens+image``, the image
+ahead of the text; decoding goes on at `next_position`); or ``embeds``
+(HuBERT's frames, which `make_forward_step` serves: it has no decode).
+With ``with_logits`` the prefill and decode steps also return the logits
+they chose from (the server keeps them to compare devices).  The train
+step comes with the training port.
 """
 
 from __future__ import annotations
@@ -15,6 +19,16 @@ import torch
 
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
+
+
+def next_position(cfg: ModelConfig, batch) -> int:
+    """The absolute position of the first decoded token after a prefill
+    of ``batch``: the prompt's length, the image tokens included in the
+    ``tokens+image`` mode (they come first, and the caches cover them)."""
+    if cfg.input_mode == "embeds":
+        return batch["embeds"].shape[1]
+    n = batch["tokens"].shape[1]
+    return n + cfg.n_image_tokens if cfg.input_mode == "tokens+image" else n
 
 
 def greedy(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -51,7 +65,7 @@ def make_decode_step(cfg: ModelConfig, sample: str = "greedy", *,
 
 
 def make_forward_step(cfg: ModelConfig) -> Callable:
-    """No-cache inference forward: (params, batch) -> logits."""
+    """Encoder / no-cache inference forward: (params, batch) -> logits."""
 
     def forward_fn(params, batch):
         return tr.forward(params, batch, cfg)

@@ -1,7 +1,7 @@
 """Shared model building blocks (counterpart of `repro/models/layers.py`):
 initialisers, norms, RoPE, the LM attention block with its (ring) KV
-cache, the dense / gated MLP, and the move of a param tree between
-devices.
+cache, the dense / gated MLP, the top-k capacity-factor MoE feed-forward,
+and the move of a param tree between devices.
 
 Parameters are nested dicts of tensors; weight matrices are 2-D
 (d_in, d_out).  The attention kernels and the fused MLP are reached
@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 Params = Dict[str, Any]
 
@@ -74,6 +74,13 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * (1.0 + w.float())).to(x.dtype)
+
+
+def cast_f32_mp(x: torch.Tensor) -> torch.Tensor:
+    """The forward of the JAX package's `cast_f32_mp`: a cast to float32
+    (its custom backward, which keeps the cotangent in x's dtype, is the
+    training side's)."""
+    return x.float()
 
 
 def norm_init(d: int, kind: str, dtype: torch.dtype, device=None) -> Params:
@@ -276,3 +283,148 @@ def mlp_forward(p: Params, x: torch.Tensor, cfg: MlpConfig) -> torch.Tensor:
     return ops.mlp(x, p["w_up"], p["w_down"], p.get("b_up"),
                    p.get("b_down"), p.get("w_gate"),
                    activation=cfg.activation)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity-factor dispatch)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int                 # per-expert hidden
+    n_experts: int
+    top_k: int
+    activation: str = "silu"
+    gated: bool = True
+    capacity_factor: float = 1.25
+    # Virtual-expert expansion: each expert split into ``ep_virtual``
+    # slices along d_ff, gates repeated and the slices summed in the
+    # combine (the identity; in the JAX package it makes the expert count
+    # divide a model axis).
+    ep_virtual: int = 1
+
+
+def moe_init(gen: torch.Generator, cfg: MoEConfig,
+             dtype: torch.dtype) -> Params:
+    """``router`` (D, E) in float32; ``w_up``, ``w_gate`` (E, D, F) and
+    ``w_down`` (E, F, D), each expert drawn as a `dense_init`."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+
+    def stack(d_in, d_out):
+        return torch.stack([dense_init(gen, d_in, d_out, dtype)
+                            for _ in range(e)])
+
+    p = {"router": dense_init(gen, d, e, torch.float32),
+         "w_up": stack(d, f), "w_down": stack(f, d)}
+    if cfg.gated:
+        p["w_gate"] = stack(d, f)
+    return p
+
+
+def moe_route(p: Params, x: torch.Tensor, k_top: int):
+    """The router: (probs (G, S, E) float32, gate values (G, S, k)
+    renormalised over the k chosen, expert ids (G, S, k) int64).  The top
+    k come from a stable descending sort, so ties go to the lower expert
+    id, as `jax.lax.top_k` breaks them, on every device."""
+    probs = torch.softmax(cast_f32_mp(x) @ p["router"], dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[..., :k_top], idx[..., :k_top]
+    return probs, gate_vals / gate_vals.sum(-1, keepdim=True), gate_idx
+
+
+def _split_cols(w: torch.Tensor, v: int) -> torch.Tensor:
+    """(E, D, F) -> (E*v, D, F/v), slicing F."""
+    e, d, f = w.shape
+    return w.reshape(e, d, v, f // v).permute(0, 2, 1, 3).reshape(
+        e * v, d, f // v)
+
+
+def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig,
+                return_aux: bool = False):
+    """Top-k capacity-factor MoE with scatter/gather dispatch (the JAX
+    package's `moe_forward`, step for step).
+
+    x: (B, T, D); the batch dim is the dispatch group.  Each expert takes
+    at most ``cap = min(max(int(capacity_factor * T * k / E), 1), T)``
+    (token, choice) pairs of a group, queued in (token, choice) order; the
+    rest are dropped (their share of the output is zero; the residual
+    passes).  The experts are batched products (`torch.einsum`), as in
+    the JAX package, where they sit outside any Pallas kernel.  The JAX
+    package's sharding hints are no-ops off a mesh and the port has no LM
+    mesh, so there are none here.  With ``return_aux`` also the
+    Switch-style load-balance loss over the parent experts' top-1
+    choices."""
+    g, s, d = x.shape
+    e, k_top = cfg.n_experts, cfg.top_k
+    cap = min(max(int(cfg.capacity_factor * s * k_top / e), 1), s)
+
+    probs, gate_vals, gate_idx = moe_route(p, x, k_top)
+    parent_idx = gate_idx
+
+    v = cfg.ep_virtual
+    w_up, w_down, w_gate = p["w_up"], p["w_down"], p.get("w_gate")
+    if v > 1:
+        if cfg.d_ff % v:
+            raise ValueError(f"ep_virtual {v} does not divide d_ff "
+                             f"{cfg.d_ff}")
+        gate_idx = (gate_idx[..., None] * v + torch.arange(
+            v, device=x.device)).reshape(g, s, k_top * v)
+        gate_vals = torch.repeat_interleave(gate_vals, v, dim=-1)
+        e, k_top = e * v, k_top * v
+        w_up = _split_cols(w_up, v)
+        if w_gate is not None:
+            w_gate = _split_cols(w_gate, v)
+        ee, ff, dd = w_down.shape
+        w_down = w_down.reshape(ee * v, ff // v, dd)
+
+    # Position of each (token, choice) in its expert's queue (per group):
+    # an exclusive cumsum over the flattened (token, choice) order.
+    onehot = torch.nn.functional.one_hot(gate_idx, e)       # (G, S, k, E)
+    flat = onehot.reshape(g, s * k_top, e)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(g, s, k_top, e)
+    pos = (pos * onehot).sum(-1)                            # (G, S, k)
+    keep = pos < cap
+
+    # Scatter each kept (token, choice) into its (expert, slot) cell; a
+    # dropped one goes to the sentinel column E*cap, sliced away.
+    slot = torch.where(keep, gate_idx * cap + pos, e * cap)  # (G, S, k)
+    sidx = torch.arange(s, device=x.device)[None, :, None].expand(g, s,
+                                                                  k_top)
+    src = torch.full((g, e * cap + 1), s, dtype=torch.int64,
+                     device=x.device)                       # sentinel = S
+    src.scatter_(1, slot.reshape(g, -1), sidx.reshape(g, -1))
+    src = src[:, :e * cap]                                  # (G, E*C)
+
+    # Gather tokens to expert slots; the zero row S fills empty slots.
+    xpad = torch.cat([x, x.new_zeros((g, 1, d))], dim=1)
+    expert_in = torch.gather(xpad, 1, src[..., None].expand(-1, -1, d)
+                             ).reshape(g, e, cap, d)        # (G, E, C, D)
+
+    act = ref.act_fn(cfg.activation)
+    h = torch.einsum("gecd,edf->gecf", expert_in, w_up)
+    if cfg.gated:
+        gt = torch.einsum("gecd,edf->gecf", expert_in, w_gate)
+        h = act(gt.float()).to(h.dtype) * h
+    else:
+        h = act(h.float()).to(h.dtype)
+    expert_out = torch.einsum("gecf,efd->gecd", h, w_down)
+
+    # Combine: gather each token's k slots back and gate-weight them, the
+    # sum in x's dtype.
+    flat_out = torch.cat([expert_out.reshape(g, e * cap, d),
+                          expert_out.new_zeros((g, 1, d))], dim=1)
+    y = torch.gather(flat_out, 1, slot.reshape(g, s * k_top, 1).expand(
+        -1, -1, d)).reshape(g, s, k_top, d)
+    y = (y * gate_vals[..., None].to(y.dtype)).sum(dim=2).to(x.dtype)
+    if not return_aux:
+        return y
+    # Switch-style load-balance loss from the router's statistics, over
+    # the parent experts (the virtual expansion is an execution detail).
+    top1 = parent_idx[..., 0].reshape(-1)
+    frac_tokens = torch.nn.functional.one_hot(
+        top1, cfg.n_experts).float().mean(0)
+    frac_probs = probs.reshape(-1, cfg.n_experts).mean(0)
+    aux = cfg.n_experts * (frac_tokens * frac_probs).sum()
+    return y, aux

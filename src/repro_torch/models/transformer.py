@@ -1,11 +1,12 @@
-"""The LM backbone (counterpart of `repro/models/transformer.py`) for the
-``attn`` and ``rec`` block kinds.
+"""The LM backbone (counterpart of `repro/models/transformer.py`) for every
+block kind (``attn``, ``rec``, ``mlstm``, ``slstm``), the dense and MoE
+feed-forwards and the three input modes.
 
 A model is ``n_layers`` pre-norm residual blocks following the repeating
 ``pattern`` of kinds:
 
     x += mixer(norm(x))
-    x += mlp(norm(x))          # when d_ff > 0
+    x += mlp_or_moe(norm(x))   # when d_ff > 0 or the config has MoE
 
 The JAX package stacks each pattern position's parameters over the
 superblocks and scans; here ``params["layers"]`` is the flat list of the
@@ -13,42 +14,43 @@ superblocks and scans; here ``params["layers"]`` is the flat list of the
 superblock i // P) and the scan is a Python loop.  Caches are a list in
 the same order.  `convert.lm_params_from_numpy` carries a JAX tree over.
 
+Inputs (``input_mode``): ``tokens`` (B, S) through ``embed``;
+``tokens+image``: ``patch_embeds`` (B, n_image_tokens, D) ahead of the
+embedded tokens; ``embeds``: precomputed frames (B, S, embed_dim_in),
+through ``in_proj`` where embed_dim_in differs from d_model.  In decode
+an MoE feed-forward is dropless (capacity n_experts / top_k), as in the
+JAX package, so serving never drops a token.
+
 Entry points: `forward` (logits of every position), `prefill` (the last
-position's logits and the caches) and `decode_step` (one token per
-sequence).  The ``mlstm`` and ``slstm`` kinds, MoE feed-forwards and the
-``embeds`` / ``tokens+image`` input modes raise `NotImplementedError`.
+position's logits and the caches) and `decode_step` (one token, or one
+embedding row in the ``embeds`` mode, per sequence).  What is still the
+training side's (the ``rms_mp`` norm that ``bf16_reduce`` selects) raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
 
-from . import recurrent
+from . import recurrent, xlstm
 from .config import ModelConfig
-from .layers import (AttnConfig, MlpConfig, Params, apply_norm, attn_decode,
-                     attn_forward, attn_init, attn_prefill, dense_init,
-                     embed_init, mlp_forward, mlp_init, norm_init)
-
-PORTED_KINDS = ("attn", "rec")
+from .layers import (AttnConfig, MlpConfig, MoEConfig, Params, apply_norm,
+                     attn_decode, attn_forward, attn_init, attn_prefill,
+                     dense_init, embed_init, mlp_forward, mlp_init,
+                     moe_forward, moe_init, norm_init)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` naming what of ``cfg`` is not ported."""
-    missing = sorted(set(cfg.pattern) - set(PORTED_KINDS))
-    if missing:
+    """Raise `NotImplementedError` naming what of ``cfg`` is not ported:
+    ``bf16_reduce`` on an RMS-norm model (the JAX forward's ``rms_mp``
+    norm and cotangent clamps, the training side's)."""
+    if cfg.bf16_reduce and cfg.norm == "rms":
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {missing} (models/xlstm.py) are not "
-            f"ported yet; the port runs {list(PORTED_KINDS)}")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE feed-forward (layers.moe_forward) is not "
-            f"ported yet")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: input mode {cfg.input_mode!r} is not ported yet; "
-            f"the port embeds tokens only")
+            f"{cfg.name}: bf16_reduce selects the rms_mp norm, which comes "
+            f"with the training port")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -70,8 +72,87 @@ def _mlp_cfg(cfg: ModelConfig) -> MlpConfig:
                      bias=cfg.mlp_bias)
 
 
+def _moe_cfg(cfg: ModelConfig) -> MoEConfig:
+    m = cfg.moe
+    return MoEConfig(d_model=cfg.d_model, d_ff=m.d_ff, n_experts=m.n_experts,
+                     top_k=m.top_k, activation=cfg.activation,
+                     gated=cfg.gated, capacity_factor=m.capacity_factor,
+                     ep_virtual=cfg.moe_ep_virtual)
+
+
 def _has_ff(cfg: ModelConfig) -> bool:
-    return cfg.d_ff > 0
+    return cfg.d_ff > 0 or cfg.moe is not None
+
+
+# ---------------------------------------------------------------------------
+# Per-kind mixer dispatch
+# ---------------------------------------------------------------------------
+
+
+def _mixer_init(kind: str, gen: torch.Generator, cfg: ModelConfig,
+                dtype: torch.dtype) -> Params:
+    if kind == "attn":
+        return attn_init(gen, _attn_cfg(cfg), dtype)
+    if kind == "rec":
+        return recurrent.rec_init(gen, cfg, dtype)
+    if kind == "mlstm":
+        return xlstm.mlstm_init(gen, cfg, dtype)
+    if kind == "slstm":
+        return xlstm.slstm_init(gen, cfg, dtype)
+    raise ValueError(kind)
+
+
+def _mixer_forward(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig):
+    if kind == "attn":
+        return attn_forward(p, x, _attn_cfg(cfg))
+    if kind == "rec":
+        return recurrent.rec_forward(p, x, cfg)
+    if kind == "mlstm":
+        return xlstm.mlstm_forward(p, x, cfg)
+    if kind == "slstm":
+        return xlstm.slstm_forward(p, x, cfg)
+    raise ValueError(kind)
+
+
+def _mixer_prefill(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
+                   cache_len: int):
+    if kind == "attn":
+        return attn_prefill(p, x, _attn_cfg(cfg), cache_len)
+    if kind == "rec":
+        return recurrent.rec_prefill(p, x, cfg, cache_len)
+    if kind == "mlstm":
+        return xlstm.mlstm_prefill(p, x, cfg, cache_len)
+    if kind == "slstm":
+        return xlstm.slstm_prefill(p, x, cfg, cache_len)
+    raise ValueError(kind)
+
+
+def _mixer_decode(kind: str, p: Params, x: torch.Tensor, cache, pos,
+                  cfg: ModelConfig):
+    if kind == "attn":
+        return attn_decode(p, x, cache, pos, _attn_cfg(cfg))
+    if kind == "rec":
+        return recurrent.rec_decode(p, x, cache, pos, cfg)
+    if kind == "mlstm":
+        return xlstm.mlstm_decode(p, x, cache, pos, cfg)
+    if kind == "slstm":
+        return xlstm.slstm_decode(p, x, cache, pos, cfg)
+    raise ValueError(kind)
+
+
+def _mixer_init_cache(kind: str, cfg: ModelConfig, batch: int, s: int,
+                      dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    if kind == "attn":
+        shape = (batch, cfg.n_kv_heads, s, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "rec":
+        return recurrent.rec_init_cache(cfg, batch, s, dtype, device)
+    if kind == "mlstm":
+        return xlstm.mlstm_init_cache(cfg, batch, s, dtype, device)
+    if kind == "slstm":
+        return xlstm.slstm_init_cache(cfg, batch, s, dtype, device)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -81,50 +162,54 @@ def _has_ff(cfg: ModelConfig) -> bool:
 
 def _block_init(kind: str, gen: torch.Generator, cfg: ModelConfig) -> Params:
     dtype, dev = cfg.param_dtype, gen.device
-    mixer = (attn_init(gen, _attn_cfg(cfg), dtype) if kind == "attn"
-             else recurrent.rec_init(gen, cfg, dtype))
     p: Params = {"norm1": norm_init(cfg.d_model, cfg.norm, dtype, dev),
-                 "mixer": mixer}
+                 "mixer": _mixer_init(kind, gen, cfg, dtype)}
     if _has_ff(cfg):
         p["norm2"] = norm_init(cfg.d_model, cfg.norm, dtype, dev)
-        p["mlp"] = mlp_init(gen, _mlp_cfg(cfg), dtype)
+        if cfg.moe is not None:
+            p["moe"] = moe_init(gen, _moe_cfg(cfg), dtype)
+        else:
+            p["mlp"] = mlp_init(gen, _mlp_cfg(cfg), dtype)
     return p
 
 
 def _ff(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x plus the block's feed-forward of norm2(x), x (B, T, D) or, in
+    decode, (B, D): there an MoE routes each sequence's token as a group
+    of one at capacity n_experts / top_k (dropless)."""
     if not _has_ff(cfg):
         return x
-    return x + mlp_forward(p["mlp"], apply_norm(x, p["norm2"], cfg.norm),
-                           _mlp_cfg(cfg))
+    h = apply_norm(x, p["norm2"], cfg.norm)
+    if cfg.moe is None:
+        return x + mlp_forward(p["mlp"], h, _mlp_cfg(cfg))
+    mcfg = _moe_cfg(cfg)
+    if h.dim() == 2:
+        mcfg = dataclasses.replace(
+            mcfg, capacity_factor=mcfg.n_experts / mcfg.top_k)
+        return x + moe_forward(p["moe"], h[:, None], mcfg)[:, 0]
+    return x + moe_forward(p["moe"], h, mcfg)
 
 
 def _block_forward(kind: str, p: Params, x: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
-    h = apply_norm(x, p["norm1"], cfg.norm)
-    if kind == "attn":
-        y = attn_forward(p["mixer"], h, _attn_cfg(cfg))
-    else:
-        y = recurrent.rec_forward(p["mixer"], h, cfg)
+    y = _mixer_forward(kind, p["mixer"], apply_norm(x, p["norm1"], cfg.norm),
+                       cfg)
     return _ff(p, x + y, cfg)
 
 
 def _block_prefill(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
                    cache_len: int):
-    h = apply_norm(x, p["norm1"], cfg.norm)
-    if kind == "attn":
-        y, cache = attn_prefill(p["mixer"], h, _attn_cfg(cfg), cache_len)
-    else:
-        y, cache = recurrent.rec_prefill(p["mixer"], h, cfg, cache_len)
+    y, cache = _mixer_prefill(kind, p["mixer"],
+                              apply_norm(x, p["norm1"], cfg.norm), cfg,
+                              cache_len)
     return _ff(p, x + y, cfg), cache
 
 
 def _block_decode(kind: str, p: Params, x: torch.Tensor, cache, pos,
                   cfg: ModelConfig):
-    h = apply_norm(x, p["norm1"], cfg.norm)
-    if kind == "attn":
-        y, cache = attn_decode(p["mixer"], h, cache, pos, _attn_cfg(cfg))
-    else:
-        y, cache = recurrent.rec_decode(p["mixer"], h, cache, pos, cfg)
+    y, cache = _mixer_decode(kind, p["mixer"],
+                             apply_norm(x, p["norm1"], cfg.norm), cache, pos,
+                             cfg)
     return _ff(p, x + y, cfg), cache
 
 
@@ -135,25 +220,48 @@ def _block_decode(kind: str, p: Params, x: torch.Tensor, cache, pos,
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random weights from ``seed``, drawn on ``device`` (the CPU when
-    None) in the config's dtype."""
+    None) in the config's dtype.  ``embed`` for the token modes;
+    ``in_proj`` for ``embeds`` where embed_dim_in differs from d_model."""
     check_supported(cfg)
     gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     dtype = cfg.param_dtype
-    params: Params = {
-        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype),
-        "layers": [_block_init(kind, gen, cfg) for kind in layer_kinds(cfg)],
-        "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, gen.device)}
+    params: Params = {}
+    if cfg.input_mode in ("tokens", "tokens+image"):
+        params["embed"] = embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                     dtype)
+    elif cfg.embed_dim_in and cfg.embed_dim_in != cfg.d_model:
+        params["in_proj"] = dense_init(gen, cfg.embed_dim_in, cfg.d_model,
+                                       dtype)
+    params["layers"] = [_block_init(kind, gen, cfg)
+                        for kind in layer_kinds(cfg)]
+    params["final_norm"] = norm_init(cfg.d_model, cfg.norm, dtype,
+                                     gen.device)
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                        dtype)
     return params
 
 
+def param_device(params: Params) -> torch.device:
+    """The device of a param tree (its final norm's)."""
+    return params["final_norm"]["w"].device
+
+
 def embed_batch(params: Params, batch: Dict[str, torch.Tensor],
                 cfg: ModelConfig) -> torch.Tensor:
-    """Token embedding -> (B, S, D)."""
+    """Token / stub-frontend embedding -> (B, S, D)."""
     check_supported(cfg)
-    return params["embed"][batch["tokens"].long()]
+    if cfg.input_mode == "tokens":
+        return params["embed"][batch["tokens"].long()]
+    if cfg.input_mode == "tokens+image":
+        tok = params["embed"][batch["tokens"].long()]       # (B, S_text, D)
+        img = batch["patch_embeds"].to(tok.dtype)           # (B, S_img, D)
+        return torch.cat([img, tok], dim=1)
+    # embeds: precomputed frame / patch features (audio / vision stubs)
+    x = batch["embeds"]
+    if "in_proj" in params:
+        x = x @ params["in_proj"]
+    return x.to(cfg.param_dtype)
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -175,26 +283,18 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 device=None) -> List[Dict[str, torch.Tensor]]:
     """One zero cache per layer: attention k/v (B, Hkv, S, Dh) with S =
     ``kv_cache_len(cache_len)``; recurrent h (B, W) float32 and conv
-    state (B, K-1, W)."""
+    state (B, K-1, W); mLSTM C, n, m and sLSTM c, n, h, m (float32, m at
+    -1e30)."""
     check_supported(cfg)
     dtype, s = cfg.param_dtype, cfg.kv_cache_len(cache_len)
-    caches = []
-    for kind in layer_kinds(cfg):
-        if kind == "attn":
-            shape = (batch, cfg.n_kv_heads, s, cfg.hd)
-            caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                           "v": torch.zeros(shape, dtype=dtype,
-                                            device=device)})
-        else:
-            caches.append(recurrent.rec_init_cache(cfg, batch, s, dtype,
-                                                   device))
-    return caches
+    return [_mixer_init_cache(kind, cfg, batch, s, dtype, device)
+            for kind in layer_kinds(cfg)]
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             cache_len: int) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-    """Run the prompt: the last position's logits (B, 1, padded_vocab)
-    and the caches."""
+    """Run the prompt (image tokens first in the ``tokens+image`` mode):
+    the last position's logits (B, 1, padded_vocab) and the caches."""
     x = embed_batch(params, batch, cfg)
     eff_len = cfg.kv_cache_len(cache_len)
     caches = []
@@ -208,11 +308,13 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 def decode_step(params: Params, tokens: torch.Tensor, caches: List[Dict],
                 pos: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-    """tokens (B,), pos (B,) absolute positions -> logits (B,
-    padded_vocab) and the caches after the step (attention caches are
-    updated in place, recurrent ones replaced)."""
+    """tokens (B,) (in the ``embeds`` mode the rows (B, D) themselves),
+    pos (B,) absolute positions -> logits (B, padded_vocab) and the caches
+    after the step (attention caches are updated in place, the others
+    replaced)."""
     check_supported(cfg)
-    x = params["embed"][tokens.long()]
+    x = tokens if cfg.input_mode == "embeds" \
+        else params["embed"][tokens.long()]
     new_caches = []
     for kind, p, c in zip(layer_kinds(cfg), params["layers"], caches):
         x, c = _block_decode(kind, p, x, c, pos, cfg)

@@ -739,6 +739,73 @@ def test_lm_server_on_the_card_matches_the_cpu(card, arch):
         assert np.abs(ga - gb).max() <= 1e-3 * np.abs(gb).max()
 
 
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b",
+                                  "xlstm-1.3b"])
+def test_moe_and_xlstm_servers_on_the_card_match_the_cpu(card, arch):
+    """Reduced widths, fp32: the MoE configs and xLSTM served on the card
+    against the same weights on the CPU (the same greedy tokens, logits
+    within 1e-3 of the scale); an MoE launches the attention kernels and
+    no fused MLP (its experts are batched products), xLSTM none of the
+    port's kernels."""
+    cfg = configs.get(arch).reduced()
+    params = transformer.init_params(cfg, seed=0, device=card)
+    twin = vit.to_device(params, "cpu")
+    out = {}
+    ops.reset_launches()
+    for where, p in (("cuda", params), ("cpu", twin)):
+        server = lm_serve.SlotServer(cfg, p, 2, 32, keep_logits=True)
+        done = lm_serve.drain(server, lm_serve.make_requests(cfg, 3, 12, 5,
+                                                             seed=2))
+        out[where] = sorted(done, key=lambda r: r.rid)
+    moe = cfg.moe is not None
+    assert (ops.LAUNCHES["flash_attention"] > 0) == moe
+    assert (ops.LAUNCHES["decode_attention"] > 0) == moe
+    assert ops.LAUNCHES["fused_mlp"] == ops.LAUNCHES["rglru_scan"] == 0
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.generated == b.generated
+        ga, gb = np.stack(a.logits), np.stack(b.logits)
+        assert np.abs(ga - gb).max() <= 1e-3 * np.abs(gb).max()
+
+
+def test_embeds_and_image_modes_on_the_card_match_the_cpu(card):
+    """Reduced widths, fp32: HuBERT's `forward` on frames (non-causal
+    flash and the fused MLP) and InternVL2's prefill with patch
+    embeddings then decode steps through `steps`, against the CPU."""
+    from repro_torch.launch import steps
+
+    rng = np.random.default_rng(3)
+    cfg = configs.get("hubert-xlarge").reduced()
+    params = transformer.init_params(cfg, seed=0, device=card)
+    emb = torch.from_numpy(rng.standard_normal(
+        (2, 9, cfg.d_model)).astype(np.float32))
+    ops.reset_launches()
+    got = steps.make_forward_step(cfg)(params, {"embeds": emb.to(card)})
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    want = transformer.forward(vit.to_device(params, "cpu"),
+                               {"embeds": emb}, cfg)
+    assert (got.cpu() - want).abs().max() <= 1e-3 * want.abs().max()
+
+    cfg = configs.get("internvl2-26b").reduced()
+    params = transformer.init_params(cfg, seed=0, device=card)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 5))),
+             "patch_embeds": torch.from_numpy(rng.standard_normal(
+                 (2, cfg.n_image_tokens, cfg.d_model)).astype(np.float32))}
+    logits = {}
+    for where, p in (("cuda", params), ("cpu", vit.to_device(params, "cpu"))):
+        b = {k: v.to(where) for k, v in batch.items()}
+        tok, caches, lg = steps.make_prefill_step(cfg, 24, with_logits=True)(
+            p, b)
+        rows = [lg]
+        pos = torch.full((2,), steps.next_position(cfg, b), device=where)
+        decode = steps.make_decode_step(cfg, with_logits=True)
+        for i in range(3):
+            tok, caches, lg = decode(p, tok, caches, pos + i)
+            rows.append(lg)
+        logits[where] = torch.stack(rows, 1).cpu()
+    assert (logits["cuda"] - logits["cpu"]).abs().max() \
+        <= 1e-3 * logits["cpu"].abs().max()
+
+
 # Kernels 5 and 1 on the tensor cores: the MSA tile (one thread-block
 # cluster per (image, head), K and V shared through distributed shared
 # memory) and the layer's split-TF32 GEMM tile, in every dtype mode, at
