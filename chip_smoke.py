@@ -206,9 +206,9 @@ before the next:
       served in bf16 and float32 against its twins' `forward` (the
       parallel mLSTM form, where the server runs the recurrent one), its
       decode against its forward;
-  7c. HuBERT-XLarge at full width and depth: `forward` on 4 clips of 500
+  7c. HuBERT-XLarge at full width, 16 layers: `forward` on 4 clips of 500
       frames (numpy, seed 11), bf16 and float32, against its twins;
-  7d. InternVL2-26B at full width, 4 layers, through `launch.steps`: one
+  7d. InternVL2-26B at full width, 2 layers, through `launch.steps`: one
       prefill of 1,024 patch embeddings + 16 tokens, 8 decode
       steps, bf16 and float32 against the twins replaying the same calls,
       its decode against its forward.
@@ -217,6 +217,42 @@ before the next:
   prefill ms, and one decode step's and one prefill's device events and
   busy shares are printed.  Their launches join each kernel's count
   in the JSON line.
+
+The training slice adds, to phase 2, the gradient path of kernels 9, 6
+and 11 (`ops._KernelGrad`: the kernel forward, the plain version's
+autograd backward) at its paths' shapes: Danube-1.8B's attention (8 x
+256 tokens, 32 over 8 heads of 80) and gated SiLU MLP (2,048 rows) in
+bf16, RecurrentGemma-2B's attention (10 over 1 head of 256) and RG-LRU
+scan (W 2,560, T 128) in fp32; every input's gradient against autograd
+of the plain version, forward + backward timed beside the plain version
+and the library yardstick (SDPA forward and backward; matmul + SiLU +
+matmul forward and backward; none for the scan); phase 8, training, after
+phase 7 and before phase 6, each model freed before the next:
+  8a. Danube-1.8B at full width and depth in bf16, TRAIN_STEPS steps of
+      `make_train_step` on TRAIN_BATCH x TRAIN_SEQ `SyntheticLM` tokens
+      (`linear_warmup_cosine(1e-3, 2, 6)`): every loss and grad_norm
+      finite, every parameter leaf a finite non-zero gradient, the
+      launches of flash_attention and fused_mlp 24 a step each
+      (`expected_lm_launches`); the loss history, step ms (CUDA events),
+      tokens/s, peak device memory, one step's device events and busy
+      share, and the model FLOPs (6 x active params x tokens) over the
+      bf16 peak;
+  8b. Danube-1.8B at full width, TWIN_LAYERS layers, float32, TWIN_STEPS
+      steps, against its CPU twin (the same weights and batches, the
+      twin replaying each step): the loss, every metric, every gradient
+      leaf at the same params, every updated parameter and both moments
+      (`train_twin`); with ``bf16_reduce`` off and on (the rms_mp norm,
+      whose losses must agree with the rms run's in float32);
+  8c. RecurrentGemma-2B at full width, pattern rec, rec, attn (3 layers),
+      float32, one step against its CPU twin likewise (T 128: the chunked
+      scan; rglru_scan launched twice);
+  8d. `launch.train.main --reduced` on the card: 8 steps straight against
+      4 steps, a checkpoint and ``--resume`` to 8; the last losses within
+      1e-4.
+  Their launches join each kernel's count in the JSON line.  Phase 6 adds
+  6d: `pipeline_apply` (GPipe, one Danube-1.8B block a stage in bf16,
+  PIPE_MICRO microbatches) over the world's ranks against the stages run
+  one after another on rank 0, with its bubble fraction and ms.
 
 The line before the last is one JSON object with a record per kernel
 (each time marked with how it was taken: "profiler" or "cuda_events");
@@ -232,6 +268,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -359,6 +396,13 @@ TNT_TAG = "tnt_s"
 LM_REQUESTS, LM_BATCH, LM_MAX_NEW, LM_PROMPT, LM_CACHE = 6, 4, 8, 16, 128
 RING_PROMPT, RING_CACHE, RING_NEW = 2100, 2048, 8
 LM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Phase 8: Danube-1.8B trained at full width and depth in bf16 (8a),
+# TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens; the float32 twins
+# (8b: Danube at TWIN_LAYERS layers, TWIN_STEPS steps; 8c:
+# RecurrentGemma-2B's rec, rec, attn, one step) on TWIN_BATCH x
+# TWIN_SEQ tokens.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 6
+TWIN_BATCH, TWIN_SEQ, TWIN_LAYERS, TWIN_STEPS = 2, 128, 2, 2
 # The served LM logits, teacher-forced, against CPU twins of the same
 # weights through the plain versions, as a share of the logit scale.  Each
 # LM path is served twice on the card.  In float32 (the wiring check) the
@@ -378,8 +422,9 @@ LM_CONTROL_REL = 0.1
 # OLMoE-1B-7B at full width and depth (bf16) and at full width, 4 layers
 # (float32, the wiring check); Mixtral-8x7B at full width, 2 layers;
 # xLSTM-1.3B at full width and depth; each served through `SlotServer`
-# (P7_REQUESTS requests at LM_BATCH); HuBERT-XLarge at full width and
-# depth, `forward` on HUBERT_CLIPS clips of HUBERT_FRAMES frames;
+# (P7_REQUESTS requests at LM_BATCH); HuBERT-XLarge at full width,
+# HUBERT_LAYERS of its 48 layers, `forward` on HUBERT_CLIPS clips of
+# HUBERT_FRAMES frames;
 # InternVL2-26B at full width, IVL_LAYERS layers, through `steps`: one
 # prefill of IVL_BATCH sequences of IVL_IMAGE patch embeddings and
 # IVL_PROMPT text tokens, then IVL_NEW - 1 decode steps, over IVL_CACHE
@@ -388,8 +433,10 @@ LM_CONTROL_REL = 0.1
 # MIXTRAL_RING_PROMPT tokens, past its 4,096-token window (the ring
 # cache), the MoE models at a dropless capacity.
 P7_REQUESTS = 6
-OLMOE_FP32_LAYERS, MIXTRAL_LAYERS, IVL_LAYERS = 4, 2, 4
-HUBERT_CLIPS, HUBERT_FRAMES = 4, 500
+# InternVL2 runs 2 layers and HuBERT 16 to keep the script's time: their
+# CPU twins take 39 s at 4 layers and 41 s at 48 (H100 machine, 8 cores).
+OLMOE_FP32_LAYERS, MIXTRAL_LAYERS, IVL_LAYERS = 4, 2, 2
+HUBERT_CLIPS, HUBERT_FRAMES, HUBERT_LAYERS = 4, 500, 16
 IVL_BATCH, IVL_IMAGE, IVL_PROMPT, IVL_NEW, IVL_CACHE = 1, 1024, 16, 9, 1088
 MIXTRAL_RING_PROMPT, DECODE_CHECK_NEW = 4200, 9
 # The phase-7 paths' bf16 logits against their bf16 CPU twins, about
@@ -1821,7 +1868,8 @@ def bf16_forward(model: str, fused: bool, group: int, cfg16, params,
     return dict(counts=counts)
 
 
-def profile_run(name: str, run, where: str, what: str) -> list:
+def profile_run(name: str, run, where: str, what: str,
+                label: str = "served") -> list:
     """Device busy share of ``run()`` under torch.profiler (which adds
     host time of its own), the kernels that take the device time, and the
     host's top self time.  Returns (kernel, device us, count) rows (none
@@ -1847,7 +1895,7 @@ def profile_run(name: str, run, where: str, what: str) -> list:
               f"share not measured")
         return rows
     top = sorted(rows, key=lambda r: -r[1])[:6]
-    print(f"[profile] served {name} on {where}, {what} under "
+    print(f"[profile] {label} {name} on {where}, {what} under "
           f"torch.profiler: device busy {busy_us / 1e3:.3f} ms of "
           f"{wall_us / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.1f}% "
           f"busy); top: " + "; ".join(
@@ -3369,7 +3417,7 @@ def xlstm_path(where: str) -> dict:
 
 
 def hubert_path(where: str) -> dict:
-    """HuBERT-XLarge at full width and depth: `forward` (through
+    """HuBERT-XLarge at full width, HUBERT_LAYERS layers: `forward` (through
     `make_forward_step`) on HUBERT_CLIPS clips of HUBERT_FRAMES frames
     drawn from numpy (seed 11), in bf16 against the bf16 CPU twin (the
     fp32 one the control) and in float32 against the fp32 twin; launch
@@ -3380,7 +3428,8 @@ def hubert_path(where: str) -> dict:
     from repro_torch.models import transformer
     from repro_torch.models.layers import cast_params, to_device
 
-    cfg = configs.get("hubert-xlarge")
+    cfg = dataclasses.replace(configs.get("hubert-xlarge"),
+                              n_layers=HUBERT_LAYERS)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params = transformer.init_params(cfg, seed=0, device="cuda")
     print(f"[serve] hubert-xlarge: {cfg.n_layers} layers, d_model "
@@ -3549,6 +3598,516 @@ def lm_rest_phase(where: str, t_start: float) -> dict:
     print(f"[phase] the rest of the LM side served at "
           f"{time.perf_counter() - t_start:.0f} s")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The training slice: the gradient path of kernels 9, 6 and 11 (phase 2)
+# and phase 8
+# ---------------------------------------------------------------------------
+
+
+def grad_kernel_phase(records: dict) -> None:
+    """Kernels 9, 6 and 11 on their gradient path at the training paths'
+    shapes: forward through the kernel, backward through the wrapper
+    (`ops._KernelGrad`, the plain version's autograd), every input's
+    gradient against `torch.autograd.grad` of the plain version on the
+    same inputs and cotangent; forward + backward recorded (timed in the
+    timing phase) beside the plain version's and the library
+    yardstick's: Danube-1.8B's attention (batch 8 of 256 tokens, 32
+    query heads over 8 KV heads of 80, causal, window 4,096) and gated
+    SiLU MLP (2,048 rows, D 2,560, M 6,912) in bf16 (phase 8a), and
+    RecurrentGemma-2B's attention (batch 2 of 128, 10 heads over 1 of
+    256, window 2,048) and RG-LRU scan (B 2, T 128, W 2,560) in fp32
+    (phase 8c)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(26)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def grads_of(out_fn, inputs, ct):
+        return lambda: torch.autograd.grad(out_fn(*inputs), inputs, ct)
+
+    cases = []
+    for tag, b, hq, hkv, dh, n, window, dtype in (
+            ("h2o-danube-1.8b train", 8, 32, 8, 80, 256, 4096, bf),
+            ("recurrentgemma-2b train", 2, 10, 1, 256, 128, 2048, f32)):
+        q = rand(g, (b, hq, n, dh), dtype).requires_grad_()
+        k, v = (rand(g, (b, hkv, n, dh), dtype).requires_grad_()
+                for _ in range(2))
+        kw = dict(causal=True, window=window)
+        pairs, _ = visible_pairs(n, n, True, window)
+        cases.append((
+            "flash_attention",
+            f"{tag} B {b}, Hq {hq} / Hkv {hkv}, Dh {dh}, N {n} "
+            f"{dname(dtype)}",
+            lambda q, k, v, kw=kw: ops.attention(q, k, v, **kw),
+            lambda q, k, v, kw=kw: ref.attention_ref(q, k, v, **kw),
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            (q, k, v),
+            # forward 2 products, backward 5, of 2 * pairs * hq * dh each
+            bound(nbytes=4 * nbytes(q) + 4 * nbytes(k),
+                  **flops_at(dtype, 14 * pairs * b * hq * dh))))
+    n, d, m = TRAIN_BATCH * TRAIN_SEQ, 2560, 6912
+    x = rand(g, (n, d), bf).requires_grad_()
+    w1, wg = (rand(g, (d, m), bf, d ** -0.5).requires_grad_()
+              for _ in range(2))
+    w2 = rand(g, (m, d), bf, m ** -0.5).requires_grad_()
+    cases.append((
+        "fused_mlp", f"h2o-danube-1.8b train gated silu N {n} D {d} M {m} "
+                     f"bf16",
+        lambda x, w1, w2, wg: ops.mlp(x, w1, w2, w_gate=wg,
+                                      activation="silu"),
+        lambda x, w1, w2, wg: ref.fused_mlp_ref(
+            x, w1, None, w2, None, activation="silu", w_gate=wg),
+        lambda x, w1, w2, wg: (F.silu(x @ wg) * (x @ w1)) @ w2,
+        (x, w1, w2, wg),
+        # forward 3 products of 2nmd, backward 6
+        bound(nbytes=2 * nbytes(x, w1, wg, w2) + 2 * nbytes(x),
+              **flops_at(bf, 18 * n * m * d))))
+    a = (0.5 + 0.499 * torch.rand((2, 128, 2560), generator=g,
+                                  device="cuda")).requires_grad_()
+    bb = rand(g, (2, 128, 2560), f32).requires_grad_()
+    cases.append((
+        "rglru_scan", "recurrentgemma-2b train B 2, T 128, W 2560 fp32",
+        ops.linear_recurrence, ref.linear_recurrence_ref, None, (a, bb),
+        bound(nbytes=6 * nbytes(a), flops_f32=6 * a.numel())))
+
+    for kname, tag, fn, plain, library, inputs, bnd in cases:
+        before = ops.LAUNCHES[kname]
+        out = fn(*inputs)
+        check(ops.LAUNCHES[kname] == before + 1
+              and type(out.grad_fn).__name__ == "_KernelGradBackward",
+              f"{kname}: the gradient path did not launch the kernel "
+              f"through ops._KernelGrad")
+        want = plain(*inputs)
+        err = check_lm(f"{kname} {tag} forward", out.detach(), want.detach())
+        ct = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+        got = torch.autograd.grad(out, inputs, ct)
+        exp = torch.autograd.grad(want, inputs, ct)
+        same = all(torch.equal(x, y) for x, y in zip(got, exp))
+        for i, (x, y) in enumerate(zip(got, exp)):
+            check_lm(f"{kname} {tag} grad of input {i}", x, y)
+        print(f"[check] {kname} {tag}: the gradients of its "
+              f"{len(inputs)} inputs equal the plain version's bit for "
+              f"bit: {same}")
+        add_record(records, kname, f"{tag} forward + backward", err,
+                   grads_of(fn, inputs, ct), grads_of(plain, inputs, ct),
+                   grads_of(library, inputs, ct) if library else None, bnd)
+    torch.cuda.synchronize()
+
+
+def launch_delta(fn):
+    """(fn(), the kernel launches it made by `ops.LAUNCHES`)."""
+    from repro_torch.kernels import ops
+
+    before = ops.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in ops.launch_counts().items()}
+
+
+def card_batch(batch: dict, device="cuda") -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_danube(where: str) -> dict:
+    """8a: Danube-1.8B at full width and depth in bf16, TRAIN_STEPS steps
+    of `make_train_step` on batches of TRAIN_BATCH x TRAIN_SEQ tokens
+    (`SyntheticLM`, seed 0).  Returns the steps' launches."""
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import linear_warmup_cosine
+
+    cfg = configs.get("h2o-danube-1.8b")
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [card_batch(data.batch_at(i)) for i in range(TRAIN_STEPS + 1)]
+    # Every parameter leaf gets a finite gradient that is not all zero.
+    _, _, grads = steps.loss_and_grads(params, batches[0], cfg)
+    leaves = tree_lib.leaves_with_path(grads)
+    bad = [tree_lib.path_key(path) for path, gr in leaves
+           if not bool(torch.isfinite(gr).all()) or not bool(gr.any())]
+    print(f"[train] h2o-danube-1.8b: {len(leaves)} parameter leaves "
+          f"({transformer.param_count(params) / 1e9:.3f}B params, "
+          f"{cfg.param_dtype}), {len(leaves) - len(bad)} with a finite, "
+          f"non-zero gradient")
+    check(not bad, f"h2o-danube-1.8b: leaves without a finite non-zero "
+                   f"gradient: {bad[:8]}")
+    del grads, leaves
+    step_fn = steps.make_train_step(
+        cfg, lr_fn=linear_warmup_cosine(1e-3, 2, TRAIN_STEPS))
+    state = steps.init_opt_state(params)
+
+    def run():
+        nonlocal params, state
+        hist, ms = [], []
+        for i in range(TRAIN_STEPS):
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            params, state, m = step_fn(params, state, batches[i], i)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            hist.append({k: float(v) for k, v in m.items()})
+        return hist, ms
+
+    (hist, ms), counts = launch_delta(run)
+    want = expected_lm_launches(cfg, TRAIN_STEPS, 0)
+    print(f"[train] h2o-danube-1.8b on {where}: {TRAIN_STEPS} steps, loss "
+          + " ".join(f"{h['loss']:.4f}" for h in hist) + "; grad_norm "
+          + " ".join(f"{h['grad_norm']:.3f}" for h in hist) + "; lr "
+          + " ".join(f"{h['lr']:.2e}" for h in hist))
+    print(f"[train] h2o-danube-1.8b launches over the {TRAIN_STEPS} steps: "
+          f"{ {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in want.items() if v} })")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in hist), "h2o-danube-1.8b: a loss or grad_norm is not "
+                              "finite")
+    check(counts == want and counts["flash_attention"] == 24 * TRAIN_STEPS
+          and counts["fused_mlp"] == 24 * TRAIN_STEPS,
+          "h2o-danube-1.8b: the steps' launches differ from "
+          "expected_lm_launches")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = float(np.mean(ms[1:]))
+    flops = steps.model_flops(cfg, params, "train", tokens)
+    bound_ms = flops / BF16_FLOP_PER_S * 1e3
+    print(f"[time] trained h2o-danube-1.8b on {where}: step "
+          f"{steady:.1f} ms (mean of steps 2-{TRAIN_STEPS}; the first "
+          f"{ms[0]:.1f} ms; CUDA events), {tokens / steady * 1e3:.0f} "
+          f"tokens/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; model "
+          f"FLOPs {flops / 1e12:.2f} T a step (6 x active params x "
+          f"tokens) over the bf16 peak {bound_ms:.2f} ms = "
+          f"{100 * bound_ms / steady:.2f}% of the step")
+    profile_run("h2o-danube-1.8b", lambda: step_fn(
+        params, state, batches[TRAIN_STEPS], TRAIN_STEPS), where,
+        "one train step", label="trained")
+    del params, state, batches
+    release()
+    return counts
+
+
+def close_leaves(what: str, got, want, rel: float, worst: dict,
+                 spread=None) -> None:
+    """Every leaf of ``got`` (card) against ``want`` (the CPU twin's), on
+    the card: within ``rel`` of the leaf's scale, plus, where a
+    ``spread`` tree is given, twice its element.  The largest ratio of
+    error to bound goes into ``worst[what]``."""
+    from repro_torch import tree as tree_lib
+
+    for path, leaf in tree_lib.leaves_with_path(got):
+        w = tree_lib.at(want, path).to(leaf.device).float()
+        lim = rel * float(w.abs().max()) + 1e-30
+        if spread is not None:
+            lim = lim + 2 * tree_lib.at(spread, path).to(leaf.device)
+        ratio = float(((leaf.float() - w).abs() / lim).max())
+        worst[what] = max(worst.get(what, 0.0), ratio)
+        check(ratio <= 1.0, f"{what} {tree_lib.path_key(path)}: the card "
+                            f"parts from its CPU twin ({ratio:.2f} of the "
+                            f"bound)")
+
+
+def nest(path, leaf) -> dict:
+    """``leaf`` in a tree of dicts along ``path`` (list indices as keys):
+    a one-leaf tree the optimizer sees at the leaf's own path."""
+    for k in reversed(path):
+        leaf = {k: leaf}
+    return leaf
+
+
+def shadow_step(g_twin, prior: dict, lr, rel: float, keep: bool):
+    """AdamW (`optim.adamw_update`, one leaf at a time on the card) on the
+    twin's gradients moved up (+1) and down (-1) by ``rel`` of each
+    leaf's scale, from ``prior`` (+1 / -1 -> (params, m, v, count)
+    trees, the first step's the twin's own on the host).  Each leaf is
+    clipped by its moved tree's global norm first, as
+    `clip_by_global_norm` does, so the one-leaf calls run with no clip of
+    their own.  One leaf at a time keeps the card's memory to a leaf's
+    state (RecurrentGemma-2B's float32 trees are 19 GB).  Returns (the
+    |param_up - param_down| tree, and the new priors where ``keep``),
+    on the card."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.optim import AdamWConfig, adamw_update
+
+    opt = AdamWConfig()
+    unclipped = dataclasses.replace(opt, grad_clip=float("inf"))
+    taus = tree_lib.tree_map(lambda a: rel * float(a.abs().max()), g_twin)
+    scale = {}
+    for s in (1, -1):
+        sq = sum(float(torch.sum(torch.square(a.to("cuda") + s * t)))
+                 for a, t in zip(tree_lib.leaves(g_twin),
+                                 tree_lib.leaves(taus)))
+        scale[s] = min(1.0, opt.grad_clip / max(sq ** 0.5, 1e-9))
+    spread, new = {}, {s: [] for s in (1, -1)}
+    for path, g in tree_lib.leaves_with_path(g_twin):
+        p_new, on_card = {}, {}
+        for s in (1, -1):
+            p, m, v, count = prior[s]
+            for t in (p, m, v):          # one copy where the priors share
+                if id(t) not in on_card:
+                    on_card[id(t)] = tree_lib.at(t, path).to("cuda")
+            moved = (g.to("cuda") + s * tree_lib.at(taus, path)) * scale[s]
+            out_p, st, _ = adamw_update(
+                nest(path, moved),
+                {"m": nest(path, on_card[id(m)]),
+                 "v": nest(path, on_card[id(v)]), "count": count},
+                nest(path, on_card[id(p)]), lr, unclipped)
+            p_new[s] = tree_lib.at(out_p, path)
+            if keep:
+                new[s].append((p_new[s], tree_lib.at(st["m"], path),
+                               tree_lib.at(st["v"], path)))
+        spread[path] = (p_new[1] - p_new[-1]).abs()
+    like = prior[1][0]
+    spread = tree_lib.map_with_path(lambda path, _: spread[path], like)
+    if not keep:
+        return spread, None
+    return spread, {s: (*(tree_lib.unflatten(like, [x[k] for x in new[s]])
+                          for k in range(3)),
+                        prior[s][3] + 1) for s in (1, -1)}
+
+
+def train_twin(name: str, cfg, n_steps: int, where: str):
+    """8b / 8c: ``n_steps`` steps of ``cfg`` (float32) on the card against
+    its CPU twin (the same weights, drawn on the card and copied; the
+    same `SyntheticLM` batches of TWIN_BATCH x TWIN_SEQ, seed 1); the
+    twin replays each step with the plain versions: the loss, every
+    metric and, at the same (the twin's) params, every gradient leaf
+    within LM_FP32_REL of the leaf's scale; both moments within that (v
+    twice that); the updated params within that plus twice the spread of
+    two shadow steps on the twin's gradients moved up and down by their
+    tolerance (`shadow_step`: AdamW's step is ill-conditioned where a
+    gradient is near 0).  Returns (the card steps' launches, the loss
+    history)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import to_device
+    from repro_torch.optim import linear_warmup_cosine
+
+    rel = LM_FP32_REL
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    twin = to_device(params, "cpu")
+    data = SyntheticLM(cfg.vocab, TWIN_SEQ, TWIN_BATCH, seed=1,
+                       n_image_tokens=cfg.n_image_tokens,
+                       d_model=cfg.d_model, input_mode=cfg.input_mode)
+    lr_fn = linear_warmup_cosine(1e-3, 0, n_steps)
+    step_fn = steps.make_train_step(cfg, lr_fn=lr_fn)
+    state, twin_state = steps.init_opt_state(params), \
+        steps.init_opt_state(twin)
+    adam = twin_state["adam"]
+    shadows = {s: (twin, adam["m"], adam["v"], adam["count"])
+               for s in (1, -1)}
+    counts = {k[0]: 0 for k in KERNELS}
+    worst, hist, took = {}, [], {"twin": 0.0, "card": 0.0, "checks": 0.0}
+    t_all = time.perf_counter()
+    for i in range(n_steps):
+        batch = data.batch_at(i)
+        cb, tb = card_batch(batch), card_batch(batch, "cpu")
+        lr = lr_fn(i)
+        t0 = time.perf_counter()
+        loss, metrics, g_twin = steps.loss_and_grads(twin, tb, cfg)
+        took["twin"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, _, g_card = steps.loss_and_grads(to_device(twin, "cuda"), cb, cfg)
+        close_leaves("gradient", g_card, g_twin, rel, worst)
+        del g_card
+        took["checks"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (params, state, m), c = launch_delta(
+            lambda: step_fn(params, state, cb, i))
+        took["card"] += time.perf_counter() - t0
+        for k, v in c.items():
+            counts[k] += v
+        t0 = time.perf_counter()
+        spread, shadows = shadow_step(g_twin, shadows, lr, rel,
+                                      keep=i + 1 < n_steps)
+        took["checks"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        twin, twin_state, om = steps.apply_grads(g_twin, twin, twin_state,
+                                                 lr)
+        del g_twin
+        took["twin"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tm = dict(metrics, **om, lr=lr)
+        check(sorted(m) == sorted(tm), f"{name}: metrics {sorted(m)} "
+                                       f"against {sorted(tm)}")
+        for k in tm:
+            close_leaves(f"metric {k}", {k: m[k]}, {k: tm[k]}, rel, worst)
+        hist.append(float(m["loss"]))
+        close_leaves("param", params, twin, rel, worst, spread)
+        del spread
+        for k in ("m", "v"):
+            close_leaves(k, state["adam"][k], twin_state["adam"][k],
+                         rel if k == "m" else 2 * rel, worst)
+        took["checks"] += time.perf_counter() - t0
+    print(f"[train] {name} float32 on {where}: {n_steps} steps against its "
+          f"CPU twin in {time.perf_counter() - t_all:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
+          + "), losses " + " ".join(f"{x:.5f}" for x in hist)
+          + "; the largest error over its bound (LM_FP32_REL "
+          f"{rel:g} of each leaf's scale, v twice, the params plus twice "
+          f"the shadow spread): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(worst.items()))
+          + f"; launches {({k: v for k, v in counts.items() if v})}")
+    del params, state, twin, twin_state
+    release()
+    return counts, hist
+
+
+def train_phase(where: str, t_start: float) -> dict:
+    """Phase 8 (module docstring).  Returns the launches of its main
+    paths."""
+    from repro_torch import configs
+    from repro_torch.launch import train as train_cli
+
+    totals = {k[0]: 0 for k in KERNELS}
+
+    def add(c):
+        for k, v in c.items():
+            totals[k] += v
+
+    t0 = time.perf_counter()
+    add(train_danube(where))
+    print(f"[phase] 8a Danube-1.8B trained in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    danube2 = dataclasses.replace(configs.get("h2o-danube-1.8b"),
+                                  n_layers=TWIN_LAYERS, dtype="float32")
+    hists = {}
+    for reduce in (False, True):
+        cfg = dataclasses.replace(danube2, bf16_reduce=reduce)
+        c, hists[reduce] = train_twin(
+            f"h2o-danube-1.8b {TWIN_LAYERS} layers"
+            f"{', bf16_reduce (rms_mp)' if reduce else ''}", cfg,
+            TWIN_STEPS, where)
+        check(c == expected_lm_launches(cfg, TWIN_STEPS, 0),
+              f"Danube {TWIN_LAYERS} layers: launches {c}")
+        add(c)
+    gap = max(abs(a - b) / abs(b) for a, b in zip(hists[True],
+                                                  hists[False]))
+    print(f"[train] the rms_mp run's losses against the rms run's: "
+          f"{gap:.2e} (bound {LM_FP32_REL:g})")
+    check(gap <= LM_FP32_REL, "the bf16_reduce (rms_mp) run parts from "
+                              "the rms run in float32")
+    print(f"[phase] 8b Danube {TWIN_LAYERS} layers against its twins in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rg = dataclasses.replace(configs.get("recurrentgemma-2b"),
+                             pattern=("rec", "rec", "attn"), n_layers=3,
+                             dtype="float32")
+    c, _ = train_twin("recurrentgemma-2b 3 layers", rg, 1, where)
+    check(c == expected_lm_launches(rg, 1, 0) and c["rglru_scan"] == 2,
+          f"recurrentgemma-2b 3 layers: launches {c}")
+    add(c)
+    print(f"[phase] 8c RecurrentGemma-2B 3 layers against its twin in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # 8d: the CLI on the card, straight and killed and resumed.
+    t0 = time.perf_counter()
+    common = ["--arch", "h2o-danube-1.8b", "--reduced", "--batch", "2",
+              "--seq", "16", "--log-every", "1", "--lr", "1e-3"]
+
+    def straight_and_resumed(ck):
+        full = train_cli.main(common + ["--steps", "8"])
+        train_cli.main(common + ["--steps", "4", "--ckpt-dir", ck,
+                                 "--ckpt-every", "100"])
+        return full, train_cli.main(common + ["--steps", "8", "--ckpt-dir",
+                                              ck, "--resume"])
+
+    with tempfile.TemporaryDirectory() as ck:
+        (full, resumed), c = launch_delta(lambda: straight_and_resumed(ck))
+    add(c)
+    gap = abs(full[-1]["loss"] - resumed[-1]["loss"])
+    print(f"[train] launch.train on {where}: 8 steps straight, last loss "
+          f"{full[-1]['loss']:.6f}; 4 steps, a checkpoint and --resume to "
+          f"8: {resumed[-1]['loss']:.6f} (|diff| {gap:.2e}, bound 1e-4; "
+          f"resumed at step {resumed[0]['step']})")
+    check(full[-1]["step"] == resumed[-1]["step"] == 7
+          and resumed[0]["step"] == 4 and gap < 1e-4,
+          "launch.train: the resumed run does not replay the straight one")
+    print(f"[phase] 8d launch.train resume in "
+          f"{time.perf_counter() - t0:.1f} s; training done at "
+          f"{time.perf_counter() - t_start:.0f} s")
+    return totals
+
+
+# The GPipe check of phase 6: one Danube-1.8B block a stage at full width
+# in bf16, PIPE_MICRO microbatches of PIPE_BATCH x PIPE_SEQ tokens.
+PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 4, 2, 256
+
+
+def pipe_rank(mesh, seed: int):
+    """On every rank of ``mesh`` (1-D, along data): its Danube block
+    (seed + stage) through `pipeline_apply`; rank 0 also runs the stages
+    one after another on the same microbatches.  Returns (ms of the
+    pipeline on this rank, and on rank 0 the max|err| against the
+    sequential stages and their scale)."""
+    from repro_torch import configs
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.models import transformer
+
+    if mesh.rank is None:
+        return None
+    cfg = configs.get("h2o-danube-1.8b")
+
+    def block(i):
+        one = dataclasses.replace(cfg, n_layers=1)
+        return transformer.init_params(one, seed + i, mesh.device)[
+            "layers"][0]
+
+    def stage(p, x):
+        return transformer._block_forward("attn", p, x, cfg)
+
+    g = torch.Generator(device=mesh.device).manual_seed(seed)
+    mbs = (torch.randn((PIPE_MICRO, PIPE_BATCH, PIPE_SEQ, cfg.d_model),
+                       generator=g, device=mesh.device)).to(torch.bfloat16)
+    with torch.no_grad():
+        mine = block(mesh.coord("data"))
+        pipeline_apply(stage, mine, mbs, mesh)          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline_apply(stage, mine, mbs, mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if mesh.rank != 0:
+            return ms, None
+        ref = mbs
+        for i in range(mesh.data):
+            p = block(i)
+            ref = torch.stack([stage(p, x) for x in ref])
+        err = float((out.float() - ref.float()).abs().max())
+        return ms, (err, float(ref.float().abs().max()),
+                    bool(torch.equal(out, ref)))
+
+
+def mesh_pipeline(where: str) -> None:
+    """Phase 6d: `pipeline_apply` over every rank of the world (one stage
+    a rank, gloo through the host on one card) against the sequential
+    stages on rank 0."""
+    from repro_torch.distributed.pipeline import bubble_fraction
+    from repro_torch.launch import mesh as mesh_lib
+
+    world = mesh_lib.current_world()
+    mesh = mesh_lib.make_vision_mesh(world.size, 1, "cuda")
+    res = mesh_lib.per_rank(mesh, pipe_rank, mesh, 7)
+    err, scale, same = res[0][1]
+    bubble = bubble_fraction(world.size, PIPE_MICRO)
+    print(f"[mesh] GPipe over {world.size} ranks ({world.backend}) on "
+          f"{where}: one h2o-danube-1.8b block a stage, bf16, "
+          f"{PIPE_MICRO} microbatches of {PIPE_BATCH} x {PIPE_SEQ}: "
+          f"{', '.join(f'{r[0]:.1f}' for r in res)} ms by rank (host wall, "
+          f"activations through the host), bubble fraction {bubble:.3f}; "
+          f"against the sequential stages max|err| {err:.3e} (scale "
+          f"{scale:.3f}), bit for bit: {same}")
+    check(err <= LM_TOL[torch.bfloat16] * scale,
+          "GPipe parts from the sequential stages")
 
 
 # ---------------------------------------------------------------------------
@@ -3786,6 +4345,7 @@ def mesh_phase(served: dict, params: dict, quant: dict, images: dict,
               and row["routed_latency_path"] > 0,
               "the latency-mesh stream did not serve every arrival or "
               "routed none")
+        mesh_pipeline(where)
     finally:
         world.close()
     print(f"[phase] mesh served in {time.perf_counter() - t0:.1f} s, at "
@@ -3943,6 +4503,7 @@ def main() -> None:
     records = kernel_phase(cfgs["deit_t"], cfgs["vit_edge"], cfgs["swin_t"])
     lm_kernel_phase(records)
     lm_rest_kernel_phase(records)
+    grad_kernel_phase(records)
     bf16_kernel_phase(records, cfgs["deit_t"], cfgs["swin_t"])
     t_wide = time.perf_counter()
     wide_kernel_phase(records, cfgs["vit_edge"])
@@ -4206,6 +4767,11 @@ def main() -> None:
     lm_rest = lm_rest_phase(where, t_start)
     for entry in out:
         entry["launches"] += sum(c[entry["name"]] for c in lm_rest.values())
+    # 8. Training: Danube-1.8B at full size, the float32 twins, the CLI's
+    # resume.  Before phase 6 too, which must stay last.
+    train_counts = train_phase(where, t_start)
+    for entry in out:
+        entry["launches"] += train_counts[entry["name"]]
     # 6. The mesh on the card: ranks on this one card through gloo (NCCL
     # where every rank has a card of its own).  It runs last: after the
     # ranks' profiler sessions this process's profiler drops device

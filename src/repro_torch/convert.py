@@ -8,7 +8,8 @@ port's tree of tensors on ``device``.  A leaf with ``.values`` and
 into a frozen port `Calibrator`.  `lm_params_from_numpy` and
 `lm_caches_from_numpy` turn the JAX LM layout (one tree per pattern
 position, stacked over the superblocks) into the port's flat per-layer
-lists.  Nothing here imports the framework the arrays came from.
+lists, and `lm_opt_state_from_numpy` the train step's optimizer state
+with them (JAX gradients carry over with `lm_params_from_numpy`).  Nothing here imports the framework the arrays came from.
 """
 
 from __future__ import annotations
@@ -91,3 +92,20 @@ def lm_caches_from_numpy(caches: Any, device="cpu") -> list:
     attention k/v, RG-LRU, mLSTM C/n/m, sLSTM c/n/h/m) -> the port's
     per-layer cache list."""
     return _unstack_layers(caches, device)
+
+
+def lm_opt_state_from_numpy(state: Mapping[str, Any], device="cpu") -> dict:
+    """The JAX train step's optimizer state ``{"adam": {"m", "v",
+    "count"}[, "ef_residuals"]}`` -> the port's: the moment and residual
+    trees unstacked as `lm_params_from_numpy` unstacks the params (so
+    they line up leaf for leaf), ``count`` an int32 0-d tensor on the
+    host (`optim.adamw`)."""
+    adam = state["adam"]
+    out = {"adam": {"m": lm_params_from_numpy(adam["m"], device),
+                    "v": lm_params_from_numpy(adam["v"], device),
+                    "count": torch.tensor(int(np.asarray(adam["count"])),
+                                          dtype=torch.int32)}}
+    if "ef_residuals" in state:
+        out["ef_residuals"] = lm_params_from_numpy(state["ef_residuals"],
+                                                   device)
+    return out

@@ -1,2 +1,2 @@
-"""Vision sharding rules on torch.distributed (the vision part of
-`repro/distributed/sharding.py`)."""
+"""Distribution layer: sharding rules (vision serving and LM), fault
+tolerance, pipeline parallelism (counterpart of `repro/distributed`)."""

@@ -1,5 +1,5 @@
-"""Vision sharding rules (the vision part of
-`repro/distributed/sharding.py`).
+"""Sharding rules (counterpart of `repro/distributed/sharding.py`): the
+vision serving rules and the LM rules.
 
 A spec is a tuple with one entry per dimension of its leaf: an axis name
 (``"data"``, ``"model"``) or None (replicated along that dimension).  A
@@ -21,6 +21,21 @@ gives.  The rules are the reference's, rule for rule:
 The executor (`core.schedule.ShardCtx`) reads the spec tree back to decide
 where its all-reduces fire, so rule and collective cannot disagree.
 
+The LM rules (`param_specs`, `train_batch_specs`, `cache_spec_tree`,
+`fsdp_widen`, `opt_state_specs`) are the reference's, written over the
+port's unstacked tree: ``layers`` is a flat list of blocks where the
+reference stacks each pattern position over the superblocks, so a leaf
+under ``layers[i]`` (and a cache leaf of layer i) gets the reference's
+spec without its leading stacked None.  One case has no per-leaf
+counterpart: where the data axis divides the superblock count, the
+reference's FSDP / ZeRO-1 widening puts ``data`` on the stacked dim (it
+shards the stack of layers); here it goes to the first unsharded dim of
+the layer's own leaf that the data axis divides (the dim the reference
+picks when the superblock count does not divide), so each data rank
+still holds 1/data of the bytes.  `fsdp_widen` sizes a layer's leaf as
+the reference's stack (``cfg``'s superblock count times its own
+elements) against ``min_elems``.
+
 A mesh here is anything with ``axis_names`` and ``axis_sizes``: the
 port's `launch.mesh.VisionMesh`, `abstract_mesh`, or the reference's
 abstract meshes (the tests hold the two rule sets against each other on
@@ -36,6 +51,7 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 import torch.distributed
 
+from repro_torch import tree as tree_lib
 from repro_torch.core.quant import QTensor
 
 Spec = Tuple[Any, ...]
@@ -187,6 +203,149 @@ def vision_batch_spec(batch_size: int, mesh) -> Spec:
     """The micro-batch's spec: ``("data",)`` when the data axes divide the
     batch, else ``(None,)`` (replicated: every data row computes it)."""
     return (_batch_axis(batch_size, mesh),)
+
+
+# ---------------------------------------------------------------------------
+# LM rules (module docstring)
+# ---------------------------------------------------------------------------
+
+
+# name -> the spec of the (unstacked) leaf; "model" = tensor parallel
+_COL = ("wq", "wk", "wv", "w_up", "w_gate", "w_x", "w_gate_branch",
+        "w_in", "w_z", "w_q", "w_k", "w_v", "w_input_gate", "w_rec_gate",
+        "unembed", "in_proj")
+_ROW = ("wo", "w_down", "w_out", "w_msa")
+_COL_BIAS = ("bq", "bk", "bv", "b_up", "b_in", "a_param", "gn_w")
+
+
+def _param_rule(path_keys: Tuple[str, ...], shape: Tuple[int, ...], mesh,
+                cfg=None) -> Spec:
+    """One LM param leaf's spec: Megatron column / row parallel, expert
+    parallel MoE where the experts divide the model axis (else tensor
+    parallel inside the experts), vocab-sharded embeddings, block-diagonal
+    xLSTM weights per head; `_fits` degrades what does not divide."""
+    name = path_keys[-1]
+    in_moe = "moe" in path_keys
+    if in_moe and name in ("w_up", "w_gate", "w_down"):
+        if shape[0] % axis_size(mesh, "model") == 0:
+            spec = ("model", None, None)                  # expert parallel
+        elif name == "w_down":
+            spec = (None, "model", None)                  # TP inside expert
+        else:
+            spec = (None, None, "model")
+    elif in_moe and name == "router":
+        spec = (None, None)
+    elif name == "embed":
+        spec = ("model", None)
+    elif name in _COL and len(shape) == 2:
+        spec = (None, "model")
+    elif name in ("w_q", "w_k", "w_v") and len(shape) == 3:
+        spec = (None, None, "model")       # block-diagonal per head (xLSTM)
+    elif name in _ROW and len(shape) == 2:
+        spec = ("model", None)
+    elif name == "conv_w":
+        spec = (None, "model")
+    elif name in _COL_BIAS and len(shape) == 1:
+        spec = ("model",)
+    else:
+        spec = (None,) * len(shape)
+    return _fits(shape, spec, mesh)
+
+
+def param_specs(cfg, params: Any, mesh) -> Any:
+    """The spec tree of an LM param tree (leaves: tensors or anything
+    with ``shape``, meta tensors included)."""
+    return _map(lambda path, leaf: _param_rule(
+        _names(path), tuple(leaf.shape), mesh, cfg), params)
+
+
+def train_batch_specs(cfg, batch_shapes: Dict[str, Any],
+                      mesh) -> Dict[str, Spec]:
+    """Each batch entry split over the largest (pod, data) prefix that
+    divides its batch dim."""
+    return {k: (_batch_axis(v.shape[0], mesh),) + (None,) * (len(v.shape)
+                                                             - 1)
+            for k, v in batch_shapes.items()}
+
+
+def cache_spec_tree(cfg, caches: Any, mesh, batch_size: int) -> Any:
+    """Specs of the per-layer cache list: the batch dim over the data
+    axes; attention k / v (B, Hkv, S, Dh) over the model axis by KV head,
+    else by Dh; a recurrent state's last model-divisible dim."""
+    bax = _batch_axis(batch_size, mesh)
+    m = axis_size(mesh, "model")
+
+    def rule(path, leaf) -> Spec:
+        shape = tuple(leaf.shape)
+        name = str(path[-1])
+        rest = shape[1:]
+        spec = [bax]
+        if name in ("k", "v") and len(rest) == 3:        # (Hkv, S, Dh)
+            hkv, _, dh = rest
+            if hkv % m == 0:
+                spec += ["model", None, None]
+            elif dh % m == 0:
+                spec += [None, None, "model"]
+            else:
+                spec += [None, None, None]
+        elif name in ("h", "c", "n", "m", "conv", "C"):
+            sub = [None] * len(rest)
+            for i in range(len(rest) - 1, -1, -1):
+                if rest[i] % m == 0:
+                    sub[i] = "model"
+                    break
+            spec += sub
+        else:
+            spec += [None] * len(rest)
+        return _fits(shape, tuple(spec), mesh)
+
+    return _map(rule, caches)
+
+
+def _widen_data(spec: Spec, shape: Tuple[int, ...], dsize: int) -> Spec:
+    """``data`` on the first unsharded dim it divides (module
+    docstring)."""
+    dims = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (dim, ax) in enumerate(zip(shape, dims)):
+        if ax is None and dim % dsize == 0 and dsize > 1:
+            dims[i] = "data"
+            break
+    return tuple(dims)
+
+
+def fsdp_widen(param_spec_tree: Any, params: Any, mesh,
+               min_elems: int = 1 << 20, cfg=None) -> Any:
+    """ZeRO-3 / FSDP: params of at least ``min_elems`` elements (a layer's
+    leaf counted as its reference stack: ``cfg.n_superblocks`` times its
+    own, 1 time without ``cfg``) also shard over ``data`` at rest."""
+    dsize = axis_size(mesh, "data")
+    stack = cfg.n_superblocks if cfg is not None else 1
+
+    def widen(path, leaf):
+        spec = tree_lib.at(param_spec_tree, path)
+        n = leaf.numel() if hasattr(leaf, "numel") else \
+            int(torch.Size(leaf.shape).numel())
+        if "layers" in _names(path):
+            n *= stack
+        if n < min_elems or dsize <= 1:
+            return spec
+        return _widen_data(spec, tuple(leaf.shape), dsize)
+
+    return _map(widen, params)
+
+
+def opt_state_specs(param_spec_tree: Any, params: Any = None, mesh=None,
+                    zero1: bool = True) -> Dict[str, Any]:
+    """Optimizer-state specs: the moments as the params, and by default
+    (ZeRO-1) also over ``data`` on their first data-divisible unsharded
+    dim; ``count`` replicated."""
+    mom = param_spec_tree
+    if zero1 and params is not None and mesh is not None:
+        dsize = axis_size(mesh, "data")
+        mom = _map(lambda path, leaf: _widen_data(
+            tree_lib.at(param_spec_tree, path), tuple(leaf.shape), dsize),
+            params)
+    return {"m": mom, "v": mom, "count": ()}
 
 
 # ---------------------------------------------------------------------------

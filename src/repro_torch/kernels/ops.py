@@ -9,6 +9,19 @@ show that its main path went through the kernels; `MODE_LAUNCHES` splits
 the launches of the kernels with dtype modes (`ref.PORTED_MODES`) by
 (kernel, activation dtype, weight dtype), so it can show which of their
 instantiations ran (the int8 layers by their LN vectors' dtype).
+
+Gradients: when a CUDA input of `attention`, `mlp` or
+`linear_recurrence` (kernels 9, 6 and 11, the training path's) requires
+grad and grad mode is on, the call goes through `_KernelGrad`: its
+forward launches the Hopper kernel (counted as any launch) and its
+backward differentiates the kernel's plain version, recomputed on the
+saved inputs.  The backward is plain PyTorch because the JAX package has
+no backward kernel: no `custom_vjp` wraps any of its `pallas_call`s, and
+its training step differentiates the `ref.py` oracles, so this is the
+JAX package's own gradient, not a fallback.  The forward never gives way
+to the plain version, and a kernel that fails still raises.  Calls that
+take no gradient (serving, `no_grad`, `inference_mode`) launch the
+kernel directly, as before.
 """
 
 from __future__ import annotations
@@ -67,6 +80,40 @@ def _on_card(name: str, t: torch.Tensor,
     return False
 
 
+class _KernelGrad(torch.autograd.Function):
+    """Forward: ``kernel(*inputs, **kw)``; backward: the gradient of
+    ``plain(*inputs, **kw)`` (module docstring).  ``inputs`` may hold
+    None (an absent bias)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, kw, *inputs):
+        ctx.plain, ctx.kw = plain, kw
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs, **kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad[3:])]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            out = ctx.plain(*inputs, **ctx.kw)
+        got = iter(torch.autograd.grad(out, wanted, grad))
+        return (None, None, None) + tuple(
+            next(got) if t is not None and t.requires_grad else None
+            for t in inputs)
+
+
+def _launch(kernel, plain, kw: dict, *inputs):
+    """The kernel on the card's ``inputs``, through `_KernelGrad` where a
+    gradient will be taken."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return _KernelGrad.apply(kernel, plain, kw, *inputs)
+    return kernel(*inputs, **kw)
+
+
 def layer_norm(x, w, b, eps: float = 1e-5):
     """LayerNorm in float32 returning x's dtype: the counterpart of
     `repro/kernels/ops.py::layer_norm`, plain PyTorch on either device (it
@@ -112,8 +159,13 @@ def mlp(x, w1, w2, b1=None, b2=None, w_gate=None, *, activation="gelu"):
     act(x W_gate) * (x W1 + b1) W2 + b2, with the hidden activation never
     materialised on the card; x's dtype in and out."""
     if _on_card("fused_mlp", x, w1):
-        return _fused_mlp.fused_mlp(x, w1, w2, b1, b2, w_gate,
-                                    activation=activation)
+        return _launch(_fused_mlp.fused_mlp, _mlp_plain,
+                       {"activation": activation}, x, w1, w2, b1, b2, w_gate)
+    return _mlp_plain(x, w1, w2, b1, b2, w_gate, activation=activation)
+
+
+def _mlp_plain(x, w1, w2, b1, b2, w_gate, *, activation):
+    """`ref.fused_mlp_ref` in the kernel wrapper's argument order."""
     return ref.fused_mlp_ref(x, w1, b1, w2, b2, activation=activation,
                              w_gate=w_gate)
 
@@ -177,12 +229,11 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
 def attention(q, k, v, *, causal=True, window=None, q_offset=0):
     """LM attention: q (B, Hq, Nq, Dh) over k, v (B, Hkv, Nk, Dh) (GQA),
     causal and sliding-window masks, query i at position i + q_offset."""
+    kw = {"causal": causal, "window": window, "q_offset": q_offset}
     if _on_card("flash_attention", q):
-        return _head_attention.flash_attention(q, k, v, causal=causal,
-                                               window=window,
-                                               q_offset=q_offset)
-    return ref.attention_ref(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
+        return _launch(_head_attention.flash_attention, ref.attention_ref,
+                       kw, q, k, v)
+    return ref.attention_ref(q, k, v, **kw)
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
@@ -197,5 +248,6 @@ def linear_recurrence(a, b):
     """h_t = a_t * h_{t-1} + b_t along axis 1 of (B, T, W) (the RG-LRU
     hot loop), h carried in float32."""
     if _on_card("rglru_scan", a):
-        return _rglru_scan.rglru_scan(a, b)
+        return _launch(_rglru_scan.rglru_scan, ref.linear_recurrence_ref,
+                       {}, a, b)
     return ref.linear_recurrence_ref(a, b)

@@ -188,7 +188,6 @@ def main(argv=None):
     if cfg.input_mode != "tokens":
         raise SystemExit(f"[serve] {cfg.name}: the slot server feeds tokens "
                          f"only, not the {cfg.input_mode!r} input mode")
-    tr.check_supported(cfg)
     device = resolve_device(args.device)
     print(f"[serve] {cfg.name} reduced={args.reduced} on {device}")
 

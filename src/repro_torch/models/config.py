@@ -29,9 +29,11 @@ class MoESpec:
 class ModelConfig:
     """Every field of the JAX `ModelConfig`, in its order.  The sharding
     and dry-run knobs (``seq_shard``, ``fsdp``, ``moe_ep_virtual``,
-    ``attn_dp``, ``block_barrier``, ``bf16_reduce``, ``remat``,
-    ``unroll``, ``backend``) are kept so a config reads the same in both
-    packages; the port's serving path does not read them."""
+    ``attn_dp``, ``block_barrier``, ``unroll``, ``backend``) are kept so
+    a config reads the same in both packages; the port reads
+    ``moe_ep_virtual`` (the MoE's virtual experts), ``bf16_reduce`` (the
+    ``rms_mp`` norm and cotangent clamps) and ``remat`` (recompute each
+    superblock in the backward), the others not."""
 
     name: str
     family: str                     # dense | moe | vlm | hybrid | ssm | audio

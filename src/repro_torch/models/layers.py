@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.kernels import ops, ref
 
 Params = Dict[str, Any]
@@ -47,20 +48,12 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 def cast_params(tree: Any, dtype: torch.dtype) -> Any:
     """A param tree (dicts, lists, tensors) with every tensor cast to
     ``dtype``."""
-    if isinstance(tree, dict):
-        return {k: cast_params(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [cast_params(v, dtype) for v in tree]
-    return tree.to(dtype)
+    return tree_lib.tree_map(lambda t: t.to(dtype), tree)
 
 
 def to_device(tree: Any, device) -> Any:
     """Move a param tree (dicts, lists, tensors, `QTensor`s) to ``device``."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree_lib.tree_map(lambda t: t.to(device), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -76,11 +69,66 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     return ((xf * torch.rsqrt(var + eps)) * (1.0 + w.float())).to(x.dtype)
 
 
+# The mixed-precision VJPs of the JAX package (`layers.py`'s custom_vjp
+# trio).  Each backward returns the cotangent in x's dtype; the JAX
+# package also barriers it (`optimization_barrier`, so a tensor-parallel
+# partial sum resolves in that dtype), which has no counterpart in eager
+# PyTorch: the values are the same without it.
+
+
+class _RmsNormMP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        xf = x.float()
+        r = torch.rsqrt(torch.mean(torch.square(xf), dim=-1, keepdim=True)
+                        + 1e-6)
+        ctx.save_for_backward(x, w, r)
+        return (xf * r * (1.0 + w.float())).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, r = ctx.saved_tensors
+        gf = g.float()
+        xn = x.float() * r
+        gw = gf * (1.0 + w.float())
+        m = torch.mean(gw * xn, dim=-1, keepdim=True)
+        dx = ((gw - xn * m) * r).to(x.dtype)
+        dw = torch.sum(gf * xn, dim=tuple(range(g.dim() - 1)))
+        return dx, dw.to(w.dtype)
+
+
+class _CotangentIn(torch.autograd.Function):
+    """``cast(x)`` forward; the cotangent back in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, to_f32: bool):
+        ctx.dtype = x.dtype
+        y = x.float() if to_f32 else x
+        return y.view_as(y) if y is x else y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+def rms_norm_mp(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`rms_norm` whose backward takes the incoming cotangent in its own
+    dtype and runs the norm's backward in float32 (the JAX package's
+    `rms_norm_mp`); dx in x's dtype, dw in w's."""
+    return _RmsNormMP.apply(x, w)
+
+
 def cast_f32_mp(x: torch.Tensor) -> torch.Tensor:
-    """The forward of the JAX package's `cast_f32_mp`: a cast to float32
-    (its custom backward, which keeps the cotangent in x's dtype, is the
-    training side's)."""
-    return x.float()
+    """A cast to float32 whose backward returns the cotangent in x's
+    dtype (the JAX package's `cast_f32_mp`: an f32 side path such as the
+    MoE router does not promote the activation cotangent)."""
+    return _CotangentIn.apply(x, True)
+
+
+def clamp_cotangent(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose backward re-expresses the cotangent in x's dtype
+    (the JAX package's `clamp_cotangent`, at block boundaries)."""
+    return _CotangentIn.apply(x, False)
 
 
 def norm_init(d: int, kind: str, dtype: torch.dtype, device=None) -> Params:
@@ -93,10 +141,11 @@ def norm_init(d: int, kind: str, dtype: torch.dtype, device=None) -> Params:
 def apply_norm(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
     if kind == "rms":
         return rms_norm(x, p["w"])
+    if kind == "rms_mp":
+        return rms_norm_mp(x, p["w"])
     if kind == "ln":
         return ops.layer_norm(x, p["w"], p["b"])
-    raise NotImplementedError(
-        f"norm {kind!r} is not ported (rms_mp is the training side's)")
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -21,11 +21,18 @@ through ``in_proj`` where embed_dim_in differs from d_model.  In decode
 an MoE feed-forward is dropless (capacity n_experts / top_k), as in the
 JAX package, so serving never drops a token.
 
-Entry points: `forward` (logits of every position), `prefill` (the last
-position's logits and the caches) and `decode_step` (one token, or one
-embedding row in the ``embeds`` mode, per sequence).  What is still the
-training side's (the ``rms_mp`` norm that ``bf16_reduce`` selects) raises
-`NotImplementedError`.
+Entry points: `forward` (logits of every position, and with
+``return_aux`` the summed MoE load-balance loss), `loss_fn` (the
+training loss and its metrics), `prefill` (the last position's logits and
+the caches) and `decode_step` (one token, or one embedding row in the
+``embeds`` mode, per sequence).
+
+Training: ``bf16_reduce`` selects the ``rms_mp`` norm and clamps the
+mixer and feed-forward outputs' cotangents to their dtype
+(`layers.rms_norm_mp`, `layers.clamp_cotangent`), as in the JAX package;
+``remat`` recomputes each superblock in the backward
+(`torch.utils.checkpoint`, non-reentrant, where the JAX package wraps
+the scan body in `jax.checkpoint`).
 """
 
 from __future__ import annotations
@@ -34,23 +41,17 @@ import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import tree as tree_lib
 
 from . import recurrent, xlstm
 from .config import ModelConfig
 from .layers import (AttnConfig, MlpConfig, MoEConfig, Params, apply_norm,
                      attn_decode, attn_forward, attn_init, attn_prefill,
-                     dense_init, embed_init, mlp_forward, mlp_init,
-                     moe_forward, moe_init, norm_init)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` naming what of ``cfg`` is not ported:
-    ``bf16_reduce`` on an RMS-norm model (the JAX forward's ``rms_mp``
-    norm and cotangent clamps, the training side's)."""
-    if cfg.bf16_reduce and cfg.norm == "rms":
-        raise NotImplementedError(
-            f"{cfg.name}: bf16_reduce selects the rms_mp norm, which comes "
-            f"with the training port")
+                     clamp_cotangent, dense_init, embed_init, mlp_forward,
+                     mlp_init, moe_forward, moe_init, norm_init)
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -173,28 +174,45 @@ def _block_init(kind: str, gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def _ff(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _norm_kind(cfg: ModelConfig) -> str:
+    if cfg.norm == "rms" and cfg.bf16_reduce:
+        return "rms_mp"
+    return cfg.norm
+
+
+def _pin_replicated(y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return clamp_cotangent(y) if cfg.bf16_reduce else y
+
+
+def _ff(p: Params, x: torch.Tensor, cfg: ModelConfig,
+        collect_aux: bool = False):
     """x plus the block's feed-forward of norm2(x), x (B, T, D) or, in
     decode, (B, D): there an MoE routes each sequence's token as a group
-    of one at capacity n_experts / top_k (dropless)."""
-    if not _has_ff(cfg):
-        return x
-    h = apply_norm(x, p["norm2"], cfg.norm)
-    if cfg.moe is None:
-        return x + mlp_forward(p["mlp"], h, _mlp_cfg(cfg))
-    mcfg = _moe_cfg(cfg)
-    if h.dim() == 2:
-        mcfg = dataclasses.replace(
-            mcfg, capacity_factor=mcfg.n_experts / mcfg.top_k)
-        return x + moe_forward(p["moe"], h[:, None], mcfg)[:, 0]
-    return x + moe_forward(p["moe"], h, mcfg)
+    of one at capacity n_experts / top_k (dropless).  With
+    ``collect_aux`` also the MoE load-balance loss (None without MoE)."""
+    aux = None
+    if _has_ff(cfg):
+        h = apply_norm(x, p["norm2"], _norm_kind(cfg))
+        if cfg.moe is None:
+            y = mlp_forward(p["mlp"], h, _mlp_cfg(cfg))
+        elif h.dim() == 2:
+            mcfg = dataclasses.replace(
+                _moe_cfg(cfg),
+                capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+            y = moe_forward(p["moe"], h[:, None], mcfg)[:, 0]
+        elif collect_aux:
+            y, aux = moe_forward(p["moe"], h, _moe_cfg(cfg), return_aux=True)
+        else:
+            y = moe_forward(p["moe"], h, _moe_cfg(cfg))
+        x = x + _pin_replicated(y, cfg)
+    return (x, aux) if collect_aux else x
 
 
-def _block_forward(kind: str, p: Params, x: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
-    y = _mixer_forward(kind, p["mixer"], apply_norm(x, p["norm1"], cfg.norm),
-                       cfg)
-    return _ff(p, x + y, cfg)
+def _block_forward(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
+                   collect_aux: bool = False):
+    y = _mixer_forward(kind, p["mixer"],
+                       apply_norm(x, p["norm1"], _norm_kind(cfg)), cfg)
+    return _ff(p, x + _pin_replicated(y, cfg), cfg, collect_aux)
 
 
 def _block_prefill(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -222,7 +240,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random weights from ``seed``, drawn on ``device`` (the CPU when
     None) in the config's dtype.  ``embed`` for the token modes;
     ``in_proj`` for ``embeds`` where embed_dim_in differs from d_model."""
-    check_supported(cfg)
     gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     dtype = cfg.param_dtype
     params: Params = {}
@@ -250,7 +267,6 @@ def param_device(params: Params) -> torch.device:
 def embed_batch(params: Params, batch: Dict[str, torch.Tensor],
                 cfg: ModelConfig) -> torch.Tensor:
     """Token / stub-frontend embedding -> (B, S, D)."""
-    check_supported(cfg)
     if cfg.input_mode == "tokens":
         return params["embed"][batch["tokens"].long()]
     if cfg.input_mode == "tokens+image":
@@ -270,13 +286,67 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ params["unembed"]
 
 
+def _superblock(kinds, layers, x, cfg: ModelConfig, collect_aux: bool):
+    """One period of the pattern: (x, the summed MoE aux or None)."""
+    aux = None
+    for kind, p in zip(kinds, layers):
+        if not collect_aux:
+            x = _block_forward(kind, p, x, cfg)
+            continue
+        x, a = _block_forward(kind, p, x, cfg, collect_aux=True)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
 def forward(params: Params, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig) -> torch.Tensor:
-    """Logits (B, S, padded_vocab) of every position."""
+            cfg: ModelConfig, return_aux: bool = False):
+    """Logits (B, S, padded_vocab) of every position (and, with
+    ``return_aux``, the MoE load-balance loss summed over the layers,
+    float32, 0 without MoE, collected in the same pass)."""
     x = embed_batch(params, batch, cfg)
-    for kind, p in zip(layer_kinds(cfg), params["layers"]):
-        x = _block_forward(kind, p, x, cfg)
-    return unembed(params, apply_norm(x, params["final_norm"], cfg.norm), cfg)
+    kinds, n = layer_kinds(cfg), len(cfg.pattern)
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = None
+    for i in range(0, len(kinds), n):
+        args = (kinds[i:i + n], params["layers"][i:i + n], x, cfg,
+                return_aux)
+        x, a = (checkpoint(_superblock, *args, use_reentrant=False)
+                if remat else _superblock(*args))
+        if a is not None:
+            aux = a if aux is None else aux + a
+    logits = unembed(params, apply_norm(x, params["final_norm"], cfg.norm),
+                     cfg)
+    if not return_aux:
+        return logits
+    return logits, (torch.zeros((), dtype=torch.float32, device=x.device)
+                    if aux is None else aux)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            aux_weight: float = 0.01) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Cross-entropy next-token / masked-prediction loss over the real
+    vocabulary (the padding columns dropped), the text positions only in
+    the ``tokens+image`` mode, weighted by ``loss_mask`` where the batch
+    has one; plus ``aux_weight`` times the MoE load-balance loss.
+    Returns (loss, {"ce_loss", ["moe_aux",] "loss"})."""
+    if cfg.moe is not None:
+        logits, aux = forward(params, batch, cfg, return_aux=True)
+    else:
+        logits = forward(params, batch, cfg)
+    if cfg.input_mode == "tokens+image":
+        logits = logits[:, cfg.n_image_tokens:]
+    logp = F.log_softmax(logits[..., :cfg.vocab].float(), dim=-1)
+    ll = torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
+    loss = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    metrics = {"ce_loss": loss}
+    if cfg.moe is not None:
+        metrics["moe_aux"] = aux
+        loss = loss + aux_weight * aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
@@ -285,7 +355,6 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
     ``kv_cache_len(cache_len)``; recurrent h (B, W) float32 and conv
     state (B, K-1, W); mLSTM C, n, m and sLSTM c, n, h, m (float32, m at
     -1e30)."""
-    check_supported(cfg)
     dtype, s = cfg.param_dtype, cfg.kv_cache_len(cache_len)
     return [_mixer_init_cache(kind, cfg, batch, s, dtype, device)
             for kind in layer_kinds(cfg)]
@@ -312,7 +381,6 @@ def decode_step(params: Params, tokens: torch.Tensor, caches: List[Dict],
     pos (B,) absolute positions -> logits (B, padded_vocab) and the caches
     after the step (attention caches are updated in place, the others
     replaced)."""
-    check_supported(cfg)
     x = tokens if cfg.input_mode == "embeds" \
         else params["embed"][tokens.long()]
     new_caches = []
@@ -324,10 +392,4 @@ def decode_step(params: Params, tokens: torch.Tensor, caches: List[Dict],
 
 
 def param_count(params: Params) -> int:
-    def count(t):
-        if isinstance(t, dict):
-            return sum(count(v) for v in t.values())
-        if isinstance(t, list):
-            return sum(count(v) for v in t)
-        return t.numel()
-    return count(params)
+    return sum(t.numel() for t in tree_lib.leaves(params))

@@ -49,3 +49,22 @@ def fail_on(mesh, rank: int):
 def rank_coords(mesh):
     """This rank's (data, model) coordinates in ``mesh``."""
     return mesh.coords
+
+
+def tanh_stage(p, x):
+    """One GPipe stage of the JAX package's pipeline test."""
+    w, b = p
+    return torch.tanh(x @ w + b)
+
+
+def gpipe(mesh, axis, ws, bs, mbs):
+    """`pipeline_apply` of the tanh stages on this rank (stage = its
+    coordinate along ``axis``); the outputs as numpy."""
+    from repro_torch.distributed.pipeline import pipeline_apply
+    if mesh.rank is None:
+        return None
+    d = mesh.coord(axis)
+    out = pipeline_apply(tanh_stage, (torch.from_numpy(ws[d]),
+                                      torch.from_numpy(bs[d])),
+                         torch.from_numpy(mbs), mesh, axis)
+    return out.numpy()

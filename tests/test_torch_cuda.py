@@ -1386,3 +1386,111 @@ def test_full_ring_matches_one_micro_batch_at_a_time(card, mode, group):
         np.testing.assert_array_equal(got, want)
     server.complete(server.dispatch(reqs(images[:3])))
     assert server.n_padded - padded0 == 1
+
+
+# ---------------------------------------------------------------------------
+# The gradient path of kernels 9, 6 and 11 (training)
+# ---------------------------------------------------------------------------
+
+
+def _grad_cases(card, dtype):
+    """(launch name, the wrapper call, the plain call, inputs) at small
+    training shapes: GQA attention with a window, the gated SiLU MLP at
+    many rows, the RG-LRU recurrence past one chunk."""
+    g = torch.Generator(device=card).manual_seed(9)
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=card)).to(
+            dtype).requires_grad_()
+    q, k, v = r(2, 4, 70, 80), r(2, 2, 70, 80), r(2, 2, 70, 80)
+    x, w1, w2, wg = (r(3, 40, 96), r(96, 200, scale=0.1),
+                     r(200, 96, scale=0.1), r(96, 200, scale=0.1))
+    a = (0.5 + 0.49 * torch.rand((2, 77, 130), generator=g,
+                                 device=card)).requires_grad_()
+    b = torch.randn((2, 77, 130), generator=g, device=card).requires_grad_()
+    return [
+        ("flash_attention",
+         lambda q, k, v: ops.attention(q, k, v, window=32),
+         lambda q, k, v: ref.attention_ref(q, k, v, window=32), (q, k, v)),
+        ("fused_mlp",
+         lambda x, w1, w2, wg: ops.mlp(x, w1, w2, w_gate=wg,
+                                       activation="silu"),
+         lambda x, w1, w2, wg: ref.fused_mlp_ref(x, w1, None, w2, None,
+                                                 activation="silu",
+                                                 w_gate=wg),
+         (x, w1, w2, wg)),
+        ("rglru_scan", ops.linear_recurrence, ref.linear_recurrence_ref,
+         (a, b)),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_gradients_equal_the_plain_versions(card, dtype):
+    """Forward through the kernel (one launch, counted), backward through
+    `ops._KernelGrad`: every input's gradient equals autograd of the
+    plain version on the same inputs (the backward recomputes it)."""
+    for name, fn, plain, inputs in _grad_cases(card, dtype):
+        before = ops.LAUNCHES[name]
+        out = fn(*inputs)
+        assert ops.LAUNCHES[name] == before + 1
+        assert type(out.grad_fn).__name__ == "_KernelGradBackward"
+        want = plain(*inputs)
+        _lm_close(out.detach(), want.detach())
+        ct = torch.randn_like(out)
+        got = torch.autograd.grad(out, inputs, ct)
+        exp = torch.autograd.grad(want, inputs, ct)
+        for gi, ei in zip(got, exp):
+            assert gi.dtype == ei.dtype
+            torch.testing.assert_close(gi, ei, rtol=0, atol=0)
+
+
+def test_serving_calls_launch_without_the_autograd_function(card):
+    """Inputs that take no gradient, `no_grad` and `inference_mode` launch
+    the kernel directly: no graph node, one launch each."""
+    for name, fn, _, inputs in _grad_cases(card, torch.bfloat16):
+        detached = [t.detach() for t in inputs]
+        for ctx, args in ((torch.enable_grad, detached),
+                          (torch.no_grad, inputs),
+                          (torch.inference_mode, inputs)):
+            before = ops.LAUNCHES[name]
+            with ctx():
+                out = fn(*args)
+            assert out.grad_fn is None and ops.LAUNCHES[name] == before + 1
+
+
+def test_danube_train_step_on_the_card_matches_the_cpu(card):
+    """The reduced Danube in float32 (kernels 6 and 9 forward, their plain
+    versions' gradients): the loss and every gradient leaf on the card
+    against the CPU at the same weights and batch (1e-4 of each leaf's
+    scale: fp32 reassociation in the kernels), and the card's AdamW step
+    against the CPU's on the card's own gradients (1e-6: the same
+    elementwise arithmetic; Adam's step is ill-conditioned where a
+    gradient is near 0, so the two devices' gradients are not fed to
+    it)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models.layers import to_device
+    cfg = configs.get("h2o-danube-1.8b").reduced()
+    params = transformer.init_params(cfg, 0)
+    batch = SyntheticLM(cfg.vocab, 32, 2, seed=0).batch_at(0)
+    got, want = (steps.loss_and_grads(
+        to_device(params, dev), {k: torch.from_numpy(v).to(dev)
+                                 for k, v in batch.items()}, cfg)
+        for dev in (card, "cpu"))
+    assert abs(float(got[0]) - float(want[0])) <= 1e-4 * float(want[0])
+    for path, g in tree_lib.leaves_with_path(got[2]):
+        w = tree_lib.at(want[2], path)
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max()), path
+    card_params = to_device(params, card)
+    state = steps.init_opt_state(card_params)
+    new_p, new_s, _ = steps.apply_grads(got[2], card_params, state, 1e-3)
+    cpu_p, cpu_s, _ = steps.apply_grads(
+        to_device(got[2], "cpu"), params, steps.init_opt_state(params), 1e-3)
+    for a, b in ((new_p, cpu_p), (new_s["adam"]["m"], cpu_s["adam"]["m"]),
+                 (new_s["adam"]["v"], cpu_s["adam"]["v"])):
+        for path, x in tree_lib.leaves_with_path(a):
+            y = tree_lib.at(b, path)
+            assert float((x.cpu() - y).abs().max()) <= 1e-6 * float(
+                y.abs().max()), path

@@ -10,8 +10,8 @@ input mode, non-causal, no decode) and internvl2-26b (``tokens+image``:
 by `convert.lm_params_from_numpy`, the same numpy inputs, through
 `forward`, `prefill` (logits and caches) and `decode_step`; the ring KV
 cache past the window; the slot server's greedy tokens against the JAX
-`SlotServer` for every token-input decoder; the CLI; the configs the slot
-server refuses; and the ``rms_mp`` norm, still the training side's.
+`SlotServer` for every token-input decoder; the CLI; and the configs the
+slot server refuses.
 
 Tolerance: float32 on both sides, the same arithmetic in another order
 (XLA's fused CPU matmuls and scan against torch's), so 2e-5 of the logit
@@ -337,23 +337,6 @@ def test_slot_server_refuses_what_jax_cannot_serve(arch, error):
         t_serve.SlotServer(tc, tp, 2, 32)
     with pytest.raises(SystemExit, match=error.split(",")[0]):
         t_serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
-
-
-def test_rms_mp_is_still_the_training_sides():
-    """``bf16_reduce`` on an RMS-norm model selects the JAX forward's
-    ``rms_mp`` norm, which comes with training: it raises; every
-    registered config is supported."""
-    for arch in ARCHS:
-        t_tr.check_supported(t_configs.get(arch))
-    cfg = dataclasses.replace(t_configs.get("olmoe-1b-7b").reduced(),
-                              bf16_reduce=True)
-    for fn in (lambda: t_tr.init_params(cfg),
-               lambda: t_tr.init_caches(cfg, 1, 8)):
-        with pytest.raises(NotImplementedError, match="rms_mp"):
-            fn()
-    from repro_torch.models.layers import apply_norm
-    with pytest.raises(NotImplementedError, match="rms_mp"):
-        apply_norm(torch.ones(2, 4), {"w": torch.zeros(4)}, "rms_mp")
 
 
 def test_hubert_forward_is_frame_permutation_equivariant():
