@@ -254,6 +254,37 @@ phase 7 and before phase 6, each model freed before the next:
   PIPE_MICRO microbatches) over the world's ranks against the stages run
   one after another on rank 0, with its bubble fraction and ms.
 
+The seventeenth slice adds phase 9, after phase 8 and before phase 6:
+  9a. DeiT-S at full size (224 px, 12 layers, D 384, 6 heads of 64, 196
+      tokens), random weights from seed 0, served fused in float and int8
+      through `VisionServer` at bucket 8 with DEIT_S_REQUESTS images
+      (`serve_user_path`: launches, CPU twin at phase 3's bounds), then
+      img/s, p50 and the card's busy share of a drain;
+  9b. `quantize_params` on Danube-1.8B's whole bf16 tree on the card (one
+      scale a channel over a pattern position's layers), a percentile
+      scale over its 17.7M-element up projection against the CPU's, and
+      `quantized_linear` on kernel 4 at the up projection (2,048 x 2,560
+      x 6,912): the int32 accumulators equal to the plain version's, the
+      kernel timed beside the plain version and `torch._int_mm` (a new
+      other shape of int8_matmul in the JSON line);
+  9c. kernel 1's gradient path (`ops._KernelGrad`) at DeiT-S b8, every
+      input's gradient against the plain version's autograd bit for bit,
+      forward + backward timed (an other shape of vita_layer); one
+      full-size DeiT-S training step at batch 8 against its CPU twin
+      (1e-3 of each gradient leaf's scale); examples/
+      serve_quantized_vit_torch.py in-process: VIT_EDGE_STEPS AdamW steps
+      of vit_edge (the loss must fall), PTQ and float / int8 drains;
+  9d. tools/hue_report_torch.py on DeiT-T and Swin-T in both modes at
+      batch 8 with --json-out: exit 0, the modelled columns equal to
+      `core.hue`'s for the same schedule;
+  9e. the dry run (`launch.dryrun.lower_cell`, the meta device) for
+      Danube-1.8B at the four shapes on the 16 x 16 pod and Qwen2.5-32B's
+      train_4k on the 2 x 16 x 16 pods: flops_global over
+      model_flops_global and each cell's time;
+  9f. examples/quickstart_torch.py and examples/train_lm_torch.py --small
+      as subprocesses (a non-zero exit fails the script).
+  Its launches (9a-9d) join each kernel's count in the JSON line.
+
 The line before the last is one JSON object with a record per kernel
 (each time marked with how it was taken: "profiler" or "cuda_events");
 the last line is {"ok": true, "device": {...}}.  Without a card, or without
@@ -4464,6 +4495,394 @@ def _mesh_drains(drains, served, images, totals, where) -> None:
                   f"the wall; on one card their contexts time-slice it)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the dry run, the HUE CLI, the generic PTQ on kernel 4, DeiT-S,
+# kernel 1's gradient and the examples
+# ---------------------------------------------------------------------------
+
+DEIT_S_REQUESTS = 32
+DANUBE_UP = (2048, 2560, 6912)   # rows, K, N: Danube-1.8B's up projection
+VIT_EDGE_STEPS = 80              # the example's training steps
+EXAMPLE_TIMEOUT_S = 240
+
+
+def _load_file(name: str, *parts):
+    """A repo script (a tool or an example) as a module, not run."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, *parts))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def deit_s_phase(where: str) -> dict:
+    """9a: DeiT-S at full size (224 px, 12 layers, D 384, 6 heads of 64,
+    196 tokens) served fused in float and int8 through `VisionServer` at
+    bucket 8 (`serve_user_path`: launches as its schedule says, logits
+    against the CPU twin at phase 3's bounds), then img/s and p50 over a
+    drain and the card's busy share."""
+    from repro_torch.models import vit
+
+    cfg = vit.deit_s()
+    params = vit.init_params(cfg, 0, "cuda")
+    images = np.random.default_rng(0).standard_normal(
+        (DEIT_S_REQUESTS, cfg.image, cfg.image, 3)).astype(np.float32)
+    totals = {k[0]: 0 for k in KERNELS}
+    for mode in ("float", "int8"):
+        o = serve_user_path(f"deit_s {mode} fused", "deit_s", cfg, mode,
+                            params, images)
+        for k, v in o["counts"].items():
+            totals[k] += v
+        server = o["server"]
+        server.submit_many(np.zeros((16,) + images.shape[1:], np.float32))
+        server.run()                                       # warm
+        server.submit_many(np.zeros((64,) + images.shape[1:], np.float32))
+        stats = server.run()
+        print(f"[time] served deit_s {mode} fused on {where}: bucket "
+              f"{B_MAIN}, {stats['requests']} requests: "
+              f"{stats['throughput_img_s']:.1f} img/s, p50 latency "
+              f"{stats['latency_p50_ms']:.3f} ms, p50 device "
+              f"{stats['device_p50_ms']:.3f} ms a micro-batch")
+        profile_drain(f"deit_s {mode}", server, where)
+    print(f"[serve] deit_s launches of kernels 1, 2 and 4: vita_layer "
+          f"{totals['vita_layer']}, vita_layer_int8 "
+          f"{totals['vita_layer_int8']}, int8_matmul "
+          f"{totals['int8_matmul']}")
+    check(min(totals[k] for k in ("vita_layer", "vita_layer_int8",
+                                  "int8_matmul")) > 0,
+          "deit_s: a kernel of kernels 1, 2 and 4 was never launched")
+    return totals
+
+
+def danube_ptq_phase(out: list, where: str) -> dict:
+    """9b: `quantize_params` on Danube-1.8B's whole bf16 tree on the card
+    (the stacked-leaf rule: one scale a channel over a pattern position's
+    layers), a percentile scale over its 17.7M-element up projection
+    against the CPU's, and `quantized_linear` on kernel 4 at the up
+    projection (2,048 rows, K 2,560, N 6,912): the int32 accumulator
+    equal to the plain version's, the output to the plain matmul's; the
+    kernel timed beside the plain version and `torch._int_mm`."""
+    from repro_torch import configs
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as tr
+
+    cfg = configs.get("h2o-danube-1.8b")
+    params = tr.init_params(cfg, 0, "cuda")
+    t0 = time.perf_counter()
+    qp = quant.quantize_params(params, pattern_len=len(cfg.pattern))
+    torch.cuda.synchronize()
+    n_q = sum(isinstance(v, quant.QTensor) for lp in qp["layers"]
+              for part in lp.values() for v in part.values())
+    ups = [lp["mlp"]["w_up"] for lp in params["layers"]]
+    shared = quant.amax_scale(torch.stack(ups), dim=(0, 1))[0].float()
+    same = all(torch.equal(lp["mlp"]["w_up"].scale, shared)
+               for lp in qp["layers"])
+    codes = torch.equal(qp["layers"][5]["mlp"]["w_up"].values,
+                        quant.quantize(ups[5], shared.to(ups[5].dtype)
+                                       ).values)
+    print(f"[ptq] h2o-danube-1.8b bf16 on {where}: quantize_params in "
+          f"{time.perf_counter() - t0:.2f} s, {n_q} layer leaves int8; "
+          f"every layer's w_up shares its stack's scale: {same}; layer "
+          f"5's codes at that scale: {codes}")
+    check(same and codes and n_q > 0,
+          "quantize_params: the stacked-leaf rule does not hold on the card")
+    w = ups[0]
+    pct = quant.quantize_per_tensor(w, percentile=99.99)
+    pct_cpu = quant.quantize_per_tensor(w.cpu(), percentile=99.99)
+    check(torch.equal(pct.values.cpu(), pct_cpu.values)
+          and torch.equal(pct.scale.cpu(), pct_cpu.scale),
+          "a percentile scale over 17.7M elements differs from the CPU's")
+    print(f"[ptq] percentile 99.99 scale over {w.numel():,} elements on "
+          f"the card {float(pct.scale):.6e}, equal to the CPU's (codes "
+          f"too): True")
+
+    m, k, n = DANUBE_UP
+    wq = qp["layers"][0]["mlp"]["w_up"]
+    g = torch.Generator(device="cuda").manual_seed(27)
+    x = rand(g, (m, k), torch.bfloat16)
+    act = quant.amax_scale(x.float())
+    accs = {}
+
+    def spy(xq, wv):
+        accs["xq"] = xq
+        accs["card"] = quant._kernel_matmul(xq, wv)
+        return accs["card"]
+
+    y, counts = launch_delta(lambda: quant.quantized_linear(
+        x, wq, None, act, matmul=spy))
+    check(counts["int8_matmul"] == 1, f"quantized_linear: {counts}")
+    xq = accs["xq"]
+    plain_acc = ref.int8_matmul_ref(xq, wq.values)
+    y_plain = quant.quantized_linear(x, wq, None, act,
+                                     matmul=quant.int8_matmul_ref)
+    exact = torch.equal(accs["card"], plain_acc)
+    print(f"[check] quantized_linear on kernel 4, h2o-danube-1.8b up "
+          f"projection {m} x {k} x {n}: int32 accumulators equal the plain "
+          f"version's: {exact}; outputs equal: {torch.equal(y, y_plain)}")
+    check(exact and torch.equal(y, y_plain),
+          "quantized_linear: kernel 4 disagrees with its plain version")
+    bnd = bound(ops_i8=2 * m * k * n, nbytes=m * k + k * n + 4 * m * n)
+    (ms, by), (plain_ms, plain_by) = (
+        device_ms(lambda: ops.int8_matmul(xq, wq.values)),
+        device_ms(lambda: ref.int8_matmul_ref(xq, wq.values)))
+    lib_ms, lib_by = device_ms(lambda: torch._int_mm(xq, wq.values))
+    tag = f"h2o-danube-1.8b up projection {m} x {k} x {n} (quantized_linear)"
+    next(e for e in out if e["name"] == "int8_matmul")[
+        "other_shapes"].append({
+            "shape": tag, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "timed_by": {"ms": by, "plain_ms": plain_by,
+                         "library_ms": lib_by}})
+    print(f"[time] int8_matmul {tag} on {where}: device {ms:.4f} ms [{by}], "
+          f"plain {plain_ms:.4f} ms [{plain_by}], library (torch._int_mm) "
+          f"{lib_ms:.4f} ms [{lib_by}], bound {bnd[0]:.4f} ms ({bnd[1]})")
+    del params, qp, ups, w, pct, accs, xq, plain_acc
+    release()
+    return counts
+
+
+def _grads(loss_fn, params):
+    """(loss, gradient leaves) of ``loss_fn(params)``."""
+    from repro_torch import tree as tree_lib
+
+    live = [p.detach().requires_grad_() for p in tree_lib.leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_lib.unflatten(params, live))
+        grads = torch.autograd.grad(loss, live)
+    return loss.detach(), grads
+
+
+def vision_grad_phase(out: list, where: str) -> dict:
+    """9c: kernel 1's gradient path (`ops._KernelGrad`) at DeiT-S b8
+    against the plain version's autograd bit for bit, forward + backward
+    timed; one full-size DeiT-S training step (batch 8) against its CPU
+    twin, the loss and every gradient leaf within 1e-3 of its scale; the
+    example's VIT_EDGE_STEPS AdamW steps of ``vit_edge`` (the loss must
+    fall), then its PTQ and drains."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import vit
+
+    totals = {k[0]: 0 for k in KERNELS}
+    cfg = vit.deit_s()
+    g = torch.Generator(device="cuda").manual_seed(27)
+    bp, x = vit_block(cfg, 0, g)
+    f_args, _ = layer_args(bp, x)
+    inputs = tuple(t.detach().requires_grad_() for t in f_args)
+    before = ops.LAUNCHES["vita_layer"]
+    y = ops.vita_layer_fused(*inputs)
+    check(ops.LAUNCHES["vita_layer"] == before + 1
+          and type(y.grad_fn).__name__ == "_KernelGradBackward",
+          "vita_layer: the gradient path did not launch the kernel through "
+          "ops._KernelGrad")
+    totals["vita_layer"] += 1
+    want = ref.vita_layer_ref(*inputs)
+    err = check_close("vita_layer deit_s b8 forward (gradient path)",
+                      y.detach(), want.detach())
+    ct = torch.randn(y.shape, generator=g, device="cuda")
+    got = torch.autograd.grad(y, inputs, ct)
+    exp = torch.autograd.grad(want, inputs, ct)
+    same = all(torch.equal(a, b) for a, b in zip(got, exp))
+    print(f"[check] vita_layer deit_s b8: the gradients of its "
+          f"{len(inputs)} inputs equal the plain version's bit for bit: "
+          f"{same}")
+    check(same, "vita_layer: a gradient differs from the plain version's")
+    h, _, dh = bp["wq"].shape
+    proj, attn = layer_flops(x.shape[0], cfg.tokens, cfg.dim, h, dh,
+                             cfg.mlp_hidden)
+    bnd = bound(flops_f32=3 * (proj + attn),
+                nbytes=3 * nbytes(*f_args) + 2 * nbytes(x))
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(*inputs), inputs, ct)
+
+    (ms, by), (plain_ms, plain_by) = (
+        device_ms(fwd_bwd(ops.vita_layer_fused)),
+        device_ms(fwd_bwd(ref.vita_layer_ref)))
+    lib_ms, lib_by = device_ms(fwd_bwd(
+        lambda *a: composed_layer(a, h, dh)()))
+    tag = f"deit_s b{x.shape[0]} forward + backward"
+    next(e for e in out if e["name"] == "vita_layer")[
+        "other_shapes"].append({
+            "shape": tag, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "timed_by": {"ms": by, "plain_ms": plain_by,
+                         "library_ms": lib_by}})
+    print(f"[time] vita_layer {tag} on {where}: device {ms:.4f} ms [{by}], "
+          f"plain {plain_ms:.4f} ms [{plain_by}], library (cuBLAS + "
+          f"F.layer_norm + SDPA + F.gelu, autograd) {lib_ms:.4f} ms "
+          f"[{lib_by}], bound {bnd[0]:.4f} ms ({bnd[1]})")
+
+    # One full-size training step against the CPU twin.
+    ex = _load_file("serve_quantized_vit_torch", "examples",
+                    "serve_quantized_vit_torch.py")
+    params = vit.init_params(cfg, 1, "cuda")
+    rng = np.random.default_rng(27)
+    images = torch.from_numpy(rng.standard_normal(
+        (B_MAIN, cfg.image, cfg.image, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, cfg.n_classes, B_MAIN))
+    t0 = time.perf_counter()
+    (loss, grads), c = launch_delta(lambda: _grads(
+        lambda p: ex.loss_fn(p, images.cuda(), labels.cuda(), cfg), params))
+    step_s = time.perf_counter() - t0
+    check(c["vita_layer"] == cfg.layers, f"deit_s train step: {c}")
+    for k2, v in c.items():
+        totals[k2] += v
+    loss_cpu, grads_cpu = _grads(lambda p: ex.loss_fn(p, images, labels,
+                                                      cfg),
+                                 vit.to_device(params, "cpu"))
+    worst, where_worst = 0.0, ""
+    for path_leaf, g_card, g_cpu in zip(tree_lib.leaves_with_path(params),
+                                        grads, grads_cpu):
+        scale = float(g_cpu.abs().max())
+        rel = float((g_card.cpu() - g_cpu).abs().max()) / max(scale, 1e-30)
+        if rel > worst:
+            worst, where_worst = rel, tree_lib.path_key(path_leaf[0])
+    lrel = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    print(f"[train] deit_s one step, batch {B_MAIN}, on {where}: loss "
+          f"{float(loss):.6f} (CPU {float(loss_cpu):.6f}, rel {lrel:.2e}); "
+          f"{len(grads)} gradient leaves, the worst {worst:.2e} of its "
+          f"scale ({where_worst}; bound 1e-3); the card's step "
+          f"{step_s * 1e3:.1f} ms with the host's first calls")
+    check(lrel <= 1e-3 and worst <= 1e-3,
+          "deit_s: the training step disagrees with its CPU twin")
+
+    # The example: VIT_EDGE_STEPS AdamW steps of vit_edge, PTQ, drains.
+    res, c = launch_delta(lambda: ex.main([], steps=VIT_EDGE_STEPS))
+    for k2, v in c.items():
+        totals[k2] += v
+    losses = res["losses"]
+    print(f"[train] examples/serve_quantized_vit_torch.py on {where}: "
+          f"{VIT_EDGE_STEPS} vit_edge steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, step {np.median(res['step_ms']):.2f} ms "
+          f"(median of {len(res['step_ms'])}, host clock), launches {c}")
+    check(np.mean(losses[-10:]) < np.mean(losses[:10])
+          and c["vita_layer"] > 0 and c["vita_layer_int8"] > 0,
+          "the example's training did not lower the loss on the kernels")
+    del params, grads
+    release()
+    return totals
+
+
+def hue_cli_phase(where: str) -> dict:
+    """9d: tools/hue_report_torch.py on DeiT-T and Swin-T in both modes at
+    batch 8 with --json-out: exit 0, every report's modelled columns equal
+    to `core.hue.live_hue_report` of the same schedule."""
+    from repro_torch.core import hue as hue_lib
+    from repro_torch.models import vision_registry
+
+    tool = _load_file("hue_report_torch", "tools", "hue_report_torch.py")
+    models, modes = ("deit_t", "swin_t"), ("float", "int8")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hue.json")
+        rc, c = launch_delta(lambda: tool.main([
+            "--models", ",".join(models), "--mode", "both", "--batch",
+            str(B_MAIN), "--json-out", path]))
+        with open(path) as f:
+            record = json.load(f)
+    check(rc == 0, f"hue_report_torch exited {rc}")
+    cols = ("phase", "count", "modelled_cycles", "modelled_ms",
+            "modelled_share", "hue_modelled")
+    for (model, mode), report in zip(
+            [(m, md) for m in models for md in modes], record["reports"]):
+        cfg = vision_registry.build_cfg(model)
+        sched = vision_registry.make_schedule(cfg)
+        recs = [{"index": i, "kind": ph.kind, "site": ph.site, "ms": 1.0}
+                for i, ph in enumerate(sched.phases)]
+        want = hue_lib.live_hue_report(vision_registry.make_spec(cfg), recs,
+                                       fused=bool(cfg.fused),
+                                       group_size=int(cfg.fuse_group))
+        same = [{k: r[k] for k in cols} for r in report["rows"]] == \
+            [{k: r[k] for k in cols} for r in want["rows"]]
+        print(f"[hue-cli] {model} {mode} b{report['batch']} on {where}: "
+              f"{len(report['rows'])} rows, measured "
+              f"{sum(r['measured_ms'] or 0 for r in report['rows']):.3f} "
+              f"ms; modelled columns equal core.hue's: {same}")
+        check(same and report["mode"] == mode and report["device"] == "cuda",
+              f"hue_report_torch {model} {mode}: the modelled columns "
+              f"differ from core.hue's")
+    check(record["device_count"] == torch.cuda.device_count(),
+          "hue_report_torch: device_count is not the card count")
+    return c
+
+
+def dryrun_phase(where: str) -> None:
+    """9e: `launch.dryrun.lower_cell` on the installed torch: Danube-1.8B
+    at the four shapes on the 16 x 16 pod and Qwen2.5-32B's train_4k on
+    the 2 x 16 x 16 one, each traced on the meta device."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, mesh
+
+    cells = [("h2o-danube-1.8b", s, "pod1") for s in configs.SHAPES] \
+        + [("qwen2.5-32b", "train_4k", "pod2")]
+    for arch, shape, mesh_name in cells:
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(arch, shape, mesh.make_production_mesh(
+            multi_pod=mesh_name == "pod2"))
+        ratio = rec["flops_global"] / rec["model_flops_global"]
+        print(f"[dryrun] {arch} x {shape} x {mesh_name} on torch "
+              f"{torch.__version__}: flops_global / model_flops_global "
+              f"{ratio:.4f}, state {rec['state_bytes_per_device_analytic']:,}"
+              f" B a device, collectives "
+              f"{rec['collectives']['bytes_total']:,} B; "
+              f"{time.perf_counter() - t0:.2f} s")
+        check(1.0 <= ratio <= 6.0 and rec["n_devices"] in (256, 512),
+              f"dryrun {arch} x {shape}: flops ratio {ratio}")
+
+
+def examples_phase(where: str) -> None:
+    """9f: examples/quickstart_torch.py and examples/train_lm_torch.py
+    --small as subprocesses on the card; a non-zero exit fails."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for args in (["quickstart_torch.py"],
+                     ["train_lm_torch.py", "--small", "--ckpt",
+                      os.path.join(tmp, "ckpt")]):
+            t0 = time.perf_counter()
+            done = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "examples", args[0]),
+                 *args[1:]], capture_output=True, text=True, env=env,
+                cwd=ROOT, timeout=EXAMPLE_TIMEOUT_S)
+            tail = done.stdout.strip().splitlines()[-2:]
+            print(f"[example] {' '.join(args)} on {where}: exit "
+                  f"{done.returncode} in {time.perf_counter() - t0:.1f} s; "
+                  + " | ".join(tail))
+            check(done.returncode == 0,
+                  f"{args[0]} exited {done.returncode}: "
+                  f"{done.stderr[-2000:]}")
+
+
+def slice_phase(out: list, where: str, t_start: float) -> dict:
+    """Phase 9 (module docstring).  Returns the launches of its main
+    paths."""
+    totals = {k[0]: 0 for k in KERNELS}
+
+    def add(c):
+        for k, v in c.items():
+            totals[k] += v
+
+    t9 = time.perf_counter()
+    for step, run in (("9a DeiT-S served", lambda: deit_s_phase(where)),
+                      ("9b the generic PTQ on kernel 4",
+                       lambda: danube_ptq_phase(out, where)),
+                      ("9c kernel 1's gradient",
+                       lambda: vision_grad_phase(out, where)),
+                      ("9d the HUE CLI", lambda: hue_cli_phase(where)),
+                      ("9e the dry run", lambda: dryrun_phase(where)),
+                      ("9f the examples", lambda: examples_phase(where))):
+        t0 = time.perf_counter()
+        c = run()
+        if c:
+            add(c)
+        print(f"[phase] {step} in {time.perf_counter() - t0:.1f} s")
+    print(f"[phase] 9 the slice's paths in {time.perf_counter() - t9:.1f} s, "
+          f"at {time.perf_counter() - t_start:.0f} s")
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device is available", file=sys.stderr)
@@ -4772,6 +5191,12 @@ def main() -> None:
     train_counts = train_phase(where, t_start)
     for entry in out:
         entry["launches"] += train_counts[entry["name"]]
+    # 9. The slice's paths: DeiT-S, the generic PTQ on kernel 4, kernel
+    # 1's gradient, the HUE CLI, the dry run and the examples.  Before
+    # phase 6 too.
+    slice_counts = slice_phase(out, where, t_start)
+    for entry in out:
+        entry["launches"] += slice_counts[entry["name"]]
     # 6. The mesh on the card: ranks on this one card through gloo (NCCL
     # where every rank has a card of its own).  It runs last: after the
     # ranks' profiler sessions this process's profiler drops device

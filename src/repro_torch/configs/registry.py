@@ -1,16 +1,21 @@
 """Architecture registry and the shape cells (counterpart of
 `repro/configs/registry.py`).
 
-`input_specs` and the ``*_inputs`` helpers of the JAX registry build
-`jax.ShapeDtypeStruct` stand-ins for the dry run; they wait for the port
-of the dry run.
+40 nominal (arch x shape) cells; `all_cells` yields each with whether it
+applies and why not (an encoder-only arch has no decode step; a pure
+full-attention arch skips ``long_500k``).  `input_specs` and the
+``*_inputs`` helpers give each cell's inputs as meta tensors (shapes and
+dtypes, no storage), where the JAX registry gives `ShapeDtypeStruct`s;
+decode caches come in the port's flat per-layer layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -64,3 +69,66 @@ def cell_supported(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
         return False, ("pure full-attention arch: 500k dense KV decode is "
                        "outside the family's operating regime")
     return True, ""
+
+
+def all_cells():
+    """Every (arch, shape, applies, why-not) cell."""
+    for arch in list_archs():
+        cfg = get(arch)
+        for shape in SHAPES:
+            ok, why = cell_supported(cfg, shape)
+            yield arch, shape, ok, why
+
+
+# ---------------------------------------------------------------------------
+# input_specs: meta-tensor stand-ins (no allocation) per cell
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_inputs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, Any]:
+    b, s = cell.global_batch, cell.seq_len
+    dt, i32 = cfg.param_dtype, torch.int32
+    if cfg.input_mode == "tokens":
+        return {"tokens": _meta((b, s), i32), "labels": _meta((b, s), i32)}
+    if cfg.input_mode == "tokens+image":
+        st = s - cfg.n_image_tokens
+        return {"tokens": _meta((b, st), i32),
+                "patch_embeds": _meta((b, cfg.n_image_tokens, cfg.d_model),
+                                      dt),
+                "labels": _meta((b, st), i32)}
+    # embeds (audio stub frontend)
+    return {"embeds": _meta((b, s, cfg.d_model), dt),
+            "labels": _meta((b, s), i32)}
+
+
+def prefill_inputs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, Any]:
+    return train_inputs(cfg, cell)
+
+
+def decode_inputs(cfg: ModelConfig, cell: ShapeCell
+                  ) -> Tuple[Dict[str, Any], Any]:
+    """({tokens, pos}, caches): the caches one per layer, as
+    `transformer.init_caches` lays them out."""
+    from repro_torch.models import transformer as tr
+    b = cell.global_batch
+    caches = tr.init_caches(cfg, b, cell.seq_len, device="meta")
+    return ({"tokens": _meta((b,), torch.int32),
+             "pos": _meta((b,), torch.int32)}, caches)
+
+
+def input_specs(arch: str, shape: str):
+    """Meta-tensor stand-ins for an (arch, shape) cell's inputs."""
+    cfg = get(arch)
+    cell = SHAPES[shape]
+    ok, why = cell_supported(cfg, shape)
+    if not ok:
+        raise ValueError(f"{arch} x {shape} skipped: {why}")
+    if cell.kind == "train":
+        return train_inputs(cfg, cell)
+    if cell.kind == "prefill":
+        return prefill_inputs(cfg, cell)
+    return decode_inputs(cfg, cell)

@@ -32,7 +32,9 @@ reference's FSDP / ZeRO-1 widening puts ``data`` on the stacked dim (it
 shards the stack of layers); here it goes to the first unsharded dim of
 the layer's own leaf that the data axis divides (the dim the reference
 picks when the superblock count does not divide), so each data rank
-still holds 1/data of the bytes.  `fsdp_widen` sizes a layer's leaf as
+still holds 1/data of the bytes; a leaf none of whose unsharded dims the
+axis divides stays unsharded over data (the dry run deals such layers
+whole over the data ranks, `launch.dryrun.dealt_layers`).  `fsdp_widen` sizes a layer's leaf as
 the reference's stack (``cfg``'s superblock count times its own
 elements) against ``min_elems``.
 

@@ -10,9 +10,9 @@ the launches of the kernels with dtype modes (`ref.PORTED_MODES`) by
 (kernel, activation dtype, weight dtype), so it can show which of their
 instantiations ran (the int8 layers by their LN vectors' dtype).
 
-Gradients: when a CUDA input of `attention`, `mlp` or
-`linear_recurrence` (kernels 9, 6 and 11, the training path's) requires
-grad and grad mode is on, the call goes through `_KernelGrad`: its
+Gradients: when a CUDA input of `attention`, `mlp`, `linear_recurrence`
+or `vita_layer_fused` (kernels 9, 6, 11 and 1: LM and vision training)
+requires grad and grad mode is on, the call goes through `_KernelGrad`: its
 forward launches the Hopper kernel (counted as any launch) and its
 backward differentiates the kernel's plain version, recomputed on the
 saved inputs.  The backward is plain PyTorch because the JAX package has
@@ -68,14 +68,15 @@ def _on_card(name: str, t: torch.Tensor,
              w: Optional[torch.Tensor] = None) -> bool:
     """True for a CUDA tensor (and counts one launch of ``name``, and of
     its (t's dtype, w's dtype) mode where ``w`` is given), False for a CPU
-    tensor; any other device raises."""
+    or meta tensor (the plain version: on meta it computes shapes only,
+    the dry run's trace); any other device raises."""
     if t.is_cuda:
         LAUNCHES[name] += 1
         if w is not None:
             key = (name, _dtype_name(t), _dtype_name(w))
             MODE_LAUNCHES[key] = MODE_LAUNCHES.get(key, 0) + 1
         return True
-    if t.device.type != "cpu":
+    if t.device.type not in ("cpu", "meta"):
         raise ValueError(f"{name}: no kernel for device {t.device}")
     return False
 
@@ -180,7 +181,8 @@ def vita_layer_fused(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
             w_down, b_down, bias, mask)
     axes = {"msa_axis": msa_axis, "mlp_axis": mlp_axis}
     if _on_card("vita_layer", x, wq):
-        return _vita_layer.vita_layer(*args, **axes)
+        return _launch(_vita_layer.vita_layer, ref.vita_layer_ref, axes,
+                       *args)
     return ref.vita_layer_ref(*args, **axes)
 
 

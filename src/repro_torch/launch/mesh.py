@@ -34,6 +34,11 @@ this process started.
 data x model ranks of the world (every rank builds the same groups, in the
 same order).  A mesh pickles by key, so a command's mesh argument arrives
 on each rank as that rank's own mesh.
+
+`make_production_mesh` and `make_debug_mesh` are the dry run's meshes
+(`launch.dryrun`): axis names and sizes only
+(`distributed.sharding.AbstractMesh`), no ranks and no devices, since
+the dry run is analytic.
 """
 
 from __future__ import annotations
@@ -51,12 +56,30 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed.sharding import abstract_mesh
+
 DEFAULT_TIMEOUT_S = 300.0
 # How long an idle rank waits for its next command.
 _IDLE = datetime.timedelta(days=7)
 _JOIN_S = 30.0
 
 _WORLD: Optional["World"] = None    # the process group is per process
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh's axes: one pod of 16 x 16 ``("data",
+    "model")``, or two, 2 x 16 x 16 ``("pod", "data", "model")``."""
+    if multi_pod:
+        return abstract_mesh((2, 16, 16), ("pod", "data", "model"))
+    return abstract_mesh((16, 16), ("data", "model"))
+
+
+def make_debug_mesh(*, multi_pod: bool = False, model: int = 2,
+                    data: int = 2):
+    """A tiny mesh with the production axis names."""
+    if multi_pod:
+        return abstract_mesh((2, data, model), ("pod", "data", "model"))
+    return abstract_mesh((data, model), ("data", "model"))
 
 
 def parse_mesh_shape(text) -> Tuple[int, int]:

@@ -30,19 +30,49 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
+class MetaGenerator:
+    """Stands in for a `torch.Generator` on the meta device, where none
+    can live: `randn` and `rand` then allocate shapes without values (the
+    dry run's zero-allocation param trees)."""
+
+    device = torch.device("meta")
+
+
+def generator(seed: int, device=None):
+    """A generator seeded with ``seed`` on ``device`` (the CPU when None),
+    or a `MetaGenerator` on the meta device."""
+    if device is not None and torch.device(device).type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=device or "cpu").manual_seed(seed)
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """float32 N(0, 1) draws of ``shape`` on ``gen``'s device (no values
+    on meta)."""
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
+def rand(gen, shape) -> torch.Tensor:
+    """float32 U(0, 1) draws of ``shape`` on ``gen``'s device (no values
+    on meta)."""
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.rand(shape, generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(d_in, d_out) weights ~ N(0, 1/d_in), drawn in float32 on
     ``gen``'s device and cast to ``dtype``."""
-    return (torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                        device=gen.device)
-            * (1.0 / math.sqrt(d_in))).to(dtype)
+    return (randn(gen, (d_in, d_out)) * (1.0 / math.sqrt(d_in))).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype) -> torch.Tensor:
-    return (torch.randn((vocab, d), generator=gen, dtype=torch.float32,
-                        device=gen.device) * 0.02).to(dtype)
+    return (randn(gen, (vocab, d)) * 0.02).to(dtype)
 
 
 def cast_params(tree: Any, dtype: torch.dtype) -> Any:
@@ -59,6 +89,12 @@ def to_device(tree: Any, device) -> Any:
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 returning x's dtype (`ops.layer_norm`)."""
+    return ops.layer_norm(x, w, b, eps)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
 from .config import ModelConfig
-from .layers import Params, dense_init
+from .layers import Params, dense_init, rand, randn
 
 C_RGLRU = 8.0
 
@@ -31,14 +31,12 @@ def rec_init(gen: torch.Generator, cfg: ModelConfig,
         "w_gate_branch": dense_init(gen, d, w, dtype),
         "w_out": dense_init(gen, w, d, dtype),
         # depthwise causal conv
-        "conv_w": (torch.randn((cfg.conv_width, w), generator=gen,
-                               device=dev) * 0.1).to(dtype),
+        "conv_w": (randn(gen, (cfg.conv_width, w)) * 0.1).to(dtype),
         "conv_b": torch.zeros((w,), dtype=dtype, device=dev),
         # RG-LRU gates + Lambda
         "w_input_gate": dense_init(gen, w, w, dtype),
         "w_rec_gate": dense_init(gen, w, w, dtype),
-        "a_param": 0.744 + (0.963 - 0.744) * torch.rand(
-            (w,), generator=gen, device=dev),
+        "a_param": 0.744 + (0.963 - 0.744) * rand(gen, (w,)),
     }
 
 

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core import schedule as sched_lib
 from repro_torch.core.perfmodel import StageSpec, VisionModelSpec
-from repro_torch.core.quant import prune_block_heads
+from repro_torch.core.quant import prune_block_heads, quantize_vision_params
 from repro_torch.kernels.ref import gelu, layer_norm_ref
 from repro_torch.models.config import normalize_head_mask
 from repro_torch.models.layers import cast_params, dense_init, to_device
@@ -182,6 +182,11 @@ def forward(params: Params, patches: torch.Tensor, cfg: SwinConfig,
     `QTensor` params plus a `Calibrator` observer run the int8 PTQ path."""
     return sched_lib.run_schedule(schedule(cfg), params, patches,
                                   observer=observer)
+
+
+def quantize_swin(params: Params) -> Params:
+    """int8 PTQ (per-(head, channel) wq/wk/wv, per-channel matmuls)."""
+    return quantize_vision_params(params)
 
 
 # ---------------------------------------------------------------------------

@@ -50,8 +50,9 @@ from . import recurrent, xlstm
 from .config import ModelConfig
 from .layers import (AttnConfig, MlpConfig, MoEConfig, Params, apply_norm,
                      attn_decode, attn_forward, attn_init, attn_prefill,
-                     clamp_cotangent, dense_init, embed_init, mlp_forward,
-                     mlp_init, moe_forward, moe_init, norm_init)
+                     clamp_cotangent, dense_init, embed_init, generator,
+                     mlp_forward, mlp_init, moe_forward, moe_init,
+                     norm_init)
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -238,9 +239,10 @@ def _block_decode(kind: str, p: Params, x: torch.Tensor, cache, pos,
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random weights from ``seed``, drawn on ``device`` (the CPU when
-    None) in the config's dtype.  ``embed`` for the token modes;
+    None) in the config's dtype; on the meta device shapes and dtypes
+    without values (`layers.MetaGenerator`).  ``embed`` for the token modes;
     ``in_proj`` for ``embeds`` where embed_dim_in differs from d_model."""
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    gen = generator(seed, device)
     dtype = cfg.param_dtype
     params: Params = {}
     if cfg.input_mode in ("tokens", "tokens+image"):

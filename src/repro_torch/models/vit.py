@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core import schedule as sched_lib
 from repro_torch.core.perfmodel import StageSpec, VisionModelSpec
-from repro_torch.core.quant import prune_block_heads
+from repro_torch.core.quant import prune_block_heads, quantize_vision_params
 from repro_torch.models.config import normalize_head_mask
 from repro_torch.models.layers import cast_params, dense_init, to_device
 
@@ -71,6 +71,10 @@ class ViTConfig:
 
 def vit_b16(image: int = 256, **kw) -> ViTConfig:
     return ViTConfig(name=f"vit_b16_{image}", image=image, **kw)
+
+
+def deit_s(**kw) -> ViTConfig:
+    return ViTConfig(name="deit_s_224", image=224, dim=384, heads=6, **kw)
 
 
 def deit_t(**kw) -> ViTConfig:
@@ -147,6 +151,12 @@ def forward(params: Params, patches: torch.Tensor, cfg: ViTConfig,
     plus a `Calibrator` observer run the int8 PTQ path."""
     return sched_lib.run_schedule(schedule(cfg), params, patches,
                                   observer=observer)
+
+
+def quantize_vit(params: Params) -> Params:
+    """Per-channel int8 PTQ of all ViT weights (biases and norms stay
+    float)."""
+    return quantize_vision_params(params)
 
 
 def extract_patches(images: torch.Tensor, patch: int) -> torch.Tensor:

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ref import act_fn
 from .config import ModelConfig
-from .layers import Params, dense_init
+from .layers import Params, dense_init, randn
 
 M_INIT = -1e30
 _silu = act_fn("silu")
@@ -220,8 +220,7 @@ def slstm_init(gen: torch.Generator, cfg: ModelConfig,
         "w_in": dense_init(gen, d, 4 * d, dtype),
         "b_in": b_in,
         # block-diagonal (per-head) hidden-to-hidden recurrence
-        "r": torch.randn((4, h, dh, dh), generator=gen, device=dev)
-        / math.sqrt(dh),
+        "r": randn(gen, (4, h, dh, dh)) / math.sqrt(dh),
         "gn_w": torch.zeros((d,), dtype=dtype, device=dev),
     }
 

@@ -19,7 +19,7 @@ decay on both sides.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Callable, Tuple
 
 import torch
 
@@ -40,6 +40,12 @@ def decays(path: tree_lib.Path, leaf: torch.Tensor) -> bool:
     tree (its own, plus the superblock axis under ``layers``) is >= 2
     (module docstring)."""
     return leaf.dim() + (1 if "layers" in path else 0) >= 2
+
+
+def decays_by_own_rank(path: tree_lib.Path, leaf: torch.Tensor) -> bool:
+    """The JAX rule on a tree that stacks nothing (a vision tree, whose
+    ``layers`` is a list of blocks in both packages): rank >= 2."""
+    return leaf.dim() >= 2
 
 
 def decay_mask(params: Any) -> Any:
@@ -69,9 +75,13 @@ def clip_by_global_norm(grads: Any, max_norm: float
 
 @torch.no_grad()
 def adamw_update(grads: Any, state: Any, params: Any, lr,
-                 cfg: AdamWConfig = AdamWConfig()) -> Tuple[Any, Any, dict]:
+                 cfg: AdamWConfig = AdamWConfig(),
+                 decay: Callable = decays) -> Tuple[Any, Any, dict]:
     """(new params, new state, {"grad_norm"}) after one clipped AdamW step
-    at learning rate ``lr`` (a float32 0-d tensor or a float)."""
+    at learning rate ``lr`` (a float32 0-d tensor or a float).
+    ``decay(path, leaf)`` picks the leaves weight decay applies to
+    (default: an LM tree's `decays`; `decays_by_own_rank` for a vision
+    tree)."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     count = state["count"] + 1
     b1c = 1.0 - cfg.b1 ** count.float()
@@ -87,7 +97,7 @@ def adamw_update(grads: Any, state: Any, params: Any, lr,
         v_new += (1 - cfg.b2) * torch.square(gf)
         step = torch.sqrt(v_new / b2c).add_(cfg.eps)
         step = torch.div(m_new / b1c, step, out=step)
-        if decays(path, p):
+        if decay(path, p):
             step += cfg.weight_decay * p.float()
         step.mul_(lr)
         return torch.sub(p.float(), step, out=step).to(p.dtype), m_new, \

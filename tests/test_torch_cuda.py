@@ -1494,3 +1494,107 @@ def test_danube_train_step_on_the_card_matches_the_cpu(card):
             y = tree_lib.at(b, path)
             assert float((x.cpu() - y).abs().max()) <= 1e-6 * float(
                 y.abs().max()), path
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1's gradient path, the generic PTQ on kernel 4, DeiT-S served
+# ---------------------------------------------------------------------------
+
+
+def test_vita_layer_gradient_equals_the_plain_version(card):
+    """Kernel 1 with inputs that take a gradient: one launch through
+    `ops._KernelGrad`, every input's gradient bit for bit autograd of the
+    plain version; without one (no_grad, inference_mode, detached) the
+    kernel launches directly."""
+    _, bp, x = _layer(card)
+    args = (x, bp["wq"], bp["wk"], bp["wv"], bp["w_msa"], bp["ln1_w"],
+            bp["ln1_b"], bp["ln2_w"], bp["ln2_b"], bp["w_up"], bp["b_up"],
+            bp["w_down"], bp["b_down"])
+    inputs = tuple(t.detach().requires_grad_() for t in args)
+    before = ops.LAUNCHES["vita_layer"]
+    out = ops.vita_layer_fused(*inputs)
+    assert ops.LAUNCHES["vita_layer"] == before + 1
+    assert type(out.grad_fn).__name__ == "_KernelGradBackward"
+    want = ref.vita_layer_ref(*inputs)
+    torch.testing.assert_close(out.detach(), want.detach(), rtol=0,
+                               atol=1e-4 * float(want.detach().abs().max()))
+    ct = torch.randn_like(out)
+    for got, exp in zip(torch.autograd.grad(out, inputs, ct),
+                        torch.autograd.grad(want, inputs, ct)):
+        torch.testing.assert_close(got, exp, rtol=0, atol=0)
+    for ctx, a in ((torch.no_grad, inputs), (torch.inference_mode, inputs),
+                   (torch.enable_grad, args)):
+        before = ops.LAUNCHES["vita_layer"]
+        with ctx():
+            y = ops.vita_layer_fused(*a)
+        assert y.grad_fn is None and ops.LAUNCHES["vita_layer"] == before + 1
+
+
+def test_quantized_linear_on_kernel_4_equals_its_plain_version(card):
+    """`quantized_linear` (kernel 4, no fused rescale) against the plain
+    int8 matmul on the same inputs: the int32 accumulators and the
+    outputs equal, bf16 x lifted by the float32 scale."""
+    from repro_torch.core import quant
+
+    g = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn((3, 70, 96), generator=g, device=card).bfloat16()
+    w = torch.randn((96, 130), generator=g, device=card) * 0.1
+    wq = quant.quantize_per_channel(w)
+    act = quant.amax_scale(x.float())
+    bias = torch.randn(130, generator=g, device=card)
+    accs = {}
+
+    def spy(name, fn):
+        def run(xq, wv):
+            accs[name] = fn(xq, wv)
+            return accs[name]
+        return run
+
+    before = ops.LAUNCHES["int8_matmul"]
+    y = quant.quantized_linear(x, wq, bias, act,
+                               matmul=spy("card", quant._kernel_matmul))
+    assert ops.LAUNCHES["int8_matmul"] == before + 1
+    y_plain = quant.quantized_linear(x, wq, bias, act,
+                                     matmul=spy("plain",
+                                                quant.int8_matmul_ref))
+    assert accs["card"].dtype == torch.int32
+    assert torch.equal(accs["card"], accs["plain"])
+    assert torch.equal(y, y_plain)
+    assert torch.equal(y, quant.quantized_linear(x, wq, bias, act))
+
+
+@pytest.mark.parametrize("mode", ["float", "int8"])
+def test_deit_s_served_on_the_card_matches_the_cpu(card, mode):
+    """DeiT-S at full size served fused through `VisionServer` on the
+    card: one kernel 1 (float) or kernel 2 (int8) launch a layer a
+    micro-batch, logits against the same server on the CPU (float 1e-3,
+    int8 2% of the logit scale)."""
+    cfg = vit.deit_s()
+    params = vit.init_params(cfg, 0, card)
+    images = np.random.default_rng(0).standard_normal(
+        (5, 224, 224, 3)).astype(np.float32)
+    qparams = cal = None
+    if mode == "int8":
+        qparams = vit.quantize_vit(params)
+        cal = vision_serve.calibrate(qparams, cfg, images[:4], device=card,
+                                     n_batches=2)
+    sc = vision_serve.ServeConfig(mode=mode, buckets=(1, 4))
+    server = vision_serve.VisionServer(cfg, params, serve_cfg=sc,
+                                       qparams=qparams, calibrator=cal)
+    twin = vision_serve.VisionServer(
+        cfg, vit.to_device(params, "cpu"),
+        serve_cfg=dataclasses.replace(sc, device="cpu"),
+        qparams=None if qparams is None else vit.to_device(qparams, "cpu"),
+        calibrator=cal)
+    ops.reset_launches()
+    got = server.submit_many(images)
+    server.run()
+    kernel = "vita_layer" if mode == "float" else "vita_layer_int8"
+    assert ops.LAUNCHES[kernel] == 2 * 12          # 2 micro-batches
+    want = twin.submit_many(images)
+    twin.run()
+    g = np.stack([r.logits for r in got])
+    w = np.stack([r.logits for r in want])
+    assert g.shape == (5, 1000) and np.isfinite(g).all()
+    tol = (1e-3 if mode == "float" else 2e-2) * np.abs(w).max()
+    assert np.abs(g - w).max() <= tol

@@ -55,3 +55,26 @@ def test_chip_smoke_fails_without_a_card_or_sources(tmp_path):
                              env=_env(), cwd=where)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+_TOOLS = r"""
+import importlib.util, sys
+sys.path.insert(0, {src!r})
+for path in {paths!r}:
+    spec = importlib.util.spec_from_file_location("m", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print(len({paths!r}), bad)
+"""
+
+
+def test_port_tools_and_examples_import_neither_jax_nor_repro():
+    paths = [str(ROOT / "tools" / "hue_report_torch.py")] + sorted(
+        str(p) for p in (ROOT / "examples").glob("*_torch.py"))
+    code = _TOOLS.format(src=str(ROOT / "src"), paths=paths)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=_env(), cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) == 4 and bad == "[]", out.stdout
