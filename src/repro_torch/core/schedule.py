@@ -86,6 +86,7 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from repro_torch import trace
 from repro_torch.core.perfmodel import VisionModelSpec
 from repro_torch.core.quant import INT8_MAX, QTensor, stack_qtensors
 from repro_torch.distributed import sharding as shd
@@ -798,9 +799,14 @@ def run_schedule(sched: Schedule, params: Any, patches: torch.Tensor,
     model-axis mesh (`build_sharded_fn`); None otherwise."""
     quantized = isinstance(params["patch_embed"], QTensor)
     x, inner = patches, None          # inner: TNT's pixel stream (B*N, m, c)
-    for ph in sched.phases:
-        x, inner = _apply_phase(sched, ph, params, x, inner, observer,
-                                quantized, shard)
+    for i, ph in enumerate(sched.phases):
+        if not trace.ON:
+            x, inner = _apply_phase(sched, ph, params, x, inner, observer,
+                                    quantized, shard)
+            continue
+        with trace.span("vita.phase." + ph.kind, -1, i):
+            x, inner = _apply_phase(sched, ph, params, x, inner, observer,
+                                    quantized, shard)
     return x
 
 

@@ -20,6 +20,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable
 
+from repro_torch import trace as _trace
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -126,8 +128,9 @@ def library(name: str) -> ctypes.CDLL:
     argument types of its entry points declared."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
+        with _trace.span("vita.kernels.build", -1, LIBRARIES.index(name)):
+            build_all([name])
+            lib = ctypes.CDLL(str(_target(name)))
         for (lib_name, sym), argtypes in SIGNATURES.items():
             if lib_name == name:
                 fn = getattr(lib, sym)
@@ -139,7 +142,14 @@ def library(name: str) -> ctypes.CDLL:
 
 def call(name: str, sym: str, *args) -> None:
     """Launch ``sym`` from library ``name`` and raise if CUDA reported an
-    error for the launch."""
-    err = getattr(library(name), sym)(*args)
+    error for the launch.  While tracing is on, counts the launch and the
+    host time inside the ``ctypes`` call (`repro_torch.trace`)."""
+    fn = getattr(library(name), sym)
+    if _trace.ON:
+        t = time.perf_counter_ns()
+        err = fn(*args)
+        _trace.launched(time.perf_counter_ns() - t)
+    else:
+        err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{sym} failed to launch: CUDA error {err}")

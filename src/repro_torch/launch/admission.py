@@ -48,6 +48,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.launch.vision_serve import (InFlight, VisionRequest,
                                              VisionServer)
 
@@ -92,13 +93,15 @@ def measure_bucket_latencies(server: VisionServer, *,
     builds and plans), then the best of ``repeats`` timed
     dispatch+complete round trips.  Leaves the server's stats counters,
     ``done`` list and ``device_ms`` untouched (the probe requests are
-    discarded), and warms every bucket as a side effect — which
+    discarded), and with them the tracer's records and counters
+    (`repro_torch.trace`), and warms every bucket as a side effect — which
     open-stream serving wants anyway.
     """
     cfg = server.cfg
     shape = (cfg.image, cfg.image, 3)
     done0, device0 = len(server.done), len(server.device_ms)
     batches0, padded0 = server.n_batches, server.n_padded
+    traced = trace.mark()
     out: Dict[int, float] = {}
     for b in server.buckets:
         def probe():
@@ -112,6 +115,7 @@ def measure_bucket_latencies(server: VisionServer, *,
     del server.done[done0:]
     del server.device_ms[device0:]
     server.n_batches, server.n_padded = batches0, padded0
+    trace.rewind(traced)
     return out
 
 
@@ -225,15 +229,16 @@ class AdmissionController:
         """Enqueue one request on its model's lane.  ``t_submit``
         overrides the arrival stamp (trace replay: the request's clock
         starts at its ARRIVAL time, even if the replay submits late)."""
-        lane = self.lanes[model]
-        req = VisionRequest(self._rid, np.asarray(image), sla_ms=sla_ms)
-        if t_submit is not None:
-            req.t_submit = t_submit
-        req.model = model
-        req.path = "throughput"
-        self._rid += 1
-        lane.queue.append(req)
-        return req
+        with trace.span("vita.admission.submit", -1, self._rid):
+            lane = self.lanes[model]
+            req = VisionRequest(self._rid, np.asarray(image), sla_ms=sla_ms)
+            if t_submit is not None:
+                req.t_submit = t_submit
+            req.model = model
+            req.path = "throughput"
+            self._rid += 1
+            lane.queue.append(req)
+            return req
 
     # -- scheduling -------------------------------------------------------
 
@@ -246,6 +251,15 @@ class AdmissionController:
         """Pick (server, request group, bucket, path) for one dispatch,
         or None when nothing should launch right now (empty queues, or a
         partial bucket held back while the ring is busy)."""
+        with trace.span("vita.admission.assemble") as sp:
+            held = self.held_partials
+            plan = self._pick(now)
+            sp.set(self.held_partials - held)
+            return plan
+
+    def _pick(self, now: float):
+        """`_assemble`'s decision (the EDF sort, the group's fill, the
+        hold-back)."""
         lanes = [ln for ln in self.lanes.values() if ln.queue]
         if not lanes:
             return None
@@ -328,19 +342,20 @@ class AdmissionController:
         overlaps the executing batch: `dispatch` does not wait for the
         device), then block on the OLDEST in-flight micro-batch.  Returns
         the number of requests completed."""
-        now = time.perf_counter() if now is None else now
-        while len(self.ring) < self.max_inflight:
-            plan = self._assemble(now)
-            if plan is None:
-                break
-            server, group, bucket, _ = plan
-            self.ring.append((server, server.dispatch(group, bucket)))
-        if not self.ring:
-            return 0
-        server, inflight = self.ring.pop(0)
-        served = server.complete(inflight)
-        self.completed.extend(inflight.requests)
-        return served
+        with trace.span("vita.admission.step"):
+            now = time.perf_counter() if now is None else now
+            while len(self.ring) < self.max_inflight:
+                plan = self._assemble(now)
+                if plan is None:
+                    break
+                server, group, bucket, _ = plan
+                self.ring.append((server, server.dispatch(group, bucket)))
+            if not self.ring:
+                return 0
+            server, inflight = self.ring.pop(0)
+            served = server.complete(inflight)
+            self.completed.extend(inflight.requests)
+            return served
 
     def drain(self) -> int:
         """Flush every queued and in-flight request (stream shutdown)."""

@@ -85,6 +85,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import hue as hue_lib
 from repro_torch.core import schedule as sched_lib
 from repro_torch.core.quant import Calibrator
@@ -160,7 +161,9 @@ class VisionRequest:
     """One queued request, stamped at submit, dispatch and completion, so
     queue delay and service time are reported apart.  ``sla_ms`` is its
     latency budget (None: no deadline), which the admission layer's
-    bucket selection (`launch.admission.select_bucket`) reads."""
+    bucket selection (`launch.admission.select_bucket`) reads.  ``batch``
+    is the id of its micro-batch's dispatch span while `repro_torch.trace`
+    is on (else None)."""
 
     def __init__(self, rid: int, image: np.ndarray,
                  sla_ms: Optional[float] = None):
@@ -172,6 +175,7 @@ class VisionRequest:
         self.t_done: Optional[float] = None
         self.pred: Optional[int] = None
         self.logits: Optional[np.ndarray] = None
+        self.batch: Optional[int] = None
 
     @property
     def latency_s(self) -> float:
@@ -199,21 +203,23 @@ class VisionRequest:
 
 class InFlight:
     """A dispatched micro-batch: its logits tensor, the host time it was
-    dispatched at and, on the card, the CUDA events recorded before
-    (``start``) and after (``event``) its forward."""
+    dispatched at, on the card the CUDA events recorded before (``start``)
+    and after (``event``) its forward, and its dispatch span's id
+    (``batch``, -1 while `repro_torch.trace` is off)."""
 
     __slots__ = ("requests", "bucket", "out", "event", "start",
-                 "t_dispatch")
+                 "t_dispatch", "batch")
 
     def __init__(self, requests: List[VisionRequest], bucket: int,
                  out: torch.Tensor, event, start=None,
-                 t_dispatch: Optional[float] = None):
+                 t_dispatch: Optional[float] = None, batch: int = -1):
         self.requests = requests
         self.bucket = bucket
         self.out = out
         self.event = event
         self.start = start
         self.t_dispatch = t_dispatch
+        self.batch = batch
 
 
 class MeshReplica:
@@ -372,12 +378,15 @@ class VisionServer:
         fresh host tensor (pinned for the card: its copy then runs
         asynchronously, and the caching host allocator hands the block out
         again only once that copy has completed)."""
-        first = requests[0].image
-        host = torch.empty((bucket,) + first.shape, dtype=torch.float32,
-                           pin_memory=self.device.type == "cuda")
-        buf = host.numpy()
-        np.stack([r.image for r in requests], out=buf[:len(requests)])
-        buf[len(requests):] = 0.0
+        with trace.span("vita.server.stage") as sp:
+            first = requests[0].image
+            host = torch.empty((bucket,) + first.shape, dtype=torch.float32,
+                               pin_memory=self.device.type == "cuda")
+            buf = host.numpy()
+            np.stack([r.image for r in requests], out=buf[:len(requests)])
+            buf[len(requests):] = 0.0
+            if trace.ON:
+                sp.set(buf.nbytes)
         return host
 
     def dispatch(self, requests: Optional[List[VisionRequest]] = None,
@@ -400,43 +409,56 @@ class VisionServer:
         if len(requests) > bucket:
             raise ValueError(
                 f"{len(requests)} requests cannot ride a {bucket}-bucket")
-        host = self._stage(requests, bucket)
-        self.n_padded += bucket - len(requests)
-        # Events time single-device forwards; a mesh forward has waited
-        # for its ranks by the time it returns.
-        on_card = self.device.type == "cuda" and self.mesh is None
-        start = event = None
-        t = time.perf_counter()
-        for req in requests:
-            req.t_start = t
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-        with torch.inference_mode():
-            out = self.forward(host if self.mesh is not None else
-                               host.to(self.device, non_blocking=on_card))
-        if on_card:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-        self.n_batches += 1
-        return InFlight(requests, bucket, out, event, start, t)
+        with trace.span("vita.server.dispatch", trace.OWN, bucket,
+                        len(requests)) as sp:
+            if trace.ON:
+                for req in requests:
+                    req.batch = sp.id
+            host = self._stage(requests, bucket)
+            self.n_padded += bucket - len(requests)
+            # Events time single-device forwards; a mesh forward has
+            # waited for its ranks by the time it returns.
+            on_card = self.device.type == "cuda" and self.mesh is None
+            start = event = None
+            t = time.perf_counter()
+            for req in requests:
+                req.t_start = t
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            with torch.inference_mode():
+                with trace.span("vita.server.copy"):
+                    x = host if self.mesh is not None else \
+                        host.to(self.device, non_blocking=on_card)
+                with trace.launch_span("vita.server.forward"):
+                    out = self.forward(x)
+            if on_card:
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+            self.n_batches += 1
+            return InFlight(requests, bucket, out, event, start, t, sp.id)
 
     def complete(self, inflight: Optional[InFlight]) -> int:
         """Wait for an in-flight micro-batch and stamp its requests done;
         returns the number of requests served."""
         if inflight is None:
             return 0
-        if inflight.event is not None:
-            inflight.event.synchronize()
-            self.device_ms.append(inflight.start.elapsed_time(inflight.event))
-        logits = inflight.out.cpu().numpy()
-        t = time.perf_counter()
-        for i, req in enumerate(inflight.requests):
-            req.t_done = t
-            req.logits = logits[i]
-            req.pred = int(np.argmax(logits[i]))
-        self.done.extend(inflight.requests)
-        return len(inflight.requests)
+        with trace.span("vita.server.complete", inflight.batch):
+            with trace.span("vita.server.wait"):
+                if inflight.event is not None:
+                    inflight.event.synchronize()
+            if inflight.event is not None:
+                self.device_ms.append(
+                    inflight.start.elapsed_time(inflight.event))
+            with trace.span("vita.server.readback"):
+                logits = inflight.out.cpu().numpy()
+                t = time.perf_counter()
+                for i, req in enumerate(inflight.requests):
+                    req.t_done = t
+                    req.logits = logits[i]
+                    req.pred = int(np.argmax(logits[i]))
+            self.done.extend(inflight.requests)
+            return len(inflight.requests)
 
     def step(self) -> int:
         return self.complete(self.dispatch())
