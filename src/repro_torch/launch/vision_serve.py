@@ -24,13 +24,19 @@ forward (as the JAX server stamps it at its asynchronous jitted call), so
 card it never waits for the device: it stacks and pads the micro-batch
 into a fresh pinned host tensor, copies it with ``non_blocking=True``
 (PyTorch's caching host allocator keeps the block until that copy's event
-completes, so no later micro-batch overwrites it), launches the forward
-and records a CUDA event before and after it.  `complete` waits on the
-second event and keeps the device time between them (``device_p50_ms``
-of `run`).  So the next micro-batch can be assembled and launched while
-one runs: the in-flight ring of `launch.admission`.  On the CPU the
-forward completes inside `dispatch`.  The server runs on the card unless
-``ServeConfig(device="cpu")`` asks otherwise.
+completes, so no later micro-batch overwrites it), launches the forward,
+records a CUDA event before and after it, and queues the logits' copy
+into a fresh pinned host tensor right behind it, with one more event
+after that copy.  `complete` waits on the copy's event (which, in stream
+order, also covers the forward), keeps the device time between the first
+two events (``device_p50_ms`` of `run`) and copies the logits out of the
+pinned block, which the allocator may then hand out again.  So the next
+micro-batch can be assembled and launched while one runs, and the
+read-back of one waits only for its own kernels, never for those of a
+micro-batch dispatched after it: the in-flight ring of
+`launch.admission`.  On the CPU the forward completes inside `dispatch`
+and `complete` reads its logits as they are.  The server runs on the card
+unless ``ServeConfig(device="cpu")`` asks otherwise.
 
 Open-stream serving (`serve_stream`, ``--arrival-rate`` / ``--trace``)
 replays an arrival trace through `launch.admission`'s continuous-batching
@@ -202,17 +208,21 @@ class VisionRequest:
 
 
 class InFlight:
-    """A dispatched micro-batch: its logits tensor, the host time it was
-    dispatched at, on the card the CUDA events recorded before (``start``)
-    and after (``event``) its forward, and its dispatch span's id
-    (``batch``, -1 while `repro_torch.trace` is off)."""
+    """A dispatched micro-batch: its logits tensor (``out``), the host time
+    it was dispatched at, its dispatch span's id (``batch``, -1 while
+    `repro_torch.trace` is off) and, on a single card, the CUDA events
+    recorded before (``start``) and after (``event``) its forward and
+    behind its logits' copy (``copied``).  There ``out`` is the pinned host
+    tensor that copy fills; elsewhere the three events are None and
+    ``out`` is complete."""
 
     __slots__ = ("requests", "bucket", "out", "event", "start",
-                 "t_dispatch", "batch")
+                 "t_dispatch", "batch", "copied")
 
     def __init__(self, requests: List[VisionRequest], bucket: int,
                  out: torch.Tensor, event, start=None,
-                 t_dispatch: Optional[float] = None, batch: int = -1):
+                 t_dispatch: Optional[float] = None, batch: int = -1,
+                 copied=None):
         self.requests = requests
         self.bucket = bucket
         self.out = out
@@ -220,6 +230,7 @@ class InFlight:
         self.start = start
         self.t_dispatch = t_dispatch
         self.batch = batch
+        self.copied = copied
 
 
 class MeshReplica:
@@ -432,26 +443,43 @@ class VisionServer:
                         host.to(self.device, non_blocking=on_card)
                 with trace.launch_span("vita.server.forward"):
                     out = self.forward(x)
+            copied = None
             if on_card:
                 event = torch.cuda.Event(enable_timing=True)
                 event.record()
+                # The read-back, queued behind this forward and ahead of
+                # the next micro-batch's kernels.
+                out = torch.empty(out.shape, dtype=out.dtype,
+                                  pin_memory=True).copy_(out,
+                                                         non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record()
             self.n_batches += 1
-            return InFlight(requests, bucket, out, event, start, t, sp.id)
+            return InFlight(requests, bucket, out, event, start, t, sp.id,
+                            copied)
 
     def complete(self, inflight: Optional[InFlight]) -> int:
         """Wait for an in-flight micro-batch and stamp its requests done;
         returns the number of requests served."""
         if inflight is None:
             return 0
+        copied = inflight.copied
         with trace.span("vita.server.complete", inflight.batch):
-            with trace.span("vita.server.wait"):
-                if inflight.event is not None:
-                    inflight.event.synchronize()
+            with trace.span("vita.server.wait") as sp:
+                if copied is not None:
+                    if trace.ON:
+                        sp.set(int(not copied.query()))
+                    copied.synchronize()
             if inflight.event is not None:
                 self.device_ms.append(
                     inflight.start.elapsed_time(inflight.event))
-            with trace.span("vita.server.readback"):
+            with trace.span("vita.server.readback") as sp:
                 logits = inflight.out.cpu().numpy()
+                if copied is not None:
+                    # Out of the pinned block, so the allocator may reuse
+                    # it while these requests' logits live on.
+                    logits = logits.copy()
+                    sp.set(1)
                 t = time.perf_counter()
                 for i, req in enumerate(inflight.requests):
                     req.t_done = t

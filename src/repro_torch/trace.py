@@ -48,8 +48,14 @@ Spans of the serving path (``a0`` / ``a1`` where they carry something):
 ``vita.kernels.build``            `build.library` building or loading a
                                   library; a0 its index in `LIBRARIES`
 ``vita.server.complete``          `VisionServer.complete`, whole
-``vita.server.wait``              the host blocked on the micro-batch's event
-``vita.server.readback``          logits to the host, stamps, argmax
+``vita.server.wait``              the host blocked on the event behind the
+                                  micro-batch's logits copy; a0 1 when that
+                                  event had not completed yet (0 on the CPU
+                                  and on a mesh)
+``vita.server.readback``          logits to the host, stamps, argmax; a0 1
+                                  when they came through the pinned copy
+                                  queued at dispatch (0 on the CPU and on a
+                                  mesh: read back synchronously)
 ``vita.host.gc``                  a collection; a0 its generation
 ================================  ==========================================
 

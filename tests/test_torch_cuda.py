@@ -39,7 +39,7 @@ from repro_torch.kernels import rglru_scan as k_rglru_scan
 from repro_torch.kernels import vita_layer as k_vita_layer
 from repro_torch.kernels import vita_layer_group as k_vita_layer_group
 from repro_torch.kernels import vita_msa as k_vita_msa
-from repro_torch import configs
+from repro_torch import configs, trace
 from repro_torch.launch import serve as lm_serve
 from repro_torch.launch import vision_serve
 from repro_torch.models import transformer, tnt, vision_registry, vit
@@ -1386,6 +1386,51 @@ def test_full_ring_matches_one_micro_batch_at_a_time(card, mode, group):
         np.testing.assert_array_equal(got, want)
     server.complete(server.dispatch(reqs(images[:3])))
     assert server.n_padded - padded0 == 1
+
+
+def test_ring_read_back_through_pinned_copies_matches_run(card):
+    """Full-size DeiT-T, buckets 4 and 8: three micro-batches of distinct
+    images dispatched back to back on one server, then completed in order
+    with the tracer on, give every request the logits a second server on
+    the card gives the same images through `run`, bit for bit; each
+    micro-batch's logits came through the asynchronous pinned copy
+    (``vita.server.readback`` a0 1), and stay as they were after three
+    more micro-batches have reused the pinned blocks."""
+    sc = vision_serve.ServeConfig(buckets=(4, 8), full=True)
+    server = vision_serve.make_server("deit_t", sc)
+    twin = vision_serve.make_server("deit_t", sc, params=server.params)
+    rng = np.random.default_rng(5)
+    images = rng.standard_normal((19, 224, 224, 3)).astype(np.float32)
+    want = twin.submit_many(images)                # 8 + 8 + 3 (bucket 4)
+    twin.run()
+    server.submit_many(images[:4])
+    server.run()
+
+    def ring(ims):
+        got = server.submit_many(ims)
+        inflights = [server.dispatch() for _ in range(3)]
+        assert [f.bucket for f in inflights] == [8, 8, 4]
+        for inflight in inflights:
+            server.complete(inflight)
+        return got
+    trace.disable()
+    trace.reset()
+    trace.enable(cap=100_000)
+    try:
+        got = ring(images)
+    finally:
+        trace.disable()
+    records = trace.records()
+    trace.reset()
+    readbacks = records.rows("vita.server.readback")
+    assert len(readbacks) == 3
+    assert (records.column("a0")[readbacks] == 1).all()
+    w = np.stack([r.logits for r in want])
+    g = np.stack([r.logits for r in got])
+    assert g.shape == (19, 1000) and np.isfinite(g).all()
+    np.testing.assert_array_equal(g, w)
+    ring(rng.standard_normal((19, 224, 224, 3)).astype(np.float32))
+    np.testing.assert_array_equal(np.stack([r.logits for r in got]), g)
 
 
 # ---------------------------------------------------------------------------

@@ -79,6 +79,30 @@ def test_dispatch_complete_pads_to_bucket():
         server.dispatch(server.submit_many(images), bucket=2)
 
 
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_ring_of_depth_matches_run(depth):
+    """``depth`` micro-batches dispatched before any completes, then
+    completed in order, give every request the logits `run` gives the
+    same images, and keep them after the rest complete."""
+    images = np.random.default_rng(5).standard_normal(
+        (4 * depth - 1, 64, 64, 3)).astype(np.float32)
+    twin = _port_server("float")
+    want = twin.submit_many(images)
+    twin.run()
+    server = _port_server("float")
+    got = server.submit_many(images)
+    ring = [server.dispatch() for _ in range(depth)]
+    assert [f.bucket for f in ring] == [4] * depth
+    assert all(f.copied is None for f in ring)
+    first = []
+    for inflight in ring:
+        assert server.complete(inflight) == len(inflight.requests)
+        first.append(np.stack([r.logits for r in inflight.requests]))
+    g = np.stack([r.logits for r in got])
+    np.testing.assert_array_equal(g, np.stack([r.logits for r in want]))
+    np.testing.assert_array_equal(g, np.concatenate(first))
+
+
 def test_make_server_int8_calibrates_on_the_cpu():
     server = t_serve.make_server("vit_edge", t_serve.ServeConfig(
         mode="int8", buckets=(2,), calib_images=4, device="cpu"))

@@ -5,7 +5,8 @@
   profiler range.
 * On, every micro-batch yields its dispatch, stage, copy, forward, phase,
   complete, wait and readback spans, nested by parent and sharing one
-  ``batch`` id, which each request carries.
+  ``batch`` id, which each request carries; wait and readback carry a0 0
+  (the CPU reads back synchronously).
 * The collector's passes are spans; `disable` removes the hook.
 * The cap counts what it drops; `kernels.build.call` counts launches and
   their host ns; the admission layer's latency probes leave nothing.
@@ -129,6 +130,9 @@ def test_on_every_micro_batch_has_its_spans_nested_under_one_batch(tracer):
         done = one("vita.server.complete")
         assert one("vita.server.wait").parent == done.id
         assert one("vita.server.readback").parent == done.id
+        # the CPU reads back synchronously: no pinned copy, no wait
+        assert one("vita.server.wait").a0 == one("vita.server.readback").a0 \
+            == 0
         assert by_id[d.parent].name == by_id[done.parent].name == \
             "vita.admission.step"
         # nested in time, too
