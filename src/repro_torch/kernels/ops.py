@@ -182,7 +182,8 @@ def vita_layer_fused(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
     args = (x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
             w_down, b_down, bias, mask)
     axes = {"msa_axis": msa_axis, "mlp_axis": mlp_axis}
-    with _trace.span("vita.kernels.vita_layer"):
+    with _trace.span("vita.kernels.vita_layer", a0=x.shape[1],
+                     a1=x.shape[0]):
         if _on_card("vita_layer", x, wq):
             return _launch(_vita_layer.vita_layer, ref.vita_layer_ref, axes,
                            *args)
@@ -201,7 +202,8 @@ def vita_layer_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
             wq_scale, wk_scale, wv_scale, wmsa_scale, wup_scale, wdown_scale,
             ln1_w, ln1_b, ln2_w, ln2_b, b_up, b_down, bias, mask)
     axes = {"msa_axis": msa_axis, "mlp_axis": mlp_axis}
-    with _trace.span("vita.kernels.vita_layer"):
+    with _trace.span("vita.kernels.vita_layer", a0=x.shape[1],
+                     a1=x.shape[0]):
         if _on_card("vita_layer_int8", x, ln1_w):
             return _vita_layer.vita_layer_int8(*args, **axes)
         return ref.vita_layer_int8_ref(*args, **axes)

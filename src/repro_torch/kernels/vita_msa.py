@@ -40,6 +40,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import trace as _trace
+
 from . import build
 from .int8_matmul import DTYPE_CODES, _stream, check, launch_gemm_i8, ptr
 from .ref import check_mode
@@ -277,6 +279,8 @@ def launch_msa(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     check(out, "out", z.dtype)
     bias, mask, n_w = window_operands(bias, mask, b=b, h=h, n=n)
     plan = msa_plan(n, dh, z.element_size(), wq.element_size())
+    if _trace.ON:
+        _trace.counted_msa(b * h * n, b * h * plan.cluster * plan.rows)
     ints = (ctypes.c_int * len(plan))(*plan)
     if plan.paged:
         hd = h * dh

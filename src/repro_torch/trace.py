@@ -26,7 +26,12 @@ While it is on:
   span (``a0``: its generation);
 * `kernels.build.call` counts the port's own launches
   (``kernels.launches``) and the host time inside their ``ctypes`` calls,
-  argument marshalling included (``kernels.launch_ns``).
+  argument marshalling included (``kernels.launch_ns``);
+* each launch of kernel 1's MSA tile (`kernels.vita_msa.launch_msa`, on
+  the card) counts the query rows it is given, B' H N
+  (``kernels.msa_rows``), and the rows its blocks span, B' H times the
+  ``cluster`` x ``rows`` of its `msa_plan` (``kernels.msa_tile_rows``):
+  their ratio is the tile's padding.  Both come from shapes on the host.
 
 Spans of the serving path (``a0`` / ``a1`` where they carry something):
 
@@ -45,6 +50,10 @@ Spans of the serving path (``a0`` / ``a1`` where they carry something):
 ``vita.phase.<kind>``             each phase of `core.schedule.run_schedule`;
                                   a0 its index
 ``vita.kernels.vita_layer``       `ops.vita_layer_fused` / `vita_layer_int8`
+                                  on x (B', N, D); a0 N, the tokens a
+                                  sequence (TNT: the pixel tokens of a
+                                  patch on the inner stream), a1 B', the
+                                  sequences (images x windows or patches)
 ``vita.kernels.build``            `build.library` building or loading a
                                   library; a0 its index in `LIBRARIES`
 ``vita.server.complete``          `VisionServer.complete`, whole
@@ -94,6 +103,8 @@ class _State:
         self.n = 0                   # spans begun (stored or dropped)
         self.launches = 0
         self.launch_ns = 0
+        self.msa_rows = 0
+        self.msa_tile_rows = 0
         self.anchors: List[Tuple[int, int]] = []
         self.gc_open: List["_Span"] = []
 
@@ -245,6 +256,14 @@ def launched(ns: int) -> None:
         _S.launch_ns += ns
 
 
+def counted_msa(rows: int, tile_rows: int) -> None:
+    """Count one MSA tile's query rows and the rows its blocks span
+    (called by `kernels.vita_msa.launch_msa` only while tracing is on)."""
+    with _S.lock:
+        _S.msa_rows += rows
+        _S.msa_tile_rows += tile_rows
+
+
 def _on_gc(phase: str, info: dict) -> None:
     if phase == "start":
         if ON:
@@ -298,28 +317,36 @@ def reset() -> None:
         _S.n = 0
         _S.launches = 0
         _S.launch_ns = 0
+        _S.msa_rows = 0
+        _S.msa_tile_rows = 0
     _S.anchors = [_anchor()] if ON else []
 
 
-def mark() -> Tuple[int, int, int]:
+def mark() -> Tuple[int, ...]:
     """Where the records and counters stand (for `rewind`)."""
     with _S.lock:
-        return _S.n, _S.launches, _S.launch_ns
+        return (_S.n, _S.launches, _S.launch_ns, _S.msa_rows,
+                _S.msa_tile_rows)
 
 
-def rewind(at: Tuple[int, int, int]) -> None:
-    """Take back every span begun and every launch counted since `mark`
+def rewind(at: Tuple[int, ...]) -> None:
+    """Take back every span begun and everything counted since `mark`
     returned ``at`` (no span begun since may still be open)."""
     with _S.lock:
-        _S.n, _S.launches, _S.launch_ns = at
+        (_S.n, _S.launches, _S.launch_ns, _S.msa_rows,
+         _S.msa_tile_rows) = at
 
 
 def counters() -> Dict[str, int]:
-    """A snapshot: ``kernels.launches``, ``kernels.launch_ns``, ``spans``
-    stored and ``dropped`` by the cap."""
+    """A snapshot: ``kernels.launches``, ``kernels.launch_ns``,
+    ``kernels.msa_rows``, ``kernels.msa_tile_rows``, ``spans`` stored and
+    ``dropped`` by the cap."""
     with _S.lock:
         n, launches, launch_ns = _S.n, _S.launches, _S.launch_ns
+        msa_rows, msa_tile_rows = _S.msa_rows, _S.msa_tile_rows
     return {"kernels.launches": launches, "kernels.launch_ns": launch_ns,
+            "kernels.msa_rows": msa_rows,
+            "kernels.msa_tile_rows": msa_tile_rows,
             "spans": min(n, _S.cap), "dropped": max(n - _S.cap, 0)}
 
 

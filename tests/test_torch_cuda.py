@@ -1643,3 +1643,30 @@ def test_deit_s_served_on_the_card_matches_the_cpu(card, mode):
     assert g.shape == (5, 1000) and np.isfinite(g).all()
     tol = (1e-3 if mode == "float" else 2e-2) * np.abs(w).max()
     assert np.abs(g - w).max() <= tol
+
+
+def test_tnt_s_forward_counts_its_msa_tiles_rows(card):
+    """TNT-S's widths at two layers, two images: each layer launches the
+    MSA tile on 392 sequences of 16 pixel tokens (4 heads of 6, one
+    64-row block each) and on 2 of 196 patches (6 heads of 64, four)."""
+    cfg = tnt.TNTConfig(name="tnt_s_rows", image=224, patch=16,
+                        inner_patch=4, dim=384, inner_dim=24, heads=6,
+                        inner_heads=4, layers=2, n_classes=10)
+    params = tnt.init_params(cfg, seed=0, device=card)
+    images = torch.randn((2, 224, 224, 3), device=card)
+    trace.disable()
+    trace.reset()
+    trace.enable(cap=1_000)
+    try:
+        with torch.no_grad():
+            tnt.forward(params, vit.extract_patches(images, 16), cfg)
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    layers = [s for s in trace.records().spans()
+              if s.name == "vita.kernels.vita_layer"]
+    c = trace.counters()
+    trace.reset()
+    assert [(s.a0, s.a1) for s in layers] == [(16, 392), (196, 2)] * 2
+    assert c["kernels.msa_rows"] == 2 * (392 * 4 * 16 + 2 * 6 * 196)
+    assert c["kernels.msa_tile_rows"] == 2 * (392 * 4 * 64 + 2 * 6 * 256)

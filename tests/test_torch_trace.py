@@ -10,6 +10,10 @@
 * The collector's passes are spans; `disable` removes the hook.
 * The cap counts what it drops; `kernels.build.call` counts launches and
   their host ns; the admission layer's latency probes leave nothing.
+* A TNT forward's kernel-1 spans carry each stream's shape, inner then
+  outer; `vita_msa.launch_msa` counts its tile's rows and padded rows
+  from its plan (the launch itself stubbed out), and the CPU's plain
+  path, which launches no tile, counts none.
 * Under the CPU `torch.profiler` each span has one range of its name, in
   the same order, and `to_trace_clock` places each span's start within
   0.5 ms of its range's start.
@@ -92,6 +96,8 @@ def test_off_a_micro_batch_leaves_no_record_and_no_range(tracer,
     assert not trace.ON
     assert len(trace.records()) == 0 and entered == []
     assert trace.counters() == {"kernels.launches": 0, "kernels.launch_ns": 0,
+                                "kernels.msa_rows": 0,
+                                "kernels.msa_tile_rows": 0,
                                 "spans": 0, "dropped": 0}
     assert all(r.batch is None for r in reqs)
 
@@ -271,6 +277,83 @@ def test_mark_and_rewind_take_back_spans_and_counts(tracer):
     trace.disable()
     assert [s.name for s in trace.records().spans()] == ["vita.test.kept"]
     assert trace.counters()["kernels.launches"] == 0
+
+
+def _tnt():
+    """TNT-S's token counts (196 patches of 16 pixel tokens) at CPU
+    widths: (config, params, two images' patches)."""
+    from repro_torch.models import tnt
+    cfg = tnt.TNTConfig(name="tnt_trace", image=224, patch=16,
+                        inner_patch=4, dim=16, inner_dim=8, heads=2,
+                        inner_heads=2, layers=2, n_classes=10)
+    images = torch.randn((2, 224, 224, 3),
+                         generator=torch.Generator().manual_seed(0))
+    return cfg, tnt.init_params(cfg, seed=0), vit.extract_patches(images, 16)
+
+
+def test_a_tnt_forward_tells_the_two_streams_apart(tracer):
+    from repro_torch.models import tnt
+    cfg, params, patches = _tnt()
+    trace.enable(cap=1_000)
+    with torch.no_grad():
+        tnt.forward(params, patches, cfg)
+    trace.disable()
+    layers = [s for s in trace.records().spans()
+              if s.name == "vita.kernels.vita_layer"]
+    # a0 the tokens a sequence, a1 the sequences: inner (16 pixel tokens,
+    # 2 images x 196 patches), then outer (196 patches, 2 images), a layer
+    assert [(s.a0, s.a1) for s in layers] == [(16, 392), (196, 2)] * 2
+    # the plain path launches no MSA tile
+    c = trace.counters()
+    assert c["kernels.msa_rows"] == c["kernels.msa_tile_rows"] == 0
+
+
+@pytest.mark.parametrize("n,d,h,dh,blocks", [(16, 24, 4, 6, 1),
+                                             (196, 384, 6, 64, 4)])
+def test_launch_msa_counts_its_plans_rows(tracer, monkeypatch, n, d, h, dh,
+                                          blocks):
+    """At TNT-S's inner and outer shapes the tile gives each (sequence,
+    head) ``blocks`` blocks of 64 rows."""
+    from repro_torch.kernels import vita_msa
+    monkeypatch.setattr(vita_msa, "check", lambda *a, **k: None)
+    monkeypatch.setattr(vita_msa, "_stream", lambda: 0)
+    monkeypatch.setattr(build, "call", lambda *a, **k: None)
+    b = 3
+    z = torch.zeros((b, n, d))
+    w = torch.zeros((h, d, dh))
+    out = torch.empty((b, n, h * dh))
+    plan = vita_msa.msa_plan(n, dh)
+    assert not plan.paged and plan.cluster * plan.rows == 64 * blocks
+    vita_msa.launch_msa(z, w, w, w, out, (n * h * dh, h * dh, dh))
+    assert trace.counters()["kernels.msa_rows"] == 0
+    trace.enable(cap=100)
+    vita_msa.launch_msa(z, w, w, w, out, (n * h * dh, h * dh, dh))
+    vita_msa.launch_msa(z, w, w, w, out, (n * h * dh, h * dh, dh))
+    trace.disable()
+    c = trace.counters()
+    assert c["kernels.msa_rows"] == 2 * b * h * n
+    assert c["kernels.msa_tile_rows"] == 2 * b * h * 64 * blocks
+
+
+def test_off_a_tnt_forward_records_and_counts_nothing(tracer):
+    from repro_torch.models import tnt
+    cfg, params, patches = _tnt()
+    with torch.no_grad():
+        tnt.forward(params, patches, cfg)
+    assert len(trace.records()) == 0
+    c = trace.counters()
+    assert c["kernels.msa_rows"] == c["kernels.msa_tile_rows"] == 0
+
+
+def test_rewind_takes_back_the_msa_rows(tracer):
+    trace.enable(cap=100)
+    trace.counted_msa(10, 40)
+    at = trace.mark()
+    trace.counted_msa(5, 64)
+    trace.rewind(at)
+    trace.disable()
+    c = trace.counters()
+    assert (c["kernels.msa_rows"], c["kernels.msa_tile_rows"]) == (10, 40)
 
 
 def _profiled_events(prof, prefix="vita."):
