@@ -2366,14 +2366,22 @@ def msa_layout(b: int, h: int, n: int, dh: int, p) -> str:
 
 def msa_plan_line(tag: str, z, wq) -> None:
     """Print the MSA tile's plan for z (B, N, D) against the (H, D, Dh)
-    stack: the operand types, the clusters and the tile's layout."""
+    stack: the operand types, and the packed tile's blocks and layout or
+    the cluster tile's clusters and layout."""
     from repro_torch.kernels import vita_msa as vm
 
-    b, n, _ = z.shape
+    b, n, d = z.shape
     h, _, dh = wq.shape
-    p = vm.msa_plan(n, dh, z.element_size(), wq.element_size())
+    packed = vm.msa_packed_plan(n, d, h, dh, z.element_size(),
+                                wq.element_size())
+    if packed is not None:
+        layout = (f"packed: {-(-b // packed.seqs)} blocks of "
+                  f"{packed.seqs} sequences ({plan_fields(packed)})")
+    else:
+        layout = msa_layout(b, h, n, dh, vm.msa_plan(
+            n, dh, z.element_size(), wq.element_size()))
     print(f"[plan] vita_msa_batched {tag}: z {dname(z.dtype)}, weights "
-          f"{dname(wq.dtype)}; {msa_layout(b, h, n, dh, p)}")
+          f"{dname(wq.dtype)}; {layout}")
 
 
 def attention_plan_line(tag: str, b: int, h: int, n: int, dh: int) -> None:

@@ -28,6 +28,11 @@
 // (reading in place was not tried: every S and P.V fragment would wait on
 // a remote load).
 //
+// Short sequences: where kernels/vita_msa.py::msa_packed_plan gives a
+// layout (fp32 z, N and Dh at most 32), the wrapper launches
+// `rt_vita_msa_packed` instead, the packed tile of msa_packed.cuh: one
+// block per floor(64 / N) whole sequences and all their heads.
+//
 // Windowed mode (Swin) and qkv_bias as the TPU kernel: bias (H, N, N) +
 // mask (nW, N, N) join the scores after the scale, the mask picked by
 // b % nW; qkv_bias (3, H, Dh) is added to the projections.
@@ -48,6 +53,7 @@
 #include <cstring>
 #include <type_traits>
 
+#include "msa_packed.cuh"
 #include "msa_tile.cuh"
 
 namespace repro_torch {
@@ -201,5 +207,54 @@ extern "C" int rt_msa_project(const void* z, const void* wq, const void* wk,
     };
     return L.dp == 64 ? go(std::integral_constant<int, 64>{})
                       : go(std::integral_constant<int, 128>{});
+  });
+}
+
+// The packed tile (msa_packed.cuh): the arguments of rt_vita_msa, z
+// float32 (zt kF32), plan the 12 ints of the wrapper's PackedLayout
+// (kernels/vita_msa.py::msa_packed_plan), refused where it breaks a limit
+// of the tile (`packed_layout_ok`).
+extern "C" int rt_vita_msa_packed(const void* z, const void* wq,
+                                  const void* wk, const void* wv,
+                                  const void* qkv_bias, const float* bias,
+                                  const float* mask, int nW, void* out,
+                                  long long ob, long long on, long long oh,
+                                  int B, int N, int D, int H, int Dh,
+                                  float scale, int zt, int wt,
+                                  const int* plan, void* stream) {
+  using namespace repro_torch;
+  PackedLayout L;
+  std::memcpy(&L, plan, sizeof L);
+  if (zt != kF32 || B < 1) return (int)cudaErrorInvalidValue;
+  return dispatch_type(wt, [&](auto wtag) {
+    using WT = typename decltype(wtag)::type;
+    if (!packed_layout_ok(L, N, D, H, Dh, (int)sizeof(WT)))
+      return (int)cudaErrorInvalidValue;
+    auto words = [](const void* p) {
+      return reinterpret_cast<uintptr_t>(p) % 4 == 0;
+    };
+    const int vecs = (vec_ok<float>(z, D) ? 1 : 0) |
+                     ((sizeof(WT) == 4 || Dh % 2 == 0) && words(wq) &&
+                              words(wk) && words(wv)
+                          ? 2
+                          : 0);
+    auto go = [&](auto kernel_dp) {
+      auto kernel = msa_packed_kernel<WT, decltype(kernel_dp)::value>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
+      if (err != cudaSuccess) return (int)err;
+      const int blocks = (B + L.seqs - 1) / L.seqs;
+      kernel<<<blocks, PK_THREADS, L.smem, (cudaStream_t)stream>>>(
+          (const float*)z, (const WT*)wq, (const WT*)wk, (const WT*)wv,
+          (const WT*)qkv_bias, bias, mask, nW, (float*)out, ob, on, oh, B,
+          N, D, H, Dh, scale, L, vecs);
+      return (int)cudaGetLastError();
+    };
+    switch (L.dp) {
+      case 8: return go(std::integral_constant<int, 8>{});
+      case 16: return go(std::integral_constant<int, 16>{});
+      case 24: return go(std::integral_constant<int, 24>{});
+      default: return go(std::integral_constant<int, 32>{});
+    }
   });
 }

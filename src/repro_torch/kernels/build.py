@@ -42,6 +42,8 @@ SIGNATURES = {
     ("attention", "rt_attention_blocks_per_sm"): [I, I, P],
     ("vita_msa", "rt_vita_msa"): [P] * 7 + [I, P, L, L, L] + [I] * 5
     + [F, I, I, P, P],
+    ("vita_msa", "rt_vita_msa_packed"): [P] * 7 + [I, P, L, L, L] + [I] * 5
+    + [F, I, I, P, P],
     ("vita_msa", "rt_msa_project"): [P] * 8 + [I] * 7 + [P, P],
     ("mma_gemm", "rt_mma_gemm"): [P, L, P, L, P, L, I, I, I, P, P, L, I, I,
                                   I, I, P],

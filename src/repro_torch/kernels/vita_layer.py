@@ -12,8 +12,10 @@ memory — at these sizes they stay in the 50 MB L2.  This drops the TPU
 kernel's "nothing leaves the grid" property.
 
   float: LN1 (csrc/layer_norm.cu) -> the MSA tile (csrc/vita_msa.cu, one
-         thread-block cluster per (image, head): Q/K/V projected on chip
-         and never stored, SA written merged (B*N, H*Dh) in fp32) ->
+         thread-block cluster per (image, head), or at N and Dh up to 32
+         one block per floor(64 / N) whole sequences and all heads: Q/K/V
+         projected on chip and never stored, SA written merged (B*N,
+         H*Dh) in fp32) ->
          concat GEMM + residual (csrc/mma_gemm.cu) -> LN2 -> up GEMM +
          bias + GELU -> down GEMM + bias + residual.          (6 launches)
          Bound: operations, 2*B*N*(3*D*H*Dh + H*Dh*D + 2*D*M) for the

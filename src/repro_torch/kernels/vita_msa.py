@@ -15,7 +15,10 @@ Counterpart of `repro/kernels/vita_msa.py`.
     weights are float32 or bf16 (`ref.PORTED_MODES`); with bf16 z it
     rounds P and V to bf16 before the AV product, as the TPU kernel does,
     and writes SA in z's dtype.  `launch_msa` is the same launch with the
-    output strides free: the fused float layer writes SA merged.
+    output strides free: the fused float layer writes SA merged.  Short
+    sequences of fp32 z (N and Dh at most 32, `msa_packed_plan`) take the
+    packed tile of ``csrc/msa_packed.cuh`` instead: one block per
+    floor(64 / N) whole sequences and all their heads, no cluster.
   * `vita_msa_int8` replaces the int8 kernel of the calibration pass and
     the unfused int8 executor: three int8 GEMMs (``csrc/gemm_i8.cu``)
     project Q, K and V with the per-(head, channel) requant (and the
@@ -55,6 +58,9 @@ _MSA_ROWS, _MSA_SUB, _MSA_WARPS, _MSA_MAX_CLUSTER = 64, 32, 16, 8
 _MSA_MIN_STAGES, _MSA_MAX_STAGES = 3, 8
 # The widest head either tile takes (padded to DP 128).
 MAX_DH = 128
+# The packed tile (csrc/msa_packed.cuh): at most 64 rows a block, N and Dh
+# up to 32 (so a block holds two sequences or more), two blocks an SM.
+_PACKED_ROWS, _PACKED_MAX_N, _PACKED_MAX_DH = 64, 32, 32
 # The int8 chains' attention tile (csrc/attention.cuh): 8 warps, 32 query
 # rows, K and V in pages of 64 keys through a ring of 2 or 3 slots.
 ATT_THREADS, ATT_ROWS, _ATT_WARPS, _ATT_PAGE = 256, 32, 8, 64
@@ -149,6 +155,69 @@ def msa_plan(n: int, dh: int, z_size: int = 4,
     return MsaPlan(dp, rows, cluster, 0, 0, stage, stages, q_off=0, k_off=0,
                    v_off=0, s_off=0, p_off=0, ring_off=0,
                    smem=max(stages * stage, att.smem), paged=1)
+
+
+class PackedPlan(NamedTuple):
+    """One packed-tile launch (csrc/msa_packed.cuh), field for field its
+    `PackedLayout`, which the launch takes as is: a block owns ``seqs``
+    whole sequences, ``rows`` = seqs N tokens; ``kp`` is D padded to the
+    MMA's k step of 8 and ``ldz`` z's row stride (floats), ``dp`` Dh
+    padded to 8, ``cols`` the projection's 3 H dp columns padded to 16
+    and ``ldw`` / ``ldq`` the row strides of the weights (in their type)
+    and of Q, K and V (fp32, ``qrows`` rows: what the last sequence's
+    16-row query slices read); z lies at 0, the weights at ``w_off``, Q,
+    K and V at ``qkv_off`` and SA's staging, over z and the weights, at
+    0, in ``smem`` bytes."""
+    seqs: int
+    rows: int
+    kp: int
+    ldz: int
+    dp: int
+    cols: int
+    ldw: int
+    ldq: int
+    qrows: int
+    w_off: int
+    qkv_off: int
+    smem: int
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def msa_packed_plan(n: int, d: int, h: int, dh: int, z_size: int = 4,
+                    w_size: Optional[int] = None) -> Optional[PackedPlan]:
+    """The packed tile's layout for sequences of N tokens of width D and H
+    heads of Dh, z and the weights of ``z_size`` and ``w_size`` bytes
+    (default: z's), or None where the cluster tile (`msa_plan`) runs.
+
+    A layout only for fp32 z (fp32 or bf16 weights), N and Dh at most 32,
+    and where a block's buffers fit two blocks an SM (`TWO_BLOCK_SMEM`):
+    z [R rounded to 16][kp + pad] fp32 and the weights [kp][cols + pad],
+    then Q, K and V [qrows][cols + 8] fp32; SA's staging [R][H Dh] fp32
+    overlays z and the weights.  Each row is padded so that fragment loads
+    hit distinct banks."""
+    w_size = z_size if w_size is None else w_size
+    if (z_size != 4 or not 1 <= n <= _PACKED_MAX_N
+            or not 1 <= dh <= _PACKED_MAX_DH or d < 1 or h < 1):
+        return None
+    seqs = _PACKED_ROWS // n
+    rows = seqs * n
+    rm = _up(rows, 16)
+    kp, dp = _up(d, 8), _up(dh, 8)
+    ldz = kp + (8 if kp % 16 == 0 else 0)
+    cols = _up(3 * h * dp, 16)
+    ldw, ldq = cols + (4 if w_size == 4 else 8), cols + 8
+    qrows = max(rm, (seqs - 1) * n + _up(n, 16))
+    w_off = rm * ldz * 4
+    qkv_off = _up(max(w_off + kp * ldw * w_size, rows * h * dh * 4), 16)
+    smem = qkv_off + qrows * ldq * 4
+    if smem > TWO_BLOCK_SMEM:
+        return None
+    return PackedPlan(seqs, rows, kp, ldz, dp, cols, ldw, ldq, qrows, w_off,
+                      qkv_off, smem)
 
 
 class AttentionPlan(NamedTuple):
@@ -265,9 +334,10 @@ def launch_msa(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     dtype, element e of (image, token, head) at out[b*ob + n*on + h*oh +
     e] for ``out_strides`` (ob, on, oh).  Windowed mode takes ``bias``
     (H, N, N) and ``mask`` (nW, N, N) in float32; ``qkv_bias`` (3, H, Dh),
-    in the weights' dtype, is optional.  A paged plan (`msa_plan`) takes
-    two launches: the projection into Q, K, V workspace (fp32, V rounded
-    to z's type), then `launch_attention`."""
+    in the weights' dtype, is optional.  Where `msa_packed_plan` gives a
+    layout the packed tile runs; otherwise `msa_plan`'s, and a paged plan
+    takes two launches: the projection into Q, K, V workspace (fp32, V
+    rounded to z's type), then `launch_attention`."""
     b, n, d = z.shape
     h, _, dh = wq.shape
     wt = check_mode("vita_msa_batched", z, wq, wk, wv, qkv_bias)
@@ -278,6 +348,19 @@ def launch_msa(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
         check(qkv_bias, "qkv_bias", wt, (3, h, dh))
     check(out, "out", z.dtype)
     bias, mask, n_w = window_operands(bias, mask, b=b, h=h, n=n)
+    packed = msa_packed_plan(n, d, h, dh, z.element_size(),
+                             wq.element_size())
+    if packed is not None:
+        if _trace.ON:
+            _trace.counted_msa(b * h * n,
+                               -(-b // packed.seqs) * packed.rows * h,
+                               packed=b * h * n)
+        build.call("vita_msa", "rt_vita_msa_packed", ptr(z), ptr(wq),
+                   ptr(wk), ptr(wv), ptr(qkv_bias), ptr(bias), ptr(mask),
+                   n_w, ptr(out), *out_strides, b, n, d, h, dh, dh ** -0.5,
+                   DTYPE_CODES[z.dtype], DTYPE_CODES[wt],
+                   (ctypes.c_int * len(packed))(*packed), _stream())
+        return out
     plan = msa_plan(n, dh, z.element_size(), wq.element_size())
     if _trace.ON:
         _trace.counted_msa(b * h * n, b * h * plan.cluster * plan.rows)

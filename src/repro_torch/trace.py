@@ -31,7 +31,11 @@ While it is on:
   the card) counts the query rows it is given, B' H N
   (``kernels.msa_rows``), and the rows its blocks span, B' H times the
   ``cluster`` x ``rows`` of its `msa_plan` (``kernels.msa_tile_rows``):
-  their ratio is the tile's padding.  Both come from shapes on the host.
+  their ratio is the tile's padding.  On the packed route
+  (`msa_packed_plan`) the blocks span ceil(B' / seqs) x ``rows`` x H, and
+  the query rows it is given count again as ``kernels.msa_packed_rows``,
+  so ``msa_packed_rows / msa_rows`` is the share it takes.  All come from
+  shapes on the host.
 
 Spans of the serving path (``a0`` / ``a1`` where they carry something):
 
@@ -105,6 +109,7 @@ class _State:
         self.launch_ns = 0
         self.msa_rows = 0
         self.msa_tile_rows = 0
+        self.msa_packed_rows = 0
         self.anchors: List[Tuple[int, int]] = []
         self.gc_open: List["_Span"] = []
 
@@ -256,12 +261,14 @@ def launched(ns: int) -> None:
         _S.launch_ns += ns
 
 
-def counted_msa(rows: int, tile_rows: int) -> None:
-    """Count one MSA tile's query rows and the rows its blocks span
-    (called by `kernels.vita_msa.launch_msa` only while tracing is on)."""
+def counted_msa(rows: int, tile_rows: int, packed: int = 0) -> None:
+    """Count one MSA tile's query rows, the rows its blocks span and, on
+    the packed route, its query rows again as ``packed`` (called by
+    `kernels.vita_msa.launch_msa` only while tracing is on)."""
     with _S.lock:
         _S.msa_rows += rows
         _S.msa_tile_rows += tile_rows
+        _S.msa_packed_rows += packed
 
 
 def _on_gc(phase: str, info: dict) -> None:
@@ -319,6 +326,7 @@ def reset() -> None:
         _S.launch_ns = 0
         _S.msa_rows = 0
         _S.msa_tile_rows = 0
+        _S.msa_packed_rows = 0
     _S.anchors = [_anchor()] if ON else []
 
 
@@ -326,7 +334,7 @@ def mark() -> Tuple[int, ...]:
     """Where the records and counters stand (for `rewind`)."""
     with _S.lock:
         return (_S.n, _S.launches, _S.launch_ns, _S.msa_rows,
-                _S.msa_tile_rows)
+                _S.msa_tile_rows, _S.msa_packed_rows)
 
 
 def rewind(at: Tuple[int, ...]) -> None:
@@ -334,19 +342,22 @@ def rewind(at: Tuple[int, ...]) -> None:
     returned ``at`` (no span begun since may still be open)."""
     with _S.lock:
         (_S.n, _S.launches, _S.launch_ns, _S.msa_rows,
-         _S.msa_tile_rows) = at
+         _S.msa_tile_rows, _S.msa_packed_rows) = at
 
 
 def counters() -> Dict[str, int]:
     """A snapshot: ``kernels.launches``, ``kernels.launch_ns``,
-    ``kernels.msa_rows``, ``kernels.msa_tile_rows``, ``spans`` stored and
-    ``dropped`` by the cap."""
+    ``kernels.msa_rows``, ``kernels.msa_tile_rows``,
+    ``kernels.msa_packed_rows``, ``spans`` stored and ``dropped`` by the
+    cap."""
     with _S.lock:
         n, launches, launch_ns = _S.n, _S.launches, _S.launch_ns
         msa_rows, msa_tile_rows = _S.msa_rows, _S.msa_tile_rows
+        msa_packed_rows = _S.msa_packed_rows
     return {"kernels.launches": launches, "kernels.launch_ns": launch_ns,
             "kernels.msa_rows": msa_rows,
             "kernels.msa_tile_rows": msa_tile_rows,
+            "kernels.msa_packed_rows": msa_packed_rows,
             "spans": min(n, _S.cap), "dropped": max(n - _S.cap, 0)}
 
 

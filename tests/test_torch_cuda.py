@@ -866,6 +866,56 @@ def test_vita_msa_batched_every_cluster_size(card, mode, n):
                    ref.vita_msa_batched_ref(z, *w, bi, ma, q), mode)
 
 
+# (B, N, D, H, Dh) on the packed tile (`vita_msa.msa_packed_plan`): TNT-S's
+# pixel stream at buckets 8 and 32 and a ragged B, TNT-B's published pixel
+# widths, N 32, 7 and 1, Dh 32, and an odd D and Dh (z and bf16 weights
+# copied by plain loads).
+_PACKED = [(1568, 16, 24, 4, 6), (6272, 16, 24, 4, 6), (1570, 16, 24, 4, 6),
+           (40, 16, 40, 4, 10), (12, 32, 24, 4, 6), (45, 7, 24, 4, 6),
+           (130, 1, 24, 4, 6), (16, 16, 32, 1, 32), (24, 16, 21, 3, 7)]
+
+
+@pytest.mark.parametrize("mode", ["fp32", "mixed"])
+@pytest.mark.parametrize("b,n,d,h,dh", _PACKED)
+def test_packed_msa_tile_matches_plain(card, mode, b, n, d, h, dh):
+    """Kernel 5 and kernel 1 (SA merged) on the packed tile, global and,
+    where nW 4 divides B, windowed, with and without qkv_bias, against
+    their plain versions at the bounds above."""
+    zt, wt = _MODES3[mode]
+    assert k_vita_msa.msa_packed_plan(n, d, h, dh, 4, wt.itemsize)
+    g = torch.Generator(device=card).manual_seed(13)
+
+    def r(*shape, s=1.0):
+        return (s * torch.randn(shape, generator=g, device=card)).to(wt)
+
+    w = [r(h, d, dh, s=d ** -0.5) for _ in range(3)]
+    qb = r(3, h, dh, s=0.2)
+    z = torch.randn((b, n, d), generator=g, device=card)
+    cases = [(None, None, None), (None, None, qb)]
+    if b % 4 == 0:
+        bias = 0.5 * torch.randn((h, n, n), generator=g, device=card)
+        mask = torch.where(torch.rand((4, n, n), generator=g, device=card)
+                           > 0.7, -1e30, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()
+        cases.append((bias, mask, qb))
+    for bi, ma, q in cases:
+        _close(k_vita_msa.vita_msa_batched(z, *w, bi, ma, q),
+               ref.vita_msa_batched_ref(z, *w, bi, ma, q), mode)
+    m = 4 * d
+    bp = {"wq": w[0], "wk": w[1], "wv": w[2],
+          "w_msa": r(h * dh, d, s=(h * dh) ** -0.5),
+          "ln1_w": 1 + r(d, s=0.1), "ln1_b": r(d, s=0.1),
+          "ln2_w": 1 + r(d, s=0.1), "ln2_b": r(d, s=0.1),
+          "w_up": r(d, m, s=d ** -0.5), "b_up": r(m, s=0.1),
+          "w_down": r(m, d, s=m ** -0.5), "b_down": r(d, s=0.1)}
+    f_args = [z] + [bp[k] for k in _ORDER]
+    _close(k_vita_layer.vita_layer(*f_args), ref.vita_layer_ref(*f_args),
+           mode)
+    if b % 4 == 0:
+        _close(k_vita_layer.vita_layer(*f_args, bias, mask),
+               ref.vita_layer_ref(*f_args, bias, mask), mode)
+
+
 @pytest.mark.parametrize("mode", sorted(_MODES3))
 @pytest.mark.parametrize("model", ["deit_t", "deit_t_196", "swin_t"])
 def test_vita_layer_tensor_core_tiles_match_plain_and_chain(card, mode,
@@ -1647,8 +1697,9 @@ def test_deit_s_served_on_the_card_matches_the_cpu(card, mode):
 
 def test_tnt_s_forward_counts_its_msa_tiles_rows(card):
     """TNT-S's widths at two layers, two images: each layer launches the
-    MSA tile on 392 sequences of 16 pixel tokens (4 heads of 6, one
-    64-row block each) and on 2 of 196 patches (6 heads of 64, four)."""
+    packed MSA tile on 392 sequences of 16 pixel tokens (4 heads of 6, 98
+    blocks of four sequences, no padded row) and the cluster tile on 2 of
+    196 patches (6 heads of 64, four 64-row blocks each)."""
     cfg = tnt.TNTConfig(name="tnt_s_rows", image=224, patch=16,
                         inner_patch=4, dim=384, inner_dim=24, heads=6,
                         inner_heads=4, layers=2, n_classes=10)
@@ -1669,4 +1720,5 @@ def test_tnt_s_forward_counts_its_msa_tiles_rows(card):
     trace.reset()
     assert [(s.a0, s.a1) for s in layers] == [(16, 392), (196, 2)] * 2
     assert c["kernels.msa_rows"] == 2 * (392 * 4 * 16 + 2 * 6 * 196)
-    assert c["kernels.msa_tile_rows"] == 2 * (392 * 4 * 64 + 2 * 6 * 256)
+    assert c["kernels.msa_tile_rows"] == 2 * (392 * 4 * 16 + 2 * 6 * 256)
+    assert c["kernels.msa_packed_rows"] == 2 * 392 * 4 * 16

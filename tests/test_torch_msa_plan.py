@@ -3,12 +3,22 @@ every shape the registry serves gets a cluster of at most 8 blocks whose
 row slices cover N exactly, within one H100 block's shared memory
 (232,448 bytes), in each dtype mode; every Dh up to 128 at N up to 577
 gets a plan, paged (the projection alone, then the attention tile) where
-K and V do not fit the cluster's blocks; shapes past the tiles raise."""
+K and V do not fit the cluster's blocks; shapes past the tiles raise.
+
+The packed tile's plan (`msa_packed_plan`): a layout exactly for fp32 z,
+N and Dh up to 32 and buffers within two blocks an SM (TNT-S's and
+TNT-B's pixel streams in fp32 and mixed; never bf16 z, DeiT-S, Swin-T or
+TNT-S's outer stream), whole sequences of at most 64 rows a block, its
+buffers apart; and `msa_plan` returns for every shape the plan it
+returned before the packed tile existed."""
+
+import hashlib
 
 import pytest
 
-from repro_torch.kernels.vita_msa import (SMEM_LIMIT, attention_plan,
-                                          msa_plan)
+from repro_torch.kernels.vita_msa import (SMEM_LIMIT, TWO_BLOCK_SMEM,
+                                          MsaPlan, attention_plan,
+                                          msa_packed_plan, msa_plan)
 from repro_torch.models import vision_registry
 
 # (z bytes, weight bytes) of the three dtype modes: fp32, mixed, bf16.
@@ -211,3 +221,157 @@ def test_local_shard_shapes_have_plans(model_axis):
             assert plan.a_chunk in (16, 8, 4, 1)
             assert plan.b_chunk in (16, 8, 4, 1)
             assert plan.tiles == -(-rows // 64) * -(-cols // 64)
+
+
+def _served_calls():
+    """(model, N, D, H, Dh) of every MSA call the registry's models make,
+    at full and reduced size (`_served_shapes` with the widths)."""
+    out = set()
+    for name in vision_registry.list_models():
+        for full in (True, False):
+            cfg = vision_registry.build_cfg(name, full=full)
+            if hasattr(cfg, "depths"):
+                for s in range(len(cfg.depths)):
+                    d = cfg.stage_dim(s)
+                    out.add((name, cfg.window ** 2, d, cfg.heads[s],
+                             d // cfg.heads[s]))
+            else:
+                out.add((name, cfg.tokens, cfg.dim, cfg.heads,
+                         cfg.head_dim))
+            if hasattr(cfg, "inner_tokens"):
+                out.add((name, cfg.inner_tokens, cfg.inner_dim,
+                         cfg.inner_heads, cfg.inner_head_dim))
+    return sorted(out)
+
+
+def _least_bytes(n, d, h, dh, w_size):
+    """The packed tile's buffers without any padding: z and the weights,
+    or SA's staging over them, then Q, K and V."""
+    rows = 64 // n * n
+    return (max(rows * d * 4 + d * 3 * h * dh * w_size, rows * h * dh * 4)
+            + rows * 3 * h * dh * 4)
+
+
+def _packed_ok(p, n, d, h, dh, w_size):
+    """The layout's invariants: whole sequences, at most 64 rows a block;
+    D and Dh padded to the MMA's 8, the product's columns to 16; z, the
+    weights, SA's staging and Q, K, V apart within two blocks an SM; Q, K
+    and V rows for every row the last sequence's query slices read."""
+    rm = -(-p.rows // 16) * 16
+    assert p.seqs == 64 // n and p.rows == p.seqs * n <= 64
+    assert p.seqs >= 2
+    assert p.kp == -(-d // 8) * 8 and p.dp == -(-dh // 8) * 8
+    assert p.cols == -(-3 * h * p.dp // 16) * 16
+    assert p.ldz >= p.kp and p.ldz % 32 in (8, 24)
+    assert p.ldq >= p.cols and p.ldq % 32 in (8, 24)
+    assert p.ldw >= p.cols
+    assert p.ldw % 16 == 4 if w_size == 4 else p.ldw % 32 in (8, 24)
+    assert p.qrows >= rm and p.qrows >= (p.seqs - 1) * n + -(-n // 16) * 16
+    assert p.w_off >= rm * p.ldz * 4 and p.w_off % 16 == 0
+    assert p.qkv_off >= p.w_off + p.kp * p.ldw * w_size
+    assert p.qkv_off >= p.rows * h * dh * 4 and p.qkv_off % 16 == 0
+    assert p.qkv_off + p.qrows * p.ldq * 4 <= p.smem <= TWO_BLOCK_SMEM
+    assert p.smem >= _least_bytes(n, d, h, dh, w_size)
+
+
+@pytest.mark.parametrize("z_size,w_size", _SIZES)
+@pytest.mark.parametrize("model,n,d,h,dh", _served_calls())
+def test_served_shapes_take_the_packed_tile_where_the_rule_says(
+        model, n, d, h, dh, z_size, w_size):
+    """fp32 z, N and Dh up to 32 and a layout within two blocks an SM:
+    the packed tile; anything else: the cluster tile, whose plan is the
+    one `msa_plan` gives.  Of the registry's short shapes only ViT-edge's
+    and reduced TNT's outer stream (N 16, D 96, 4 heads of 24) do not fit
+    two blocks an SM, even unpadded."""
+    p = msa_packed_plan(n, d, h, dh, z_size, w_size)
+    short = z_size == 4 and n <= 32 and dh <= 32
+    if p is not None:
+        assert short
+        _packed_ok(p, n, d, h, dh, w_size)
+    elif short:
+        assert (n, d, h, dh) == (16, 96, 4, 24)
+        assert _least_bytes(n, d, h, dh, w_size) > TWO_BLOCK_SMEM
+    assert msa_plan(n, dh, z_size, w_size).smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("z_size,w_size", _SIZES)
+def test_tnt_streams_and_deit_swin_routes(z_size, w_size):
+    """TNT-S's pixel stream (N 16, D 24, 4 heads of 6) and TNT-B's
+    published one (N 16, D 40, 4 heads of 10) pack four sequences a block
+    with fp32 z, and take the cluster tile with bf16 z; DeiT-S and TNT-S's
+    outer stream (N 196, D 384, 6 heads of 64) and Swin-T's windows (N 49)
+    never pack."""
+    for n, d, h, dh in ((16, 24, 4, 6), (16, 40, 4, 10)):
+        p = msa_packed_plan(n, d, h, dh, z_size, w_size)
+        if z_size == 2:
+            assert p is None
+        else:
+            _packed_ok(p, n, d, h, dh, w_size)
+            assert (p.seqs, p.rows, p.qrows) == (4, 64, 64)
+    tnt_s = msa_packed_plan(16, 24, 4, 6, z_size, w_size)
+    if z_size == 4:
+        assert (tnt_s.dp, tnt_s.cols, tnt_s.smem) == (
+            (8, 96, 42368) if w_size == 4 else (8, 96, 37760))
+    for n, d, h, dh in ((196, 384, 6, 64), (49, 96, 3, 32),
+                        (49, 768, 24, 32)):
+        assert msa_packed_plan(n, d, h, dh, z_size, w_size) is None
+
+
+@pytest.mark.parametrize("w_size", [4, 2])
+@pytest.mark.parametrize("n,d,h,dh,packed", [
+    (1, 24, 4, 6, (1, 1)), (7, 24, 4, 6, (1, 1)), (17, 24, 4, 6, (1, 1)),
+    (32, 24, 4, 6, (1, 1)), (33, 24, 4, 6, (0, 0)),
+    (16, 32, 1, 32, (1, 1)), (32, 32, 1, 32, (1, 1)),
+    (16, 33, 1, 33, (0, 0)), (16, 64, 2, 32, (0, 1)),
+    (32, 64, 2, 32, (0, 1)), (16, 96, 4, 24, (0, 0)),
+    (16, 384, 6, 64, (0, 0))])
+def test_packed_plan_edges(n, d, h, dh, packed, w_size):
+    """N 1, 7, 17 and 32 pack (64, 9, 3 and 2 sequences a block), N 33
+    does not; Dh 32 packs where the buffers fit two blocks an SM (with
+    bf16 weights at D 64, 2 heads; with fp32 ones W's 50 KB do not), Dh
+    33 never."""
+    p = msa_packed_plan(n, d, h, dh, 4, w_size)
+    assert (p is not None) == bool(packed[w_size == 2])
+    if p is not None:
+        _packed_ok(p, n, d, h, dh, w_size)
+        assert p.seqs == {1: 64, 7: 9, 17: 3, 32: 2}.get(n, 4)
+
+
+@pytest.mark.parametrize("b", [1, 3, 4, 1568, 1570, 6272])
+def test_packed_blocks_cover_a_ragged_batch(b):
+    """ceil(B / G) blocks of G sequences cover B, the last one ragged by
+    fewer than G sequences (what `kernels.msa_tile_rows` counts)."""
+    p = msa_packed_plan(16, 24, 4, 6)
+    blocks = -(-b // p.seqs)
+    assert (blocks - 1) * p.seqs < b <= blocks * p.seqs
+    assert blocks * p.rows - b * 16 < p.rows
+
+
+# msa_plan's fields at the registry's main shapes, and a digest of every
+# plan over N 1-69 and the served sizes past it, Dh 1-128, each dtype mode
+# (None where it raises), as they were before the packed tile.
+_PLANS = {(16, 6): MsaPlan(32, 64, 1, 16, 40, 23040, 3, 0, 10240, 20480,
+                           29696, 34816, 10240, 79360, 0),
+          (196, 64): MsaPlan(64, 64, 4, 208, 232, 35328, 4, 0, 18432,
+                             92160, 161792, 191488, 18432, 191488, 0),
+          (49, 32): MsaPlan(32, 64, 1, 64, 72, 23040, 3, 0, 10240, 20480,
+                            29696, 38912, 10240, 79360, 0)}
+_PLAN_DIGEST = ("e287817e66628c55eaf088196aac9241f01b5d8f43ed5ef0c289478a1f42"
+                "d91d")
+
+
+def test_msa_plan_is_unchanged():
+    for (n, dh), want in _PLANS.items():
+        assert msa_plan(n, dh, 4, 4) == want
+    h = hashlib.sha256()
+    for zs, ws in _SIZES:
+        for dh in range(1, 129):
+            for n in list(range(1, 70)) + [196, 197, 256, 257, 512, 513,
+                                           576, 577, 704]:
+                try:
+                    p = tuple(msa_plan(n, dh, zs, ws))
+                except ValueError:
+                    p = None
+                h.update(repr((n, dh, zs, ws, p)).encode())
+    assert h.hexdigest() == _PLAN_DIGEST
+

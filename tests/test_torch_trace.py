@@ -12,8 +12,9 @@
   their host ns; the admission layer's latency probes leave nothing.
 * A TNT forward's kernel-1 spans carry each stream's shape, inner then
   outer; `vita_msa.launch_msa` counts its tile's rows and padded rows
-  from its plan (the launch itself stubbed out), and the CPU's plain
-  path, which launches no tile, counts none.
+  from its plan, and on the packed route (TNT-S's pixel stream) its rows
+  again as packed rows (the launch itself stubbed out), and the CPU's
+  plain path, which launches no tile, counts none.
 * Under the CPU `torch.profiler` each span has one range of its name, in
   the same order, and `to_trace_clock` places each span's start within
   0.5 ms of its range's start.
@@ -98,6 +99,7 @@ def test_off_a_micro_batch_leaves_no_record_and_no_range(tracer,
     assert trace.counters() == {"kernels.launches": 0, "kernels.launch_ns": 0,
                                 "kernels.msa_rows": 0,
                                 "kernels.msa_tile_rows": 0,
+                                "kernels.msa_packed_rows": 0,
                                 "spans": 0, "dropped": 0}
     assert all(r.batch is None for r in reqs)
 
@@ -306,33 +308,40 @@ def test_a_tnt_forward_tells_the_two_streams_apart(tracer):
     # the plain path launches no MSA tile
     c = trace.counters()
     assert c["kernels.msa_rows"] == c["kernels.msa_tile_rows"] == 0
+    assert c["kernels.msa_packed_rows"] == 0
 
 
-@pytest.mark.parametrize("n,d,h,dh,blocks", [(16, 24, 4, 6, 1),
-                                             (196, 384, 6, 64, 4)])
+@pytest.mark.parametrize("n,d,h,dh,b,tile_rows,packed", [
+    (16, 24, 4, 6, 3, 4 * 64, True),            # one packed block
+    (16, 24, 4, 6, 1570, 393 * 64 * 4, True),   # 393 blocks, the last ragged
+    (196, 384, 6, 64, 3, 3 * 6 * 4 * 64, False)])
 def test_launch_msa_counts_its_plans_rows(tracer, monkeypatch, n, d, h, dh,
-                                          blocks):
-    """At TNT-S's inner and outer shapes the tile gives each (sequence,
-    head) ``blocks`` blocks of 64 rows."""
+                                          b, tile_rows, packed):
+    """At TNT-S's inner shape the packed tile's blocks span ceil(B / 4)
+    x 64 rows for each head, and its query rows count again as packed
+    rows; at the outer shape the cluster tile gives each (sequence, head)
+    four blocks of 64 rows, and nothing counts as packed.  Nothing counts
+    while the tracer is off."""
     from repro_torch.kernels import vita_msa
     monkeypatch.setattr(vita_msa, "check", lambda *a, **k: None)
     monkeypatch.setattr(vita_msa, "_stream", lambda: 0)
     monkeypatch.setattr(build, "call", lambda *a, **k: None)
-    b = 3
     z = torch.zeros((b, n, d))
     w = torch.zeros((h, d, dh))
     out = torch.empty((b, n, h * dh))
-    plan = vita_msa.msa_plan(n, dh)
-    assert not plan.paged and plan.cluster * plan.rows == 64 * blocks
+    assert (vita_msa.msa_packed_plan(n, d, h, dh) is not None) == packed
     vita_msa.launch_msa(z, w, w, w, out, (n * h * dh, h * dh, dh))
-    assert trace.counters()["kernels.msa_rows"] == 0
+    c = trace.counters()
+    assert c["kernels.msa_rows"] == c["kernels.msa_tile_rows"] == 0
+    assert c["kernels.msa_packed_rows"] == 0
     trace.enable(cap=100)
     vita_msa.launch_msa(z, w, w, w, out, (n * h * dh, h * dh, dh))
     vita_msa.launch_msa(z, w, w, w, out, (n * h * dh, h * dh, dh))
     trace.disable()
     c = trace.counters()
     assert c["kernels.msa_rows"] == 2 * b * h * n
-    assert c["kernels.msa_tile_rows"] == 2 * b * h * 64 * blocks
+    assert c["kernels.msa_tile_rows"] == 2 * tile_rows
+    assert c["kernels.msa_packed_rows"] == (2 * b * h * n if packed else 0)
 
 
 def test_off_a_tnt_forward_records_and_counts_nothing(tracer):
@@ -343,17 +352,19 @@ def test_off_a_tnt_forward_records_and_counts_nothing(tracer):
     assert len(trace.records()) == 0
     c = trace.counters()
     assert c["kernels.msa_rows"] == c["kernels.msa_tile_rows"] == 0
+    assert c["kernels.msa_packed_rows"] == 0
 
 
 def test_rewind_takes_back_the_msa_rows(tracer):
     trace.enable(cap=100)
-    trace.counted_msa(10, 40)
+    trace.counted_msa(10, 40, packed=10)
     at = trace.mark()
-    trace.counted_msa(5, 64)
+    trace.counted_msa(5, 64, packed=5)
     trace.rewind(at)
     trace.disable()
     c = trace.counters()
-    assert (c["kernels.msa_rows"], c["kernels.msa_tile_rows"]) == (10, 40)
+    assert (c["kernels.msa_rows"], c["kernels.msa_tile_rows"],
+            c["kernels.msa_packed_rows"]) == (10, 40, 10)
 
 
 def _profiled_events(prof, prefix="vita."):
