@@ -2334,7 +2334,7 @@ def mlp_plan(tag: str, x, w1, w2) -> None:
     """Print the fused MLP's launch plan for x against (w1, w2): the
     regime (library) and the hidden splits, planned and fewest."""
     from repro_torch.kernels import fused_mlp as fm
-    from repro_torch.kernels.int8_matmul import DTYPE_CODES
+    from repro_torch.kernels.build import DTYPE_CODES
 
     d, (m, d_out) = x.shape[-1], w2.shape
     rows, code = x.numel() // d, DTYPE_CODES[x.dtype]
@@ -2387,20 +2387,15 @@ def msa_plan_line(tag: str, z, wq) -> None:
 def attention_plan_line(tag: str, b: int, h: int, n: int, dh: int) -> None:
     """Print the attention tile's plan for B images of H heads of N
     tokens of Dh: the blocks, the blocks an SM holds and the layout."""
-    import ctypes
-
     from repro_torch.kernels import build
     from repro_torch.kernels import vita_msa as vm
-    from repro_torch.kernels.int8_matmul import sm_count
 
     p = vm.attention_plan(n, dh)
-    per_sm = ctypes.c_int(0)
-    build.call("attention", "rt_attention_blocks_per_sm", p.dp, p.smem,
-               ctypes.byref(per_sm))
-    blocks, sms = b * h * -(-n // p.rows), sm_count(0)
+    per_sm = build.blocks_per_sm("attention", "attention", p.dp, p.smem)
+    blocks, sms = b * h * -(-n // p.rows), build.sm_count(0)
     print(f"[plan] attention {tag} N={n} Dh={dh}: {blocks} blocks of "
-          f"{vm.ATT_THREADS} threads, {per_sm.value} blocks an SM "
-          f"({blocks / (sms * per_sm.value):.2f} waves on {sms} SMs); "
+          f"{vm.ATT_THREADS} threads, {per_sm} blocks an SM "
+          f"({blocks / (sms * per_sm):.2f} waves on {sms} SMs); "
           f"{plan_fields(p)}")
 
 
@@ -2443,12 +2438,13 @@ def int8_group_plan_line(tag: str, i_args) -> None:
     blocks an SM holds, the shared memory, and per stage the tiles, the k
     groups (2: one tile a block; 1: two a block, one a half) and the
     waves."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import vita_layer_group as vg
-    from repro_torch.kernels.int8_matmul import DTYPE_CODES
 
-    vt = DTYPE_CODES[i_args[-1].dtype]
+    vt = build.DTYPE_CODES[i_args[-1].dtype]
     p = vg.int8_plan_for(*i_args[:7], vt)
-    per_sm = vg._int8_blocks_per_sm(vt, p.smem)
+    per_sm = build.blocks_per_sm("vita_layer_group", "vita_layer_group_int8",
+                                 vt, p.smem)
     print(f"[plan] vita_layer_group_int8 {tag}: grid {p.grid} x {p.threads} "
           f"threads, {per_sm} blocks an SM, {p.smem} bytes of shared memory "
           f"a block; attention tile {plan_fields(p.att)}; " + "; ".join(

@@ -1,4 +1,9 @@
-"""Build and load the port's CUDA kernels (plain C interface + ctypes).
+"""The kernels' launch layer: build, load and `call` the port's CUDA
+kernels (plain C interface + ctypes), with what every launch shares: the
+argument `check`, `ptr`, `dtype_code`, `ints`, `stream`, `query`, and the
+card's shared memory (`SMEM_LIMIT`, `TWO_BLOCK_SMEM`), `sm_count` and
+`blocks_per_sm`.  Kernel modules take these from here, never from one
+another.
 
 Each ``csrc/<name>.cu`` compiles with its own ``nvcc`` into
 ``build/repro_torch/<name>-<hash>.so`` at the checkout's root, where the
@@ -11,6 +16,7 @@ import: the first launch of a kernel builds it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -18,7 +24,9 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
+
+import torch
 
 from repro_torch import trace as _trace
 
@@ -31,6 +39,20 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 F = ctypes.c_float
+
+# Shared memory one block may use on an H100 (bytes); the most each of
+# two resident blocks may use (an SM's 233,472 bytes, less the 1,024 the
+# card keeps for each block).
+SMEM_LIMIT = 232448
+TWO_BLOCK_SMEM = 233472 // 2 - 1024
+
+# Element-type codes of the kernels' C interfaces (csrc/common.cuh's
+# ElemCode).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# What `call` counts while tracing is on (`repro_torch.trace`).
+_LAUNCHES = _trace.counter("kernels.launches")
+_LAUNCH_NS = _trace.counter("kernels.launch_ns")
 
 # C signature of every entry point: (library, symbol) -> argtypes.
 SIGNATURES = {
@@ -68,6 +90,47 @@ SIGNATURES = {
 LIBRARIES = tuple(sorted({lib for lib, _ in SIGNATURES}))
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def dtype_code(name: str, t: torch.Tensor) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: float32 or bfloat16 inputs only, got "
+                        f"{t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def stream() -> int:
+    """The current CUDA stream, as the C entries take it."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def ints(values) -> ctypes.Array:
+    """``values`` (a plan's ints) as the C int array the entries take."""
+    return (ctypes.c_int * len(values))(*values)
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
+    ``shape``, where given)."""
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _nvcc() -> str:
@@ -144,14 +207,35 @@ def library(name: str) -> ctypes.CDLL:
 
 def call(name: str, sym: str, *args) -> None:
     """Launch ``sym`` from library ``name`` and raise if CUDA reported an
-    error for the launch.  While tracing is on, counts the launch and the
-    host time inside the ``ctypes`` call (`repro_torch.trace`)."""
+    error for the launch.  While tracing is on, counts the launch
+    (``kernels.launches``) and the host time inside the ``ctypes`` call,
+    argument marshalling included (``kernels.launch_ns``)."""
     fn = getattr(library(name), sym)
     if _trace.ON:
         t = time.perf_counter_ns()
         err = fn(*args)
-        _trace.launched(time.perf_counter_ns() - t)
+        ns = time.perf_counter_ns() - t
+        _trace.count(_LAUNCHES)
+        _trace.count(_LAUNCH_NS, ns)
     else:
         err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{sym} failed to launch: CUDA error {err}")
+
+
+def query(name: str, sym: str, *args) -> int:
+    """`call` ``sym``, an entry that writes one int through its last
+    argument (a plan's splits, an occupancy), and return that int."""
+    out = ctypes.c_int(0)
+    call(name, sym, *args, ctypes.byref(out))
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(name: str, kernel: str, *args: int) -> int:
+    """Blocks of ``kernel`` one SM holds (the card's occupancy calculator,
+    through library ``name``'s ``rt_<kernel>_blocks_per_sm``)."""
+    per_sm = query(name, f"rt_{kernel}_blocks_per_sm", *args)
+    if per_sm < 1:
+        raise RuntimeError(f"{kernel}: not one block fits on an SM")
+    return per_sm

@@ -25,13 +25,12 @@ chosen by `ops`.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from . import build
-from .int8_matmul import DTYPE_CODES, _stream, check, dtype_code, ptr
+from .build import DTYPE_CODES, check, dtype_code, ptr, stream
 from .ref import ACTIVATION_CODES, act_fn, check_mode
 
 
@@ -49,10 +48,8 @@ def hidden_splits(rows: int, d: int, m: int, d_out: int, code: int,
     asks for about that many instead (the fewest the kernel takes at 1),
     which measures what the split buys."""
     lib = _library(rows)
-    splits = ctypes.c_int(1)
-    build.call(lib, f"rt_{lib}_splits", rows, d, m, d_out, code, requested,
-               ctypes.byref(splits))
-    return splits.value
+    return build.query(lib, f"rt_{lib}_splits", rows, d, m, d_out, code,
+                       requested)
 
 
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -88,5 +85,5 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     build.call(lib, f"rt_{lib}", ptr(x), ptr(w1), ptr(b1), ptr(w_gate),
                ptr(w2), ptr(b2), ptr(out), ptr(partial), rows, d, m, d_out,
                ACTIVATION_CODES[activation], splits, code, DTYPE_CODES[wt],
-               _stream())
+               stream())
     return out

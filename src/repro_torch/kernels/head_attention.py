@@ -16,15 +16,13 @@ functions take CUDA tensors only; the plain versions are
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from . import build
-from .int8_matmul import _stream, check, dtype_code, ptr
-from .vita_msa import SMEM_LIMIT
+from .build import check, dtype_code, ptr, stream
 
 MAX_HEAD_DIM = 256
 MAX_GROUP = 16        # query rows of one decode tile (Hq / Hkv)
@@ -33,7 +31,7 @@ MAX_GROUP = 16        # query rows of one decode tile (Hq / Hkv)
 # group) where Nq <= 16, the same above), the fastest that fit at
 # RecurrentGemma-2B's (Dh 256) and stablelm-3b's (Dh 80) prefills
 # (csrc/flash_attention.cu's note); each layout fits one block's
-# SMEM_LIMIT.
+# `build.SMEM_LIMIT`.
 FLASH_WARP_ROWS = 16
 FLASH_TILES = {(2, 128): ((16, 1, 4), (64, 4, 1)),
                (2, 256): ((16, 1, 4), (64, 8, 1)),
@@ -181,7 +179,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                ptr(v), ptr(out), b, hq, hkv, nq, nk, dh,
                dh ** -0.5 if scale is None else scale, int(causal),
                window or 0, q_offset, code,
-               (ctypes.c_int * len(plan))(*plan), _stream())
+               build.ints(plan), stream())
     return out
 
 
@@ -190,10 +188,8 @@ def decode_splits(batch: int, kv_heads: int, slots: int) -> int:
     sequences of ``kv_heads`` KV heads over ``slots`` cache slots (about
     one block per SM, at most one per 32-key tile), which size the
     float32 workspace of the split partials."""
-    splits = ctypes.c_int(1)
-    build.call("decode_attention", "rt_decode_attention_splits", batch,
-               kv_heads, slots, 0, ctypes.byref(splits))
-    return splits.value
+    return build.query("decode_attention", "rt_decode_attention_splits",
+                       batch, kv_heads, slots, 0)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -222,5 +218,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     build.call("decode_attention", "rt_decode_attention", ptr(q),
                ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(out), ptr(ws),
                b, hq, hkv, s, dh, dh ** -0.5 if scale is None else scale,
-               splits, code, _stream())
+               splits, code, stream())
     return out

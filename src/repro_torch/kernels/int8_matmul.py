@@ -14,47 +14,13 @@ These functions take CUDA tensors only: the plain version for the CPU is
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from . import build
-
-
-# Element-type codes of the kernels' C interfaces (csrc/common.cuh's
-# ElemCode).
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def dtype_code(name: str, t: torch.Tensor) -> int:
-    if t.dtype not in DTYPE_CODES:
-        raise TypeError(f"{name}: float32 or bfloat16 inputs only, got "
-                        f"{t.dtype}")
-    return DTYPE_CODES[t.dtype]
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
-    ``shape``, where given)."""
-    if not isinstance(t, torch.Tensor) or not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+from .build import check, dtype_code, ptr, sm_count, stream
 
 
 def b_layout(w: torch.Tensor):
@@ -140,12 +106,6 @@ def gemm_i8_plan(m: int, n: int, k: int, *, ldb: int, grp: int,
                   -(-tiles // sms))
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """The number of SMs of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def plan_for(a: torch.Tensor, w: torch.Tensor) -> I8Plan:
     """`gemm_i8_plan` of a (M, K) int8 against ``w`` ((K, N) or a per-head
     (H, K, Dh) stack, `b_layout`) on their card."""
@@ -191,8 +151,7 @@ def launch_gemm_i8(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
     build.call("gemm_i8", "rt_gemm_i8", ptr(a), k, ptr(w), ldb, grp,
                grp_stride, ptr(out), n, kind, m, n, k, ptr(x_scale),
                ptr(w_scale), ptr(bias), ptr(res), n, int(gelu),
-               ptr(out_scale), bias_code, (ctypes.c_int * 6)(*plan),
-               _stream())
+               ptr(out_scale), bias_code, build.ints(plan), stream())
     return out
 
 

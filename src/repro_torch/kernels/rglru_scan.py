@@ -16,14 +16,13 @@ the next.  This function takes CUDA tensors only; the plain version is
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from . import build
-from .int8_matmul import _stream, check, dtype_code, ptr
+from .build import check, dtype_code, ptr, stream
 
 # csrc/rglru_scan.cu: bytes of a chunk's row of a (and of b; 32 fp32
 # steps, 64 bf16), channels a chunk block, threads a walk block.
@@ -88,8 +87,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
         flags = _flags(a.device, 1 + plan.chunks * plan.runs)
         vals = torch.empty(plan.scratch, device=a.device, dtype=torch.uint8)
     build.call("rglru_scan", "rt_rglru_scan", ptr(a), ptr(b), ptr(out), bsz,
-               t, w, code, (ctypes.c_int * len(plan))(*plan), ptr(flags),
-               ptr(vals), _stream())
+               t, w, code, build.ints(plan), ptr(flags), ptr(vals), stream())
     return out
 
 

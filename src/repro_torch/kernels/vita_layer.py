@@ -73,8 +73,8 @@ from typing import Optional
 import torch
 
 from . import build
-from .int8_matmul import (DTYPE_CODES, _stream, check, dtype_code,
-                          launch_gemm_i8, ptr)
+from .build import DTYPE_CODES, check, dtype_code, ptr, stream
+from .int8_matmul import launch_gemm_i8
 from .ref import check_mode, psum
 from .vita_msa import launch_attention, launch_msa
 
@@ -96,7 +96,7 @@ def launch_layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         check(q_scale, "q_scale", torch.float32, (1,))
     build.call("layer_norm", "rt_layer_norm", ptr(x), ptr(w), ptr(b),
                ptr(out), rows, d, eps, ptr(q_scale), DTYPE_CODES[x.dtype],
-               DTYPE_CODES[vt], _stream())
+               DTYPE_CODES[vt], stream())
     return out
 
 
@@ -123,7 +123,7 @@ def launch_mma_gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
         check(res, "res", res.dtype, (m, n))
     build.call("mma_gemm", "rt_mma_gemm", ptr(a), k, ptr(w), n, ptr(out), n,
                m, n, k, ptr(bias), ptr(res), n, int(gelu), wt, rt, ot,
-               _stream())
+               stream())
     return out
 
 

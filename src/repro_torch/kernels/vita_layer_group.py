@@ -36,7 +36,6 @@ take CUDA tensors only; the plain versions are `ref.vita_layer_group_ref` /
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import NamedTuple, Optional
@@ -44,11 +43,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import build
-from .int8_matmul import (DTYPE_CODES, I8_STAGES, I8_TILE, _stream, _width,
-                          check, ptr, sm_count)
+from .build import DTYPE_CODES, check, ptr, sm_count, stream
+from .int8_matmul import I8_STAGES, I8_TILE, _width
 from .ref import check_mode
 from .vita_msa import (ATT_THREADS, AttentionPlan, MsaPlan, attention_plan,
-                       msa_plan)
+                       msa_plan, window_operands)
 
 _ALIGN = 256
 LN_EPS = 1e-5
@@ -147,18 +146,6 @@ def group_plan(b: int, n: int, d: int, h: int, dh: int, m: int,
                            for st, r in zip(stages, per_round)))
 
 
-@functools.lru_cache(maxsize=None)
-def _blocks_per_sm(xt: int, wt: int, dp: int, smem: int) -> int:
-    """Blocks of the float group kernel one SM holds (the card's occupancy
-    calculator, through the library)."""
-    out = ctypes.c_int(0)
-    build.call("vita_layer_group", "rt_vita_layer_group_blocks_per_sm", xt,
-               wt, dp, smem, ctypes.byref(out))
-    if out.value < 1:
-        raise RuntimeError("vita_layer_group: not one block fits on an SM")
-    return out.value
-
-
 def plan_for(x: torch.Tensor, wq: torch.Tensor, m: int) -> GroupPlan:
     """`group_plan` of x (B, N, D) against the (L, H, D, Dh) stack on
     their card, sized by the card's occupancy."""
@@ -166,8 +153,9 @@ def plan_for(x: torch.Tensor, wq: torch.Tensor, m: int) -> GroupPlan:
     _, h, _, dh = wq.shape
     w_size = wq.element_size()
     first = group_plan(b, n, d, h, dh, m, w_size, 1, 1)
-    per_sm = _blocks_per_sm(DTYPE_CODES[x.dtype], DTYPE_CODES[wq.dtype],
-                            first.kernel_dp, first.smem)
+    per_sm = build.blocks_per_sm("vita_layer_group", "vita_layer_group",
+                                 DTYPE_CODES[x.dtype], DTYPE_CODES[wq.dtype],
+                                 first.kernel_dp, first.smem)
     return group_plan(b, n, d, h, dh, m, w_size,
                       sm_count(x.device.index or 0), per_sm)
 
@@ -271,18 +259,6 @@ def int8_group_plan(b: int, n: int, d: int, h: int, dh: int, m: int,
                          max(INT8_GROUP_RING, att.smem), tuple(out), att)
 
 
-@functools.lru_cache(maxsize=None)
-def _int8_blocks_per_sm(vt: int, smem: int) -> int:
-    """Blocks of the int8 group kernel one SM holds."""
-    out = ctypes.c_int(0)
-    build.call("vita_layer_group", "rt_vita_layer_group_int8_blocks_per_sm",
-               vt, smem, ctypes.byref(out))
-    if out.value < 1:
-        raise RuntimeError("vita_layer_group_int8: not one block fits on an "
-                           "SM")
-    return out.value
-
-
 def int8_plan_for(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                   wv: torch.Tensor, w_msa: torch.Tensor, w_up: torch.Tensor,
                   w_down: torch.Tensor, vt: int) -> Int8GroupPlan:
@@ -294,7 +270,8 @@ def int8_plan_for(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     align = (math.gcd(*(t.data_ptr() % 16 for t in (wq, wk, wv))),) + tuple(
         t.data_ptr() % 16 for t in (w_msa, w_up, w_down))
     first = int8_group_plan(b, n, d, h, dh, m, 1, 1, align)
-    per_sm = _int8_blocks_per_sm(vt, first.smem)
+    per_sm = build.blocks_per_sm("vita_layer_group", "vita_layer_group_int8",
+                                 vt, first.smem)
     return int8_group_plan(b, n, d, h, dh, m, sm_count(x.device.index or 0),
                            per_sm, align)
 
@@ -334,17 +311,7 @@ def _check_common(x, wq, w_msa, w_up, w_down, vecs_d, b_up, bias, mask,
     for t, nm in vecs_d:
         check(t, nm, vdtype, (n_l, d))
     check(b_up, "b_up", vdtype, (n_l, m))
-    if (bias is None) != (mask is None):
-        raise ValueError("windowed mode needs both bias and mask (pass a "
-                         "zero mask for unshifted blocks)")
-    n_w = 1
-    if bias is not None:
-        check(bias, "bias", torch.float32, (n_l, h, n, n))
-        check(mask, "mask", torch.float32)
-        n_w = mask.shape[0]
-        if tuple(mask.shape) != (n_w, n, n) or n_w == 0 or b % n_w:
-            raise ValueError(f"mask has shape {tuple(mask.shape)}; expected "
-                             f"(nW, {n}, {n}) with nW dividing the batch {b}")
+    _, _, n_w = window_operands(bias, mask, b=b, n=n, heads=(n_l, h))
     return b, n, d, n_l, h, dh, m, n_w
 
 
@@ -374,7 +341,7 @@ def vita_layer_group(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
                ptr(b_down), ptr(bias), ptr(mask), ptr(out),
                *(ptr(t) for t in ws[1:]), ptr(ws[0]), b, n, d, h, dh, m, n_l,
                n_w, dh ** -0.5, LN_EPS, DTYPE_CODES[x.dtype],
-               DTYPE_CODES[wt], (ctypes.c_int * len(plan))(*plan), _stream())
+               DTYPE_CODES[wt], build.ints(plan), stream())
     return out
 
 
@@ -424,5 +391,5 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
                ptr(b_down), ptr(bias), ptr(mask), ptr(out),
                *(ptr(t) for t in ws[1:]), ptr(ws[0]), b, n, d, h, dh, m, n_l,
                n_w, dh ** -0.5, LN_EPS, DTYPE_CODES[vt],
-               (ctypes.c_int * len(plan))(*plan), _stream())
+               build.ints(plan), stream())
     return out

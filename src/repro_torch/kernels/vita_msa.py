@@ -37,7 +37,6 @@ by `ops` for CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Optional
 
@@ -46,14 +45,16 @@ import torch
 from repro_torch import trace as _trace
 
 from . import build
-from .int8_matmul import DTYPE_CODES, _stream, check, launch_gemm_i8, ptr
+from .build import (DTYPE_CODES, SMEM_LIMIT, TWO_BLOCK_SMEM, check, ptr,
+                    stream)
+from .int8_matmul import launch_gemm_i8
 from .ref import check_mode
 
-# Shared memory one block may use on an H100 (bytes); the most each of
-# two resident blocks may use (an SM's 233,472 bytes, less the 1,024 the
-# card keeps for each block).
-SMEM_LIMIT = 232448
-TWO_BLOCK_SMEM = 233472 // 2 - 1024
+# What `launch_msa` counts while tracing is on (`repro_torch.trace`).
+_COUNT_ROWS = _trace.counter("kernels.msa_rows")
+_COUNT_TILE_ROWS = _trace.counter("kernels.msa_tile_rows")
+_COUNT_PACKED_ROWS = _trace.counter("kernels.msa_packed_rows")
+
 _MSA_ROWS, _MSA_SUB, _MSA_WARPS, _MSA_MAX_CLUSTER = 64, 32, 16, 8
 _MSA_MIN_STAGES, _MSA_MAX_STAGES = 3, 8
 # The widest head either tile takes (padded to DP 128).
@@ -279,15 +280,16 @@ def attention_plan(n: int, dh: int) -> AttentionPlan:
                          q_off=0, s_off=qb, ring_off=qb + sb, smem=smem)
 
 
-def window_operands(bias, mask, *, b: int, h: int, n: int):
-    """Check the windowed-mode operands and return (bias, mask, nW);
-    (None, None, 1) in global mode."""
+def window_operands(bias, mask, *, b: int, n: int, heads):
+    """Check the windowed-mode operands, ``bias`` (*heads, N, N) with
+    ``heads`` (H,) (a layer group's: (L, H)) and ``mask`` (nW, N, N), and
+    return (bias, mask, nW); (None, None, 1) in global mode."""
     if (bias is None) != (mask is None):
         raise ValueError("windowed mode needs both bias and mask (pass a "
                          "zero mask for unshifted blocks)")
     if bias is None:
         return None, None, 1
-    check(bias, "bias", torch.float32, (h, n, n))
+    check(bias, "bias", torch.float32, (*heads, n, n))
     check(mask, "mask", torch.float32)
     n_w = mask.shape[0]
     if tuple(mask.shape) != (n_w, n, n) or n_w == 0 or b % n_w:
@@ -315,14 +317,14 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           else torch.bfloat16 if bf16 else torch.float32)
     if out_scale is not None:
         check(out_scale, "out_scale", torch.float32, (1,))
-    bias, mask, n_w = window_operands(bias, mask, b=b, h=h, n=n)
+    bias, mask, n_w = window_operands(bias, mask, b=b, n=n, heads=(h,))
     plan = attention_plan(n, dh)
     sb, sn, sh = in_strides
     ob, on, oh = out_strides
     build.call("attention", "rt_attention", ptr(q), ptr(k), ptr(v), sb, sn,
                sh, ptr(out), ob, on, oh, b, h, n, dh, dh ** -0.5,
                ptr(out_scale), ptr(bias), ptr(mask), n_w, int(bf16),
-               (ctypes.c_int * len(plan))(*plan), _stream())
+               build.ints(plan), stream())
     return out
 
 
@@ -337,7 +339,16 @@ def launch_msa(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     in the weights' dtype, is optional.  Where `msa_packed_plan` gives a
     layout the packed tile runs; otherwise `msa_plan`'s, and a paged plan
     takes two launches: the projection into Q, K, V workspace (fp32, V
-    rounded to z's type), then `launch_attention`."""
+    rounded to z's type), then `launch_attention`.
+
+    While tracing is on, each call counts the query rows it is given, B
+    H N (``kernels.msa_rows``), and the rows its blocks span, B H times
+    the ``cluster`` x ``rows`` of its `msa_plan`
+    (``kernels.msa_tile_rows``): their ratio is the tile's padding.  On
+    the packed route the blocks span ceil(B / seqs) x ``rows`` x H, and
+    the query rows it is given count again as
+    ``kernels.msa_packed_rows``, so ``msa_packed_rows / msa_rows`` is the
+    share it takes.  All come from shapes on the host."""
     b, n, d = z.shape
     h, _, dh = wq.shape
     wt = check_mode("vita_msa_batched", z, wq, wk, wv, qkv_bias)
@@ -347,24 +358,26 @@ def launch_msa(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     if qkv_bias is not None:
         check(qkv_bias, "qkv_bias", wt, (3, h, dh))
     check(out, "out", z.dtype)
-    bias, mask, n_w = window_operands(bias, mask, b=b, h=h, n=n)
+    bias, mask, n_w = window_operands(bias, mask, b=b, n=n, heads=(h,))
     packed = msa_packed_plan(n, d, h, dh, z.element_size(),
                              wq.element_size())
     if packed is not None:
         if _trace.ON:
-            _trace.counted_msa(b * h * n,
-                               -(-b // packed.seqs) * packed.rows * h,
-                               packed=b * h * n)
+            _trace.count(_COUNT_ROWS, b * h * n)
+            _trace.count(_COUNT_TILE_ROWS,
+                         -(-b // packed.seqs) * packed.rows * h)
+            _trace.count(_COUNT_PACKED_ROWS, b * h * n)
         build.call("vita_msa", "rt_vita_msa_packed", ptr(z), ptr(wq),
                    ptr(wk), ptr(wv), ptr(qkv_bias), ptr(bias), ptr(mask),
                    n_w, ptr(out), *out_strides, b, n, d, h, dh, dh ** -0.5,
                    DTYPE_CODES[z.dtype], DTYPE_CODES[wt],
-                   (ctypes.c_int * len(packed))(*packed), _stream())
+                   build.ints(packed), stream())
         return out
     plan = msa_plan(n, dh, z.element_size(), wq.element_size())
     if _trace.ON:
-        _trace.counted_msa(b * h * n, b * h * plan.cluster * plan.rows)
-    ints = (ctypes.c_int * len(plan))(*plan)
+        _trace.count(_COUNT_ROWS, b * h * n)
+        _trace.count(_COUNT_TILE_ROWS, b * h * plan.cluster * plan.rows)
+    ints = build.ints(plan)
     if plan.paged:
         hd = h * dh
         qkv = torch.empty((3, b * n, hd), device=z.device,
@@ -372,7 +385,7 @@ def launch_msa(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
         build.call("vita_msa", "rt_msa_project", ptr(z), ptr(wq), ptr(wk),
                    ptr(wv), ptr(qkv_bias), ptr(qkv[0]), ptr(qkv[1]),
                    ptr(qkv[2]), b, n, d, h, dh, DTYPE_CODES[z.dtype],
-                   DTYPE_CODES[wt], ints, _stream())
+                   DTYPE_CODES[wt], ints, stream())
         return launch_attention(*qkv, out, b=b, h=h, n=n, dh=dh,
                                 in_strides=(n * hd, hd, dh),
                                 out_strides=out_strides, bias=bias,
@@ -380,7 +393,7 @@ def launch_msa(z: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     build.call("vita_msa", "rt_vita_msa", ptr(z), ptr(wq), ptr(wk), ptr(wv),
                ptr(qkv_bias), ptr(bias), ptr(mask), n_w, ptr(out),
                *out_strides, b, n, d, h, dh, dh ** -0.5,
-               DTYPE_CODES[z.dtype], DTYPE_CODES[wt], ints, _stream())
+               DTYPE_CODES[z.dtype], DTYPE_CODES[wt], ints, stream())
     return out
 
 

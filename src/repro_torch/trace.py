@@ -24,18 +24,11 @@ While it is on:
   (perf_counter_ns, time_ns) pairs taken at `enable` and `disable`;
 * a `gc.callbacks` hook records every collection as a ``vita.host.gc``
   span (``a0``: its generation);
-* `kernels.build.call` counts the port's own launches
-  (``kernels.launches``) and the host time inside their ``ctypes`` calls,
-  argument marshalling included (``kernels.launch_ns``);
-* each launch of kernel 1's MSA tile (`kernels.vita_msa.launch_msa`, on
-  the card) counts the query rows it is given, B' H N
-  (``kernels.msa_rows``), and the rows its blocks span, B' H times the
-  ``cluster`` x ``rows`` of its `msa_plan` (``kernels.msa_tile_rows``):
-  their ratio is the tile's padding.  On the packed route
-  (`msa_packed_plan`) the blocks span ceil(B' / seqs) x ``rows`` x H, and
-  the query rows it is given count again as ``kernels.msa_packed_rows``,
-  so ``msa_packed_rows / msa_rows`` is the share it takes.  All come from
-  shapes on the host.
+* `count` adds to named integer counters.  The module that knows a
+  quantity declares its counter (`counter`, at import, so it reads 0
+  until counted) and counts it behind its own check of `ON`; the tracer
+  knows none of them.  `launch_span` reads the two that
+  `kernels.build.call` counts under.
 
 Spans of the serving path (``a0`` / ``a1`` where they carry something):
 
@@ -98,18 +91,16 @@ _NAME, _START, _END, _PARENT, _BATCH, _TID, _A0, _A1 = range(_W)
 
 class _State:
     def __init__(self):
-        self.lock = threading.Lock()
+        # Reentrant: a call inside a region that holds it may run a
+        # pending collection, whose ``vita.host.gc`` span takes it again.
+        self.lock = threading.RLock()
         self.names: List[str] = []
         self.ids: Dict[str, int] = {}
         self.table: Optional[np.ndarray] = None
         self.cells = None            # the table as a flat int64 memoryview
         self.cap = 0
         self.n = 0                   # spans begun (stored or dropped)
-        self.launches = 0
-        self.launch_ns = 0
-        self.msa_rows = 0
-        self.msa_tile_rows = 0
-        self.msa_packed_rows = 0
+        self.counts: Dict[str, int] = {}  # in order of declaration
         self.anchors: List[Tuple[int, int]] = []
         self.gc_open: List["_Span"] = []
 
@@ -202,6 +193,10 @@ class _Span:
             stack.remove(self)
 
 
+# The counters `kernels.build.call` counts launches under (`launch_span`).
+_LAUNCHES, _LAUNCH_NS = "kernels.launches", "kernels.launch_ns"
+
+
 class _LaunchSpan(_Span):
     """A span whose a0 / a1 are the launches and launch ns counted inside
     it."""
@@ -209,11 +204,14 @@ class _LaunchSpan(_Span):
     __slots__ = ()
 
     def __enter__(self) -> "_LaunchSpan":
-        self.a0, self.a1 = _S.launches, _S.launch_ns
+        c = _S.counts
+        self.a0, self.a1 = c.get(_LAUNCHES, 0), c.get(_LAUNCH_NS, 0)
         return super().__enter__()
 
     def __exit__(self, et, ev, tb) -> None:
-        self.a0, self.a1 = _S.launches - self.a0, _S.launch_ns - self.a1
+        c = _S.counts
+        self.a0 = c.get(_LAUNCHES, 0) - self.a0
+        self.a1 = c.get(_LAUNCH_NS, 0) - self.a1
         super().__exit__(et, ev, tb)
 
 
@@ -247,28 +245,26 @@ def span(name: str, batch: int = -1, a0: int = 0, a1: int = 0):
 
 def launch_span(name: str, batch: int = -1):
     """`span` whose a0 / a1 are the kernel launches and their host ns
-    counted by `launched` inside it."""
+    counted by `kernels.build.call` inside it."""
     if not ON:
         return _OFF
     return _LaunchSpan(name, batch, 0, 0)
 
 
-def launched(ns: int) -> None:
-    """Count one kernel launch that took ``ns`` of host time (called by
-    `kernels.build.call` only while tracing is on)."""
+def counter(name: str) -> str:
+    """Declare the counter ``name`` (it reads 0 until counted; declaring
+    it again changes nothing) and return the name, for `count`."""
     with _S.lock:
-        _S.launches += 1
-        _S.launch_ns += ns
+        _S.counts.setdefault(name, 0)
+    return name
 
 
-def counted_msa(rows: int, tile_rows: int, packed: int = 0) -> None:
-    """Count one MSA tile's query rows, the rows its blocks span and, on
-    the packed route, its query rows again as ``packed`` (called by
-    `kernels.vita_msa.launch_msa` only while tracing is on)."""
-    with _S.lock:
-        _S.msa_rows += rows
-        _S.msa_tile_rows += tile_rows
-        _S.msa_packed_rows += packed
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the declared counter ``name``; nothing while tracing
+    is off."""
+    if ON:
+        with _S.lock:
+            _S.counts[name] += n
 
 
 def _on_gc(phase: str, info: dict) -> None:
@@ -322,43 +318,30 @@ def reset() -> None:
     """Drop every record and zero the counters."""
     with _S.lock:
         _S.n = 0
-        _S.launches = 0
-        _S.launch_ns = 0
-        _S.msa_rows = 0
-        _S.msa_tile_rows = 0
-        _S.msa_packed_rows = 0
+        _S.counts = dict.fromkeys(_S.counts, 0)
     _S.anchors = [_anchor()] if ON else []
 
 
-def mark() -> Tuple[int, ...]:
+def mark() -> Tuple[int, Dict[str, int]]:
     """Where the records and counters stand (for `rewind`)."""
     with _S.lock:
-        return (_S.n, _S.launches, _S.launch_ns, _S.msa_rows,
-                _S.msa_tile_rows, _S.msa_packed_rows)
+        return _S.n, dict(_S.counts)
 
 
-def rewind(at: Tuple[int, ...]) -> None:
+def rewind(at: Tuple[int, Dict[str, int]]) -> None:
     """Take back every span begun and everything counted since `mark`
     returned ``at`` (no span begun since may still be open)."""
     with _S.lock:
-        (_S.n, _S.launches, _S.launch_ns, _S.msa_rows,
-         _S.msa_tile_rows, _S.msa_packed_rows) = at
+        _S.n, counts = at
+        _S.counts = {name: counts.get(name, 0) for name in _S.counts}
 
 
 def counters() -> Dict[str, int]:
-    """A snapshot: ``kernels.launches``, ``kernels.launch_ns``,
-    ``kernels.msa_rows``, ``kernels.msa_tile_rows``,
-    ``kernels.msa_packed_rows``, ``spans`` stored and ``dropped`` by the
-    cap."""
+    """A snapshot: every declared counter, in order of declaration, then
+    ``spans`` stored and ``dropped`` by the cap."""
     with _S.lock:
-        n, launches, launch_ns = _S.n, _S.launches, _S.launch_ns
-        msa_rows, msa_tile_rows = _S.msa_rows, _S.msa_tile_rows
-        msa_packed_rows = _S.msa_packed_rows
-    return {"kernels.launches": launches, "kernels.launch_ns": launch_ns,
-            "kernels.msa_rows": msa_rows,
-            "kernels.msa_tile_rows": msa_tile_rows,
-            "kernels.msa_packed_rows": msa_packed_rows,
-            "spans": min(n, _S.cap), "dropped": max(n - _S.cap, 0)}
+        n, counts = _S.n, dict(_S.counts)
+    return {**counts, "spans": min(n, _S.cap), "dropped": max(n - _S.cap, 0)}
 
 
 class Span(NamedTuple):

@@ -13,10 +13,10 @@ raise ValueError."""
 
 import pytest
 
+from repro_torch.kernels.build import SMEM_LIMIT, TWO_BLOCK_SMEM
 from repro_torch.kernels.vita_layer_group import (INT8_GROUP_RING,
                                                   int8_group_plan)
-from repro_torch.kernels.vita_msa import (SMEM_LIMIT, TWO_BLOCK_SMEM,
-                                          attention_plan)
+from repro_torch.kernels.vita_msa import attention_plan
 
 from test_torch_group_plan import _served_group_shapes
 

@@ -15,8 +15,9 @@ partial scores they exchange."""
 import numpy as np
 import pytest
 
-from repro_torch.kernels.head_attention import (FLASH_TILES, SMEM_LIMIT,
-                                                FlashPlan, flash_plan)
+from repro_torch.kernels.build import SMEM_LIMIT
+from repro_torch.kernels.head_attention import (FLASH_TILES, FlashPlan,
+                                                flash_plan)
 
 _CASES = [  # nq, nk, causal, window, q_offset
     (13, 13, True, 2048, 0), (4096, 4096, True, 2048, 0),

@@ -14,9 +14,10 @@ where the tiles leave SMs idle."""
 
 import pytest
 
+from repro_torch.kernels.build import SMEM_LIMIT
 from repro_torch.kernels.int8_matmul import I8_TILE, b_layout, gemm_i8_plan
 from repro_torch.kernels.vita_layer_group import GroupPlan, group_plan
-from repro_torch.kernels.vita_msa import SMEM_LIMIT, attention_plan, msa_plan
+from repro_torch.kernels.vita_msa import attention_plan, msa_plan
 from repro_torch.models import vision_registry
 
 # Weight bytes of the three dtype modes (the group's z is fp32 in each):

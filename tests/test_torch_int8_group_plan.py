@@ -14,11 +14,12 @@ attention work the kernel walks."""
 
 import pytest
 
+from repro_torch.kernels.build import SMEM_LIMIT
 from repro_torch.kernels.int8_matmul import gemm_i8_plan
 from repro_torch.kernels.vita_layer_group import (INT8_GROUP_RING,
                                                   Int8GroupPlan,
                                                   int8_group_plan)
-from repro_torch.kernels.vita_msa import SMEM_LIMIT, attention_plan
+from repro_torch.kernels.vita_msa import attention_plan
 
 from test_torch_group_plan import _served_group_shapes
 

@@ -16,8 +16,8 @@ import hashlib
 
 import pytest
 
-from repro_torch.kernels.vita_msa import (SMEM_LIMIT, TWO_BLOCK_SMEM,
-                                          MsaPlan, attention_plan,
+from repro_torch.kernels.build import SMEM_LIMIT, TWO_BLOCK_SMEM
+from repro_torch.kernels.vita_msa import (MsaPlan, attention_plan,
                                           msa_packed_plan, msa_plan)
 from repro_torch.models import vision_registry
 

@@ -10,6 +10,10 @@
 * The collector's passes are spans; `disable` removes the hook.
 * The cap counts what it drops; `kernels.build.call` counts launches and
   their host ns; the admission layer's latency probes leave nothing.
+* Any module may declare a counter by a name of its own and count it:
+  it shows in `counters`, counts only while tracing is on, and `rewind`
+  and `reset` take it back.  A collection that starts inside the
+  tracer's own lock records its span without a deadlock.
 * A TNT forward's kernel-1 spans carry each stream's shape, inner then
   outer; `vita_msa.launch_msa` counts its tile's rows and padded rows
   from its plan, and on the packed route (TNT-S's pixel stream) its rows
@@ -21,7 +25,12 @@
 """
 
 import gc
+import os
+import subprocess
+import sys
+import textwrap
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -72,6 +81,12 @@ def _serve(ctl, n=6):
     reqs = [ctl.submit("m", im) for im in _images(n)]
     ctl.drain()
     return reqs
+
+
+def _count(by_name):
+    """Add each value of ``by_name`` to the counter of its name."""
+    for name, n in by_name.items():
+        trace.count(name, n)
 
 
 def test_off_a_micro_batch_leaves_no_record_and_no_range(tracer,
@@ -251,7 +266,7 @@ def test_latency_probes_leave_no_spans_or_counts(tracer):
     trace.enable(cap=10_000)
     with trace.span("vita.test.before"):
         pass
-    trace.launched(5)
+    _count({"kernels.launches": 1, "kernels.launch_ns": 5})
     before = (trace.counters(), trace.records().spans())
     gc.disable()
     try:
@@ -274,11 +289,69 @@ def test_mark_and_rewind_take_back_spans_and_counts(tracer):
         pass
     at = trace.mark()
     with trace.span("vita.test.gone"):
-        trace.launched(10)
+        _count({"kernels.launches": 1, "kernels.launch_ns": 10})
     trace.rewind(at)
     trace.disable()
     assert [s.name for s in trace.records().spans()] == ["vita.test.kept"]
     assert trace.counters()["kernels.launches"] == 0
+
+
+def test_any_module_may_declare_and_count_a_counter(tracer, monkeypatch):
+    """A counter the tracer has never heard of: declared, it reads 0;
+    it counts only while tracing is on; `rewind` takes back what was
+    counted since `mark`, and `reset` zeroes it.  (The declared counters
+    are restored afterwards, so later tests see the port's alone.)"""
+    monkeypatch.setattr(trace._S, "counts", dict(trace._S.counts))
+    rows = trace.counter("test.widget_rows")
+    assert trace.counters()["test.widget_rows"] == 0
+    trace.count(rows, 7)
+    assert trace.counters()["test.widget_rows"] == 0
+    trace.enable(cap=100)
+    trace.count(rows, 7)
+    at = trace.mark()
+    trace.count(rows, 5)
+    trace.count(rows)
+    assert trace.counters()["test.widget_rows"] == 13
+    trace.rewind(at)
+    assert trace.counters()["test.widget_rows"] == 7
+    trace.reset()
+    assert trace.counters()["test.widget_rows"] == 0
+    trace.disable()
+    assert list(trace.counters())[-2:] == ["spans", "dropped"]
+
+
+def test_a_collection_inside_the_tracers_lock_does_not_deadlock():
+    """A call inside a region that holds the tracer's lock may run a
+    pending collection, whose `vita.host.gc` span takes the lock again.
+    With a collection due at nearly every allocation, snapshots and
+    rewinds inside spans finish (in a child process, so a deadlock fails
+    the test instead of hanging the run), and every span keeps its name."""
+    code = textwrap.dedent("""
+        import gc
+        from repro_torch import trace
+        from repro_torch.kernels import build
+        trace.enable(cap=100_000)
+        gc.set_threshold(1)
+        for i in range(3_000):
+            with trace.span(f"vita.test.{i % 7}"):
+                trace.counters()
+                trace.rewind(trace.mark())
+        gc.set_threshold(700)
+        trace.disable()
+        names = [s.name for s in trace.records().spans()]
+        assert names.count("vita.host.gc") > 0
+        assert sum(n.startswith("vita.test.") for n in names) == 3_000
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(trace.__file__).parents[1])]
+        + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    try:
+        out = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True, timeout=120)
+    except subprocess.TimeoutExpired:
+        pytest.fail("the tracer deadlocked under a collection")
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 def _tnt():
@@ -324,7 +397,7 @@ def test_launch_msa_counts_its_plans_rows(tracer, monkeypatch, n, d, h, dh,
     while the tracer is off."""
     from repro_torch.kernels import vita_msa
     monkeypatch.setattr(vita_msa, "check", lambda *a, **k: None)
-    monkeypatch.setattr(vita_msa, "_stream", lambda: 0)
+    monkeypatch.setattr(vita_msa, "stream", lambda: 0)
     monkeypatch.setattr(build, "call", lambda *a, **k: None)
     z = torch.zeros((b, n, d))
     w = torch.zeros((h, d, dh))
@@ -357,9 +430,11 @@ def test_off_a_tnt_forward_records_and_counts_nothing(tracer):
 
 def test_rewind_takes_back_the_msa_rows(tracer):
     trace.enable(cap=100)
-    trace.counted_msa(10, 40, packed=10)
+    _count({"kernels.msa_rows": 10, "kernels.msa_tile_rows": 40,
+            "kernels.msa_packed_rows": 10})
     at = trace.mark()
-    trace.counted_msa(5, 64, packed=5)
+    _count({"kernels.msa_rows": 5, "kernels.msa_tile_rows": 64,
+            "kernels.msa_packed_rows": 5})
     trace.rewind(at)
     trace.disable()
     c = trace.counters()
