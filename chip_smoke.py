@@ -17,12 +17,19 @@ Phases (any failure exits non-zero; nothing is caught):
      widths, with qkv_bias and without the MLP biases once each; the
      float and int8 layer groups at DeiT-T (12 layers, batch 8), Swin-T
      stage 4 (2 layers, bucket 8, windowed) and a pruned width (DeiT-T,
-     2 layers of 2 heads), also against L calls of the per-layer kernel
-     (float: `vita_layer`, within 1e-6 of the scale, the measured error
-     printed, 0 where bit for bit; int8: `vita_layer_int8`, exactly), and
+     2 layers of 2 heads), also against L calls of the per-layer chain
+     (float: `vita_layer_group.tile_chain`, the float layer on the
+     group's GEMM tile, within 1e-6 of the scale, and bit for bit at
+     ViT-B/16 widths, and `vita_layer` itself, whose fp32-weight products
+     take the wgmma tile, within 1e-6 of the scale, the measured errors
+     printed; int8: `vita_layer_int8`, exactly), and
      that chain of `vita_layer_int8` calls teacher-forced, each layer
      against the plain version fed the chain's own input to it, at the
      int8 layer's bound (the worst layer printed);
+     kernel 1's fp32 GEMMs at DeiT-S's three products (bucket 32), a
+     Swin-T stage-1 and a TNT-S inner product each print a `[gemm]` line:
+     the wgmma tile (held to a float64 product within 1e-6 of the scale),
+     the mma.sync tile, fp32 `torch.matmul` and the bound at 165 TFLOP/s;
      each timed shape of the float layer and the float MSA prints its
      plan (`[plan]`: the layer's launches, counted on one call, the
      operand types, and the fields of the MSA tile's plan: cluster, row
@@ -953,15 +960,18 @@ def int8_chain(i_args, bias=None, mask=None):
     return y
 
 
-def check_chain(name: str, got, chain, exact: bool) -> float:
-    """A layer group against L calls of the per-layer kernel, whose tiles
-    it runs in the same order (int8: `vita_layer_int8`; float:
-    `vita_layer`): int8 exactly, float within 1e-6 x scale (the design
-    makes it equal; the printed error says whether it is)."""
+def check_chain(name: str, got, chain, exact: bool,
+                chain_name: str = "the per-layer kernel") -> float:
+    """A layer group against L calls of a per-layer chain: exactly where
+    the chain runs the group's tiles in the same order (int8:
+    `vita_layer_int8`; float: `vita_layer_group.tile_chain`), else within
+    1e-6 x scale (the float layer itself, `vita_layer`, whose fp32-weight
+    products take the wgmma tile; with bf16 weights its tiles are the
+    group's, and the printed error says it is equal)."""
     torch.cuda.synchronize()
     err = float((got - chain).abs().max())
     scale = float(chain.abs().max())
-    print(f"[check] {name} vs L calls of the per-layer kernel: max|err| "
+    print(f"[check] {name} vs L calls of {chain_name}: max|err| "
           f"{err:.3e}, bit for bit: {err == 0.0} (scale {scale:.3f}, bound "
           f"{'0' if exact else '1e-6 x scale'})")
     check(err == 0.0 if exact else err <= 1e-6 * scale,
@@ -1238,12 +1248,17 @@ def kernel_phase(deit, vitb, swin_cfg):
                           vg.vita_layer_group(*f_args, bias, mask),
                           ref.vita_layer_group_ref(*f_args, bias, mask))
         group_plan_line(tag, x, f_args[1], f_args[9].shape[2])
-        chain = x
+        chain = tiles = x
         for l in range(n_l):
-            chain = vl.vita_layer(chain, *[a[l] for a in f_args[1:]],
-                                  None if bias is None else bias[l], mask)
-        check_chain(f"vita_layer_group {tag}",
-                    vg.vita_layer_group(*f_args, bias, mask), chain, False)
+            layer = ([a[l] for a in f_args[1:]],
+                     None if bias is None else bias[l])
+            chain = vl.vita_layer(chain, *layer[0], layer[1], mask)
+            tiles = vg.tile_chain(tiles, *layer[0], layer[1], mask)
+        got = vg.vita_layer_group(*f_args, bias, mask)
+        check_chain(f"vita_layer_group {tag}", got, tiles, False,
+                    "tile_chain")
+        check_chain(f"vita_layer_group {tag}", got, chain, False,
+                    "vita_layer")
         err_i = check_int8_layer(
             f"vita_layer_group_int8 {tag}",
             vg.vita_layer_group_int8(*i_args, bias, mask),
@@ -1399,11 +1414,13 @@ def wide_kernel_phase(records: dict, vitb) -> None:
     err = check_close(f"vita_layer_group {tag}", vg.vita_layer_group(*f_args),
                       ref.vita_layer_group_ref(*f_args))
     group_plan_line(tag, x, f_args[1], f_args[9].shape[2])
-    chain = x
+    chain = tiles = x
     for l in range(WIDE_LAYERS):
         chain = vl.vita_layer(chain, *[a[l] for a in f_args[1:]])
-    check_chain(f"vita_layer_group {tag}", vg.vita_layer_group(*f_args),
-                chain, True)
+        tiles = vg.tile_chain(tiles, *[a[l] for a in f_args[1:]])
+    got = vg.vita_layer_group(*f_args)
+    check_chain(f"vita_layer_group {tag}", got, tiles, True, "tile_chain")
+    check_chain(f"vita_layer_group {tag}", got, chain, False, "vita_layer")
     err_i = check_int8_layer(f"vita_layer_group_int8 {tag}",
                              vg.vita_layer_group_int8(*i_args),
                              ref.vita_layer_group_int8_ref(*i_args))
@@ -1514,6 +1531,76 @@ def tnt_kernel_phase(records: dict, tnt_cfg) -> None:
             bound(ops_i8=2 * mm * kk * nn,
                   nbytes=nbytes(a, w, xs, ws) + mm * nn * 4))
     torch.cuda.synchronize()
+
+
+# Kernel 1's fp32 products on the card (`gemm_phase`): DeiT-S's three at
+# bucket 32, one Swin-T stage-1 product and one of TNT-S's inner stream,
+# each with its layer's epilogue.  (tag, M, N, K, epilogue)
+GEMM_SHAPES = (
+    ("DeiT-S b32 concat", 6272, 384, 384, "res"),
+    ("DeiT-S b32 up", 6272, 1536, 384, "bias_gelu"),
+    ("DeiT-S b32 down", 6272, 384, 1536, "bias_res"),
+    ("Swin-T stage 1 b32 up", 100352, 384, 96, "bias_gelu"),
+    ("TNT-S inner b32 up", 100352, 96, 24, "bias_gelu"),
+)
+
+
+def gemm_phase() -> list:
+    """Each of GEMM_SHAPES on the wgmma tile (`launch_layer_gemm`'s
+    route, at `gemm_wgmma_plan`'s tile), on the mma.sync tile
+    (`launch_mma_gemm`), and `torch.matmul` in full fp32 (TF32 off, no
+    epilogue) as the library yardstick, beside the bound at split TF32's
+    165 TFLOP/s; the wgmma result held to a float64 product within 1e-6 of
+    its scale.  Prints a `[gemm]` line each and returns them as dicts."""
+    from repro_torch.kernels import vita_layer as vl
+
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(35)
+    for tag, m, n, k, epi in GEMM_SHAPES:
+        a = torch.randn((m, k), generator=g, device="cuda")
+        w = torch.randn((k, n), generator=g, device="cuda") * k ** -0.5
+        kw = {"bias": 0.1 * torch.randn((n,), generator=g, device="cuda")
+              if "bias" in epi else None,
+              "res": torch.randn((m, n), generator=g, device="cuda")
+              if "res" in epi else None,
+              "gelu": "gelu" in epi}
+        out = torch.empty((m, n), device="cuda")
+        plan = vl.layer_gemm_plan(a, w)
+        check(plan is not None, f"{tag}: fp32 rows off the wgmma route")
+        vl.launch_layer_gemm(a, w, out, **kw)
+        want = a.double() @ w.double()
+        if kw["bias"] is not None:
+            want = want + kw["bias"].double()
+        if kw["gelu"]:
+            want = torch.nn.functional.gelu(want, approximate="tanh")
+        if kw["res"] is not None:
+            want = kw["res"].double() + want
+        err = float((out.double() - want).abs().max())
+        scale = float(want.abs().max())
+        del want
+        check(err <= 1e-6 * scale, f"{tag}: wgmma GEMM error {err:.3e}")
+        new, new_by = device_ms(lambda: vl.launch_layer_gemm(a, w, out, **kw))
+        old, old_by = device_ms(lambda: vl.launch_mma_gemm(a, w, out, **kw))
+        lib, lib_by = device_ms(lambda: torch.matmul(a, w, out=out))
+        flop = 2 * m * n * k
+        bound = flop / FP32_FLOP_PER_S * 1e3
+        row = {"shape": tag, "m": m, "n": n, "k": k, "wgmma_ms": new,
+               "mma_sync_ms": old, "library_ms": lib, "bound_ms": bound,
+               "wgmma_tflops": flop / new / 1e9, "err": err / scale,
+               "tile": f"{plan.bm}x{plan.bn}", "stages": plan.stages,
+               "tiles": plan.tiles, "waves": plan.waves,
+               "timed_by": {"wgmma": new_by, "mma_sync": old_by,
+                            "library": lib_by}}
+        rows.append(row)
+        print(f"[gemm] {tag} {m}x{n}x{k} ({epi}): wgmma {new:.4f} ms "
+              f"({row['wgmma_tflops']:.1f} TFLOP/s, {row['tile']} tiles, "
+              f"{plan.stages} stages, {plan.tiles} tiles in {plan.waves} "
+              f"waves), mma.sync {old:.4f} ms ({flop / old / 1e9:.1f}), "
+              f"torch.matmul fp32 {lib:.4f} ms ({flop / lib / 1e9:.1f}), "
+              f"bound {bound:.4f} ms at 165 TFLOP/s ({100 * bound / new:.1f}%"
+              f" of it); error {err / scale:.2e} of the scale "
+              f"[{new_by}]")
+    return rows
 
 
 def wide_configs(vitb) -> dict:
@@ -4936,6 +5023,10 @@ def main() -> None:
     tnt_kernel_phase(records, cfgs["tnt_s"])
     print(f"[phase] TNT-S kernel shapes checked in "
           f"{time.perf_counter() - t_tnt:.1f} s")
+    t_gemm = time.perf_counter()
+    gemm_phase()
+    print(f"[phase] kernel 1's GEMMs timed in "
+          f"{time.perf_counter() - t_gemm:.1f} s")
     print(f"[phase] kernels checked at {time.perf_counter() - t_start:.0f} s")
 
     # 3. Serve every path on the card against its CPU twin.

@@ -69,6 +69,8 @@ SIGNATURES = {
     ("vita_msa", "rt_msa_project"): [P] * 8 + [I] * 7 + [P, P],
     ("mma_gemm", "rt_mma_gemm"): [P, L, P, L, P, L, I, I, I, P, P, L, I, I,
                                   I, I, P],
+    ("gemm_wgmma", "rt_gemm_wgmma"): [P, L, P, P, P, L, I, I, I, P, P, L]
+    + [I] * 7 + [P],
     ("fused_mlp", "rt_fused_mlp"): [P] * 8 + [I] * 8 + [P],
     ("fused_mlp", "rt_fused_mlp_splits"): [I] * 6 + [P],
     ("fused_mlp_rows", "rt_fused_mlp_rows"): [P] * 8 + [I] * 8 + [P],

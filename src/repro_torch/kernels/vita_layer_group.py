@@ -48,6 +48,7 @@ from .int8_matmul import I8_STAGES, I8_TILE, _width
 from .ref import check_mode
 from .vita_msa import (ATT_THREADS, AttentionPlan, MsaPlan, attention_plan,
                        msa_plan, window_operands)
+from .vita_layer import float_chain, launch_mma_gemm
 
 _ALIGN = 256
 LN_EPS = 1e-5
@@ -393,3 +394,15 @@ def vita_layer_group_int8(x, wq_q, wk_q, wv_q, wmsa_q, wup_q, wdown_q,
                n_w, dh ** -0.5, LN_EPS, DTYPE_CODES[vt],
                build.ints(plan), stream())
     return out
+
+
+def tile_chain(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b, w_up, b_up,
+               w_down, b_down, bias=None, mask=None) -> torch.Tensor:
+    """`vita_layer.vita_layer` on the tiles the float group runs: its three
+    products on `launch_mma_gemm`'s tile whatever the weights' dtype, so
+    with float32 x L calls equal one group bit for bit.  For the checks
+    that hold the group to it (tests, chip_smoke.py); not counted in
+    ``ops.LAUNCHES``."""
+    return float_chain(x, wq, wk, wv, w_msa, ln1_w, ln1_b, ln2_w, ln2_b,
+                       w_up, b_up, w_down, b_down, bias, mask,
+                       gemm=launch_mma_gemm)

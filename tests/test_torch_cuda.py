@@ -10,8 +10,12 @@ Tolerances: int8 products are exact; float results differ by fp32
 reassociation (1e-4 of the output scale); an int8 layer may flip a
 requant code by one LSB at a rounding boundary (2% of the output scale).
 A layer group runs the per-layer kernels' own tiles in their order, so
-with float32 x it equals L calls of `vita_layer` (held within 1e-6 of the
-output scale) and L calls of `vita_layer_int8` exactly; the int8 GEMM's
+with float32 x it equals L calls of `vita_layer_group.tile_chain` (the
+float layer on the group's mma.sync GEMM tile) bit for bit and L calls of
+`vita_layer_int8` exactly; kernel 1, whose fp32-weight products take the
+wgmma tile, is held to the group within 1e-6 of the output scale.  The
+wgmma GEMM itself is held to a float64 product in every epilogue, bit
+for bit between two calls and between an M 196 and an M 6,272 call; the int8 GEMM's
 tensor-core tile (every out_kind, ragged shapes and per-head stacks at
 each copy width and tile) equals its plain version bit for bit.
 The LM kernels (flash and decode attention, the RG-LRU scan, the gated
@@ -1260,9 +1264,11 @@ def test_wide_int8_layer_msa_and_attention_match_plain(card, vt, n, dh):
 def test_wide_groups_match_plain_and_chain(card, mode, wide):
     """Kernels 7 and 8 over two layers at Dh 128 (N 197) and at N 577 (Dh
     64): against their plain versions, and against two calls of the
-    per-layer kernel, the float group bit for bit with fp32 x (the same
-    projection and attention tile in the same order), the int8 group
-    exactly."""
+    per-layer chain on the group's tiles (`vita_layer_group.tile_chain`:
+    the same projection, attention and GEMM tiles in the same order), the
+    float group bit for bit with fp32 x, the int8 group exactly (two calls
+    of `vita_layer_int8`).  Kernel 1 itself, whose fp32-weight products
+    take the wgmma tile, within 1e-6 of the group's scale."""
     xt, wt = _MODES3[mode]
     n, dh = (197, 128) if wide == "dh128" else (577, 64)
     blocks, x = [], None
@@ -1274,11 +1280,13 @@ def test_wide_groups_match_plain_and_chain(card, mode, wide):
     f_args = [x.to(xt)] + [sp[k] for k in _ORDER]
     got = k_vita_layer_group.vita_layer_group(*f_args)
     _close(got, ref.vita_layer_group_ref(*f_args), mode)
-    y = f_args[0]
+    y, tiles = f_args[0], f_args[0]
     for bp in blocks:
         y = k_vita_layer.vita_layer(y, *[bp[k] for k in _ORDER])
+        tiles = k_vita_layer_group.tile_chain(tiles, *[bp[k] for k in _ORDER])
     if xt == torch.float32:
-        assert torch.equal(got, y)
+        assert torch.equal(got, tiles)
+        assert float((got - y).abs().max()) <= 1e-6 * float(got.abs().max())
     if mode == "bf16":
         return
     per = [_int8_args(card, x, bp) for bp in blocks]
@@ -1722,3 +1730,167 @@ def test_tnt_s_forward_counts_its_msa_tiles_rows(card):
     assert c["kernels.msa_rows"] == 2 * (392 * 4 * 16 + 2 * 6 * 196)
     assert c["kernels.msa_tile_rows"] == 2 * (392 * 4 * 16 + 2 * 6 * 256)
     assert c["kernels.msa_packed_rows"] == 2 * 392 * 4 * 16
+
+
+# Kernel 1's fp32 GEMM on the wgmma route (csrc/gemm_wgmma.cu): against a
+# float64 product in every epilogue (bias, GELU, an fp32 or bf16 residual
+# and output) at ragged M, N and K and at the cells' shapes; deterministic
+# and independent of the bucket; and `vita_layer` on that route against
+# its plain version.  fp32 outputs within 1e-6 of the output scale (split
+# TF32 is fp32-accurate: measured 1.4e-7), bf16 outputs within one bf16
+# rounding (2^-8 of the value) of it.
+_WG_RAGGED = [(37, 29, 52), (200, 130, 100), (129, 97, 36), (1000, 24, 24)]
+_WG_CELLS = [(6272, 384, 384), (6272, 1536, 384), (6272, 384, 1536),
+             (25088, 96, 96), (25088, 24, 96), (196, 384, 1536)]
+
+
+def _wg_operands(card, m, n, k, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    a = torch.randn((m, k), generator=g, device=card)
+    w = torch.randn((k, n), generator=g, device=card) * k ** -0.5
+    bias = 0.5 * torch.randn((n,), generator=g, device=card)
+    res = torch.randn((m, n), generator=g, device=card)
+    return a, w, bias, res
+
+
+def _wg_want(a, w, bias, res, gelu):
+    y = a.double() @ w.double()
+    if bias is not None:
+        y = y + bias.double()
+    if gelu:
+        y = torch.nn.functional.gelu(y, approximate="tanh")
+    return y if res is None else res.double() + y
+
+
+def _wg_held(got, want):
+    scale = float(want.abs().max())
+    err = (got.double() - want).abs()
+    if got.dtype == torch.float32:
+        assert float(err.max()) <= 1e-6 * scale
+    else:
+        assert torch.all(err <= 2.0 ** -8 * want.abs() + 1e-6 * scale)
+
+
+@pytest.mark.parametrize("ot", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rt", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epi", ["none", "bias", "bias_gelu"])
+@pytest.mark.parametrize("mnk", _WG_RAGGED)
+def test_wgmma_gemm_matches_float64_in_every_epilogue(card, mnk, epi, rt,
+                                                      ot):
+    m, n, k = mnk
+    a, w, bias, res = _wg_operands(card, m, n, k, seed=m + n + k)
+    bias = None if epi == "none" else bias
+    res = None if rt is None else res.to(rt)
+    gelu = epi == "bias_gelu"
+    assert k_vita_layer.layer_gemm_plan(a, w) is not None
+    out = torch.empty((m, n), device=card, dtype=ot)
+    k_vita_layer.launch_wgmma_gemm(a, w, out, bias=bias, res=res, gelu=gelu)
+    torch.cuda.synchronize()
+    _wg_held(out, _wg_want(a, w, bias, res, gelu))
+
+
+@pytest.mark.parametrize("mnk", _WG_CELLS)
+def test_wgmma_gemm_at_the_cells_shapes(card, mnk):
+    """Each product at its plan's tile, and every tile the plan can pick
+    (64 or 128 rows by 32, 64 or 96 columns): up's bias and GELU, down's
+    bias and residual."""
+    m, n, k = mnk
+    a, w, bias, res = _wg_operands(card, m, n, k, seed=k)
+    want = _wg_want(a, w, bias, res, True)
+    out = torch.empty((m, n), device=card)
+    k_vita_layer.launch_wgmma_gemm(a, w, out, bias=bias, res=res, gelu=True)
+    torch.cuda.synchronize()
+    _wg_held(out, want)
+    for bn, consumers in k_vita_layer.WG_STAGE_US:
+        bm = 64 * consumers
+        stages = k_vita_layer.WG_MAX_STAGES
+        while k_vita_layer.wgmma_smem(bm, bn, stages) > \
+                k_vita_layer.SMEM_LIMIT:
+            stages -= 1
+        tiles = -(-m // bm) * -(-n // bn)
+        plan = k_vita_layer.WgmmaPlan(bm, bn, consumers, stages, tiles,
+                                      -(-tiles // 132),
+                                      k_vita_layer.wgmma_smem(bm, bn, stages))
+        got = torch.empty((m, n), device=card)
+        k_vita_layer.launch_wgmma_gemm(a, w, got, bias=bias, res=res,
+                                       gelu=True, plan=plan)
+        torch.cuda.synchronize()
+        _wg_held(got, want)
+        # the k order is the tile's business nowhere: every tile, equal
+        assert torch.equal(got, out)
+
+
+def test_wgmma_gemm_is_deterministic_and_independent_of_the_bucket(card):
+    """Two calls give the same bits; rows computed in an M 6,272 call (the
+    plan's 96-wide tiles) equal the same rows computed in an M 196 call
+    (32-wide tiles), at each of the three products of DeiT-S."""
+    for n, k, epi in ((384, 384, {"res": True}),
+                      (1536, 384, {"bias": True, "gelu": True}),
+                      (384, 1536, {"bias": True, "res": True})):
+        a, w, bias, res = _wg_operands(card, 6272, n, k, seed=n * k)
+        kw = {"bias": bias if epi.get("bias") else None,
+              "res": res if epi.get("res") else None,
+              "gelu": epi.get("gelu", False)}
+        full = k_vita_layer.launch_wgmma_gemm(
+            a, w, torch.empty((6272, n), device=card), **kw)
+        again = k_vita_layer.launch_wgmma_gemm(
+            a, w, torch.empty((6272, n), device=card), **kw)
+        assert torch.equal(full, again)
+        for r0 in (0, 3136, 6076):
+            rows = slice(r0, r0 + 196)
+            kw_rows = dict(kw, res=None if kw["res"] is None
+                           else kw["res"][rows].contiguous())
+            part = k_vita_layer.launch_wgmma_gemm(
+                a[rows].contiguous(), w, torch.empty((196, n), device=card),
+                **kw_rows)
+            assert k_vita_layer.gemm_wgmma_plan(196, n, k).bn != \
+                k_vita_layer.gemm_wgmma_plan(6272, n, k).bn
+            assert torch.equal(part, full[rows])
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_vita_layer_fp32_on_the_wgmma_route_matches_plain(card, b):
+    """A DeiT-S-wide fp32 layer (D 384, 6 heads of 64, M 1,536, N 197):
+    every product on the wgmma route (the counters say so), against the
+    plain version at the fp32 bound of `test_vita_layer_float`."""
+    bp, x = _wide_block(card, 197, 64, torch.float32, seed=5, h=6, b=b)
+    bp["w_up"] = bp["w_up"].new_empty((384, 1536)).normal_() * 384 ** -0.5
+    bp["b_up"] = 0.1 * torch.randn((1536,), device=card)
+    bp["w_down"] = bp["w_down"].new_empty((1536, 384)).normal_() \
+        * 1536 ** -0.5
+    args = (x, *[bp[k] for k in _ORDER])
+    trace.disable()
+    trace.reset()
+    trace.enable(cap=1_000)
+    try:
+        got = k_vita_layer.vita_layer(*args)
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    c = trace.counters()
+    trace.reset()
+    rows = b * 197
+    macs = rows * 384 * 384 + 2 * rows * 384 * 1536
+    assert c["kernels.gemm_macs"] == c["kernels.gemm_wgmma_macs"] == macs
+    assert c["kernels.gemm_tile_macs"] >= macs
+    want = ref.vita_layer_ref(*args)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_bf16_weights_keep_the_mma_sync_tile(card):
+    """Kernel 1 with bf16 weights counts its products and none on the
+    wgmma route."""
+    bp, x = _wide_block(card, 197, 64, torch.bfloat16, seed=6, h=2, b=1)
+    trace.disable()
+    trace.reset()
+    trace.enable(cap=1_000)
+    try:
+        k_vita_layer.vita_layer(x, *[bp[k] for k in _ORDER])
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    c = trace.counters()
+    trace.reset()
+    assert c["kernels.gemm_macs"] > 0
+    assert c["kernels.gemm_wgmma_macs"] == c["kernels.gemm_tile_macs"] == 0

@@ -115,6 +115,9 @@ def test_off_a_micro_batch_leaves_no_record_and_no_range(tracer,
                                 "kernels.msa_rows": 0,
                                 "kernels.msa_tile_rows": 0,
                                 "kernels.msa_packed_rows": 0,
+                                "kernels.gemm_macs": 0,
+                                "kernels.gemm_wgmma_macs": 0,
+                                "kernels.gemm_tile_macs": 0,
                                 "spans": 0, "dropped": 0}
     assert all(r.batch is None for r in reqs)
 
